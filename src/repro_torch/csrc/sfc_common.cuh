@@ -1,0 +1,119 @@
+// Device functions shared by the staged kernels (sfc_transform.cu,
+// sfc_inverse.cu, sfc_tdmm.cu) and the fused kernel (sfc_fused.cu).
+//
+// The staged and the fused datapath must land on one integer grid and one
+// fp32 epilogue, so the forward transform + quantize, the dequant and the
+// inverse each exist exactly once, here.  The JAX package shares
+// _quantize_strip_group / _dequant_inverse_strip_group between its Pallas
+// kernels for the same reason (src/repro/kernels/sfc_fused.py).
+//
+// Arithmetic contract (held against the plain PyTorch versions):
+//   * forward  TX = B^T X B, rows first, each sum in ascending index order;
+//     B^T has entries in {-1, 0, 1} for the SFC algorithms, so on inputs
+//     that are multiples of a power of two the sums are exact in any order;
+//   * quantize clip(rint(tx / s), -qmax, qmax): IEEE division (__fdiv_rn,
+//     never a reciprocal) and round-half-to-even (rintf), as jnp.round and
+//     torch.round do.  Build without --use_fast_math;
+//   * dequant  float(acc) * (sx[p] * sw[p, n]), the JAX package's order;
+//   * inverse  Z = A^T Y (over rows), then Z A (over columns).
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace sfc {
+
+// Largest tile sizes the kernels take (L = M + R - 1 input rows, t
+// transform-domain positions per dim).  The registered algorithms reach
+// L = 9, t = 12; the wrappers reject anything larger.
+constexpr int kMaxL = 12;
+constexpr int kMaxT = 12;
+constexpr int kMaxM = 12;
+
+// Row u of one tile's forward transform + per-frequency quantization:
+// the t int8 values xq[u, 0..t).  The rows of a tile are independent, so
+// the kernels give each (tile, channel, u) its own thread.
+//   load(i, j)  -> float, the tile's input at row i, column j (zero
+//                  outside the image: the caller masks the padding);
+//   bt          -> t x L row-major (shared or global memory);
+//   scale       -> t x t per-frequency activation scales;
+//   store(v, q) <- the int8 value at transform-domain position (u, v).
+template <class Load, class Store>
+__device__ __forceinline__ void transform_quantize_row(
+    Load load, const float* bt, const float* scale, int t, int L,
+    float qmax, int u, Store store) {
+  // r[j] = sum_i bt[u, i] * x[i, j]
+  float r[kMaxL];
+#pragma unroll
+  for (int j = 0; j < kMaxL; ++j) r[j] = 0.f;
+  for (int i = 0; i < L; ++i) {
+    const float b = bt[u * L + i];
+    if (b == 0.f) continue;
+#pragma unroll
+    for (int j = 0; j < kMaxL; ++j)
+      if (j < L) r[j] = fmaf(b, load(i, j), r[j]);
+  }
+  for (int v = 0; v < t; ++v) {
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < kMaxL; ++j)
+      if (j < L) acc = fmaf(bt[v * L + j], r[j], acc);
+    float q = rintf(__fdiv_rn(acc, scale[u * t + v]));
+    q = fminf(fmaxf(q, -qmax), qmax);
+    store(v, static_cast<int8_t>(q));
+  }
+}
+
+// The dequantized transform-domain value of one int32 accumulator.
+__device__ __forceinline__ float dequant(int acc, float sx, float sw) {
+  return __fmul_rn(static_cast<float>(acc), __fmul_rn(sx, sw));
+}
+
+// Row m of one tile's inverse transform A^T Y A: the M spatial outputs
+// of tile row m.  Rows are independent; each (tile, channel, m) gets its
+// own thread.
+//   load(u, v)     -> float, the dequantized value at position (u, v);
+//   at             -> M x t row-major;
+//   store(q, val)  <- the spatial output at row m, column q of the tile.
+template <class Load, class Store>
+__device__ __forceinline__ void inverse_row(Load load, const float* at,
+                                            int t, int M, int m,
+                                            Store store) {
+  // z[v] = sum_u at[m, u] * y[u, v]
+  float z[kMaxT];
+#pragma unroll
+  for (int v = 0; v < kMaxT; ++v) z[v] = 0.f;
+  for (int u = 0; u < t; ++u) {
+    const float a = at[m * t + u];
+    if (a == 0.f) continue;
+#pragma unroll
+    for (int v = 0; v < kMaxT; ++v)
+      if (v < t) z[v] = fmaf(a, load(u, v), z[v]);
+  }
+  for (int q = 0; q < M; ++q) {
+    float o = 0.f;
+#pragma unroll
+    for (int v = 0; v < kMaxT; ++v)
+      if (v < t) o = fmaf(at[q * t + v], z[v], o);
+    store(q, o);
+  }
+}
+
+// One int8 tensor-core product D = A(16x32) * B(32x8) + C, s8 x s8 -> s32.
+// Fragments follow the PTX ISA layout of mma.m16n8k32 (.row.col):
+//   a[0] = A[g][4c..4c+3]     a[1] = A[g+8][4c..]
+//   a[2] = A[g][16+4c..]      a[3] = A[g+8][16+4c..]
+//   b[0] = B[4c..4c+3][g]     b[1] = B[16+4c..][g]
+//   c[0..1] = C[g][2c..2c+1]  c[2..3] = C[g+8][2c..2c+1]
+// with g = lane / 4 and c = lane % 4; the lowest byte holds the lowest k.
+__device__ __forceinline__ void mma_s8_16832(int c[4], const uint32_t a[4],
+                                             const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+}  // namespace sfc

@@ -1,0 +1,51 @@
+"""B1: SFC input transform + per-frequency int8 quantization.
+
+The port of ``repro/kernels/sfc_transform.py::_transform_quant_kernel``,
+as the CUDA kernel ``csrc/sfc_transform.cu``.  Unlike the Pallas kernel it
+reads the overlapping tiles straight from the NHWC input (no tile tensor),
+with the SAME/VALID zero padding masked in the kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import conv2d as c2d
+from repro_torch.kernels import _build, ref
+
+
+def sfc_transform_quantize(x: torch.Tensor, bt: torch.Tensor,
+                           scale: torch.Tensor, M: int, *,
+                           padding: str = "SAME", bits: int = 8
+                           ) -> torch.Tensor:
+    """x (B,H,W,C) f32, bt (t,L) f32, scale (t,t) f32 -> int8 (B*nH*nW,t,t,C).
+
+    Tiles of L = M + R - 1 rows at stride M cover the SAME/VALID output
+    grid (``c2d.tile_grid``), ordered (image, tile row, tile column).
+    """
+    name = "sfc_transform_quantize"
+    if _build.runs_plain(name, x, bt, scale):
+        return ref.sfc_transform_quantize_nhwc_ref(x, bt, scale, M, padding,
+                                                   bits)
+    _build.require(name, x, "x", torch.float32, 4)
+    _build.require(name, bt, "bt", torch.float32, 2)
+    _build.require(name, scale, "scale", torch.float32, 2)
+    t, L = bt.shape
+    if t > _build.MAX_T or L > _build.MAX_L or scale.shape != (t, t) or not 0 < M <= L:
+        raise ValueError(f"{name}: unsupported tile (t={t}, L={L}, M={M}, "
+                         f"scale {tuple(scale.shape)})")
+    B, H, W, C = x.shape
+    grid = c2d.tile_grid(H, W, M, L - M + 1, padding)
+    out = torch.empty((B * grid.nH * grid.nW, t, t, C), dtype=torch.int8,
+                      device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.sfc_transform_quantize_launch(
+            x.data_ptr(), bt.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            B, H, W, C, M, L, t, grid.lo_h, grid.lo_w, grid.nH, grid.nW,
+            float(2 ** (bits - 1) - 1), _build.stream_handle(x.device))
+    _build.check(err, name)
+    sfc_transform_quantize.launches += 1
+    return out
+
+
+sfc_transform_quantize.launches = 0
