@@ -10,9 +10,9 @@
 // What bounds it on the H100: bytes at the VGG-16 shapes.  The kernel must
 // read the f32 input and the int8 weights and write the f32 output; its
 // int8 products (2 P T C_in C_out) stay below the tensor cores' share of
-// that time except on the widest layers.  This simple version re-runs the
-// input transform once per C_out block, and reads the weights with byte
-// loads, so it is far from either bound; see PERF.md.
+// that time except on the widest layers.  This simple version reads the
+// weights with byte loads and runs its phases one after the other, so it
+// is far from either bound; see PERF.md.
 //
 // Design.  The Pallas kernel leans on the TPU running its grid in order:
 // it zeroes an accumulator at k == 0, fills a strip cache at j == 0 and
@@ -28,6 +28,12 @@
 //   2. each warp takes positions p = warp, warp + 32, ... and adds
 //      xq[p] (16 x kb) @ wq[p] (kb x cb) into the int32 accumulator
 //      acc[p][tile][n] in shared memory with mma.m16n8k32;
+// The C_out blocks of one tile group need the same xq, which the TPU
+// kernel computes once and caches across its in-order C_out steps.  Here
+// up to 8 of them form a thread block cluster: in step 1 each block
+// transforms only the tiles col = rank (mod cluster size), and in step 2
+// it reads the other tiles' rows from its neighbours' shared memory
+// (distributed shared memory), with a cluster barrier on either side.
 //   3. after the last C_in block the threads dequantize and invert
 //      (tile, channel, output row) items (sfc::dequant, sfc::inverse_row,
 //      the staged B2 epilogue and B3's arithmetic) and write NHWC output.
@@ -38,7 +44,11 @@
 // 150 KB for sfc6_6 at kb = 32, cb = 16, and 216 KB for sfc6_7 (P = 144).
 // Padded tiles, channels >= C_in and outputs >= C_out are masked: their
 // xq and weights load as zero and contribute nothing.
+#include <cooperative_groups.h>
+
 #include "sfc_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -71,11 +81,16 @@ __global__ void __launch_bounds__(kThreads, 1) fused_kernel(
   const long long tile0 = (long long)blockIdx.x * kCols;
   const int n0 = blockIdx.y * cb;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, c4 = lane & 3;
+  // the blocks of a cluster share the tile group (same blockIdx.x)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_ranks = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
 
   for (int k0 = 0; k0 < Cin; k0 += kb) {
-    // 1. transform + quantize this C_in block of the 16 tiles
-    for (int item = tid; item < kCols * t * kb; item += kThreads) {
-      const int kk = item % kb, u = (item / kb) % t, col = item / (kb * t);
+    // 1. transform + quantize this block's tiles of the C_in block
+    for (int item = tid; item < kCols / n_ranks * t * kb; item += kThreads) {
+      const int kk = item % kb, u = (item / kb) % t;
+      const int col = rank + n_ranks * (item / (kb * t));
       const long long n = tile0 + col;
       const int c = k0 + kk;
       int8_t* dst = xq + (u * t * kCols + col) * kb + kk;
@@ -97,11 +112,13 @@ __global__ void __launch_bounds__(kThreads, 1) fused_kernel(
         for (int v = 0; v < t; ++v) store(v, 0);
       }
     }
-    __syncthreads();
+    cluster.sync();
 
     // 2. acc[p] += xq[p] @ wq[p, k0:k0+kb, n0:n0+cb] on the tensor cores
     for (int p = warp; p < P; p += kThreads / 32) {
-      const int8_t* xp = xq + p * kCols * kb;
+      // rows g and g + 8 of xq[p] live in the block of rank g mod n_ranks
+      const int8_t* xp = cluster.map_shared_rank(xq + p * kCols * kb,
+                                                 (unsigned)(g % n_ranks));
       const int8_t* wp = wq + (long long)p * Cin * Cout;
       int* ap = acc + p * kCols * cb;
       for (int nt = 0; nt < cb / 8; ++nt) {
@@ -138,7 +155,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_kernel(
         ap[(g + 8) * cb + nt * 8 + c4 * 2 + 1] = d[3];
       }
     }
-    __syncthreads();
+    cluster.sync();  // every block's reads of xq are done
   }
 
   // 3. dequant + inverse, written as NHWC output
@@ -179,10 +196,36 @@ extern "C" int sfc_fused_conv2d_launch(
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((n_tiles + kCols - 1) / kCols),
                   (unsigned)((Cout + cb - 1) / cb));
-  fused_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const int8_t*)wq, (const float*)act_scale,
-      (const float*)w_scale, (const float*)bt, (const float*)at, (float*)out, H,
-      W, Cin, Cout, M, L, t, lo_h, lo_w, nH, nW, n_tiles, out_h, out_w, kb, cb,
-      qmax);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = (cudaStream_t)stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  // the largest cluster (8, 4, 2 or 1 C_out blocks) that divides the grid
+  // and that the card can place
+  int size = 8;
+  for (; size > 1; size /= 2) {
+    if (grid.y % size) continue;
+    attr[0].val.clusterDim.y = size;
+    int clusters = 0;
+    if (cudaOccupancyMaxActiveClusters(&clusters, fused_kernel, &config) ==
+            cudaSuccess &&
+        clusters > 0)
+      break;
+    cudaGetLastError();  // a refused size is not an error of the launch
+  }
+  attr[0].val.clusterDim.y = size;
+  err = cudaLaunchKernelEx(
+      &config, fused_kernel, (const float*)x, (const int8_t*)wq,
+      (const float*)act_scale, (const float*)w_scale, (const float*)bt,
+      (const float*)at, (float*)out, H, W, Cin, Cout, M, L, t, lo_h, lo_w, nH,
+      nW, n_tiles, out_h, out_w, kb, cb, qmax);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

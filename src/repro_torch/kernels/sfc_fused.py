@@ -2,10 +2,12 @@
 
 The port of ``repro/kernels/sfc_fused.py::_fused_kernel`` (dense only).
 The Pallas kernel's TPU geometry (``FusedGeometry``, ``VMEM_LIMIT_BYTES``,
-the xq cache, strip grouping) does not carry over: each CUDA block owns 16
-tiles and ``cout_block`` output channels and loops over ``k_block``-wide
-C_in blocks itself, with the int32 accumulator and the quantized tiles in
-shared memory.  The transform-domain tensor never goes to device memory.
+the strip grouping) does not carry over: each CUDA block owns 16 tiles and
+``cout_block`` output channels and loops over ``k_block``-wide C_in blocks
+itself, with the int32 accumulator and the quantized tiles in shared
+memory; the C_out blocks of one tile group form a thread block cluster
+that shares the transform, the counterpart of the TPU kernel's xq cache.
+The transform-domain tensor never goes to device memory.
 
 The kernel calls the same device functions as the staged B1 (transform +
 quantize), B2 (dequant) and B3 (inverse), so on the card the fused and the
