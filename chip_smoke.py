@@ -16,7 +16,8 @@ csrc`` at first use.  Phases, each of which raises on failure:
      ``ConvSpec -> plan(backend="cuda", algo="sfc6_6") -> calibrate ->
      prepare_weights -> apply``, on the fused and the staged datapath,
      each layer held against the ``reference`` backend on the same input;
-     every kernel's launch count must rise;
+     every forward of it starts from launch counts of 0 and must launch
+     its datapath's kernels once per conv and the other datapath's never;
   5. per kernel, the times over the 13 layers of one batch-1 request:
      the kernel, its plain version, one PyTorch library call where one
      computes the same function, and the least time the card could take.
@@ -271,8 +272,28 @@ def main() -> None:
                  "staged": tuning.DEFAULT_STAGED}
     saved = []                    # (request, datapath, layer, x, plan, prep)
     per_layer, stacks, served = [], [], {}
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
+    # what one forward of each datapath launches: its kernels once per conv
+    expected = {
+        "fused": {k: len(layers) if k == "sfc_fused_conv2d" else 0
+                  for k in REPLACES},
+        "staged": {k: 0 if k == "sfc_fused_conv2d" else len(layers)
+                   for k in REPLACES}}
+    launches = {k: 0 for k in REPLACES}   # summed over the main path's forwards
+    n_forwards = {dp: 0 for dp in datapaths}
+
+    def counted(dp, what, fn):
+        """Run one forward of datapath ``dp`` with every launch count set
+        to 0 just before it, and check just after it what it launched."""
+        kernels.reset_launch_counts()
+        out = fn()
+        got = kernels.launch_counts()
+        if got != expected[dp]:
+            raise AssertionError(f"{what}: the {dp} forward launched {got}, "
+                                 f"not {expected[dp]}")
+        for k in launches:
+            launches[k] += got[k]
+        n_forwards[dp] += 1
+        return out
 
     def forward(images, state):
         """The served forward: 13 convs with prepared int8 weights."""
@@ -284,33 +305,39 @@ def main() -> None:
                     0, 2, 3, 1).contiguous()
         return h
 
+    def check_pass(ri, images, dp, config):
+        """One forward of a request, every layer checked on its way."""
+        h, state = images, []
+        for li, (lname, hw, cin, cout) in enumerate(layers):
+            p, prep = prepared(h, weights[lname], ALGO, config)
+            y = p.apply(h, prep, bias=biases[lname])
+            y_ref = plan(p.spec, backend="reference", algo=ALGO).apply(
+                h, prep, bias=biases[lname])
+            rel_l2 = ((y - y_ref).norm() / y_ref.norm()).item()
+            scaled = scaled_err(y, y_ref)
+            if not (rel_l2 <= 1e-4 and scaled <= 1e-2
+                    and torch.isfinite(y).all()):
+                raise AssertionError(
+                    f"request {ri} {dp} {lname}: rel L2 {rel_l2}, max "
+                    f"|diff| / max |ref| {scaled} against the reference")
+            per_layer.append({"request": ri, "batch": h.shape[0],
+                              "datapath": dp, "layer": lname, "hw": hw,
+                              "cin": cin, "cout": cout, "rel_l2": rel_l2,
+                              "scaled_max": scaled})
+            saved.append((ri, dp, lname, h, p, prep))
+            state.append((p, prep, biases[lname]))
+            h = torch.relu(y)
+            if li in stage_ends:
+                h = F.max_pool2d(h.permute(0, 3, 1, 2), 2).permute(
+                    0, 2, 3, 1).contiguous()
+        return h, state
+
     for ri, images in enumerate(requests):
         for dp, config in datapaths.items():
             # the checking pass: calibrate, prepare and apply every layer,
             # each held against the reference backend on the same input
-            h, state = images, []
-            for li, (lname, hw, cin, cout) in enumerate(layers):
-                p, prep = prepared(h, weights[lname], ALGO, config)
-                y = p.apply(h, prep, bias=biases[lname])
-                y_ref = plan(p.spec, backend="reference", algo=ALGO).apply(
-                    h, prep, bias=biases[lname])
-                rel_l2 = ((y - y_ref).norm() / y_ref.norm()).item()
-                scaled = scaled_err(y, y_ref)
-                if not (rel_l2 <= 1e-4 and scaled <= 1e-2
-                        and torch.isfinite(y).all()):
-                    raise AssertionError(
-                        f"request {ri} {dp} {lname}: rel L2 {rel_l2}, max "
-                        f"|diff| / max |ref| {scaled} against the reference")
-                per_layer.append({"request": ri, "batch": h.shape[0],
-                                  "datapath": dp, "layer": lname, "hw": hw,
-                                  "cin": cin, "cout": cout, "rel_l2": rel_l2,
-                                  "scaled_max": scaled})
-                saved.append((ri, dp, lname, h, p, prep))
-                state.append((p, prep, biases[lname]))
-                h = torch.relu(y)
-                if li in stage_ends:
-                    h = F.max_pool2d(h.permute(0, 3, 1, 2), 2).permute(
-                        0, 2, 3, 1).contiguous()
+            h, state = counted(dp, f"request {ri} checked",
+                               lambda: check_pass(ri, images, dp, config))
             if h.shape != (images.shape[0], 7, 7, 512) \
                     or not torch.isfinite(h).all():
                 raise AssertionError(f"request {ri} {dp}: stack output "
@@ -318,14 +345,16 @@ def main() -> None:
             # the served forward with these prepared weights, wall clock
             # (host and card); the card's own time is taken after the
             # launch counts are read
-            if not torch.equal(forward(images, state), h):
+            if not torch.equal(counted(dp, f"request {ri} served",
+                                       lambda: forward(images, state)), h):
                 raise AssertionError(f"request {ri} {dp}: the served "
                                      f"forward differs from the checked one")
             walls = []
             for _ in range(SERVE_REPEATS):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                forward(images, state)
+                counted(dp, f"request {ri} timed",
+                        lambda: forward(images, state))
                 torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t0) * 1e3)
             stacks.append({"request": ri, "batch": images.shape[0],
@@ -333,8 +362,10 @@ def main() -> None:
                            "wall_ms": statistics.median(walls)})
             served[(ri, dp)] = state
     torch.cuda.synchronize()
-    launches = kernels.launch_counts()
-    log("main: launches", json.dumps(launches))
+    for dp in datapaths:
+        log(f"main: each of {n_forwards[dp]} {dp} forwards launched "
+            f"{json.dumps(expected[dp])}")
+    log("main: launches over the main path", json.dumps(launches))
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
@@ -391,6 +422,13 @@ def main() -> None:
         Y = kernels.tdmm_int8(X, prep.wq, sx, sw)
         ty = Y.transpose(0, 1).reshape(T, t, t, cout).contiguous()
         args4 = (x, prep.wq, prep.act_scale, prep.w_scale, algo)
+        # library yardsticks, timed here and called nowhere in the port: one
+        # einsum computes B3's function; cuDNN's fp16 conv of the same
+        # shapes stands beside B4
+        x16 = x.permute(0, 3, 1, 2).half().contiguous(
+            memory_format=torch.channels_last)
+        w16 = prep.w.permute(3, 2, 0, 1).half().contiguous(
+            memory_format=torch.channels_last)
         # least bytes and operations of each function on these inputs
         # per (tile, channel): B^T rows over L columns, then B^T over the
         # t rows, then divide, round, clip; the inverse likewise with A^T;
@@ -420,16 +458,15 @@ def main() -> None:
                           lambda: ref.tdmm_int8_ref(X, prep.wq, sx, sw),
                           None),
             "sfc_inverse": (lambda: kernels.sfc_inverse(ty, at),
-                            lambda: ref.sfc_inverse_ref(ty, at), None),
+                            lambda: ref.sfc_inverse_ref(ty, at),
+                            lambda: torch.einsum("mt,ntuo,pu->nmpo", at, ty,
+                                                 at)),
             "sfc_fused_conv2d": (
                 lambda: kernels.sfc_fused_conv2d(*args4),
-                lambda: ref.sfc_fused_conv2d_ref(*args4), "conv"),
+                lambda: ref.sfc_fused_conv2d_ref(*args4),
+                lambda: F.conv2d(x16, w16, padding=1)),
         }
         row = {"layer": lname, "hw": H, "cin": cin, "cout": cout}
-        x16 = x.permute(0, 3, 1, 2).half().contiguous(
-            memory_format=torch.channels_last)
-        w16 = prep.w.permute(3, 2, 0, 1).half().contiguous(
-            memory_format=torch.channels_last)
         for k, (kern, plain, lib) in fns.items():
             nbytes, int8_ops, f32_ops = work[k]
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -446,9 +483,8 @@ def main() -> None:
                       "bound_ms": max(bytes_ms, ops_ms),
                       "bound_by": "bytes" if bytes_ms >= ops_ms
                       else "operations"}
-            if lib == "conv":
-                # yardstick only: cuDNN's fp16 conv of the same shapes
-                lib_ms = timed(lambda: F.conv2d(x16, w16, padding=1))
+            if lib is not None:
+                lib_ms = timed(lib)
                 tot["library_ms"] = (tot["library_ms"] or 0.0) + lib_ms
                 row[k]["library_ms"] = lib_ms
         layer_times.append(row)

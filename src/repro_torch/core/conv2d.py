@@ -28,7 +28,7 @@ def _matrices(algo: BilinearAlgorithm, dtype: torch.dtype, device: str):
 
 def transform_matrices(algo: BilinearAlgorithm,
                        dtype: torch.dtype = torch.float32,
-                       device="cpu"
+                       device="cuda"
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(bt, g, at)`` for ``algo`` at ``dtype`` on ``device``, cached.
 

@@ -41,7 +41,7 @@ _F = ctypes.c_float
 # argtypes of every C entry point; pointers and the stream are c_void_p
 SIGNATURES = {
     "sfc_transform_quantize_launch": (_P, _P, _P, _P) + (_I,) * 11 + (_F, _P),
-    "tdmm_int8_launch": (_P,) * 5 + (_I,) * 5 + (_P,),
+    "tdmm_int8_launch": (_P,) * 5 + (_I,) * 4 + (_P,),
     "sfc_inverse_launch": (_P, _P, _P, _LL, _I, _I, _I, _P),
     "sfc_fused_conv2d_launch": (_P,) * 7 + (_I,) * 16 + (_F, _P),
     "sfc_error_string": (_I,),

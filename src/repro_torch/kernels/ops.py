@@ -61,7 +61,7 @@ def quantized_fastconv2d(x: torch.Tensor, wq: torch.Tensor,
     x (B,H,W,Cin) f32; wq (t^2, Cin, Cout) int8; act_scale (t,t);
     w_scale (t,t,Cout) -> (B,H',W',Cout) f32.  ``bits`` sets the
     activation clipping grid (sub-int8 policies run on the int8 carrier);
-    ``k_block`` stages the GEMMs' C_in reduction (see ``tdmm_int8``).
+    ``k_block`` goes to ``tdmm_int8``, which keeps it for parity only.
     """
     t, M = algo.t, algo.M
     P = t * t

@@ -3,9 +3,7 @@
 The port of ``repro/kernels/sfc_tdmm.py::_tdmm_kernel`` and
 ``::_tdmm_kblock_kernel``, as one CUDA kernel (``csrc/sfc_tdmm.cu``): for
 each of the P = t^2 positions an int8 tensor-core GEMM accumulated in
-int32 over the whole K, dequantized in the epilogue.  ``k_block`` splits
-the in-block K loop into stages of that width; the int32 accumulator spans
-all of K either way, so the result does not depend on it.
+int32 over the whole K, dequantized in the epilogue.
 """
 from __future__ import annotations
 
@@ -21,8 +19,10 @@ def tdmm_int8(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
               ) -> torch.Tensor:
     """X (P, T, K) int8 x W (P, K, N) int8 -> (P, T, N) f32.
 
-    Y[p] = float(X[p] @ W[p]) * (sx[p] * sw[p, :]).  ``k_block=None``
-    means the full K in one stage.
+    Y[p] = float(X[p] @ W[p]) * (sx[p] * sw[p, :]).  ``k_block`` is kept
+    for parity with the JAX wrapper, whose k-blocked Pallas kernel splits K
+    to fit VMEM; it has no effect here: the CUDA kernel accumulates in int32
+    registers across all of K, so every ``k_block`` gives the same result.
     """
     name = "tdmm_int8"
     if k_block is not None and k_block < 1:
@@ -47,8 +47,7 @@ def tdmm_int8(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
     with torch.cuda.device(xq.device):
         err = lib.tdmm_int8_launch(
             xq.data_ptr(), wq.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-            out.data_ptr(), P, T, K, N, max(K, 1) if k_block is None
-            else k_block, _build.stream_handle(xq.device))
+            out.data_ptr(), P, T, K, N, _build.stream_handle(xq.device))
     _build.check(err, name)
     tdmm_int8.launches += 1
     return out

@@ -52,7 +52,7 @@ def _b1_pair(x, name, padding):
     """(port B1 output, JAX B1 output) on the same input and scales."""
     algo, jalgo = registry.get_algorithm(name), jregistry.get_algorithm(name)
     s = _act_scale(x, name, padding)
-    bt = c2d.transform_matrices(algo)[0]
+    bt = c2d.transform_matrices(algo, device="cpu")[0]
     mine = sfc_transform_quantize(torch.from_numpy(x), bt,
                                   torch.from_numpy(s), algo.M,
                                   padding=padding)
@@ -101,7 +101,8 @@ def test_b3_agrees(name):
     algo = registry.get_algorithm(name)
     rng = np.random.RandomState(3)
     ty = rng.randn(11, algo.t, algo.t, 6).astype(np.float32)
-    mine = sfc_inverse(torch.from_numpy(ty), c2d.transform_matrices(algo)[2])
+    at = c2d.transform_matrices(algo, device="cpu")[2]
+    mine = sfc_inverse(torch.from_numpy(ty), at)
     jat = jc2d.transform_matrices(jregistry.get_algorithm(name), "float32")[2]
     theirs = jsfc_inverse(jnp.asarray(ty), jat, interpret=True)
     np.testing.assert_allclose(mine.numpy(), np.asarray(theirs), rtol=1e-5,
