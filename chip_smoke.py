@@ -10,16 +10,25 @@ csrc`` at first use.  Phases, each of which raises on failure:
   1. probe: PyTorch, CUDA, the card, ``nvcc``, its name and power limit;
   2. build the kernels and report the seconds it took;
   3. each kernel against its plain PyTorch version on the card, at VGG-16
-     layer shapes, with the tolerance stated beside each check;
-  4. the main path: requests through VGG-16's 13-layer conv stack at
-     224x224 and its published widths, every layer through
-     ``ConvSpec -> plan(backend="cuda", algo="sfc6_6") -> calibrate ->
-     prepare_weights -> apply``, on the fused and the staged datapath,
-     each layer held against the ``reference`` backend on the same input;
-     every forward of it starts from launch counts of 0 and must launch
-     its datapath's kernels once per conv and the other datapath's never;
-  5. per kernel, the times over the 13 layers of one batch-1 request:
-     the kernel, its plain version, one PyTorch library call where one
+     layer shapes and at depthwise shapes of MobileNetV2, with the
+     tolerance stated beside each check;
+  4. the paths, each forward of which starts from launch counts of 0 and
+     must launch its own kernels, and only those, the stated number of
+     times; every layer is held against the ``reference`` backend on the
+     same input:
+     a. int8 VGG-16: requests through VGG-16's 13-layer conv stack at
+        224x224 and its published widths, every layer through
+        ``ConvSpec -> plan(backend="cuda", algo="sfc6_6") -> calibrate ->
+        prepare_weights -> apply``, on the fused and the staged datapath;
+     b. fp VGG-16: the same stack with ``quant=FP32`` (B5 -> f32 product
+        -> B3), one request of batch 1 and one of batch 4, and the batch-1
+        request once more with the caller's TF32 turned on for cuBLAS;
+     c. depthwise: the 13 stride-1 depthwise 3x3 convs of MobileNetV2
+        (width 1.0, 224x224) and the repo's ``dw3x3`` workload, each a
+        request of batch 1 and of batch 4, on the int8 fused, int8 staged
+        and fp paths; fused and staged must be bit-identical;
+  5. per kernel, the times over the layers of one batch-1 request: the
+     kernel, its plain version, one PyTorch library call where one
      computes the same function, and the least time the card could take.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -29,6 +38,7 @@ numpy seeds.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import pathlib
@@ -48,7 +58,21 @@ VGG_STAGES = (2, 2, 3, 3, 3)
 VGG_WIDTHS = (64, 128, 256, 512, 512)
 IMAGE = 224
 REQUEST_BATCHES = (1, 1, 1, 4)
+FP_REQUEST_BATCHES = (1, 4)
 ALGO = "sfc6_6"
+# the 13 stride-1 depthwise 3x3 convs of MobileNetV2 at width 1.0 and
+# 224x224 (Sandler et al. 2018, arXiv:1801.04381, Table 2), named by
+# bottleneck block and repeat, as (name, H = W, C); its four stride-2
+# depthwise convs need the lowering pass (ROADMAP A6).  Then the repo's
+# own depthwise workload, dw3x3 of benchmarks/table3_throughput.py.
+DW_LAYERS = (("mbv2_b1.1", 112, 32), ("mbv2_b2.2", 56, 144),
+             ("mbv2_b3.2", 28, 192), ("mbv2_b3.3", 28, 192),
+             ("mbv2_b4.2", 14, 384), ("mbv2_b4.3", 14, 384),
+             ("mbv2_b4.4", 14, 384), ("mbv2_b5.1", 14, 384),
+             ("mbv2_b5.2", 14, 576), ("mbv2_b5.3", 14, 576),
+             ("mbv2_b6.2", 7, 960), ("mbv2_b6.3", 7, 960),
+             ("mbv2_b7.1", 7, 960), ("dw3x3", 28, 256))
+DW_BATCHES = (1, 4)
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM, int8 tensor cores, and
 # float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -59,6 +83,7 @@ SPIN_CYCLES = 20_000_000        # ~10 ms at the H100's clock; doubled on need
 SERVE_REPEATS = 5
 KERNEL_CHECKS = (("sfc6_6", 224, 3, 64), ("sfc6_6", 56, 256, 256),
                  ("sfc6_6", 14, 512, 512), ("sfc6_7", 56, 256, 256))
+DW_CHECKS = (("sfc6_6", 112, 32), ("sfc6_6", 56, 144), ("sfc6_7", 7, 960))
 REPLACES = {
     "sfc_transform_quantize": ("src/repro_torch/csrc/sfc_transform.cu",
                                "src/repro/kernels/sfc_transform.py:36"),
@@ -68,7 +93,34 @@ REPLACES = {
                     "src/repro/kernels/sfc_inverse.py:20"),
     "sfc_fused_conv2d": ("src/repro_torch/csrc/sfc_fused.cu",
                          "src/repro/kernels/sfc_fused.py:490"),
+    "sfc_transform": ("src/repro_torch/csrc/sfc_transform.cu",
+                      "src/repro/kernels/sfc_transform.py:26"),
+    "tdmm_int8_depthwise": ("src/repro_torch/csrc/sfc_tdmm_dw.cu",
+                            "src/repro/kernels/sfc_tdmm.py:71"),
+    "sfc_fused_conv2d_depthwise": ("src/repro_torch/csrc/sfc_fused_dw.cu",
+                                   "src/repro/kernels/sfc_fused.py:600"),
 }
+
+
+def only(times=1, **counts):
+    """Launches of one forward: the named kernels, each other kernel 0."""
+    return {k: counts.get(k, 0) * times for k in REPLACES}
+
+
+N_VGG = sum(VGG_STAGES)
+# what one forward of each path launches
+EXPECTED = {
+    "vgg_fused": only(sfc_fused_conv2d=N_VGG),
+    "vgg_staged": only(sfc_transform_quantize=N_VGG, tdmm_int8=N_VGG,
+                       sfc_inverse=N_VGG),
+    "vgg_fp": only(sfc_transform=N_VGG, sfc_inverse=N_VGG),
+    "dw_fused": only(sfc_fused_conv2d_depthwise=1),
+    "dw_staged": only(sfc_transform_quantize=1, tdmm_int8_depthwise=1,
+                      sfc_inverse=1),
+    "dw_fp": only(sfc_transform=1, sfc_inverse=1),
+}
+# per layer on the same input: (rel L2, max |diff| / max |ref|) bounds
+BOUNDS = {"int8": (1e-4, 1e-2), "fp": (1e-4, 1e-4)}
 
 
 def vgg_layers():
@@ -97,8 +149,8 @@ def main() -> None:
     from repro_torch import kernels
     from repro_torch.api import ConvSpec, plan, tuning
     from repro_torch.core import conv2d as c2d
-    from repro_torch.kernels import _build, ref
-    from repro_torch.quant import INT8_FREQ
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.quant import FP32, INT8_FREQ
     from repro_torch.testing import DEFAULT_TOL
 
     dev = torch.device("cuda", 0)
@@ -177,20 +229,70 @@ def main() -> None:
         w = rng.randn(3, 3, cin, cout) * math.sqrt(2.0 / (9 * cin))
         return torch.tensor(w, dtype=torch.float32, device=dev)
 
-    def prepared(x, w, algo_name, config=None):
-        spec = ConvSpec.for_conv2d(x.shape, w.shape, quant=INT8_FREQ)
+    def prepared(x, w, algo_name, config=None, depthwise=False):
+        make = ConvSpec.for_conv2d_depthwise if depthwise \
+            else ConvSpec.for_conv2d
+        spec = make(x.shape, w.shape, quant=INT8_FREQ)
         p = plan(spec, backend="cuda", algo=algo_name)
         if config is not None:
             p = p.with_config(config)
         act = tuning.calibrate_act_scale(x, p.algorithm, INT8_FREQ)
         return p, p.prepare_weights(w, act_scale=act)
 
+    def prepared_fp(x, w, algo_name, depthwise=False):
+        make = ConvSpec.for_conv2d_depthwise if depthwise \
+            else ConvSpec.for_conv2d
+        p = plan(make(x.shape, w.shape, quant=FP32), backend="cuda",
+                 algo=algo_name)
+        return p, p.prepare_weights(w)
+
     def scaled_err(got, want):
         return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)
                 ).item()
 
+    def held(what, y, y_ref, kind):
+        """rel L2 and scaled max error of y against y_ref, within BOUNDS."""
+        rel_l2 = ((y - y_ref).norm() / y_ref.norm().clamp_min(1e-30)).item()
+        scaled = scaled_err(y, y_ref)
+        max_rel, max_scaled = BOUNDS[kind]
+        if not (rel_l2 <= max_rel and scaled <= max_scaled
+                and torch.isfinite(y).all()):
+            raise AssertionError(
+                f"{what}: rel L2 {rel_l2}, max |diff| / max |ref| {scaled} "
+                f"against the reference (bounds {max_rel}, {max_scaled})")
+        return rel_l2, scaled
+
+    def xq_flips(x, p, prep):
+        """int8 values where B1 and its plain version differ on x."""
+        bt = c2d.transform_matrices(p.algorithm, torch.float32, dev)[0]
+        xq = kernels.sfc_transform_quantize(x, bt, prep.act_scale,
+                                            p.algorithm.M)
+        xq_ref = ref.sfc_transform_quantize_nhwc_ref(x, bt, prep.act_scale,
+                                                     p.algorithm.M)
+        return int((xq != xq_ref).sum()), xq.numel()
+
     # ---- 3. each kernel against its plain version ------------------------
     max_err = {k: 0.0 for k in REPLACES}
+
+    def check_b5(case, x, xr, xq_raw, bt, scale, M):
+        """B5 against its plain version: exact on snapped inputs x, within
+        1e-6 of the output's scale on raw inputs xr; and on xr exactly the
+        value B1 quantized into xq_raw (one device function, one order)."""
+        tx, tx_ref = kernels.sfc_transform(x, bt, M), \
+            ref.sfc_transform_nhwc_ref(x, bt, M)
+        case["b5_mismatch_snapped"] = int((tx != tx_ref).sum())
+        txr, txr_ref = kernels.sfc_transform(xr, bt, M), \
+            ref.sfc_transform_nhwc_ref(xr, bt, M)
+        err = (txr - txr_ref).abs().max().item()
+        case["b5_scaled_err_raw"] = err / txr_ref.abs().max().item()
+        q = torch.clamp(torch.round(txr / scale[None, :, :, None]), -127,
+                        127).to(torch.int8)
+        case["b5_b1_grid_mismatch"] = int((q != xq_raw).sum())
+        if case["b5_mismatch_snapped"] or case["b5_scaled_err_raw"] > 1e-6 \
+                or case["b5_b1_grid_mismatch"]:
+            raise AssertionError(f"B5 differs from its plain version or "
+                                 f"from what B1 quantizes: {case}")
+        max_err["sfc_transform"] = max(max_err["sfc_transform"], err)
     checks = []
     rng = np.random.RandomState(11)
     for algo_name, hw, cin, cout in KERNEL_CHECKS:
@@ -212,9 +314,10 @@ def main() -> None:
         # B1 on raw inputs: summation order may flip a .5 tie by one LSB
         xr = torch.tensor(rng.randn(1, hw, hw, cin), dtype=torch.float32,
                           device=dev)
-        d = (kernels.sfc_transform_quantize(xr, bt, prep.act_scale, algo.M)
-             .int() - ref.sfc_transform_quantize_nhwc_ref(
-                 xr, bt, prep.act_scale, algo.M).int()).abs()
+        xq_raw = kernels.sfc_transform_quantize(xr, bt, prep.act_scale,
+                                                algo.M)
+        d = (xq_raw.int() - ref.sfc_transform_quantize_nhwc_ref(
+            xr, bt, prep.act_scale, algo.M).int()).abs()
         flips, worst = int((d != 0).sum()), int(d.max())
         case["b1_flips_raw"], case["b1_values"] = flips, d.numel()
         if worst > 1 or flips * 10000 > d.numel():
@@ -222,6 +325,10 @@ def main() -> None:
                                  f"one step: {case}, worst {worst}")
         max_err["sfc_transform_quantize"] = max(
             max_err["sfc_transform_quantize"], float(worst))
+        # B5 on snapped inputs: exact; on raw inputs: max |diff| <= 1e-6 of
+        # the output's scale, and exactly the value B1 quantizes (one
+        # device function, one summation order)
+        check_b5(case, x, xr, xq_raw, bt, prep.act_scale, algo.M)
         # B2 on the same int8 operands: int32 exact, f32 output to 1e-6
         X = xq.reshape(-1, P, cin).transpose(0, 1).contiguous()
         sx = prep.act_scale.reshape(P).contiguous()
@@ -258,9 +365,93 @@ def main() -> None:
         torch.cuda.synchronize()
         log("kernels:", json.dumps(case))
         checks.append(case)
+
+    for algo_name, hw, c in DW_CHECKS:
+        x = snapped(rng, (1, hw, hw, c))
+        w = he_normal(rng, 1, c)
+        p, prep = prepared(x, w, algo_name, depthwise=True)
+        algo = p.algorithm
+        t, P = algo.t, algo.t ** 2
+        bt = c2d.transform_matrices(algo, torch.float32, dev)[0]
+        case = {"algo": algo_name, "hw": hw, "depthwise_c": c}
+        xr = torch.tensor(rng.randn(1, hw, hw, c), dtype=torch.float32,
+                          device=dev)
+        xq_raw = kernels.sfc_transform_quantize(xr, bt, prep.act_scale,
+                                                algo.M)
+        check_b5(case, x, xr, xq_raw, bt, prep.act_scale, algo.M)
+        # B6 on the same int8 operands: exact (int32 products, one dequant)
+        xq = kernels.sfc_transform_quantize(x, bt, prep.act_scale, algo.M)
+        X = xq.reshape(-1, P, c).transpose(0, 1).contiguous()
+        wq2 = prep.wq.reshape(P, c)
+        sx = prep.act_scale.reshape(P).contiguous()
+        sw = prep.w_scale.reshape(P, c).contiguous()
+        Y = kernels.tdmm_int8_depthwise(X, wq2, sx, sw)
+        Y_ref = ref.tdmm_int8_depthwise_ref(X, wq2, sx, sw)
+        case["b6_bit_equal"] = bool(torch.equal(Y, Y_ref))
+        if not case["b6_bit_equal"]:
+            raise AssertionError(f"B6 differs from its plain version: {case}")
+        max_err["tdmm_int8_depthwise"] = max(
+            max_err["tdmm_int8_depthwise"], (Y - Y_ref).abs().max().item())
+        # B7 against its plain version within DEFAULT_TOL of the output's
+        # scale on snapped inputs, and bit-identical to the staged CUDA
+        # depthwise path (B1 -> B6 -> B3), at the default channel block and
+        # at one that leaves a ragged channel tail
+        args = (x, prep.wq, prep.act_scale, prep.w_scale, algo)
+        yf = kernels.sfc_fused_conv2d(*args, depthwise=True)
+        yf24 = kernels.sfc_fused_conv2d_depthwise(*args, cout_block=24)
+        ys = kernels.quantized_fastconv2d_depthwise(*args)
+        y_ref = ref.sfc_fused_conv2d_ref(*args, depthwise=True)
+        scale = y_ref.abs().max().item()
+        torch.testing.assert_close(yf, y_ref, rtol=DEFAULT_TOL,
+                                   atol=DEFAULT_TOL * scale)
+        case["b7_scaled_err"] = scaled_err(yf, y_ref)
+        case["b7_fused_equals_staged"] = bool(torch.equal(yf, ys))
+        case["b7_block24_equal"] = bool(torch.equal(yf, yf24))
+        if not (case["b7_fused_equals_staged"] and case["b7_block24_equal"]):
+            raise AssertionError(f"B7 is not bit-identical to the staged "
+                                 f"depthwise path: {case}")
+        max_err["sfc_fused_conv2d_depthwise"] = max(
+            max_err["sfc_fused_conv2d_depthwise"],
+            (yf - y_ref).abs().max().item())
+        torch.cuda.synchronize()
+        log("kernels:", json.dumps(case))
+        checks.append(case)
     report["phases"]["kernel_checks"] = checks
 
-    # ---- 4. the main path ------------------------------------------------
+    # ---- 4. the paths ----------------------------------------------------
+    launches = {k: 0 for k in REPLACES}   # summed over the paths' forwards
+    path_launches = {path: {k: 0 for k in REPLACES} for path in EXPECTED}
+    n_forwards = {path: 0 for path in EXPECTED}
+
+    def counted(path, what, fn, times=1):
+        """Run one forward of ``path`` (``times`` layers of a depthwise
+        stack) with every launch count set to 0 just before it, and check
+        just after it what it launched."""
+        want = {k: n * times for k, n in EXPECTED[path].items()}
+        kernels.reset_launch_counts()
+        out = fn()
+        got = kernels.launch_counts()
+        if got != want:
+            raise AssertionError(f"{what}: the {path} forward launched "
+                                 f"{got}, not {want}")
+        for k in launches:
+            launches[k] += got[k]
+            path_launches[path][k] += got[k]
+        n_forwards[path] += 1
+        return out
+
+    def walls(path, what, fn, times=1):
+        """Wall ms of SERVE_REPEATS counted forwards, and their median."""
+        runs = []
+        for _ in range(SERVE_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            counted(path, what, fn, times)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return runs, statistics.median(runs)
+
+    # -- 4a/4b. VGG-16, int8 (fused, staged) and fp ------------------------
     layers, stage_ends = vgg_layers()
     wrng = np.random.RandomState(0)
     weights = {n: he_normal(wrng, cin, cout) for n, _, cin, cout in layers}
@@ -268,35 +459,16 @@ def main() -> None:
     requests = [torch.tensor(np.random.RandomState(100 + i).randn(
         b, IMAGE, IMAGE, 3), dtype=torch.float32, device=dev)
         for i, b in enumerate(REQUEST_BATCHES)]
+    fp_requests = [torch.tensor(np.random.RandomState(200 + i).randn(
+        b, IMAGE, IMAGE, 3), dtype=torch.float32, device=dev)
+        for i, b in enumerate(FP_REQUEST_BATCHES)]
     datapaths = {"fused": tuning.DEFAULT_FUSED,
                  "staged": tuning.DEFAULT_STAGED}
     saved = []                    # (request, datapath, layer, x, plan, prep)
     per_layer, stacks, served = [], [], {}
-    # what one forward of each datapath launches: its kernels once per conv
-    expected = {
-        "fused": {k: len(layers) if k == "sfc_fused_conv2d" else 0
-                  for k in REPLACES},
-        "staged": {k: 0 if k == "sfc_fused_conv2d" else len(layers)
-                   for k in REPLACES}}
-    launches = {k: 0 for k in REPLACES}   # summed over the main path's forwards
-    n_forwards = {dp: 0 for dp in datapaths}
-
-    def counted(dp, what, fn):
-        """Run one forward of datapath ``dp`` with every launch count set
-        to 0 just before it, and check just after it what it launched."""
-        kernels.reset_launch_counts()
-        out = fn()
-        got = kernels.launch_counts()
-        if got != expected[dp]:
-            raise AssertionError(f"{what}: the {dp} forward launched {got}, "
-                                 f"not {expected[dp]}")
-        for k in launches:
-            launches[k] += got[k]
-        n_forwards[dp] += 1
-        return out
 
     def forward(images, state):
-        """The served forward: 13 convs with prepared int8 weights."""
+        """The served forward: 13 convs with prepared weights."""
         h = images
         for li, (p, prep, bias) in enumerate(state):
             h = torch.relu(p.apply(h, prep, bias=bias))
@@ -305,21 +477,20 @@ def main() -> None:
                     0, 2, 3, 1).contiguous()
         return h
 
-    def check_pass(ri, images, dp, config):
+    def check_pass(ri, images, dp):
         """One forward of a request, every layer checked on its way."""
         h, state = images, []
+        kind = "fp" if dp == "fp" else "int8"
         for li, (lname, hw, cin, cout) in enumerate(layers):
-            p, prep = prepared(h, weights[lname], ALGO, config)
+            if dp == "fp":
+                p, prep = prepared_fp(h, weights[lname], ALGO)
+            else:
+                p, prep = prepared(h, weights[lname], ALGO, datapaths[dp])
             y = p.apply(h, prep, bias=biases[lname])
             y_ref = plan(p.spec, backend="reference", algo=ALGO).apply(
                 h, prep, bias=biases[lname])
-            rel_l2 = ((y - y_ref).norm() / y_ref.norm()).item()
-            scaled = scaled_err(y, y_ref)
-            if not (rel_l2 <= 1e-4 and scaled <= 1e-2
-                    and torch.isfinite(y).all()):
-                raise AssertionError(
-                    f"request {ri} {dp} {lname}: rel L2 {rel_l2}, max "
-                    f"|diff| / max |ref| {scaled} against the reference")
+            rel_l2, scaled = held(f"request {ri} {dp} {lname}", y, y_ref,
+                                  kind)
             per_layer.append({"request": ri, "batch": h.shape[0],
                               "datapath": dp, "layer": lname, "hw": hw,
                               "cin": cin, "cout": cout, "rel_l2": rel_l2,
@@ -332,89 +503,289 @@ def main() -> None:
                     0, 2, 3, 1).contiguous()
         return h, state
 
-    for ri, images in enumerate(requests):
-        for dp, config in datapaths.items():
-            # the checking pass: calibrate, prepare and apply every layer,
-            # each held against the reference backend on the same input
-            h, state = counted(dp, f"request {ri} checked",
-                               lambda: check_pass(ri, images, dp, config))
-            if h.shape != (images.shape[0], 7, 7, 512) \
-                    or not torch.isfinite(h).all():
-                raise AssertionError(f"request {ri} {dp}: stack output "
-                                     f"{tuple(h.shape)} not finite 7x7x512")
-            # the served forward with these prepared weights, wall clock
-            # (host and card); the card's own time is taken after the
-            # launch counts are read
-            if not torch.equal(counted(dp, f"request {ri} served",
-                                       lambda: forward(images, state)), h):
-                raise AssertionError(f"request {ri} {dp}: the served "
-                                     f"forward differs from the checked one")
-            walls = []
-            for _ in range(SERVE_REPEATS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                counted(dp, f"request {ri} timed",
-                        lambda: forward(images, state))
-                torch.cuda.synchronize()
-                walls.append((time.perf_counter() - t0) * 1e3)
-            stacks.append({"request": ri, "batch": images.shape[0],
-                           "datapath": dp, "wall_ms_runs": walls,
-                           "wall_ms": statistics.median(walls)})
-            served[(ri, dp)] = state
+    vgg_runs = [(ri, images, dp) for ri, images in enumerate(requests)
+                for dp in datapaths]
+    vgg_runs += [(ri, images, "fp") for ri, images in enumerate(fp_requests)]
+    for ri, images, dp in vgg_runs:
+        path = f"vgg_{dp}"
+        # the checking pass: calibrate, prepare and apply every layer, each
+        # held against the reference backend on the same input
+        h, state = counted(path, f"request {ri} checked",
+                           lambda: check_pass(ri, images, dp))
+        want = (images.shape[0], IMAGE // 32, IMAGE // 32, VGG_WIDTHS[-1])
+        if h.shape != want or not torch.isfinite(h).all():
+            raise AssertionError(f"request {ri} {dp}: stack output "
+                                 f"{tuple(h.shape)} is not a finite {want}")
+        # the served forward with these prepared weights, wall clock (host
+        # and card); the card's own time is taken after the paths ran
+        if not torch.equal(counted(path, f"request {ri} served",
+                                   lambda: forward(images, state)), h):
+            raise AssertionError(f"request {ri} {dp}: the served forward "
+                                 f"differs from the checked one")
+        runs, wall = walls(path, f"request {ri} timed",
+                           lambda: forward(images, state))
+        stacks.append({"request": ri, "batch": images.shape[0],
+                       "datapath": dp, "wall_ms_runs": runs,
+                       "wall_ms": wall})
+        served[(ri, dp)] = (images, state)
     torch.cuda.synchronize()
-    for dp in datapaths:
-        log(f"main: each of {n_forwards[dp]} {dp} forwards launched "
-            f"{json.dumps(expected[dp])}")
-    log("main: launches over the main path", json.dumps(launches))
+
+    # -- 4b, TF32 on. The fp path's product runs in full float32 whatever
+    # the caller allowed: one more forward of the batch-1 fp request with
+    # the caller's TF32 on for cuBLAS, every layer held to the fp bounds
+    # against the reference (TF32 off) and to bit equality with the same
+    # forward under TF32 off; the caller's setting must be intact after it.
+    # The same forward with the guard taken out shows what TF32 would give.
+    matmul = torch.backends.cuda.matmul
+    tf32_name, tf32_on = (("fp32_precision", "tf32")
+                          if hasattr(matmul, "fp32_precision")
+                          else ("allow_tf32", True))
+    fp_saved = [(lname, x, p, prep) for ri, dp, lname, x, p, prep in saved
+                if ri == 0 and dp == "fp"]
+
+    def fp_layers():
+        return [p.apply(x, prep, bias=biases[lname])
+                for lname, x, p, prep in fp_saved]
+
+    fp_refs = [plan(p.spec, backend="reference", algo=ALGO).apply(
+        x, prep, bias=biases[lname]) for lname, x, p, prep in fp_saved]
+    fp_off = fp_layers()
+    caller = getattr(matmul, tf32_name)
+    guard = ops.full_fp32_matmul
+    try:
+        setattr(matmul, tf32_name, tf32_on)
+        fp_on = counted("vgg_fp", "request 0 with TF32 on", fp_layers)
+        kept = getattr(matmul, tf32_name) == tf32_on
+        ops.full_fp32_matmul = contextlib.nullcontext
+        fp_unguarded = fp_layers()
+    finally:
+        ops.full_fp32_matmul = guard
+        setattr(matmul, tf32_name, caller)
+    if not kept:
+        raise AssertionError("the fp path did not restore the caller's TF32 "
+                             "setting")
+    tf32_rows = []
+    for (lname, *_), y, y_off, y_tf32, y_ref in zip(
+            fp_saved, fp_on, fp_off, fp_unguarded, fp_refs):
+        rel_l2, scaled = held(f"request 0 fp {lname} with TF32 on", y, y_ref,
+                              "fp")
+        if not torch.equal(y, y_off):
+            raise AssertionError(f"request 0 fp {lname}: the output with the "
+                                 f"caller's TF32 on differs from the one "
+                                 f"with TF32 off")
+        tf32_rows.append({
+            "layer": lname, "rel_l2": rel_l2, "scaled_max": scaled,
+            "unguarded_rel_l2": ((y_tf32 - y_ref).norm()
+                                 / y_ref.norm().clamp_min(1e-30)).item(),
+            "unguarded_scaled_max": scaled_err(y_tf32, y_ref)})
+    log(f"vgg: fp request 0 with the caller's TF32 on ({tf32_name}="
+        f"{tf32_on!r}): all {len(fp_saved)} layers bit-identical to TF32 "
+        f"off, worst rel L2 {max(r['rel_l2'] for r in tf32_rows):.3e}, "
+        f"setting restored; "
+        f"without the guard, TF32 gives worst rel L2 "
+        f"{max(r['unguarded_rel_l2'] for r in tf32_rows):.3e}, max |diff| / "
+        f"max |ref| {max(r['unguarded_scaled_max'] for r in tf32_rows):.3e} "
+        f"(bounds {BOUNDS['fp'][0]}, {BOUNDS['fp'][1]})")
+
+    # -- 4c. depthwise: MobileNetV2's stride-1 depthwise convs and dw3x3 ---
+    dw_weights = [he_normal(np.random.RandomState(300 + li), 1, c)
+                  for li, (_, _, c) in enumerate(DW_LAYERS)]
+    dw_rows, dw_stacks, dw_states = [], [], {}
+
+    def dw_stack(state):
+        """The served depthwise forward: every layer on its own input."""
+        return [p.apply(x, prep) for _, p, prep, x in state]
+
+    for bi, batch in enumerate(DW_BATCHES):
+        states = {"fused": [], "staged": [], "fp": []}
+        outputs = {"fused": [], "staged": [], "fp": []}
+        for li, (lname, hw, c) in enumerate(DW_LAYERS):
+            x = torch.tensor(np.random.RandomState(400 + 100 * bi + li).randn(
+                batch, hw, hw, c), dtype=torch.float32, device=dev)
+            w = dw_weights[li]
+            p8, prep8 = prepared(x, w, ALGO, depthwise=True)
+            pfp, prepfp = prepared_fp(x, w, ALGO, depthwise=True)
+            plans = {"fused": (p8.with_config(tuning.DEFAULT_FUSED), prep8),
+                     "staged": (p8.with_config(tuning.DEFAULT_STAGED), prep8),
+                     "fp": (pfp, prepfp)}
+            row = {"batch": batch, "layer": lname, "hw": hw, "c": c}
+            for mode, (p, prep) in plans.items():
+                y = counted(f"dw_{mode}", f"batch {batch} {lname} checked",
+                            lambda: p.apply(x, prep))
+                y_ref = plan(p.spec, backend="reference", algo=ALGO).apply(
+                    x, prep)
+                if y.shape != x.shape:
+                    raise AssertionError(f"{lname} {mode}: output "
+                                         f"{tuple(y.shape)}, not "
+                                         f"{tuple(x.shape)}")
+                row[f"{mode}_rel_l2"], row[f"{mode}_scaled_max"] = held(
+                    f"depthwise batch {batch} {lname} {mode}", y, y_ref,
+                    "fp" if mode == "fp" else "int8")
+                states[mode].append((lname, p, prep, x))
+                outputs[mode].append(y)
+            row["fused_equals_staged"] = bool(torch.equal(
+                outputs["fused"][-1], outputs["staged"][-1]))
+            if not row["fused_equals_staged"]:
+                raise AssertionError(f"depthwise batch {batch} {lname}: the "
+                                     f"fused and the staged outputs differ")
+            row["xq_flips"], row["xq_values"] = xq_flips(x, p8, prep8)
+            dw_rows.append(row)
+        for mode, state in states.items():
+            got = counted(f"dw_{mode}", f"batch {batch} stack served",
+                          lambda: dw_stack(state), times=len(DW_LAYERS))
+            if not all(torch.equal(a, b) for a, b in zip(got, outputs[mode])):
+                raise AssertionError(f"depthwise batch {batch} {mode}: the "
+                                     f"served outputs differ from the "
+                                     f"checked ones")
+            runs, wall = walls(f"dw_{mode}", f"batch {batch} stack timed",
+                               lambda: dw_stack(state), times=len(DW_LAYERS))
+            dw_stacks.append({"batch": batch, "path": mode,
+                              "wall_ms_runs": runs, "wall_ms": wall})
+            dw_states[(batch, mode)] = state
+    torch.cuda.synchronize()
+
+    for path in EXPECTED:
+        log(f"paths: each of {n_forwards[path]} {path} forwards launched "
+            f"{json.dumps({k: v for k, v in EXPECTED[path].items() if v})}"
+            f"{' per layer' if path.startswith('dw_') else ''}")
+        ran = {k for k, v in EXPECTED[path].items() if v}
+        if n_forwards[path] == 0 \
+                or any(path_launches[path][k] <= 0 for k in ran):
+            raise AssertionError(f"a kernel of {path} never launched: "
+                                 f"{path_launches[path]}")
+    log("paths: launches over all paths", json.dumps(launches))
     if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: "
-                             f"{launches}")
+        raise AssertionError(f"a kernel never launched: {launches}")
+
     for row in stacks:
-        images = requests[row["request"]]
-        state = served[(row["request"], row["datapath"])]
+        images, state = served[(row["request"], row["datapath"])]
         row["card_ms"] = timed(lambda: forward(images, state),
                                runs=SERVE_REPEATS)
-        log(f"main: request {row['request']} batch {row['batch']} "
+        log(f"vgg: request {row['request']} batch {row['batch']} "
             f"{row['datapath']}: 13 convs {row['wall_ms']:.3f} ms wall, "
             f"{row['card_ms']:.3f} ms on the card (medians of "
             f"{SERVE_REPEATS})")
-    worst = max(per_layer, key=lambda r: r["rel_l2"])
-    log(f"main: worst layer vs reference rel L2 {worst['rel_l2']:.3e} "
-        f"({worst['layer']}, {worst['datapath']})")
+    for row in dw_stacks:
+        state = dw_states[(row["batch"], row["path"])]
+        row["card_ms"] = timed(lambda: dw_stack(state), runs=SERVE_REPEATS)
+        log(f"depthwise: batch {row['batch']} {row['path']}: "
+            f"{len(DW_LAYERS)} convs {row['wall_ms']:.3f} ms wall, "
+            f"{row['card_ms']:.3f} ms on the card (medians of "
+            f"{SERVE_REPEATS})")
+    for kind in ("int8", "fp"):
+        rows = [r for r in per_layer if (r["datapath"] == "fp") == (kind == "fp")]
+        worst = max(rows, key=lambda r: r["rel_l2"])
+        log(f"vgg: {kind} worst layer vs reference rel L2 "
+            f"{worst['rel_l2']:.3e}, max |diff| / max |ref| "
+            f"{max(r['scaled_max'] for r in rows):.3e} ({worst['layer']}, "
+            f"{worst['datapath']})")
+    for mode in ("fused", "staged", "fp"):
+        worst = max(dw_rows, key=lambda r: r[f"{mode}_rel_l2"])
+        log(f"depthwise: {mode} worst layer vs reference rel L2 "
+            f"{worst[f'{mode}_rel_l2']:.3e}, max |diff| / max |ref| "
+            f"{max(r[f'{mode}_scaled_max'] for r in dw_rows):.3e} "
+            f"({worst['layer']}, batch {worst['batch']}); fused equals "
+            f"staged on all {len(dw_rows)} layer requests")
 
     # xq grid flips between B1 and the reference's transform, per layer
     flips, n_values = [], 0
     for ri, dp, lname, x, p, prep in saved:
-        bt = c2d.transform_matrices(p.algorithm, torch.float32, dev)[0]
-        xq = kernels.sfc_transform_quantize(x, bt, prep.act_scale,
-                                            p.algorithm.M)
-        xq_ref = ref.sfc_transform_quantize_nhwc_ref(x, bt, prep.act_scale,
-                                                     p.algorithm.M)
-        flips.append(int((xq != xq_ref).sum()))
-        n_values += xq.numel()
-    for row, f in zip(per_layer, flips):
+        if dp == "fp":
+            continue
+        f, n = xq_flips(x, p, prep)
+        flips.append(f)
+        n_values += n
+    for row, f in zip((r for r in per_layer if r["datapath"] != "fp"), flips):
         row["xq_flips"] = f
-    log(f"main: xq values that differ between B1 and its plain version "
+    log(f"vgg: xq values that differ between B1 and its plain version "
         f"on the path's own inputs: {sum(flips)} of {n_values}, worst "
         f"layer {max(flips)}")
+    log(f"depthwise: xq values that differ between B1 and its plain "
+        f"version: {sum(r['xq_flips'] for r in dw_rows)} of "
+        f"{sum(r['xq_values'] for r in dw_rows)}")
 
-    # ---- 5. per-kernel times over the 13 layers of request 0 ------------
+    # ---- 5. per-kernel times over the layers of a batch-1 request --------
     totals = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                   "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": None}
               for k in REPLACES}
+    glue = {"fp_contraction_ms": 0.0}
+    fp_b3 = {"sfc_inverse_ms": 0.0}         # B3 on the fp request's inputs
     layer_times = []
+
+    def time_kernels(row, fns, work):
+        """Time each kernel, its plain version and its library call; add
+        them and the kernel's bound to ``totals`` and ``row``."""
+        for k, (kern, plain, lib) in fns.items():
+            nbytes, int8_ops, f32_ops = work[k]
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = (int8_ops / INT8_OPS_PER_S + f32_ops / F32_OPS_PER_S) \
+                * 1e3
+            ms, plain_ms = timed(kern), timed(plain)
+            tot = totals[k]
+            tot["ms"] += ms
+            tot["plain_ms"] += plain_ms
+            tot["bytes_ms"] += bytes_ms
+            tot["ops_ms"] += ops_ms
+            tot["bound_ms"] += max(bytes_ms, ops_ms)
+            row[k] = {"ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": max(bytes_ms, ops_ms),
+                      "bound_by": "bytes" if bytes_ms >= ops_ms
+                      else "operations"}
+            if lib is not None:
+                lib_ms = timed(lib)
+                tot["library_ms"] = (tot["library_ms"] or 0.0) + lib_ms
+                row[k]["library_ms"] = lib_ms
+
+    def transform_ops(algo, T, C, bt, quantize):
+        """f32 operations of B^T X B for T tiles x C channels: B^T rows
+        over L columns, then B^T over the t rows (an FMA is two), and for
+        the quantizer a divide, round and clip per value."""
+        t, L = algo.t, algo.L
+        nnz_bt = int((bt != 0).sum())
+        return T * C * (2 * nnz_bt * L + 2 * t * nnz_bt
+                        + (3 * t * t if quantize else 0))
+
+    def inverse_ops(algo, T, C, at):
+        nnz_at = int((at != 0).sum())
+        return T * C * (2 * nnz_at * algo.t + 2 * algo.M * nnz_at)
+
     for ri, dp, lname, x, p, prep in saved:
-        if ri != 0 or dp != "fused":
+        if ri != 0 or dp not in ("fused", "fp"):
             continue
         algo = p.algorithm
-        t, M, L, P = algo.t, algo.M, algo.L, algo.t ** 2
+        t, M, P = algo.t, algo.M, algo.t ** 2
         B, H, W, cin = x.shape
-        cout = prep.wq.shape[2]
         bt, _, at = c2d.transform_matrices(algo, torch.float32, dev)
         grid = c2d.tile_grid(H, W, M, algo.R, "SAME")
         T = B * grid.nH * grid.nW
-        nnz_bt = int((bt != 0).sum())
-        nnz_at = int((at != 0).sum())
+        row = {"layer": lname, "hw": H, "cin": cin, "path": f"vgg_{dp}"}
+        if dp == "fp":
+            # B5 over the fp path's inputs; the tiles for its library
+            # yardstick, one einsum, are cut out beforehand
+            tx = kernels.sfc_transform(x, bt, M)
+            tiles, _ = kernels.extract_tiles(x, algo)
+            cout = prep.tw.shape[-1]
+            row["cout"] = cout
+            time_kernels(row, {"sfc_transform": (
+                lambda: kernels.sfc_transform(x, bt, M),
+                lambda: ref.sfc_transform_nhwc_ref(x, bt, M),
+                lambda: torch.einsum("ti,nijc,uj->ntuc", bt, tiles, bt))},
+                {"sfc_transform": (4 * x.numel() + 4 * tx.numel(), 0,
+                                   transform_ops(algo, T, cin, bt, False))})
+            # glue, not a kernel: the P-batched f32 product between B5 and B3
+            row["fp_contraction_ms"] = timed(
+                lambda: ops.transform_domain_fp(tx, prep.tw))
+            glue["fp_contraction_ms"] += row["fp_contraction_ms"]
+            # B3 on the fp request's own transform-domain output
+            ty = ops.transform_domain_fp(tx, prep.tw)
+            row["fp_sfc_inverse_ms"] = timed(
+                lambda: kernels.sfc_inverse(ty, at))
+            fp_b3["sfc_inverse_ms"] += row["fp_sfc_inverse_ms"]
+            layer_times.append(row)
+            log("times:", json.dumps(row))
+            continue
+        cout = prep.wq.shape[2]
+        row["cout"] = cout
         sx = prep.act_scale.reshape(P).contiguous()
         sw = prep.w_scale.reshape(P, -1).contiguous()
         xq = kernels.sfc_transform_quantize(x, bt, prep.act_scale, M)
@@ -430,11 +801,8 @@ def main() -> None:
         w16 = prep.w.permute(3, 2, 0, 1).half().contiguous(
             memory_format=torch.channels_last)
         # least bytes and operations of each function on these inputs
-        # per (tile, channel): B^T rows over L columns, then B^T over the
-        # t rows, then divide, round, clip; the inverse likewise with A^T;
-        # an FMA is two operations
-        f32_b1 = T * cin * (2 * nnz_bt * L + 2 * t * nnz_bt + 3 * t * t)
-        f32_b3 = T * cout * (2 * nnz_at * t + 2 * M * nnz_at)
+        f32_b1 = transform_ops(algo, T, cin, bt, True)
+        f32_b3 = inverse_ops(algo, T, cout, at)
         f32_dq = T * cout * 2 * t * t
         work = {
             "sfc_transform_quantize": (4 * x.numel() + xq.numel(), 0, f32_b1),
@@ -466,38 +834,61 @@ def main() -> None:
                 lambda: ref.sfc_fused_conv2d_ref(*args4),
                 lambda: F.conv2d(x16, w16, padding=1)),
         }
-        row = {"layer": lname, "hw": H, "cin": cin, "cout": cout}
-        for k, (kern, plain, lib) in fns.items():
-            nbytes, int8_ops, f32_ops = work[k]
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = (int8_ops / INT8_OPS_PER_S + f32_ops / F32_OPS_PER_S) \
-                * 1e3
-            ms, plain_ms = timed(kern), timed(plain)
-            tot = totals[k]
-            tot["ms"] += ms
-            tot["plain_ms"] += plain_ms
-            tot["bytes_ms"] += bytes_ms
-            tot["ops_ms"] += ops_ms
-            tot["bound_ms"] += max(bytes_ms, ops_ms)
-            row[k] = {"ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": max(bytes_ms, ops_ms),
-                      "bound_by": "bytes" if bytes_ms >= ops_ms
-                      else "operations"}
-            if lib is not None:
-                lib_ms = timed(lib)
-                tot["library_ms"] = (tot["library_ms"] or 0.0) + lib_ms
-                row[k]["library_ms"] = lib_ms
+        time_kernels(row, fns, work)
         layer_times.append(row)
         log("times:", json.dumps(row))
-    # device memory of serving the batch-4 request: the peak above what
-    # was allocated before it (weights, inputs, everything resident)
+
+    # B6 and B7 over the depthwise layers of the batch-1 requests
+    for lname, p, prep, x in dw_states[(1, "fused")]:
+        algo = p.algorithm
+        t, M, P = algo.t, algo.M, algo.t ** 2
+        B, H, W, c = x.shape
+        bt, _, at = c2d.transform_matrices(algo, torch.float32, dev)
+        grid = c2d.tile_grid(H, W, M, algo.R, "SAME")
+        T = B * grid.nH * grid.nW
+        sx = prep.act_scale.reshape(P).contiguous()
+        wq2 = prep.wq.reshape(P, c)
+        sw = prep.w_scale.reshape(P, c).contiguous()
+        xq = kernels.sfc_transform_quantize(x, bt, prep.act_scale, M)
+        X = xq.reshape(T, P, c).transpose(0, 1).contiguous()
+        args7 = (x, prep.wq, prep.act_scale, prep.w_scale, algo)
+        # cuDNN's fp16 depthwise conv of the same shape, a yardstick only
+        x16 = x.permute(0, 3, 1, 2).half().contiguous(
+            memory_format=torch.channels_last)
+        w16 = prep.w.permute(3, 2, 0, 1).half().contiguous(
+            memory_format=torch.channels_last)
+        scales = 4 * (P + sw.numel())
+        work = {
+            "tdmm_int8_depthwise": (X.numel() + wq2.numel() + scales
+                                    + 4 * X.numel(), 0, 2 * X.numel()),
+            "sfc_fused_conv2d_depthwise": (
+                4 * x.numel() + wq2.numel() + scales + 4 * x.numel(), 0,
+                transform_ops(algo, T, c, bt, True) + 2 * T * c * P
+                + inverse_ops(algo, T, c, at)),
+        }
+        fns = {
+            "tdmm_int8_depthwise": (
+                lambda: kernels.tdmm_int8_depthwise(X, wq2, sx, sw),
+                lambda: ref.tdmm_int8_depthwise_ref(X, wq2, sx, sw), None),
+            "sfc_fused_conv2d_depthwise": (
+                lambda: kernels.sfc_fused_conv2d(*args7, depthwise=True),
+                lambda: ref.sfc_fused_conv2d_ref(*args7, depthwise=True),
+                lambda: F.conv2d(x16, w16, padding=1, groups=c)),
+        }
+        row = {"layer": lname, "hw": H, "c": c, "path": "dw_fused"}
+        time_kernels(row, fns, work)
+        layer_times.append(row)
+        log("times:", json.dumps(row))
+
+    # device memory of serving the batch-4 int8 request: the peak above
+    # what was allocated before it (weights, inputs, everything resident)
     memory = {}
     for dp in datapaths:
-        state = served[(len(requests) - 1, dp)]
+        images, state = served[(len(requests) - 1, dp)]
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        forward(requests[-1], state)
+        forward(images, state)
         torch.cuda.synchronize()
         memory[dp] = {
             "peak_above_resident_bytes":
@@ -508,17 +899,24 @@ def main() -> None:
                 for _, pr, _ in state),
             "f32_transformed_weights_bytes": sum(4 * pr.tw.numel()
                                                  for _, pr, _ in state)}
-        log(f"memory: batch {requests[-1].shape[0]} {dp}: peak "
+        log(f"memory: batch {images.shape[0]} {dp}: peak "
             f"{memory[dp]['peak_above_resident_bytes'] / 2**20:.1f} MiB "
             f"above resident; int8 weights and scales "
             f"{memory[dp]['int8_weights_bytes'] / 2**20:.1f} MiB; the f32 "
             f"transformed weights PreparedWeights also keeps "
             f"{memory[dp]['f32_transformed_weights_bytes'] / 2**20:.1f} MiB")
-    report["phases"]["main_path"] = {"per_layer": per_layer,
-                                     "stacks": stacks, "launches": launches,
-                                     "memory": memory}
+    report["phases"]["vgg_paths"] = {"per_layer": per_layer,
+                                     "stacks": stacks, "memory": memory}
+    report["phases"]["fp_with_caller_tf32"] = {"setting": tf32_name,
+                                               "per_layer": tf32_rows}
+    report["phases"]["depthwise_path"] = {"per_layer": dw_rows,
+                                          "stacks": dw_stacks}
+    report["phases"]["launches"] = {"total": launches,
+                                    "per_path": path_launches,
+                                    "forwards": n_forwards}
     report["phases"]["kernel_times"] = {"per_layer": layer_times,
-                                        "totals": totals}
+                                        "totals": totals, "glue": glue,
+                                        "fp_request": fp_b3}
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke_report.json").write_text(json.dumps(report, indent=1))
@@ -532,13 +930,19 @@ def main() -> None:
         else "operations",
         "library_ms": totals[k]["library_ms"]}
         for k, (src, rep) in REPLACES.items()]}
-    log(f"times above: sums over the 13 convs of one batch-1 request, "
-        f"median of {TIMED_RUNS} runs each, on {smi}")
+    log(f"glue: the fp path's P-batched f32 product (torch.bmm, not a "
+        f"kernel of the port) {glue['fp_contraction_ms']:.4f} ms over the "
+        f"13 convs of the batch-1 fp request")
+    log(f"fp path: B3 {fp_b3['sfc_inverse_ms']:.4f} ms over the 13 convs "
+        f"of the batch-1 fp request")
+    log(f"times above: sums, median of {TIMED_RUNS} runs each, on {smi}: "
+        f"B1-B4 over the 13 convs of one batch-1 int8 VGG-16 request, B5 "
+        f"over those of the batch-1 fp request, B6 and B7 over the "
+        f"{len(DW_LAYERS)} depthwise convs at batch 1")
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
-
 
 if __name__ == "__main__":
     main()

@@ -7,9 +7,11 @@
     y = p.apply(x, prepared)                            # online
 
 The planner resolves the algorithm (registry name or BOPs auto-selection),
-degrades to direct convolution where fast algorithms do not apply, and
-dispatches execution to the ``reference`` (plain torch) or ``cuda``
-(hand-written kernels) backend behind one signature.
+degrades to direct convolution where fast algorithms do not apply (and
+raises for strided or grouped specs the JAX package would lower, until
+the lowering pass is ported), and dispatches execution to the
+``reference`` (plain torch) or ``cuda`` (hand-written kernels) backend
+behind one signature.
 """
 from repro_torch.api import tuning
 from repro_torch.api.backends import (get_backend, list_backends,

@@ -8,13 +8,16 @@ Two backends, both consuming the same ``PreparedWeights``:
     int8 plan's integer grid in fp32, and the direct path.  It is the
     numerical oracle of the ``cuda`` backend.
   * ``cuda`` — the hand-written kernels of ``repro_torch.kernels``, the
-    counterpart of the JAX package's ``pallas`` backend.  The int8 path
-    runs the fused kernel (B4) by default, or the staged trio B1 -> B2 ->
-    B3 when the plan's ``KernelConfig`` says ``datapath="staged"``.  Direct
-    plans run the reference direct path, as the JAX package's pallas
-    backend runs XLA's convolution.  The fp fast path and depthwise convs
-    have no kernels yet and raise ``NotImplementedError``: nothing falls
-    back to the reference backend.
+    counterpart of the JAX package's ``pallas`` backend, branch for branch.
+    The int8 path runs the fused kernel (B4; depthwise B7) by default, or
+    the staged trio B1 -> B2 -> B3 (depthwise B1 -> B6 -> B3) when the
+    plan's ``KernelConfig`` says ``datapath="staged"``.  The fp path (a
+    plan without calibrated int8 weights) runs B5, the transform-domain
+    product in full float32 (a ``torch.bmm`` over the t^2 positions;
+    depthwise the broadcast product), then B3.  Direct plans run the
+    reference direct path, as the JAX package's pallas backend runs XLA's
+    convolution.  The rank-1 conv has no kernel yet and raises
+    ``NotImplementedError``: nothing falls back to the reference backend.
 
 On CPU tensors the ``cuda`` backend's kernel wrappers run their plain
 versions, which is how the CPU tests drive this dispatch.
@@ -108,28 +111,35 @@ class CudaBackend:
                 "prepare_weights) or use backend='reference'")
         if plan.algorithm is None:
             return _direct(plan, x, prep, bias)
-        if plan.spec.rank == 1 or plan.spec.depthwise:
+        if plan.spec.rank == 1:
             raise NotImplementedError(
-                "depthwise convs on the cuda backend need the depthwise "
-                "kernels B6/B7, not ported yet")
-        if not prep.quantized:
-            raise NotImplementedError(
-                "fp path needs B5 (the unquantized transform kernel), not "
-                "ported yet; use quant=INT8_FREQ with a calibrated "
-                "act_scale, or backend='reference'")
-        from repro_torch.api import tuning
+                "the rank-1 depthwise causal conv is a later slice of the "
+                "port (queue item A12)")
         from repro_torch.kernels import ops, sfc_fused
+        algo = plan.algorithm
+        depthwise = plan.spec.depthwise
+        padding = plan.spec.padding
+        if not prep.quantized:
+            y = ops.fastconv2d_fp_transformed(x, prep.tw, algo,
+                                              padding=padding,
+                                              depthwise=depthwise)
+            return _add_bias(y, bias)
+        from repro_torch.api import tuning
         cfg = plan.config or tuning.DEFAULT_FUSED
         bits = plan.spec.quant.bits_act
-        if cfg.datapath == "staged":
+        if cfg.datapath == "staged" and depthwise:
+            y = ops.quantized_fastconv2d_depthwise(
+                x, prep.wq, prep.act_scale, prep.w_scale, algo,
+                padding=padding, bits=bits)
+        elif cfg.datapath == "staged":
             y = ops.quantized_fastconv2d(
-                x, prep.wq, prep.act_scale, prep.w_scale, plan.algorithm,
-                padding=plan.spec.padding, bits=bits, k_block=cfg.k_block)
+                x, prep.wq, prep.act_scale, prep.w_scale, algo,
+                padding=padding, bits=bits, k_block=cfg.k_block)
         else:
             y = sfc_fused.sfc_fused_conv2d(
-                x, prep.wq, prep.act_scale, prep.w_scale, plan.algorithm,
-                padding=plan.spec.padding, bits=bits, k_block=cfg.k_block,
-                cout_block=cfg.cout_block)
+                x, prep.wq, prep.act_scale, prep.w_scale, algo,
+                padding=padding, bits=bits, k_block=cfg.k_block,
+                cout_block=cfg.cout_block, depthwise=depthwise)
         return _add_bias(y, bias)
 
 

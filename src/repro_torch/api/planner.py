@@ -2,10 +2,16 @@
 
 Algorithm resolution happens in one place, for every call site:
 
-  * shapes a fast algorithm cannot serve natively (pointwise 1x1, strided
-    or grouped convs, kernel-tap mismatch with the requested algorithm)
-    degrade to the direct path — the JAX package first tries its lowering
-    pass on strided and grouped specs, which is a later slice of the port;
+  * strided or grouped 2-D specs with more than one tap raise
+    ``NotImplementedError`` unless ``algo="direct"``: the JAX package
+    lowers them onto the fast path (polyphase stride-2 decomposition,
+    per-group splitting) where its cost model or an explicit algorithm
+    says so, and the port's lowering pass is queue item A6.  A direct plan
+    there would compute another function than the JAX package's
+    int8-quantized fast path, so the port does not guess;
+  * the other shapes a fast algorithm cannot serve natively (pointwise
+    1x1, kernel-tap mismatch with the requested algorithm) degrade to the
+    direct path, as in the JAX package;
   * ``algo="auto"`` ranks the registered candidates with the paper's BOPs
     cost model (``repro_torch.quant.bops``) against the direct baseline,
     at the spec's precision.  Under int8-or-lower quantization Winograd
@@ -85,6 +91,14 @@ def select_algorithm(spec: ConvSpec) -> str:
     return best_name
 
 
+def needs_lowering(spec: ConvSpec) -> bool:
+    """Whether the JAX package's lowering pass may rewrite ``spec``: a 2-D
+    conv with more than one tap that is strided or grouped (a stride-1
+    depthwise conv plans natively)."""
+    return spec.rank == 2 and spec.kernel_size > 1 \
+        and (spec.stride > 1 or spec.groups > 1)
+
+
 @functools.lru_cache(maxsize=512)
 def _plan_cached(spec: ConvSpec, backend: str, algo: str) -> ConvPlan:
     from repro_torch.api import backends
@@ -92,6 +106,13 @@ def _plan_cached(spec: ConvSpec, backend: str, algo: str) -> ConvPlan:
     if algo not in ("auto", registry.DIRECT):
         # raises on unknown names even when the spec degrades to direct
         resolved = registry.get_algorithm(algo)
+    if algo != registry.DIRECT and needs_lowering(spec):
+        raise NotImplementedError(
+            f"plan: the JAX package lowers this spec (stride {spec.stride}, "
+            f"groups {spec.groups}, {spec.kernel_size}x{spec.kernel_size}) "
+            f"onto the fast path by polyphase decomposition or per-group "
+            f"splitting; the port's lowering pass is queue item A6.  Plan "
+            f"it with algo='direct' for the exact direct conv.")
     if not spec.fast_eligible:
         name = registry.DIRECT
     elif algo == "auto":

@@ -8,7 +8,9 @@ without them but auto-selection degrades to arithmetic-complexity ranking.
 
 :attr:`fast_eligible` describes the native stride-1 construct.  The
 port's planner has no lowering pass yet (stride-2 polyphase and per-group
-splitting come with a later slice), so every other spec runs direct.
+splitting come with a later slice): it plans the other specs direct where
+the JAX package does too, and raises for strided and grouped specs that
+the JAX package may lower, unless the caller asks for ``algo="direct"``.
 
 Specs are frozen dataclasses so ``plan()`` can memoize on them directly.
 """

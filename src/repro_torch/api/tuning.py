@@ -1,4 +1,4 @@
-"""Kernel configurations of the ``cuda`` int8 datapath, and calibration.
+"""Kernel configurations of the ``cuda`` int8 datapaths, and calibration.
 
 The JAX package's autotuner and its timing cache are a later slice of the
 port; until then a plan carries no measured config and the ``cuda``
@@ -16,12 +16,17 @@ import torch
 class KernelConfig:
     """One executable configuration of the ``cuda`` int8 datapath.
 
-    ``datapath`` picks the fused kernel (B4) or the staged trio (B1-B3).
-    ``k_block`` is the C_in width of one reduction stage (fused: a
-    multiple of 32, bounded by shared memory; staged: any width; None =
-    all of C_in) and ``cout_block`` the fused kernel's output channels per
-    block (a multiple of 8).  The JAX package's ``rows_per_step`` and
-    ``double_buffer`` describe its TPU geometry and have no counterpart.
+    ``datapath`` picks the fused kernel (B4; depthwise B7) or the staged
+    trio (B1-B3; depthwise B1, B6, B3).  ``k_block`` is the C_in width of
+    one reduction stage (fused: a multiple of 32, bounded by shared memory;
+    staged: any width; None = all of C_in; depthwise convs have no
+    reduction and ignore it).  ``cout_block`` is the fused kernels'
+    channels per block, as in the JAX package, which uses it for both:
+    B4's output channels (a multiple of 8) and B7's channel block (any
+    positive width that fits shared memory).  The defaults run every
+    registered algorithm on both layouts.  The JAX package's
+    ``rows_per_step`` and ``double_buffer`` describe its TPU geometry and
+    have no counterpart.
     """
 
     datapath: str = "fused"       # 'fused' | 'staged'

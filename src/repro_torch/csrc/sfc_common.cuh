@@ -1,9 +1,10 @@
 // Device functions shared by the staged kernels (sfc_transform.cu,
-// sfc_inverse.cu, sfc_tdmm.cu) and the fused kernel (sfc_fused.cu).
+// sfc_inverse.cu, sfc_tdmm.cu, sfc_tdmm_dw.cu) and the fused kernels
+// (sfc_fused.cu, sfc_fused_dw.cu).
 //
 // The staged and the fused datapath must land on one integer grid and one
-// fp32 epilogue, so the forward transform + quantize, the dequant and the
-// inverse each exist exactly once, here.  The JAX package shares
+// fp32 epilogue, so the forward transform, the quantizer, the dequant and
+// the inverse each exist exactly once, here.  The JAX package shares
 // _quantize_strip_group / _dequant_inverse_strip_group between its Pallas
 // kernels for the same reason (src/repro/kernels/sfc_fused.py).
 //
@@ -14,7 +15,8 @@
 //   * quantize clip(rint(tx / s), -qmax, qmax): IEEE division (__fdiv_rn,
 //     never a reciprocal) and round-half-to-even (rintf), as jnp.round and
 //     torch.round do.  Build without --use_fast_math;
-//   * dequant  float(acc) * (sx[p] * sw[p, n]), the JAX package's order;
+//   * dequant  float(acc) * (sx[p] * sw[p, n]), the JAX package's order,
+//     for the dense GEMM's int32 sums and the depthwise int32 products;
 //   * inverse  Z = A^T Y (over rows), then Z A (over columns).
 #pragma once
 
@@ -30,18 +32,20 @@ constexpr int kMaxL = 12;
 constexpr int kMaxT = 12;
 constexpr int kMaxM = 12;
 
-// Row u of one tile's forward transform + per-frequency quantization:
-// the t int8 values xq[u, 0..t).  The rows of a tile are independent, so
-// the kernels give each (tile, channel, u) its own thread.
+// Row u of one tile's forward transform B^T X B: the t float values
+// tx[u, 0..t), rows first, each sum in ascending index order.  The fp
+// transform (B5) stores them as they are; transform_quantize_row (B1, B4,
+// B7) quantizes them, so B5's output is exactly the value B1 quantizes.
+// The rows of a tile are independent, so the kernels give each
+// (tile, channel, u) its own thread.
 //   load(i, j)  -> float, the tile's input at row i, column j (zero
 //                  outside the image: the caller masks the padding);
 //   bt          -> t x L row-major (shared or global memory);
-//   scale       -> t x t per-frequency activation scales;
-//   store(v, q) <- the int8 value at transform-domain position (u, v).
-template <class Load, class Store>
-__device__ __forceinline__ void transform_quantize_row(
-    Load load, const float* bt, const float* scale, int t, int L,
-    float qmax, int u, Store store) {
+//   emit(v, tx) <- the transform-domain value at position (u, v).
+template <class Load, class Emit>
+__device__ __forceinline__ void transform_row(Load load, const float* bt,
+                                              int t, int L, int u,
+                                              Emit emit) {
   // r[j] = sum_i bt[u, i] * x[i, j]
   float r[kMaxL];
 #pragma unroll
@@ -58,10 +62,27 @@ __device__ __forceinline__ void transform_quantize_row(
 #pragma unroll
     for (int j = 0; j < kMaxL; ++j)
       if (j < L) acc = fmaf(bt[v * L + j], r[j], acc);
-    float q = rintf(__fdiv_rn(acc, scale[u * t + v]));
-    q = fminf(fmaxf(q, -qmax), qmax);
-    store(v, static_cast<int8_t>(q));
+    emit(v, acc);
   }
+}
+
+// The per-frequency quantizer: clip(rint(tx / s), -qmax, qmax) as int8.
+__device__ __forceinline__ int8_t quantize(float tx, float s, float qmax) {
+  const float q = rintf(__fdiv_rn(tx, s));
+  return static_cast<int8_t>(fminf(fmaxf(q, -qmax), qmax));
+}
+
+// Row u of one tile's forward transform + per-frequency quantization:
+// the t int8 values xq[u, 0..t).
+//   scale       -> t x t per-frequency activation scales;
+//   store(v, q) <- the int8 value at transform-domain position (u, v).
+template <class Load, class Store>
+__device__ __forceinline__ void transform_quantize_row(
+    Load load, const float* bt, const float* scale, int t, int L,
+    float qmax, int u, Store store) {
+  transform_row(load, bt, t, L, u, [&](int v, float tx) {
+    store(v, quantize(tx, scale[u * t + v], qmax));
+  });
 }
 
 // The dequantized transform-domain value of one int32 accumulator.

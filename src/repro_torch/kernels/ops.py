@@ -1,4 +1,4 @@
-"""Public wrappers assembling the SFC kernels into the staged int8 conv.
+"""Public wrappers assembling the SFC kernels into the staged convs.
 
 ``quantized_fastconv2d`` is the staged deployment path of the paper's
 pipeline:
@@ -8,12 +8,20 @@ pipeline:
        -> [B3: inverse transform incl. correction terms]
        -> untile
 
+``quantized_fastconv2d_depthwise`` swaps B2 for B6, the elementwise int8
+product (no channel contraction).  ``fastconv2d_fp`` is the unquantized
+path: B5 (the f32 transform) -> a P-batched f32 product outside any kernel
+(``torch.bmm``, as the JAX package leaves its ``jnp.einsum`` to XLA) ->
+B3 -> untile.
+
 Scales are static (PTQ-calibrated): act_scale (t, t), w_scale (t, t, Cout).
 The same code runs the plain PyTorch versions on CPU tensors and the CUDA
 kernels on CUDA tensors.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -21,8 +29,9 @@ import torch
 from repro_torch.core import conv2d as c2d
 from repro_torch.core.generator import BilinearAlgorithm
 from repro_torch.kernels.sfc_inverse import sfc_inverse
-from repro_torch.kernels.sfc_tdmm import tdmm_int8
-from repro_torch.kernels.sfc_transform import sfc_transform_quantize
+from repro_torch.kernels.sfc_tdmm import tdmm_int8, tdmm_int8_depthwise
+from repro_torch.kernels.sfc_transform import (sfc_transform,
+                                               sfc_transform_quantize)
 
 
 def extract_tiles(x: torch.Tensor, algo: BilinearAlgorithm,
@@ -78,3 +87,107 @@ def quantized_fastconv2d(x: torch.Tensor, wq: torch.Tensor,
     y_tiles = sfc_inverse(ty, at)
     return untile(y_tiles, algo, (B, grid.out_h, grid.out_w, grid.nH,
                                   grid.nW))
+
+
+def quantized_fastconv2d_depthwise(x: torch.Tensor, wq: torch.Tensor,
+                                   act_scale: torch.Tensor,
+                                   w_scale: torch.Tensor,
+                                   algo: BilinearAlgorithm, *,
+                                   padding: str = "SAME", bits: int = 8
+                                   ) -> torch.Tensor:
+    """int8 depthwise SFC convolution (staged pipeline: B1 -> B6 -> B3).
+
+    x (B,H,W,C) f32; wq (t^2, 1, C) int8; act_scale (t,t); w_scale
+    (t,t,C) -> (B,H',W',C) f32.
+    """
+    t, M = algo.t, algo.M
+    P = t * t
+    bt, _, at = c2d.transform_matrices(algo, torch.float32, x.device)
+    B, H, W, C = x.shape
+    grid = c2d.tile_grid(H, W, M, algo.R, padding)
+    xq = sfc_transform_quantize(x, bt, act_scale, M, padding=padding,
+                                bits=bits)
+    T = xq.shape[0]
+    X = xq.reshape(T, P, C).transpose(0, 1).contiguous()     # (P, T, C)
+    Y = tdmm_int8_depthwise(X, wq.reshape(P, C), act_scale.reshape(P),
+                            w_scale.reshape(P, C).contiguous())
+    ty = Y.transpose(0, 1).reshape(T, t, t, C).contiguous()
+    y_tiles = sfc_inverse(ty, at)
+    return untile(y_tiles, algo, (B, grid.out_h, grid.out_w, grid.nH,
+                                  grid.nW))
+
+
+_FULL_FP32_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def full_fp32_matmul():
+    """Run the float32 products inside in full float32, never in TF32.
+
+    cuBLAS computes a float32 product in TF32 (about three decimal digits)
+    when the caller allowed it.  This sets the cuBLAS precision to IEEE
+    float32 for the block and restores the caller's setting after it,
+    through the API this PyTorch has: ``fp32_precision`` where it exists
+    (mixing it with the older ``allow_tf32`` makes reads of the latter
+    raise), else ``allow_tf32``.  PyTorch reads the setting on the host when
+    a product is enqueued, so the product keeps IEEE float32 whenever the
+    card runs it.
+
+    The setting is process-wide.  A lock serialises the blocks, so two
+    threads inside this guard cannot restore each other's setting before
+    the other's product is enqueued.  A thread outside it that changes the
+    setting during the block defeats it, and float32 products that other
+    threads enqueue during the block run in IEEE float32 too.
+    """
+    matmul = torch.backends.cuda.matmul
+    name, full = ("fp32_precision", "ieee") \
+        if hasattr(matmul, "fp32_precision") else ("allow_tf32", False)
+    with _FULL_FP32_LOCK:
+        previous = getattr(matmul, name)
+        setattr(matmul, name, full)
+        try:
+            yield
+        finally:
+            setattr(matmul, name, previous)
+
+
+def transform_domain_fp(tx: torch.Tensor, tw: torch.Tensor, *,
+                        depthwise: bool = False) -> torch.Tensor:
+    """tx (nT, t, t, C) f32 with tw (t, t, C, O) -> ty (nT, t, t, O) f32.
+
+    Dense: for each of the P = t^2 positions an f32 product
+    (nT, C) @ (C, O), as one ``torch.bmm`` over P, in full float32
+    (:func:`full_fp32_matmul`).  Depthwise (tw (t, t, 1, C)): the
+    broadcast elementwise product.
+    """
+    nT, t, _, C = tx.shape
+    if depthwise:
+        return tx * tw[None, :, :, 0, :]
+    P = t * t
+    X = tx.reshape(nT, P, C).transpose(0, 1)                # (P, nT, C)
+    with full_fp32_matmul():
+        Y = torch.bmm(X, tw.reshape(P, C, -1))               # (P, nT, O)
+    return Y.transpose(0, 1).reshape(nT, t, t, -1).contiguous()
+
+
+def fastconv2d_fp_transformed(x: torch.Tensor, tw: torch.Tensor,
+                              algo: BilinearAlgorithm, *,
+                              padding: str = "SAME",
+                              depthwise: bool = False) -> torch.Tensor:
+    """Unquantized SFC conv from transformed weights tw (t, t, Cin, Cout)
+    (depthwise: (t, t, 1, C)): B5 -> f32 product -> B3 -> untile."""
+    bt, _, at = c2d.transform_matrices(algo, torch.float32, x.device)
+    B, H, W, _ = x.shape
+    grid = c2d.tile_grid(H, W, algo.M, algo.R, padding)
+    tx = sfc_transform(x, bt, algo.M, padding=padding)
+    ty = transform_domain_fp(tx, tw.to(x.dtype), depthwise=depthwise)
+    y_tiles = sfc_inverse(ty, at)
+    return untile(y_tiles, algo, (B, grid.out_h, grid.out_w, grid.nH,
+                                  grid.nW))
+
+
+def fastconv2d_fp(x: torch.Tensor, w: torch.Tensor, algo: BilinearAlgorithm,
+                  *, padding: str = "SAME") -> torch.Tensor:
+    """Unquantized kernel path from raw HWIO weights (R, R, Cin, Cout)."""
+    return fastconv2d_fp_transformed(x, c2d.transform_weights_2d(w, algo),
+                                     algo, padding=padding)

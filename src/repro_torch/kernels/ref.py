@@ -9,6 +9,8 @@ the *kernel* layout of the JAX package's ``repro/kernels/ref.py``:
   tdmm      : X (P, T, K) int8, W (P, K, N) int8 -> (P, T, N) f32
               with per-position activation scales sx (P,) and
               per-position-per-channel weight scales sw (P, N)
+  tdmm_dw   : X (P, T, C) int8, W (P, C) int8 -> (P, T, C) f32, with
+              sx (P,) and sw (P, C)
   inverse   : (nT, t, t, O) -> (nT, M, M, O)
 """
 from __future__ import annotations
@@ -19,11 +21,24 @@ from repro_torch.core import conv2d as c2d
 from repro_torch.core.generator import BilinearAlgorithm
 
 
+def sfc_transform_ref(tiles: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    """Forward transform B^T X B of every tile and channel, in f32."""
+    return torch.einsum("ti,nijc,uj->ntuc", bt, tiles, bt)
+
+
+def sfc_transform_nhwc_ref(x: torch.Tensor, bt: torch.Tensor, M: int,
+                           padding: str = "SAME") -> torch.Tensor:
+    """The B5 kernel's function: NHWC input -> f32 (B*nH*nW, t, t, C)."""
+    L = bt.shape[1]
+    tiles, _ = c2d.overlapping_tiles(x, M, L - M + 1, padding)
+    return sfc_transform_ref(tiles.reshape(-1, L, L, x.shape[-1]), bt)
+
+
 def sfc_transform_quantize_ref(tiles: torch.Tensor, bt: torch.Tensor,
                                scale: torch.Tensor, bits: int = 8
                                ) -> torch.Tensor:
     """Transform + static per-frequency quantization to intN."""
-    tx = torch.einsum("ti,nijc,uj->ntuc", bt, tiles, bt)
+    tx = sfc_transform_ref(tiles, bt)
     qmax = 2 ** (bits - 1) - 1
     q = torch.clamp(torch.round(tx / scale[None, :, :, None]), -qmax, qmax)
     return q.to(torch.int8)
@@ -53,6 +68,15 @@ def tdmm_int8_ref(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
     return acc.float() * (sx[:, None, None] * sw[:, None, :])
 
 
+def tdmm_int8_depthwise_ref(xq: torch.Tensor, wq: torch.Tensor,
+                            sx: torch.Tensor, sw: torch.Tensor
+                            ) -> torch.Tensor:
+    """Depthwise transform-domain stage: exact int32 products, dequantized
+    as float(prod) * (sx[p] * sw[p, c])."""
+    prod = xq.to(torch.int32) * wq.to(torch.int32)[:, None, :]
+    return prod.float() * (sx[:, None, None] * sw[:, None, :])
+
+
 def sfc_inverse_ref(ty: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
     return torch.einsum("mt,ntuo,pu->nmpo", at, ty, at)
 
@@ -60,11 +84,14 @@ def sfc_inverse_ref(ty: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
 def sfc_fused_conv2d_ref(x: torch.Tensor, wq: torch.Tensor,
                          act_scale: torch.Tensor, w_scale: torch.Tensor,
                          algo: BilinearAlgorithm, padding: str = "SAME",
-                         bits: int = 8) -> torch.Tensor:
-    """The B4 kernel's function, as the three plain stages in sequence.
+                         bits: int = 8, depthwise: bool = False
+                         ) -> torch.Tensor:
+    """The B4 (and with ``depthwise``, the B7) kernel's function, as the
+    three plain stages in sequence.
 
     x (B,H,W,Cin) f32; wq (t^2, Cin, Cout) int8; act_scale (t,t);
-    w_scale (t,t,Cout) -> (B,H',W',Cout) f32.
+    w_scale (t,t,Cout) -> (B,H',W',Cout) f32.  Depthwise: wq (t^2, 1, C),
+    w_scale (t,t,C), and the middle stage is the elementwise product.
     """
     B, _, _, C = x.shape
     t, M, L = algo.t, algo.M, algo.L
@@ -74,8 +101,13 @@ def sfc_fused_conv2d_ref(x: torch.Tensor, wq: torch.Tensor,
     xq = sfc_transform_quantize_ref(tiles.reshape(T, L, L, C), bt,
                                     act_scale, bits)
     X = xq.reshape(T, t * t, C).permute(1, 0, 2)
-    Y = tdmm_int8_ref(X, wq, act_scale.reshape(t * t),
-                      w_scale.reshape(t * t, -1))
+    if depthwise:
+        Y = tdmm_int8_depthwise_ref(X, wq.reshape(t * t, C),
+                                    act_scale.reshape(t * t),
+                                    w_scale.reshape(t * t, C))
+    else:
+        Y = tdmm_int8_ref(X, wq, act_scale.reshape(t * t),
+                          w_scale.reshape(t * t, -1))
     ty = Y.permute(1, 0, 2).reshape(T, t, t, -1)
     y = sfc_inverse_ref(ty, at).reshape(B, grid.nH, grid.nW, M, M, -1)
     return c2d.untile_2d(y, grid.out_h, grid.out_w)

@@ -1,9 +1,12 @@
-"""B2: transform-domain int8 matmul with fused dequant.
+"""B2: transform-domain int8 matmul with fused dequant, and B6: its
+depthwise counterpart, the elementwise int8 product with the dequant.
 
-The port of ``repro/kernels/sfc_tdmm.py::_tdmm_kernel`` and
+B2 is the port of ``repro/kernels/sfc_tdmm.py::_tdmm_kernel`` and
 ``::_tdmm_kblock_kernel``, as one CUDA kernel (``csrc/sfc_tdmm.cu``): for
 each of the P = t^2 positions an int8 tensor-core GEMM accumulated in
-int32 over the whole K, dequantized in the epilogue.
+int32 over the whole K, dequantized in the epilogue.  B6 is the port of
+``::_tdmm_dw_kernel`` (``csrc/sfc_tdmm_dw.cu``), CUDA-core work with no
+contraction.
 """
 from __future__ import annotations
 
@@ -54,3 +57,37 @@ def tdmm_int8(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
 
 
 tdmm_int8.launches = 0
+
+
+def tdmm_int8_depthwise(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
+                        sw: torch.Tensor) -> torch.Tensor:
+    """X (P, T, C) int8 x W (P, C) int8 -> (P, T, C) f32, elementwise.
+
+    Y[p, t, c] = float(X[p, t, c] * W[p, c]) * (sx[p] * sw[p, c]): the
+    int32 product is exact, and the dequant is the fused depthwise
+    kernel's, so both depthwise datapaths give the same f32 values.
+    """
+    name = "tdmm_int8_depthwise"
+    P, T, C = xq.shape
+    if wq.shape != (P, C) or sx.shape != (P,) or sw.shape != (P, C):
+        raise ValueError(f"{name}: shapes X {tuple(xq.shape)}, W "
+                         f"{tuple(wq.shape)}, sx {tuple(sx.shape)}, sw "
+                         f"{tuple(sw.shape)} do not agree")
+    if _build.runs_plain(name, xq, wq, sx, sw):
+        return ref.tdmm_int8_depthwise_ref(xq, wq, sx, sw)
+    _build.require(name, xq, "xq", torch.int8, 3)
+    _build.require(name, wq, "wq", torch.int8, 2)
+    _build.require(name, sx, "sx", torch.float32, 1)
+    _build.require(name, sw, "sw", torch.float32, 2)
+    out = torch.empty((P, T, C), dtype=torch.float32, device=xq.device)
+    lib = _build.library()
+    with torch.cuda.device(xq.device):
+        err = lib.tdmm_int8_depthwise_launch(
+            xq.data_ptr(), wq.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+            out.data_ptr(), P, T, C, _build.stream_handle(xq.device))
+    _build.check(err, name)
+    tdmm_int8_depthwise.launches += 1
+    return out
+
+
+tdmm_int8_depthwise.launches = 0

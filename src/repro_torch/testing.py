@@ -1,9 +1,12 @@
 """Differential conformance oracle of the port's conv datapaths.
 
-  * the ``cuda`` backend's staged pipeline (B1 -> B2 -> B3) and its fused
-    kernel (B4) run one integer grid with the same static scales, so
-    both are held to the ``reference`` backend's static-int8 simulation,
-    and to each other, within :data:`DEFAULT_TOL`;
+  * the ``cuda`` backend's staged pipeline (B1 -> B2 -> B3; depthwise
+    B1 -> B6 -> B3) and its fused kernel (B4; depthwise B7) run one
+    integer grid with the same static scales, so both are held to the
+    ``reference`` backend's static-int8 simulation, and to each other,
+    within :data:`DEFAULT_TOL`;
+  * fp specs run the ``cuda`` backend's fp path (B5 -> f32 product -> B3)
+    against the ``reference`` backend's fp fast path;
   * degraded (direct) plans are an error unless the caller allows them.
 
 The JAX package holds its Pallas datapaths to bit identity; across
@@ -42,10 +45,10 @@ def assert_conv_conformance(x, w, spec, algo_name: str = "auto", *,
                             atol: float = DEFAULT_TOL) -> torch.Tensor:
     """Assert every executable configuration of (x, w, spec) agrees.
 
-    int8 specs: staged and fused ``cuda`` outputs within tolerance of the
-    reference simulation and of each other.  fp and direct specs: the
-    ``cuda`` plan (direct only: its fp fast path is not ported) against
-    the reference backend.  Returns the reference output.
+    int8 specs, dense or depthwise: staged and fused ``cuda`` outputs
+    within tolerance of the reference simulation and of each other.  fp
+    and direct specs: the ``cuda`` plan against the reference backend.
+    Returns the reference output.
     """
     from repro_torch.api import tuning
     p_ref, p_cuda, prep = calibrated_prep(x, w, spec, algo_name)

@@ -121,37 +121,136 @@ def test_pointwise_spec_goes_direct():
                                atol=1e-5)
 
 
-def test_strided_spec_goes_direct_in_this_slice():
-    rng = np.random.RandomState(5)
-    x = rng.randn(1, 9, 9, 3).astype(np.float32)
-    w = rng.randn(3, 3, 3, 4).astype(np.float32)
-    spec = ConvSpec.for_conv2d(x.shape, w.shape, stride=2, quant=FP32)
-    p = plan(spec, backend="cuda")
-    assert p.path == "direct"
-    got = p.apply(torch.from_numpy(x), torch.from_numpy(w))
-    jspec = japi.ConvSpec.for_conv2d(x.shape, w.shape, stride=2, quant=JFP32)
-    want = japi.plan(jspec, backend="reference", algo="direct").apply(
-        jnp.asarray(x), jnp.asarray(w))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
-                               atol=1e-5)
+# (label, x shape, w shape, stride, groups, depthwise)
+PLANNER_SPECS = [
+    ("dense_s2_3to4", (1, 9, 9, 3), (3, 3, 3, 4), 2, 1, False),
+    ("dense_s2_16", (1, 16, 16, 16), (3, 3, 16, 16), 2, 1, False),
+    ("dense_s2_5x5", (1, 16, 16, 8), (5, 5, 8, 8), 2, 1, False),
+    ("grouped_g2", (1, 12, 12, 8), (3, 3, 4, 8), 1, 2, False),
+    ("grouped_g2_s2", (1, 12, 12, 8), (3, 3, 4, 8), 2, 2, False),
+    ("pointwise", (1, 9, 7, 6), (1, 1, 6, 5), 1, 1, False),
+    ("pointwise_s2", (1, 9, 7, 6), (1, 1, 6, 5), 2, 1, False),
+    ("pointwise_g2", (1, 9, 7, 6), (1, 1, 3, 4), 1, 2, False),
+    ("depthwise", (1, 14, 14, 8), (3, 3, 1, 8), 1, 1, True),
+    ("depthwise_s2", (1, 14, 14, 8), (3, 3, 1, 8), 2, 1, True),
+    ("dense", (1, 14, 14, 8), (3, 3, 8, 8), 1, 1, False),
+]
 
 
-def test_fp_fast_path_on_cuda_raises():
-    spec = ConvSpec.for_conv2d((1, 8, 8, 4), (3, 3, 4, 4), quant=FP32)
-    p = plan(spec, backend="cuda", algo="sfc6_6")
+def _spec_pair(x_shape, w_shape, stride, groups, depthwise):
+    if depthwise:
+        return (ConvSpec.for_conv2d_depthwise(x_shape, w_shape, stride=stride,
+                                              quant=INT8_FREQ),
+                japi.ConvSpec.for_conv2d_depthwise(
+                    x_shape, w_shape, stride=stride, quant=JINT8_FREQ))
+    return (ConvSpec.for_conv2d(x_shape, w_shape, stride=stride,
+                                groups=groups, quant=INT8_FREQ),
+            japi.ConvSpec.for_conv2d(x_shape, w_shape, stride=stride,
+                                     groups=groups, quant=JINT8_FREQ))
+
+
+@pytest.mark.parametrize("algo", ["sfc6_6", "auto", "direct"])
+@pytest.mark.parametrize("case", PLANNER_SPECS, ids=[c[0] for c in PLANNER_SPECS])
+def test_plans_take_the_jax_path_or_raise(case, algo):
+    # the port raises wherever the JAX package lowers (it has no lowering
+    # pass yet, queue item A6), and any plan it returns has JAX's path
+    label, x_shape, w_shape, stride, groups, depthwise = case
+    spec, jspec = _spec_pair(x_shape, w_shape, stride, groups, depthwise)
+    jpath = japi.plan(jspec, backend="pallas", algo=algo).path
+    strided_or_grouped = w_shape[0] > 1 and (stride > 1 or groups > 1)
+    if strided_or_grouped and algo != "direct":
+        with pytest.raises(NotImplementedError, match="A6"):
+            plan(spec, backend="cuda", algo=algo)
+        return
+    assert jpath != "lowered", (label, algo)
+    p = plan(spec, backend="cuda", algo=algo)
+    assert p.path == jpath, (label, algo)
+    if p.path == "direct":
+        # the direct conv agrees with JAX's, strided and grouped included
+        rng = np.random.RandomState(5)
+        x = rng.randn(*x_shape).astype(np.float32)
+        w = rng.randn(*w_shape).astype(np.float32)
+        got = p.apply(torch.from_numpy(x), torch.from_numpy(w))
+        want = japi.plan(jspec, backend="reference", algo=algo).apply(
+            jnp.asarray(x), jnp.asarray(w))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_strided_int8_spec_is_lowered_by_jax_and_refused_by_the_port():
+    spec, jspec = _spec_pair((1, 9, 9, 3), (3, 3, 3, 4), 2, 1, False)
+    for algo in ("sfc6_6", "auto"):
+        assert japi.plan(jspec, backend="pallas", algo=algo).path == "lowered"
+        with pytest.raises(NotImplementedError, match="A6"):
+            plan(spec, backend="cuda", algo=algo)
+
+
+def _jax_fp(x, w, name, padding, depthwise):
+    """(JAX reference-backend fp output, JAX prepared weights)."""
+    make = japi.ConvSpec.for_conv2d_depthwise if depthwise \
+        else japi.ConvSpec.for_conv2d
+    p = japi.plan(make(x.shape, w.shape, padding=padding, quant=JFP32),
+                  backend="reference", algo=name)
+    prep = p.prepare_weights(jnp.asarray(w))
+    return np.asarray(p.apply(jnp.asarray(x), prep)), prep
+
+
+@pytest.mark.parametrize("depthwise", [False, True], ids=["dense", "depthwise"])
+@pytest.mark.parametrize("padding", ["SAME", "VALID"])
+@pytest.mark.parametrize("name", ["sfc4_4", "sfc6_6", "sfc6_7"])
+def test_cuda_fp_path_matches_jax(name, padding, depthwise):
+    # B5 -> f32 product (depthwise: broadcast product) -> B3, within 1e-4
+    rng = np.random.RandomState(8)
+    x = rng.randn(2, 13, 11, 6).astype(np.float32)
+    w_shape = (3, 3, 1, 6) if depthwise else (3, 3, 6, 7)
+    w = (rng.randn(*w_shape) * 0.3).astype(np.float32)
+    want, jprep = _jax_fp(x, w, name, padding, depthwise)
+    make = ConvSpec.for_conv2d_depthwise if depthwise else ConvSpec.for_conv2d
+    p = plan(make(x.shape, w.shape, padding=padding, quant=FP32),
+             backend="cuda", algo=name)
     assert p.path == "fast"
-    with pytest.raises(NotImplementedError, match="B5"):
-        p.apply(torch.zeros(1, 8, 8, 4), torch.zeros(3, 3, 4, 4))
+    xt = torch.from_numpy(x)
+    for prep in (torch.from_numpy(w), prepared_from_jax(jprep, device="cpu")):
+        got = p.apply(xt, prep)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
 
 
-def test_depthwise_on_cuda_raises():
-    spec = ConvSpec.for_conv2d_depthwise((1, 8, 8, 4), (3, 3, 1, 4),
+def _jax_int8_depthwise(x, w, name, padding):
+    spec = japi.ConvSpec.for_conv2d_depthwise(x.shape, w.shape,
+                                              padding=padding,
+                                              quant=JINT8_FREQ)
+    p = japi.plan(spec, backend="reference", algo=name)
+    act = japi.tuning.calibrate_act_scale(jnp.asarray(x), p.algorithm,
+                                          JINT8_FREQ, padding)
+    prep = p.prepare_weights(jnp.asarray(w), act_scale=act)
+    return np.asarray(p.apply(jnp.asarray(x), prep)), prep
+
+
+@pytest.mark.parametrize("config", ["fused", "staged"])
+@pytest.mark.parametrize("padding", ["SAME", "VALID"])
+@pytest.mark.parametrize("name", ["sfc4_4", "sfc6_6", "sfc6_7"])
+def test_cuda_int8_depthwise_matches_jax_reference(name, padding, config):
+    # B7 (fused) or B1 -> B6 -> B3 (staged) against the JAX reference
+    # backend's int8 simulation, within 1e-4, with JAX's prepared weights
+    # and with the port's own
+    rng = np.random.RandomState(9)
+    x = _snapped(rng, (2, 13, 11, 10))
+    w = (rng.randn(3, 3, 1, 10) * 0.3).astype(np.float32)
+    want, jprep = _jax_int8_depthwise(x, w, name, padding)
+    spec = ConvSpec.for_conv2d_depthwise(x.shape, w.shape, padding=padding,
                                          quant=INT8_FREQ)
-    p = plan(spec, backend="cuda", algo="sfc6_6")
-    w = torch.ones(3, 3, 1, 4)
-    prep = p.prepare_weights(w, act_scale=torch.ones(10, 10))
-    with pytest.raises(NotImplementedError, match="B6/B7"):
-        p.apply(torch.zeros(1, 8, 8, 4), prep)
+    p = plan(spec, backend="cuda", algo=name).with_config(CONFIGS[config])
+    assert p.path == "fast"
+    xt = torch.from_numpy(x)
+    act = tuning.calibrate_act_scale(xt, p.algorithm, INT8_FREQ, padding)
+    np.testing.assert_allclose(act.numpy(), np.asarray(jprep.act_scale),
+                               rtol=1e-6)
+    own = p.prepare_weights(torch.from_numpy(w), act_scale=act)
+    for prep in (prepared_from_jax(jprep, device="cpu"), own):
+        got = p.apply(xt, prep)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
 
 
 def test_hooks_rejected_on_cuda():
@@ -220,6 +319,24 @@ def test_conformance_oracle_on_cpu(name, padding):
                                quant=INT8_FREQ)
     y = assert_conv_conformance(x, w, spec, name)
     assert y.shape[-1] == 9 and torch.isfinite(y).all()
+
+
+@pytest.mark.parametrize("layout,quant", [("depthwise", "int8"),
+                                          ("depthwise", "fp32"),
+                                          ("dense", "fp32")])
+def test_conformance_oracle_on_depthwise_and_fp_specs(layout, quant):
+    # the oracle drives the cuda backend's depthwise (B7 and B1 -> B6 ->
+    # B3) and fp (B5 -> f32 product -> B3) paths within 1e-4
+    rng = np.random.RandomState(10)
+    x = torch.from_numpy(_snapped(rng, (2, 13, 11, 12)))
+    w_shape = (3, 3, 1, 12) if layout == "depthwise" else (3, 3, 12, 5)
+    w = torch.from_numpy((rng.randn(*w_shape) * 0.2).astype(np.float32))
+    q = INT8_FREQ if quant == "int8" else FP32
+    make = ConvSpec.for_conv2d_depthwise if layout == "depthwise" \
+        else ConvSpec.for_conv2d
+    y = assert_conv_conformance(x, w, make(x.shape, w.shape, quant=q),
+                                "sfc6_6")
+    assert y.shape[-1] == w_shape[-1] and torch.isfinite(y).all()
 
 
 def test_conformance_oracle_rejects_unexpected_direct():

@@ -19,6 +19,9 @@ from repro.api import tuning as jtuning  # noqa: E402
 from repro.core import conv2d as jc2d  # noqa: E402
 from repro.kernels.sfc_inverse import sfc_inverse as jsfc_inverse  # noqa: E402
 from repro.kernels.sfc_tdmm import tdmm_int8 as jtdmm_int8  # noqa: E402
+from repro.kernels.sfc_tdmm import \
+    tdmm_int8_depthwise as jtdmm_int8_depthwise  # noqa: E402
+from repro.kernels.sfc_transform import sfc_transform as jsfc_transform  # noqa: E402
 from repro.kernels.sfc_transform import \
     sfc_transform_quantize as jsfc_transform_quantize  # noqa: E402
 from repro.quant.fake_quant import INT8_FREQ as JINT8_FREQ  # noqa: E402
@@ -28,8 +31,11 @@ from repro_torch.api import registry  # noqa: E402
 from repro_torch.core import conv2d as c2d  # noqa: E402
 from repro_torch.interop import prepared_from_jax  # noqa: E402
 from repro_torch.kernels import (ops, quantized_fastconv2d,  # noqa: E402
-                                 sfc_fused_conv2d, sfc_inverse,
-                                 sfc_transform_quantize, tdmm_int8)
+                                 quantized_fastconv2d_depthwise,
+                                 sfc_fused_conv2d, sfc_fused_conv2d_depthwise,
+                                 sfc_inverse, sfc_transform,
+                                 sfc_transform_quantize, tdmm_int8,
+                                 tdmm_int8_depthwise)
 
 ALGOS = ("sfc4_4", "sfc6_6", "sfc6_7")
 PADDINGS = ("SAME", "VALID")
@@ -166,9 +172,17 @@ def test_cpu_tensors_launch_nothing():
     ws = torch.full((algo.t, algo.t, COUT), 0.01)
     quantized_fastconv2d(x, wq, act, ws, algo)
     sfc_fused_conv2d(x, wq, act, ws, algo)
+    C = X_SHAPE[-1]
+    wq_dw = torch.from_numpy(rng.randint(-127, 128, size=(
+        algo.t ** 2, 1, C)).astype(np.int8))
+    ws_dw = torch.full((algo.t, algo.t, C), 0.01)
+    quantized_fastconv2d_depthwise(x, wq_dw, act, ws_dw, algo)
+    sfc_fused_conv2d(x, wq_dw, act, ws_dw, algo, depthwise=True)
+    ops.fastconv2d_fp(x, torch.ones(3, 3, C, COUT), algo)
     assert kernels.launch_counts() == {
         "sfc_transform_quantize": 0, "tdmm_int8": 0, "sfc_inverse": 0,
-        "sfc_fused_conv2d": 0}
+        "sfc_fused_conv2d": 0, "sfc_transform": 0, "tdmm_int8_depthwise": 0,
+        "sfc_fused_conv2d_depthwise": 0}
 
 
 def test_non_cpu_tensor_never_reaches_plain_version():
@@ -187,14 +201,27 @@ def test_fused_rejects_unported_options_and_bad_blocks():
     x = torch.zeros(1, 12, 12, 4)
     wq = torch.zeros((100, 4, 8), dtype=torch.int8)
     act, ws = torch.ones(10, 10), torch.ones(10, 10, 8)
-    with pytest.raises(NotImplementedError, match="B7"):
-        sfc_fused_conv2d(x, wq, act, ws, algo, depthwise=True)
     with pytest.raises(NotImplementedError, match="double_buffer"):
         sfc_fused_conv2d(x, wq, act, ws, algo, double_buffer=True)
     with pytest.raises(ValueError, match="multiple of 32"):
         sfc_fused_conv2d(x, wq, act, ws, algo, k_block=48)
     with pytest.raises(ValueError, match="shared memory"):
         sfc_fused_conv2d(x, wq, act, ws, algo, k_block=128, cout_block=128)
+    # depthwise (B7): the channel block must be positive and fit shared
+    # memory; double_buffer raises there too
+    wq_dw, ws_dw = torch.zeros((100, 1, 4), dtype=torch.int8), \
+        torch.ones(10, 10, 4)
+    with pytest.raises(NotImplementedError, match="double_buffer"):
+        sfc_fused_conv2d(x, wq_dw, act, ws_dw, algo, depthwise=True,
+                         double_buffer=True)
+    with pytest.raises(ValueError, match="cout_block=0"):
+        sfc_fused_conv2d(x, wq_dw, act, ws_dw, algo, depthwise=True,
+                         cout_block=0)
+    with pytest.raises(ValueError, match="cout_block=512 needs 460800 bytes"):
+        sfc_fused_conv2d(x, wq_dw, act, ws_dw, algo, depthwise=True,
+                         cout_block=512)
+    with pytest.raises(ValueError, match="do not agree"):
+        sfc_fused_conv2d(x, wq, act, ws, algo, depthwise=True)
 
 
 @pytest.mark.parametrize("name", ALGOS)
@@ -218,3 +245,166 @@ def test_quantize_weights_and_oracle_match_jax(name):
         jnp.asarray(ws))
     np.testing.assert_allclose(mine.numpy(), np.asarray(theirs), rtol=1e-4,
                                atol=1e-4)
+
+
+def _b5_pair(x, name, padding):
+    """(port B5 output, JAX B5 output in interpret mode) on the same input."""
+    algo, jalgo = registry.get_algorithm(name), jregistry.get_algorithm(name)
+    bt = c2d.transform_matrices(algo, device="cpu")[0]
+    mine = sfc_transform(torch.from_numpy(x), bt, algo.M, padding=padding)
+    tiles, _ = jops.extract_tiles(jnp.asarray(x), jalgo, padding)
+    jbt = jc2d.transform_matrices(jalgo, "float32")[0]
+    return mine.numpy(), np.asarray(jsfc_transform(tiles, jbt,
+                                                   interpret=True))
+
+
+@pytest.mark.parametrize("padding", PADDINGS)
+@pytest.mark.parametrize("name", ALGOS)
+def test_b5_exact_on_snapped_inputs(name, padding):
+    # B^T X B of multiples of 1/16 is exact in f32 in any summation order
+    mine, theirs = _b5_pair(_snapped(np.random.RandomState(9), X_SHAPE),
+                            name, padding)
+    assert mine.dtype == np.float32 and mine.shape == theirs.shape
+    np.testing.assert_array_equal(mine, theirs)
+
+
+@pytest.mark.parametrize("padding", PADDINGS)
+@pytest.mark.parametrize("name", ALGOS)
+def test_b5_close_on_random_inputs(name, padding):
+    # summation order differs: max |diff| <= 1e-6 of the output's max |value|
+    x = np.random.RandomState(10).randn(*X_SHAPE).astype(np.float32)
+    mine, theirs = _b5_pair(x, name, padding)
+    assert mine.shape == theirs.shape
+    assert np.abs(mine - theirs).max() <= 1e-6 * np.abs(theirs).max()
+
+
+@pytest.mark.parametrize("P,T,C", [(16, 19, 13), (49, 7, 8), (100, 4, 32)])
+def test_b6_exact_given_same_int8_operands(P, T, C):
+    # int32 products and one dequant order: bit-exact
+    rng = np.random.RandomState(11)
+    xq = rng.randint(-127, 128, size=(P, T, C)).astype(np.int8)
+    wq = rng.randint(-127, 128, size=(P, C)).astype(np.int8)
+    sx = (rng.rand(P) * 0.1 + 1e-3).astype(np.float32)
+    sw = (rng.rand(P, C) * 0.1 + 1e-3).astype(np.float32)
+    mine = tdmm_int8_depthwise(*map(torch.from_numpy, (xq, wq, sx, sw)))
+    theirs = jtdmm_int8_depthwise(*map(jnp.asarray, (xq, wq, sx, sw)),
+                                  interpret=True)
+    assert mine.dtype == torch.float32
+    np.testing.assert_array_equal(mine.numpy(), np.asarray(theirs))
+
+
+def _jax_prepared_depthwise(x, w, name, padding):
+    spec = JConvSpec.for_conv2d_depthwise(x.shape, w.shape, padding=padding,
+                                          quant=JINT8_FREQ)
+    p = jplan(spec, backend="reference", algo=name)
+    return p.prepare_weights(jnp.asarray(w),
+                             act_scale=_act_scale(x, name, padding))
+
+
+@pytest.mark.parametrize("padding", PADDINGS)
+@pytest.mark.parametrize("name", ALGOS)
+def test_b7_and_staged_depthwise_against_jax_staged(name, padding):
+    # the JAX fused depthwise kernel does not launch on this JAX (ROADMAP
+    # C1): B7's plain version and the port's staged B1 -> B6 -> B3 are
+    # held to the JAX staged depthwise pipeline, within 1e-4
+    rng = np.random.RandomState(12)
+    x = _snapped(rng, X_SHAPE)
+    w = (rng.randn(3, 3, 1, X_SHAPE[-1]) * 0.3).astype(np.float32)
+    jprep = _jax_prepared_depthwise(x, w, name, padding)
+    prep = prepared_from_jax(jprep, device="cpu")
+    algo = registry.get_algorithm(name)
+    assert prep.wq.shape == (algo.t ** 2, 1, X_SHAPE[-1])
+    want = np.asarray(jops.quantized_fastconv2d_depthwise(
+        jnp.asarray(x), jprep.wq, jprep.act_scale, jprep.w_scale,
+        jregistry.get_algorithm(name), padding=padding, interpret=True))
+    xt = torch.from_numpy(x)
+    args = (xt, prep.wq, prep.act_scale, prep.w_scale, algo)
+    fused = sfc_fused_conv2d(*args, padding=padding, depthwise=True)
+    staged = quantized_fastconv2d_depthwise(*args, padding=padding)
+    assert torch.equal(fused, sfc_fused_conv2d_depthwise(
+        *args, padding=padding, cout_block=3))
+    for got in (fused, staged):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("padding", PADDINGS)
+@pytest.mark.parametrize("name", ALGOS)
+def test_fp_ops_path_against_jax(name, padding):
+    # B5 -> f32 product -> B3 against the JAX fastconv2d_fp, within 1e-4
+    rng = np.random.RandomState(13)
+    x = rng.randn(*X_SHAPE).astype(np.float32)
+    w = (rng.randn(3, 3, X_SHAPE[-1], COUT) * 0.3).astype(np.float32)
+    algo = registry.get_algorithm(name)
+    got = ops.fastconv2d_fp(torch.from_numpy(x), torch.from_numpy(w), algo,
+                            padding=padding)
+    want = np.asarray(jops.fastconv2d_fp(
+        jnp.asarray(x), jnp.asarray(w), jregistry.get_algorithm(name),
+        padding=padding, interpret=True))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+def _cublas_fp32_setting():
+    """The name of this PyTorch's cuBLAS float32 setting, and its values
+    for TF32 and for IEEE float32."""
+    matmul = torch.backends.cuda.matmul
+    if hasattr(matmul, "fp32_precision"):
+        return "fp32_precision", "tf32", "ieee"
+    return "allow_tf32", True, False
+
+
+@pytest.mark.parametrize("caller_tf32", (False, True))
+def test_full_fp32_matmul_restores_the_callers_setting(caller_tf32):
+    matmul = torch.backends.cuda.matmul
+    name, tf32, ieee = _cublas_fp32_setting()
+    before = getattr(matmul, name)
+    try:
+        setattr(matmul, name, tf32 if caller_tf32 else ieee)
+        caller = getattr(matmul, name)
+        with ops.full_fp32_matmul():
+            assert getattr(matmul, name) == ieee
+        assert getattr(matmul, name) == caller
+    finally:
+        setattr(matmul, name, before)
+
+
+def test_full_fp32_matmul_serialises_threads():
+    # a second thread waits at the guard until the first has left it, so
+    # neither can restore the caller's TF32 setting inside the other's block
+    import threading
+    matmul = torch.backends.cuda.matmul
+    name, tf32, ieee = _cublas_fp32_setting()
+    before = getattr(matmul, name)
+    inside, release, second_in = (threading.Event(), threading.Event(),
+                                  threading.Event())
+    seen = []
+
+    def first():
+        with ops.full_fp32_matmul():
+            inside.set()
+            release.wait(10)
+            seen.append(getattr(matmul, name))
+
+    def second():
+        inside.wait(10)
+        with ops.full_fp32_matmul():
+            second_in.set()
+            seen.append(getattr(matmul, name))
+
+    try:
+        setattr(matmul, name, tf32)
+        threads = [threading.Thread(target=f) for f in (first, second)]
+        for th in threads:
+            th.start()
+        assert inside.wait(10)
+        assert not second_in.wait(0.2)
+        release.set()
+        for th in threads:
+            th.join(10)
+        assert second_in.is_set()
+        assert seen == [ieee, ieee]
+        assert getattr(matmul, name) == tf32
+    finally:
+        release.set()
+        setattr(matmul, name, before)
