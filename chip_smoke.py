@@ -81,8 +81,22 @@ F32_OPS_PER_S = 67e12
 TIMED_RUNS = 25
 SPIN_CYCLES = 20_000_000        # ~10 ms at the H100's clock; doubled on need
 SERVE_REPEATS = 5
-KERNEL_CHECKS = (("sfc6_6", 224, 3, 64), ("sfc6_6", 56, 256, 256),
-                 ("sfc6_6", 14, 512, 512), ("sfc6_7", 56, 256, 256))
+# (algo, H = W, C_in, C_out, batch): VGG-16 shapes, sfc6_7, sfc4_4, a
+# ragged sfc6_6 case whose channel counts are no multiple of any block,
+# the deepest layer at batch 4 (36 tiles, three groups of 16), and B4's
+# other weight loaders: C_out 20 (no multiple of 8: weights copied by
+# bytes, scales 16 bytes a copy) and C_out 13 (no multiple of 4: scales by
+# single loads), the latter with wino4, whose (t, L, M) B4 takes at run
+# time
+KERNEL_CHECKS = (("sfc6_6", 224, 3, 64, 1), ("sfc6_6", 56, 256, 256, 1),
+                 ("sfc6_6", 14, 512, 512, 1), ("sfc6_7", 56, 256, 256, 1),
+                 ("sfc4_4", 28, 64, 128, 1), ("sfc6_6", 13, 40, 24, 1),
+                 ("sfc6_6", 14, 512, 512, 4), ("sfc6_6", 13, 40, 20, 1),
+                 ("wino4", 13, 40, 13, 1))
+# B4 at a geometry other than the per-layer default: 8 output channels
+# per block, four of them sharing each transform, C_in split in two; bit
+# for bit the same
+B4_ALT = {"cout_block": 8, "n_share": 4, "k_split": 2}
 DW_CHECKS = (("sfc6_6", 112, 32), ("sfc6_6", 56, 144), ("sfc6_7", 7, 960))
 REPLACES = {
     "sfc_transform_quantize": ("src/repro_torch/csrc/sfc_transform.cu",
@@ -139,6 +153,80 @@ def log(*args):
     print(*args, flush=True)
 
 
+def sweep_b4(dev, timed, smi) -> None:
+    """B4's card time per VGG-16 layer at batch 1 and 4 over a set of
+    geometries (``python3 chip_smoke.py --sweep-b4``), each output held
+    bit for bit to the per-layer default's; the rows go to
+    ``chiprun_out/b4_sweep.json`` and the log."""
+    import torch
+
+    from repro_torch.api import registry
+    from repro_torch.core import conv2d as c2d
+    from repro_torch.kernels import sfc_fused
+
+    algo = registry.get_algorithm(ALGO)
+    t, P = algo.t, algo.t ** 2
+    layers, _ = vgg_layers()
+    variants = [dict(cout_block=cb, n_share=ns, k_split=ks)
+                for cb in (8, 16) for ns in (2, 4, 8, 16)
+                for ks in (1, 2, 4, 8) if ns * ks <= 16]
+    variants += [dict(k_block=64)]
+    rows_out = []
+    seen = set()
+    for batch in (1, 4):
+        for lname, hw, cin, cout in layers:
+            if (batch, hw, cin, cout) in seen:
+                continue
+            seen.add((batch, hw, cin, cout))
+            rng = np.random.RandomState(hw + cin)
+            x = torch.tensor(rng.randn(batch, hw, hw, cin),
+                             dtype=torch.float32, device=dev)
+            wq = torch.tensor(rng.randint(-127, 128, (P, cin, cout)),
+                              dtype=torch.int8, device=dev)
+            act = torch.full((t, t), 0.05, device=dev)
+            ws = torch.full((t, t, cout), 1e-3, device=dev)
+            grid = c2d.tile_grid(hw, hw, algo.M, algo.R, "SAME")
+            T = batch * grid.nH * grid.nW
+            args = (x, wq, act, ws, algo)
+            base = sfc_fused.sfc_fused_conv2d(*args)
+            dflt = sfc_fused.fused_geometry(algo, T, cin, cout)
+            row = {"batch": batch, "hw": hw, "cin": cin, "cout": cout,
+                   "default": [dflt.cb, dflt.n_share, dflt.k_split,
+                               dflt.kb],
+                   "default_ms": timed(lambda: sfc_fused.sfc_fused_conv2d(
+                       *args)), "variants": []}
+            for v in variants:
+                knobs = {k: v.get(k, d) for k, d in (
+                    ("k_block", sfc_fused.K_BLOCK), ("cout_block", None),
+                    ("n_share", None), ("k_split", None))}
+                try:
+                    g = sfc_fused.fused_geometry(algo, T, cin, cout,
+                                                 **knobs)
+                    y = sfc_fused.sfc_fused_conv2d(*args, **knobs)
+                except (ValueError, RuntimeError) as e:
+                    row["variants"].append({**v, "refused": str(e)[:80]})
+                    continue
+                if not torch.equal(y, base):
+                    raise AssertionError(f"B4 at {v} differs from the "
+                                         f"default geometry: {row}")
+                row["variants"].append({
+                    **v, "cb": g.cb, "n_share": g.n_share,
+                    "k_split": g.k_split, "blocks": g.blocks,
+                    "smem": g.smem_bytes, "ms": timed(lambda: sfc_fused.sfc_fused_conv2d(
+                        *args, **knobs))})
+            ok = [r for r in row["variants"] if "ms" in r]
+            best = min(ok, key=lambda r: r["ms"])
+            log(f"sweep: batch {batch} {hw}x{hw}x{cin}->{cout}: default "
+                f"{row['default']} {row['default_ms']:.4f} ms; best "
+                f"{json.dumps(best)}")
+            rows_out.append(row)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "b4_sweep.json").write_text(json.dumps(
+        {"device": smi, "rows": rows_out}, indent=1))
+    log(f"sweep: {smi}; every geometry bit-identical to the default")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -149,7 +237,7 @@ def main() -> None:
     from repro_torch import kernels
     from repro_torch.api import ConvSpec, plan, tuning
     from repro_torch.core import conv2d as c2d
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import _build, ops, ref, sfc_fused
     from repro_torch.quant import FP32, INT8_FREQ
     from repro_torch.testing import DEFAULT_TOL
 
@@ -221,6 +309,10 @@ def main() -> None:
             f"enqueue, times include host gaps")
         return statistics.median(times)
 
+    if "--sweep-b4" in sys.argv[1:]:
+        sweep_b4(dev, timed, smi)
+        return
+
     def snapped(rng, shape):
         return torch.tensor(np.round(rng.randn(*shape) * 16) / 16,
                             dtype=torch.float32, device=dev)
@@ -249,6 +341,16 @@ def main() -> None:
     def scaled_err(got, want):
         return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)
                 ).item()
+
+    def geometry_of(x, prep, algo):
+        """B4's geometry for this input and these weights."""
+        B, H, W, cin = x.shape
+        grid = c2d.tile_grid(H, W, algo.M, algo.R, "SAME")
+        g = sfc_fused.fused_geometry(algo, B * grid.nH * grid.nW, cin,
+                                     prep.wq.shape[2])
+        return {"cb": g.cb, "n_share": g.n_share, "k_split": g.k_split,
+                "kb": g.kb, "stages": g.stages, "pairs": g.pairs,
+                "blocks": g.blocks, "smem": g.smem_bytes}
 
     def held(what, y, y_ref, kind):
         """rel L2 and scaled max error of y against y_ref, within BOUNDS."""
@@ -295,14 +397,15 @@ def main() -> None:
         max_err["sfc_transform"] = max(max_err["sfc_transform"], err)
     checks = []
     rng = np.random.RandomState(11)
-    for algo_name, hw, cin, cout in KERNEL_CHECKS:
-        x = snapped(rng, (1, hw, hw, cin))
+    for algo_name, hw, cin, cout, batch in KERNEL_CHECKS:
+        x = snapped(rng, (batch, hw, hw, cin))
         w = he_normal(rng, cin, cout)
         p, prep = prepared(x, w, algo_name)
         algo = p.algorithm
         t, P = algo.t, algo.t ** 2
         bt, _, at = c2d.transform_matrices(algo, torch.float32, dev)
-        case = {"algo": algo_name, "hw": hw, "cin": cin, "cout": cout}
+        case = {"algo": algo_name, "hw": hw, "cin": cin, "cout": cout,
+                "batch": batch}
         # B1 on snapped inputs: B^T X B is exact in f32 in any order
         xq = kernels.sfc_transform_quantize(x, bt, prep.act_scale, algo.M)
         xq_ref = ref.sfc_transform_quantize_nhwc_ref(x, bt, prep.act_scale,
@@ -312,7 +415,7 @@ def main() -> None:
             raise AssertionError(f"B1 differs from its plain version on "
                                  f"snapped inputs: {case}")
         # B1 on raw inputs: summation order may flip a .5 tie by one LSB
-        xr = torch.tensor(rng.randn(1, hw, hw, cin), dtype=torch.float32,
+        xr = torch.tensor(rng.randn(batch, hw, hw, cin), dtype=torch.float32,
                           device=dev)
         xq_raw = kernels.sfc_transform_quantize(xr, bt, prep.act_scale,
                                                 algo.M)
@@ -347,8 +450,10 @@ def main() -> None:
                                    atol=1e-5 * yt_ref.abs().max().item())
         max_err["sfc_inverse"] = max(max_err["sfc_inverse"],
                                      (yt - yt_ref).abs().max().item())
-        # B4 against its plain version and against the staged CUDA path,
-        # within DEFAULT_TOL of the output's scale, on snapped inputs
+        # B4 against its plain version within DEFAULT_TOL of the output's
+        # scale on snapped inputs, and bit-identical to the staged CUDA path
+        # (B1 -> B2 -> B3) on snapped and on raw inputs, at the per-layer
+        # geometry and at B4_ALT
         args = (x, prep.wq, prep.act_scale, prep.w_scale, algo)
         yf = kernels.sfc_fused_conv2d(*args)
         ys = kernels.quantized_fastconv2d(*args)
@@ -360,6 +465,18 @@ def main() -> None:
                                    atol=DEFAULT_TOL * scale)
         case["b4_scaled_err"] = scaled_err(yf, y_ref)
         case["b4_fused_equals_staged"] = bool(torch.equal(yf, ys))
+        rargs = (xr,) + args[1:]
+        case["b4_fused_equals_staged_raw"] = bool(torch.equal(
+            kernels.sfc_fused_conv2d(*rargs),
+            kernels.quantized_fastconv2d(*rargs)))
+        case["b4_alt_geometry_equal"] = bool(torch.equal(
+            kernels.sfc_fused_conv2d(*args, **B4_ALT), yf))
+        case["b4_geometry"] = geometry_of(x, prep, algo)
+        if not (case["b4_fused_equals_staged"]
+                and case["b4_fused_equals_staged_raw"]
+                and case["b4_alt_geometry_equal"]):
+            raise AssertionError(f"B4 is not bit-identical to the staged "
+                                 f"path or across geometries: {case}")
         max_err["sfc_fused_conv2d"] = max(max_err["sfc_fused_conv2d"],
                                           (yf - y_ref).abs().max().item())
         torch.cuda.synchronize()
@@ -465,6 +582,8 @@ def main() -> None:
     datapaths = {"fused": tuning.DEFAULT_FUSED,
                  "staged": tuning.DEFAULT_STAGED}
     saved = []                    # (request, datapath, layer, x, plan, prep)
+    fused_out = {}                # (request, layer) -> the fused output
+    vgg_equal = []                # (request, layer) where fused == staged
     per_layer, stacks, served = [], [], {}
 
     def forward(images, state):
@@ -496,6 +615,15 @@ def main() -> None:
                               "cin": cin, "cout": cout, "rel_l2": rel_l2,
                               "scaled_max": scaled})
             saved.append((ri, dp, lname, h, p, prep))
+            # the fused and the staged datapath of one request: bit-identical
+            # at every layer (so every layer's input and calibration agree)
+            if dp == "fused":
+                fused_out[(ri, lname)] = y
+            elif dp == "staged":
+                if not torch.equal(fused_out.pop((ri, lname)), y):
+                    raise AssertionError(f"request {ri} {lname}: the fused "
+                                         f"and the staged outputs differ")
+                vgg_equal.append((ri, lname))
             state.append((p, prep, biases[lname]))
             h = torch.relu(y)
             if li in stage_ends:
@@ -529,6 +657,10 @@ def main() -> None:
                        "wall_ms": wall})
         served[(ri, dp)] = (images, state)
     torch.cuda.synchronize()
+    if len(vgg_equal) != N_VGG * len(REQUEST_BATCHES):
+        raise AssertionError(f"fused and staged were compared on "
+                             f"{len(vgg_equal)} layer requests, not "
+                             f"{N_VGG * len(REQUEST_BATCHES)}")
 
     # -- 4b, TF32 on. The fp path's product runs in full float32 whatever
     # the caller allowed: one more forward of the batch-1 fp request with
@@ -678,7 +810,9 @@ def main() -> None:
         log(f"vgg: {kind} worst layer vs reference rel L2 "
             f"{worst['rel_l2']:.3e}, max |diff| / max |ref| "
             f"{max(r['scaled_max'] for r in rows):.3e} ({worst['layer']}, "
-            f"{worst['datapath']})")
+            f"{worst['datapath']})"
+            + (f"; fused equals staged on all {len(vgg_equal)} layer "
+               f"requests" if kind == "int8" else ""))
     for mode in ("fused", "staged", "fp"):
         worst = max(dw_rows, key=lambda r: r[f"{mode}_rel_l2"])
         log(f"depthwise: {mode} worst layer vs reference rel L2 "
@@ -786,6 +920,7 @@ def main() -> None:
             continue
         cout = prep.wq.shape[2]
         row["cout"] = cout
+        row["b4_geometry"] = geometry_of(x, prep, algo)
         sx = prep.act_scale.reshape(P).contiguous()
         sw = prep.w_scale.reshape(P, -1).contiguous()
         xq = kernels.sfc_transform_quantize(x, bt, prep.act_scale, M)
@@ -906,7 +1041,9 @@ def main() -> None:
             f"transformed weights PreparedWeights also keeps "
             f"{memory[dp]['f32_transformed_weights_bytes'] / 2**20:.1f} MiB")
     report["phases"]["vgg_paths"] = {"per_layer": per_layer,
-                                     "stacks": stacks, "memory": memory}
+                                     "stacks": stacks, "memory": memory,
+                                     "fused_equals_staged_layers":
+                                         len(vgg_equal)}
     report["phases"]["fp_with_caller_tf32"] = {"setting": tf32_name,
                                                "per_layer": tf32_rows}
     report["phases"]["depthwise_path"] = {"per_layer": dw_rows,

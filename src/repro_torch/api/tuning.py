@@ -17,21 +17,24 @@ class KernelConfig:
     """One executable configuration of the ``cuda`` int8 datapath.
 
     ``datapath`` picks the fused kernel (B4; depthwise B7) or the staged
-    trio (B1-B3; depthwise B1, B6, B3).  ``k_block`` is the C_in width of
-    one reduction stage (fused: a multiple of 32, bounded by shared memory;
-    staged: any width; None = all of C_in; depthwise convs have no
-    reduction and ignore it).  ``cout_block`` is the fused kernels'
-    channels per block, as in the JAX package, which uses it for both:
-    B4's output channels (a multiple of 8) and B7's channel block (any
-    positive width that fits shared memory).  The defaults run every
-    registered algorithm on both layouts.  The JAX package's
-    ``rows_per_step`` and ``double_buffer`` describe its TPU geometry and
-    have no counterpart.
+    trio (B1-B3; depthwise B1, B6, B3).  ``k_block``: fused, the C_in
+    width of one pipeline stage of B4 (32 or 64, multiples of the mma
+    depth; None = 32), whose input patches and weights B4 copies into
+    shared memory ahead of use; staged, the width of one reduction stage
+    (any width; None = all of C_in); depthwise convs have no reduction
+    and ignore it.  ``cout_block``: B4's output channels per block (8 or
+    16: one or two mma n-tiles), or None to let
+    ``kernels.sfc_fused.fused_geometry`` pick it per layer together with
+    the C_out blocks of a cluster that share each input transform and the
+    C_in slices that split the reduction; B7's channel block (any positive
+    width that fits shared memory; None = 16).  Every B4 geometry gives
+    the same bits.  The JAX package's ``rows_per_step`` and
+    ``double_buffer`` describe its TPU geometry and have no counterpart.
     """
 
     datapath: str = "fused"       # 'fused' | 'staged'
     k_block: Optional[int] = 32
-    cout_block: int = 16
+    cout_block: Optional[int] = None
 
     def __post_init__(self):
         if self.datapath not in ("fused", "staged"):

@@ -203,10 +203,20 @@ def test_fused_rejects_unported_options_and_bad_blocks():
     act, ws = torch.ones(10, 10), torch.ones(10, 10, 8)
     with pytest.raises(NotImplementedError, match="double_buffer"):
         sfc_fused_conv2d(x, wq, act, ws, algo, double_buffer=True)
-    with pytest.raises(ValueError, match="multiple of 32"):
+    with pytest.raises(ValueError, match="k_block must be 32 or 64"):
         sfc_fused_conv2d(x, wq, act, ws, algo, k_block=48)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="cout_block 8 or 16"):
+        sfc_fused_conv2d(x, wq, act, ws, algo, cout_block=12)
+    with pytest.raises(ValueError, match="k_block must be 32 or 64"):
         sfc_fused_conv2d(x, wq, act, ws, algo, k_block=128, cout_block=128)
+    with pytest.raises(ValueError, match="shared memory"):
+        sfc_fused_conv2d(x, wq, act, ws, algo, k_block=64, cout_block=16)
+    # B4's geometry: C_out blocks sharing a transform and C_in slices are
+    # powers of two, and a block holds one or two mma n-tiles of channels
+    with pytest.raises(ValueError, match="n_share and k_split must be"):
+        sfc_fused_conv2d(x, wq, act, ws, algo, n_share=0)
+    with pytest.raises(ValueError, match="cout_block 8 or 16"):
+        sfc_fused_conv2d(x, wq, act, ws, algo, cout_block=64)
     # depthwise (B7): the channel block must be positive and fit shared
     # memory; double_buffer raises there too
     wq_dw, ws_dw = torch.zeros((100, 1, 4), dtype=torch.int8), \
