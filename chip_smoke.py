@@ -11,7 +11,11 @@ csrc`` at first use.  Phases, each of which raises on failure:
   2. build the kernels and report the seconds it took;
   3. each kernel against its plain PyTorch version on the card, at VGG-16
      layer shapes and at depthwise shapes of MobileNetV2, with the
-     tolerance stated beside each check;
+     tolerance stated beside each check; the fused kernels also bit for bit
+     against the staged ones (B4 against B1 -> B2 -> B3, B7 against
+     B1 -> B6 -> B3) on snapped and raw inputs at a second geometry, B7 at
+     batch 4, VALID and a run-time algorithm too, and B3's NHWC entry
+     bit for bit against its tile entry followed by ``untile``;
   4. the paths, each forward of which starts from launch counts of 0 and
      must launch its own kernels, and only those, the stated number of
      times; every layer is held against the ``reference`` backend on the
@@ -29,7 +33,15 @@ csrc`` at first use.  Phases, each of which raises on failure:
         and fp paths; fused and staged must be bit-identical;
   5. per kernel, the times over the layers of one batch-1 request: the
      kernel, its plain version, one PyTorch library call where one
-     computes the same function, and the least time the card could take.
+     computes the same function, and the least time the card could take
+     (B3 as the paths call it: its NHWC entry on the product's output);
+     also B3's tile entry and the copies the NHWC entry replaced, B1 and
+     B3 over the depthwise layers, and the card's time for a launch of
+     nothing.
+
+``--sweep-b4`` and ``--sweep-b7`` time B4's and B7's geometries per layer
+instead (each held bit for bit to the default) and write
+``chiprun_out/b4_sweep.json`` and ``b7_sweep.json``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  A longer report goes to
@@ -97,7 +109,17 @@ KERNEL_CHECKS = (("sfc6_6", 224, 3, 64, 1), ("sfc6_6", 56, 256, 256, 1),
 # per block, four of them sharing each transform, C_in split in two; bit
 # for bit the same
 B4_ALT = {"cout_block": 8, "n_share": 4, "k_split": 2}
-DW_CHECKS = (("sfc6_6", 112, 32), ("sfc6_6", 56, 144), ("sfc6_7", 7, 960))
+# B7 and B6 checks, (algo, H = W, C, batch, padding): MobileNetV2 shapes
+# at batch 1 and 4, sfc6_7, VALID padding, C 40 (no multiple of 16: B7
+# loads by plain loads, not TMA), and wino4, whose (t, L, M) B7 takes at
+# run time; B7 is held bit for bit to the staged B1 -> B6 -> B3 at the
+# per-layer geometry, at B7_ALT (16 channels, runs of 4 tiles, some idle
+# at a row's end, 3 threads a tile and channel) and at 24 channels a
+# block (plain loads), on snapped and on raw inputs
+DW_CHECKS = (("sfc6_6", 112, 32, 1, "SAME"), ("sfc6_6", 56, 144, 4, "SAME"),
+             ("sfc6_7", 7, 960, 1, "SAME"), ("sfc6_6", 14, 384, 4, "VALID"),
+             ("sfc4_4", 13, 40, 2, "VALID"), ("wino4", 13, 48, 1, "SAME"))
+B7_ALT = {"cout_block": 16, "tiles": 4, "splits": 3}
 REPLACES = {
     "sfc_transform_quantize": ("src/repro_torch/csrc/sfc_transform.cu",
                                "src/repro/kernels/sfc_transform.py:36"),
@@ -227,6 +249,75 @@ def sweep_b4(dev, timed, smi) -> None:
     log(f"sweep: {smi}; every geometry bit-identical to the default")
 
 
+def sweep_b7(dev, timed, smi) -> None:
+    """B7's card time per depthwise layer of ``DW_LAYERS`` at batch 1 and
+    4 over a set of geometries (``python3 chip_smoke.py --sweep-b7``:
+    ``depthwise_geometry``'s ``cout_block``, ``tiles`` and ``splits``),
+    each output held bit for bit to the per-layer default's; the rows go
+    to ``chiprun_out/b7_sweep.json`` and the log."""
+    import torch
+
+    from repro_torch.api import registry
+    from repro_torch.core import conv2d as c2d
+    from repro_torch.kernels import sfc_fused
+
+    algo = registry.get_algorithm(ALGO)
+    t, P = algo.t, algo.t ** 2
+    variants = [dict(cout_block=cb, tiles=tc, splits=s)
+                for cb in (16, 32, 64) for tc in (1, 2, 4)
+                for s in sfc_fused.DW_SPLITS]
+    rows_out, seen = [], set()
+    for batch in (1, 4):
+        for lname, hw, c in DW_LAYERS:
+            if (batch, hw, c) in seen:
+                continue
+            seen.add((batch, hw, c))
+            rng = np.random.RandomState(hw + c)
+            x = torch.tensor(rng.randn(batch, hw, hw, c), dtype=torch.float32,
+                             device=dev)
+            wq = torch.tensor(rng.randint(-127, 128, (P, 1, c)),
+                              dtype=torch.int8, device=dev)
+            act = torch.full((t, t), 0.05, device=dev)
+            ws = torch.full((t, t, c), 1e-3, device=dev)
+            args = (x, wq, act, ws, algo)
+            grid = c2d.tile_grid(hw, hw, algo.M, algo.R, "SAME")
+            tiles = (batch * grid.nH, grid.nW)
+            base = sfc_fused.sfc_fused_conv2d_depthwise(*args)
+            dflt = sfc_fused.depthwise_geometry(algo, tiles, c)
+            row = {"batch": batch, "layer": lname, "hw": hw, "c": c,
+                   "default": [dflt.cb, dflt.tiles, dflt.splits],
+                   "default_blocks": dflt.blocks,
+                   "default_ms": timed(lambda: sfc_fused.
+                                       sfc_fused_conv2d_depthwise(*args)),
+                   "variants": []}
+            for v in variants:
+                try:
+                    g = sfc_fused.depthwise_geometry(algo, tiles, c, **v)
+                    y = sfc_fused.sfc_fused_conv2d_depthwise(*args, **v)
+                except (ValueError, RuntimeError) as e:
+                    row["variants"].append({**v, "refused": str(e)[:80]})
+                    continue
+                if not torch.equal(y, base):
+                    raise AssertionError(f"B7 at {v} differs from the "
+                                         f"default geometry: {row}")
+                row["variants"].append({
+                    **v, "blocks": g.blocks, "threads": g.threads,
+                    "smem": g.smem_bytes,
+                    "ms": timed(lambda: sfc_fused.sfc_fused_conv2d_depthwise(
+                        *args, **v))})
+            best = min((r for r in row["variants"] if "ms" in r),
+                       key=lambda r: r["ms"])
+            log(f"sweep: batch {batch} {lname} {hw}x{hw}x{c}: default "
+                f"{row['default']} {row['default_ms']:.4f} ms; best "
+                f"{json.dumps(best)}")
+            rows_out.append(row)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "b7_sweep.json").write_text(json.dumps(
+        {"device": smi, "rows": rows_out}, indent=1))
+    log(f"sweep: {smi}; every geometry bit-identical to the default")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -311,6 +402,9 @@ def main() -> None:
 
     if "--sweep-b4" in sys.argv[1:]:
         sweep_b4(dev, timed, smi)
+        return
+    if "--sweep-b7" in sys.argv[1:]:
+        sweep_b7(dev, timed, smi)
         return
 
     def snapped(rng, shape):
@@ -450,6 +544,17 @@ def main() -> None:
                                    atol=1e-5 * yt_ref.abs().max().item())
         max_err["sfc_inverse"] = max(max_err["sfc_inverse"],
                                      (yt - yt_ref).abs().max().item())
+        # B3's NHWC entry: bit for bit sfc_inverse + untile, from B2's
+        # (P, T, C_out) output in place and from the tile layout
+        grid = c2d.tile_grid(hw, hw, algo.M, algo.R, "SAME")
+        untiled = kernels.untile(yt, algo, (batch, grid.out_h, grid.out_w,
+                                            grid.nH, grid.nW))
+        case["b3_nhwc_equal"] = all(
+            torch.equal(kernels.sfc_inverse_nhwc(yy, at, grid), untiled)
+            for yy in (Y, ty))
+        if not case["b3_nhwc_equal"]:
+            raise AssertionError(f"B3's NHWC entry is not bit-identical to "
+                                 f"sfc_inverse + untile: {case}")
         # B4 against its plain version within DEFAULT_TOL of the output's
         # scale on snapped inputs, and bit-identical to the staged CUDA path
         # (B1 -> B2 -> B3) on snapped and on raw inputs, at the per-layer
@@ -483,15 +588,16 @@ def main() -> None:
         log("kernels:", json.dumps(case))
         checks.append(case)
 
-    for algo_name, hw, c in DW_CHECKS:
-        x = snapped(rng, (1, hw, hw, c))
+    for algo_name, hw, c, batch, padding in DW_CHECKS:
+        x = snapped(rng, (batch, hw, hw, c))
         w = he_normal(rng, 1, c)
         p, prep = prepared(x, w, algo_name, depthwise=True)
         algo = p.algorithm
         t, P = algo.t, algo.t ** 2
         bt = c2d.transform_matrices(algo, torch.float32, dev)[0]
-        case = {"algo": algo_name, "hw": hw, "depthwise_c": c}
-        xr = torch.tensor(rng.randn(1, hw, hw, c), dtype=torch.float32,
+        case = {"algo": algo_name, "hw": hw, "depthwise_c": c,
+                "batch": batch, "padding": padding}
+        xr = torch.tensor(rng.randn(batch, hw, hw, c), dtype=torch.float32,
                           device=dev)
         xq_raw = kernels.sfc_transform_quantize(xr, bt, prep.act_scale,
                                                 algo.M)
@@ -511,22 +617,31 @@ def main() -> None:
             max_err["tdmm_int8_depthwise"], (Y - Y_ref).abs().max().item())
         # B7 against its plain version within DEFAULT_TOL of the output's
         # scale on snapped inputs, and bit-identical to the staged CUDA
-        # depthwise path (B1 -> B6 -> B3), at the default channel block and
-        # at one that leaves a ragged channel tail
+        # depthwise path (B1 -> B6 -> B3) on snapped and raw inputs, at the
+        # per-layer geometry, at B7_ALT and at 24 channels a block
         args = (x, prep.wq, prep.act_scale, prep.w_scale, algo)
-        yf = kernels.sfc_fused_conv2d(*args, depthwise=True)
-        yf24 = kernels.sfc_fused_conv2d_depthwise(*args, cout_block=24)
-        ys = kernels.quantized_fastconv2d_depthwise(*args)
-        y_ref = ref.sfc_fused_conv2d_ref(*args, depthwise=True)
+        yf = kernels.sfc_fused_conv2d(*args, depthwise=True, padding=padding)
+        y_ref = ref.sfc_fused_conv2d_ref(*args, padding=padding,
+                                         depthwise=True)
         scale = y_ref.abs().max().item()
         torch.testing.assert_close(yf, y_ref, rtol=DEFAULT_TOL,
                                    atol=DEFAULT_TOL * scale)
         case["b7_scaled_err"] = scaled_err(yf, y_ref)
-        case["b7_fused_equals_staged"] = bool(torch.equal(yf, ys))
-        case["b7_block24_equal"] = bool(torch.equal(yf, yf24))
-        if not (case["b7_fused_equals_staged"] and case["b7_block24_equal"]):
+        grid = c2d.tile_grid(hw, hw, algo.M, algo.R, padding)
+        g = sfc_fused.depthwise_geometry(algo, (batch * grid.nH, grid.nW), c)
+        case["b7_geometry"] = [g.cb, g.tiles, g.splits, g.blocks]
+        for inputs, xx in (("snapped", x), ("raw", xr)):
+            xargs = (xx,) + args[1:]
+            ys = kernels.quantized_fastconv2d_depthwise(*xargs,
+                                                        padding=padding)
+            case[f"b7_fused_equals_staged_{inputs}"] = all(
+                torch.equal(kernels.sfc_fused_conv2d_depthwise(
+                    *xargs, padding=padding, **knobs), ys)
+                for knobs in ({}, B7_ALT, {"cout_block": 24}))
+        if not (case["b7_fused_equals_staged_snapped"]
+                and case["b7_fused_equals_staged_raw"]):
             raise AssertionError(f"B7 is not bit-identical to the staged "
-                                 f"depthwise path: {case}")
+                                 f"depthwise path at every geometry: {case}")
         max_err["sfc_fused_conv2d_depthwise"] = max(
             max_err["sfc_fused_conv2d_depthwise"],
             (yf - y_ref).abs().max().item())
@@ -842,20 +957,31 @@ def main() -> None:
     totals = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                   "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": None}
               for k in REPLACES}
+    # B1 and B3 over the depthwise layers of the batch-1 staged request
+    dw_totals = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                     "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": None}
+                 for k in ("sfc_transform_quantize", "sfc_inverse")}
     glue = {"fp_contraction_ms": 0.0}
     fp_b3 = {"sfc_inverse_ms": 0.0}         # B3 on the fp request's inputs
+    # B3's tile entry on the same values (the JAX kernel's contract, which
+    # no path calls), its bound, and the copies the staged path made around
+    # it before the NHWC entry
+    b3_tile = {"tile_ms": 0.0, "tile_bound_ms": 0.0, "glue_ms": 0.0}
     layer_times = []
+    # the card's time for one launch of nothing: a one-float fill
+    one = torch.zeros(1, device=dev)
+    launch_floor_ms = timed(lambda: one.zero_())
 
-    def time_kernels(row, fns, work):
+    def time_kernels(row, fns, work, sums=totals):
         """Time each kernel, its plain version and its library call; add
-        them and the kernel's bound to ``totals`` and ``row``."""
+        them and the kernel's bound to ``sums`` and ``row``."""
         for k, (kern, plain, lib) in fns.items():
             nbytes, int8_ops, f32_ops = work[k]
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = (int8_ops / INT8_OPS_PER_S + f32_ops / F32_OPS_PER_S) \
                 * 1e3
             ms, plain_ms = timed(kern), timed(plain)
-            tot = totals[k]
+            tot = sums[k]
             tot["ms"] += ms
             tot["plain_ms"] += plain_ms
             tot["bytes_ms"] += bytes_ms
@@ -911,9 +1037,9 @@ def main() -> None:
                 lambda: ops.transform_domain_fp(tx, prep.tw))
             glue["fp_contraction_ms"] += row["fp_contraction_ms"]
             # B3 on the fp request's own transform-domain output
-            ty = ops.transform_domain_fp(tx, prep.tw)
+            Y = ops.transform_domain_fp(tx, prep.tw)
             row["fp_sfc_inverse_ms"] = timed(
-                lambda: kernels.sfc_inverse(ty, at))
+                lambda: kernels.sfc_inverse_nhwc(Y, at, grid))
             fp_b3["sfc_inverse_ms"] += row["fp_sfc_inverse_ms"]
             layer_times.append(row)
             log("times:", json.dumps(row))
@@ -927,10 +1053,11 @@ def main() -> None:
         X = xq.reshape(T, P, cin).transpose(0, 1).contiguous()
         Y = kernels.tdmm_int8(X, prep.wq, sx, sw)
         ty = Y.transpose(0, 1).reshape(T, t, t, cout).contiguous()
+        Y6 = Y.view(t, t, B, grid.nH, grid.nW, cout)
         args4 = (x, prep.wq, prep.act_scale, prep.w_scale, algo)
         # library yardsticks, timed here and called nowhere in the port: one
-        # einsum computes B3's function; cuDNN's fp16 conv of the same
-        # shapes stands beside B4
+        # einsum computes B3's function (NHWC before the crop, a view);
+        # cuDNN's fp16 conv of the same shapes stands beside B4
         x16 = x.permute(0, 3, 1, 2).half().contiguous(
             memory_format=torch.channels_last)
         w16 = prep.w.permute(3, 2, 0, 1).half().contiguous(
@@ -943,8 +1070,8 @@ def main() -> None:
             "sfc_transform_quantize": (4 * x.numel() + xq.numel(), 0, f32_b1),
             "tdmm_int8": (X.numel() + prep.wq.numel() + 4 * (P + sw.numel())
                           + 4 * Y.numel(), 2 * P * T * cin * cout, 0),
-            "sfc_inverse": (4 * ty.numel() + 4 * T * M * M * cout
-                            + 4 * at.numel(), 0, f32_b3),
+            "sfc_inverse": (4 * Y.numel() + 4 * B * grid.out_h * grid.out_w
+                            * cout + 4 * at.numel(), 0, f32_b3),
             "sfc_fused_conv2d": (4 * x.numel() + prep.wq.numel()
                                  + 4 * (P + sw.numel())
                                  + 4 * B * H * W * cout,
@@ -960,20 +1087,33 @@ def main() -> None:
             "tdmm_int8": (lambda: kernels.tdmm_int8(X, prep.wq, sx, sw),
                           lambda: ref.tdmm_int8_ref(X, prep.wq, sx, sw),
                           None),
-            "sfc_inverse": (lambda: kernels.sfc_inverse(ty, at),
-                            lambda: ref.sfc_inverse_ref(ty, at),
-                            lambda: torch.einsum("mt,ntuo,pu->nmpo", at, ty,
-                                                 at)),
+            "sfc_inverse": (lambda: kernels.sfc_inverse_nhwc(Y, at, grid),
+                            lambda: ref.sfc_inverse_nhwc_ref(Y, at, grid),
+                            lambda: torch.einsum("mt,tubhwo,pu->bhmwpo", at,
+                                                 Y6, at)),
             "sfc_fused_conv2d": (
                 lambda: kernels.sfc_fused_conv2d(*args4),
                 lambda: ref.sfc_fused_conv2d_ref(*args4),
                 lambda: F.conv2d(x16, w16, padding=1)),
         }
         time_kernels(row, fns, work)
+        row["sfc_inverse_tile_ms"] = timed(
+            lambda: kernels.sfc_inverse(ty, at))
+        geom = (B, grid.out_h, grid.out_w, grid.nH, grid.nW)
+        yt = kernels.sfc_inverse(ty, at)
+        row["b3_glue_ms"] = timed(lambda: (
+            Y.transpose(0, 1).reshape(T, t, t, cout).contiguous(),
+            ops.untile(yt, algo, geom)))
+        b3_tile["tile_ms"] += row["sfc_inverse_tile_ms"]
+        b3_tile["tile_bound_ms"] += max(
+            (4 * ty.numel() + 4 * T * M * M * cout + 4 * at.numel())
+            / HBM_BYTES_PER_S * 1e3, f32_b3 / F32_OPS_PER_S * 1e3)
+        b3_tile["glue_ms"] += row["b3_glue_ms"]
         layer_times.append(row)
         log("times:", json.dumps(row))
 
-    # B6 and B7 over the depthwise layers of the batch-1 requests
+    # B6 and B7 over the depthwise layers of the batch-1 requests, and B1
+    # and B3 on the same inputs as the staged depthwise path runs them
     for lname, p, prep, x in dw_states[(1, "fused")]:
         algo = p.algorithm
         t, M, P = algo.t, algo.M, algo.t ** 2
@@ -993,6 +1133,8 @@ def main() -> None:
         w16 = prep.w.permute(3, 2, 0, 1).half().contiguous(
             memory_format=torch.channels_last)
         scales = 4 * (P + sw.numel())
+        Y = kernels.tdmm_int8_depthwise(X, wq2, sx, sw)
+        Y6 = Y.view(t, t, B, grid.nH, grid.nW, c)
         work = {
             "tdmm_int8_depthwise": (X.numel() + wq2.numel() + scales
                                     + 4 * X.numel(), 0, 2 * X.numel()),
@@ -1012,6 +1154,20 @@ def main() -> None:
         }
         row = {"layer": lname, "hw": H, "c": c, "path": "dw_fused"}
         time_kernels(row, fns, work)
+        time_kernels(row, {
+            "sfc_transform_quantize": (
+                lambda: kernels.sfc_transform_quantize(x, bt, prep.act_scale,
+                                                       M),
+                lambda: ref.sfc_transform_quantize_nhwc_ref(
+                    x, bt, prep.act_scale, M), None),
+            "sfc_inverse": (
+                lambda: kernels.sfc_inverse_nhwc(Y, at, grid),
+                lambda: ref.sfc_inverse_nhwc_ref(Y, at, grid),
+                lambda: torch.einsum("mt,tubhwo,pu->bhmwpo", at, Y6, at))}, {
+            "sfc_transform_quantize": (4 * x.numel() + xq.numel(), 0,
+                                       transform_ops(algo, T, c, bt, True)),
+            "sfc_inverse": (4 * Y.numel() + 4 * x.numel() + 4 * at.numel(),
+                            0, inverse_ops(algo, T, c, at))}, sums=dw_totals)
         layer_times.append(row)
         log("times:", json.dumps(row))
 
@@ -1051,9 +1207,10 @@ def main() -> None:
     report["phases"]["launches"] = {"total": launches,
                                     "per_path": path_launches,
                                     "forwards": n_forwards}
-    report["phases"]["kernel_times"] = {"per_layer": layer_times,
-                                        "totals": totals, "glue": glue,
-                                        "fp_request": fp_b3}
+    report["phases"]["kernel_times"] = {
+        "per_layer": layer_times, "totals": totals, "glue": glue,
+        "fp_request": fp_b3, "depthwise_staged": dw_totals,
+        "b3_tile": b3_tile, "launch_floor_ms": launch_floor_ms}
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke_report.json").write_text(json.dumps(report, indent=1))
@@ -1072,8 +1229,20 @@ def main() -> None:
         f"13 convs of the batch-1 fp request")
     log(f"fp path: B3 {fp_b3['sfc_inverse_ms']:.4f} ms over the 13 convs "
         f"of the batch-1 fp request")
+    log(f"staged path: B3's NHWC entry {totals['sfc_inverse']['ms']:.4f} ms "
+        f"(bound {totals['sfc_inverse']['bound_ms']:.4f}) over the 13 convs "
+        f"of the batch-1 int8 request, against its tile entry "
+        f"{b3_tile['tile_ms']:.4f} ms (bound {b3_tile['tile_bound_ms']:.4f}) "
+        f"and the copies around the tile entry {b3_tile['glue_ms']:.4f} ms")
+    log("depthwise staged path: " + "; ".join(
+        f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}, plain "
+        f"{v['plain_ms']:.4f})" for k, v in dw_totals.items())
+        + f" over the {len(DW_LAYERS)} depthwise convs at batch 1")
+    log(f"launch floor: {launch_floor_ms:.4f} ms a timed call (a one-float "
+        f"fill)")
     log(f"times above: sums, median of {TIMED_RUNS} runs each, on {smi}: "
-        f"B1-B4 over the 13 convs of one batch-1 int8 VGG-16 request, B5 "
+        f"B1-B4 over the 13 convs of one batch-1 int8 VGG-16 request (B3 "
+        f"its NHWC entry), B5 "
         f"over those of the batch-1 fp request, B6 and B7 over the "
         f"{len(DW_LAYERS)} depthwise convs at batch 1")
     log(json.dumps(line))

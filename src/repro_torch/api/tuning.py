@@ -27,9 +27,11 @@ class KernelConfig:
     ``kernels.sfc_fused.fused_geometry`` pick it per layer together with
     the C_out blocks of a cluster that share each input transform and the
     C_in slices that split the reduction; B7's channel block (any positive
-    width that fits shared memory; None = 16).  Every B4 geometry gives
-    the same bits.  The JAX package's ``rows_per_step`` and
-    ``double_buffer`` describe its TPU geometry and have no counterpart.
+    width that fits shared memory; None lets
+    ``kernels.sfc_fused.depthwise_geometry`` pick it per layer).  Every B4
+    and B7 geometry gives the same bits.  The JAX package's
+    ``rows_per_step`` and ``double_buffer`` describe its TPU geometry and
+    have no counterpart.
     """
 
     datapath: str = "fused"       # 'fused' | 'staged'

@@ -1,6 +1,7 @@
 // Device functions shared by the staged kernels (sfc_transform.cu,
 // sfc_inverse.cu, sfc_tdmm.cu, sfc_tdmm_dw.cu) and the fused kernels
-// (sfc_fused.cu, sfc_fused_dw.cu).
+// (sfc_fused.cu, sfc_fused_dw.cu).  Their copies by TMA share
+// sfc_tma.cuh.
 //
 // The staged and the fused datapath must land on one integer grid and one
 // fp32 epilogue, so the forward transform, the quantizer, the dequant and
@@ -20,10 +21,30 @@
 //   * inverse  Z = A^T Y (over rows), then Z A (over columns).
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace sfc {
+
+// A kernel's attributes (cudaFuncSetAttribute) belong to the current
+// device's context: `set` runs once per device, recorded in the call
+// site's `done`, and again after a failure.
+constexpr int kMaxDevices = 64;
+
+template <class Set>
+inline cudaError_t once_per_device(std::atomic<bool> (&done)[kMaxDevices],
+                                   Set set) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const bool known = dev >= 0 && dev < kMaxDevices;
+  if (known && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  e = set();
+  if (e == cudaSuccess && known)
+    done[dev].store(true, std::memory_order_release);
+  return e;
+}
 
 // Largest tile sizes the kernels take (L = M + R - 1 input rows, t
 // transform-domain positions per dim).  The registered algorithms reach
@@ -85,6 +106,38 @@ __device__ __forceinline__ void transform_quantize_row(
   });
 }
 
+// transform_quantize_row with t = T and L fixed at compile time and its
+// loops unrolled, so the t sums and divisions of the row interleave; a
+// zero coefficient of B^T discards its FMAs (a select, not a branch, so
+// nothing orders the loads).  Output for output it gives the bits of the
+// run-time form: the same FMAs in the same order, the same zero
+// coefficients skipped in the row pass and none in the column pass, the
+// same quantizer.  B7 (sfc_fused_dw.cu) calls it; B1, B4 and B5 call
+// transform_row.
+template <int T, int L, class Load, class Store>
+__device__ __forceinline__ void transform_quantize_row(
+    Load load, const float* bt, const float* scale, float qmax, int u,
+    Store store) {
+  // r[j] = sum_i bt[u, i] * x[i, j]
+  float r[L];
+#pragma unroll
+  for (int j = 0; j < L; ++j) r[j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    const float b = bt[u * L + i];
+    const bool nz = b != 0.f;
+#pragma unroll
+    for (int j = 0; j < L; ++j) r[j] = nz ? fmaf(b, load(i, j), r[j]) : r[j];
+  }
+#pragma unroll
+  for (int v = 0; v < T; ++v) {
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < L; ++j) acc = fmaf(bt[v * L + j], r[j], acc);
+    store(v, quantize(acc, scale[u * T + v], qmax));
+  }
+}
+
 // The dequantized transform-domain value of one int32 accumulator.
 __device__ __forceinline__ float dequant(int acc, float sx, float sw) {
   return __fmul_rn(static_cast<float>(acc), __fmul_rn(sx, sw));
@@ -117,6 +170,53 @@ __device__ __forceinline__ void inverse_row(Load load, const float* at,
     for (int v = 0; v < kMaxT; ++v)
       if (v < t) o = fmaf(at[q * t + v], z[v], o);
     store(q, o);
+  }
+}
+
+// Output rows m0 .. m0 + RM - 1 (those below M) of one tile's inverse
+// transform A^T Y A, with T, M and RM fixed at compile time: each value
+// y(u, v) is loaded once, Z = A^T Y is kept in registers for the RM rows,
+// and each output is formed by Z A; a zero coefficient of A^T discards
+// its FMAs by a select.  Output for output it gives the bits of
+// inverse_row: the same FMAs in the same order, the same zero
+// coefficients of A^T skipped in Z and none in Z A.  B3 (sfc_inverse.cu)
+// and B7 (sfc_fused_dw.cu) call it; B4 calls inverse_row.
+//   load(u, v)       -> float, the value at position (u, v);
+//   at               -> M x T row-major;
+//   store(m, q, val) <- the spatial output at row m, column q of the tile.
+template <int T, int M, int RM, class Load, class Store>
+__device__ __forceinline__ void inverse_tile(Load load, const float* at,
+                                             int m0, Store store) {
+  // z[i][v] = sum_u at[m0 + i, u] * y[u, v]
+  float z[RM][T];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int v = 0; v < T; ++v) z[i][v] = 0.f;
+#pragma unroll
+  for (int u = 0; u < T; ++u) {
+    float y[T];
+#pragma unroll
+    for (int v = 0; v < T; ++v) y[v] = load(u, v);
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const float a = m0 + i < M ? at[(m0 + i) * T + u] : 0.f;
+      const bool nz = a != 0.f;
+#pragma unroll
+      for (int v = 0; v < T; ++v)
+        z[i][v] = nz ? fmaf(a, y[v], z[i][v]) : z[i][v];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    if (m0 + i >= M) break;
+#pragma unroll
+    for (int q = 0; q < M; ++q) {
+      float o = 0.f;
+#pragma unroll
+      for (int v = 0; v < T; ++v) o = fmaf(at[q * T + v], z[i][v], o);
+      store(m0 + i, q, o);
+    }
   }
 }
 

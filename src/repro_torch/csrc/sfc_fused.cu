@@ -71,6 +71,7 @@
 #include <cuda.h>
 
 #include "sfc_common.cuh"
+#include "sfc_tma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -157,64 +158,14 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
       : "r"((unsigned)__cvta_generic_to_shared(p)));
 }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count));
-}
-
-// one thread: expect `bytes` more from the copies completing on `bar`
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int phase) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(phase)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
-          smem_u32(dst)),
-      "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
-          smem_u32(dst)),
-      "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// bytes rounded up to the 128-byte alignment TMA destinations need
-__host__ __device__ constexpr long long align128(long long n) {
-  return (n + 127) / 128 * 128;
-}
+using sfc::align128;
+using sfc::encode;
+using sfc::mbar_expect;
+using sfc::mbar_init;
+using sfc::mbar_wait;
+using sfc::smem_u32;
+using sfc::tma_load_3d;
+using sfc::tma_load_4d;
 
 // xq is blocked by the C_out rank that quantized the rows: rank o's tiles
 // col = o + n_share c at xq + o * xq_region, row (position p, tile c) at
@@ -702,16 +653,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <int kPairs, int kT, int kL, int kM>
 cudaError_t launch(const Args& a, dim3 grid, int smem, cudaStream_t stream) {
   auto kernel = fused_kernel<kPairs, kT, kL, kM>;
-  // once per instantiation (per process): all the dynamic shared memory a
+  // once per instantiation and device: all the dynamic shared memory a
   // block may have, and clusters of up to 16 blocks
-  static const cudaError_t set = [kernel] {
+  static std::atomic<bool> ready[sfc::kMaxDevices];
+  const cudaError_t set = sfc::once_per_device(ready, [kernel] {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     return e;
-  }();
+  });
   if (set != cudaSuccess) return set;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const int cluster = a.n_share * a.k_split;
@@ -745,44 +697,6 @@ cudaError_t launch_tile(const Args& a, dim3 grid, int smem,
     if (a.t == 7 && a.L == 6 && a.M == 4)
       return launch<kPairs, 7, 6, 4>(a, grid, smem, s);    // sfc4_4
   return launch<kPairs, 0, 0, 0>(a, grid, smem, s);
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, or null where the CUDA installation lacks it
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess) {
-      cudaGetLastError();
-      return (EncodeTiled) nullptr;
-    }
-    return (EncodeTiled)p;
-  }();
-  return fn;
-}
-
-// a tiled tensor map of `rank` dims (innermost first), zero out of bounds
-cudaError_t encode(CUtensorMap* map, CUtensorMapDataType type, int rank,
-                   const void* base, const cuuint64_t* dims,
-                   const cuuint64_t* strides, const cuuint32_t* box) {
-  EncodeTiled fn = encoder();
-  if (!fn) return cudaErrorNotSupported;
-  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims,
-            strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
-             ? cudaSuccess
-             : cudaErrorInvalidValue;
 }
 
 }  // namespace

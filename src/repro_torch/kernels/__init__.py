@@ -7,6 +7,7 @@ launches its kernel on CUDA tensors, counting launches in its
   B1 ``sfc_transform_quantize``       csrc/sfc_transform.cu
   B2 ``tdmm_int8``                    csrc/sfc_tdmm.cu
   B3 ``sfc_inverse``                  csrc/sfc_inverse.cu
+     (also ``sfc_inverse_nhwc``, the same kernel and launch count)
   B4 ``sfc_fused_conv2d``             csrc/sfc_fused.cu
   B5 ``sfc_transform``                csrc/sfc_transform.cu
   B6 ``tdmm_int8_depthwise``          csrc/sfc_tdmm_dw.cu
@@ -19,7 +20,7 @@ from repro_torch.kernels.ops import (extract_tiles, fastconv2d_fp,
                                      quantized_fastconv2d_depthwise, untile)
 from repro_torch.kernels.sfc_fused import (sfc_fused_conv2d,
                                            sfc_fused_conv2d_depthwise)
-from repro_torch.kernels.sfc_inverse import sfc_inverse
+from repro_torch.kernels.sfc_inverse import sfc_inverse, sfc_inverse_nhwc
 from repro_torch.kernels.sfc_tdmm import tdmm_int8, tdmm_int8_depthwise
 from repro_torch.kernels.sfc_transform import (sfc_transform,
                                                sfc_transform_quantize)
@@ -39,7 +40,7 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "sfc_transform_quantize", "tdmm_int8", "sfc_inverse",
+    "sfc_transform_quantize", "tdmm_int8", "sfc_inverse", "sfc_inverse_nhwc",
     "sfc_fused_conv2d", "sfc_transform", "tdmm_int8_depthwise",
     "sfc_fused_conv2d_depthwise", "quantized_fastconv2d",
     "quantized_fastconv2d_depthwise", "fastconv2d_fp", "quantize_weights",

@@ -44,9 +44,10 @@ SIGNATURES = {
     "sfc_transform_launch": (_P, _P, _P) + (_I,) * 11 + (_P,),
     "tdmm_int8_launch": (_P,) * 5 + (_I,) * 4 + (_P,),
     "tdmm_int8_depthwise_launch": (_P,) * 5 + (_I,) * 3 + (_P,),
-    "sfc_inverse_launch": (_P, _P, _P, _LL, _I, _I, _I, _P),
+    "sfc_inverse_launch": (_P, _P, _P) + (_I,) * 4 + (_LL, _LL)
+    + (_I,) * 5 + (_P,),
     "sfc_fused_conv2d_launch": (_P,) * 7 + (_I,) * 27 + (_F, _P),
-    "sfc_fused_conv2d_depthwise_launch": (_P,) * 7 + (_I,) * 14 + (_F, _P),
+    "sfc_fused_conv2d_depthwise_launch": (_P,) * 7 + (_I,) * 20 + (_F, _P),
     "sfc_error_string": (_I,),
 }
 

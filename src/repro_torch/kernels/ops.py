@@ -5,14 +5,16 @@ pipeline:
 
   [B1: transform + per-frequency int8 quant, read from NHWC]  (additions)
        -> [B2: t^2-position int8 tensor-core GEMMs + dequant]
-       -> [B3: inverse transform incl. correction terms]
-       -> untile
+       -> [B3: inverse transform incl. correction terms, NHWC out]
 
 ``quantized_fastconv2d_depthwise`` swaps B2 for B6, the elementwise int8
 product (no channel contraction).  ``fastconv2d_fp`` is the unquantized
 path: B5 (the f32 transform) -> a P-batched f32 product outside any kernel
 (``torch.bmm``, as the JAX package leaves its ``jnp.einsum`` to XLA) ->
-B3 -> untile.
+B3.  B3 reads Y in the (P, nT, O) layout the product leaves and writes the
+cropped NHWC output itself (``sfc_inverse_nhwc``): nothing is copied
+between the kernels but B1's int8 output, which B2 and B6 read as
+(P, nT, C).
 
 Scales are static (PTQ-calibrated): act_scale (t, t), w_scale (t, t, Cout).
 The same code runs the plain PyTorch versions on CPU tensors and the CUDA
@@ -28,7 +30,7 @@ import torch
 
 from repro_torch.core import conv2d as c2d
 from repro_torch.core.generator import BilinearAlgorithm
-from repro_torch.kernels.sfc_inverse import sfc_inverse
+from repro_torch.kernels.sfc_inverse import sfc_inverse_nhwc
 from repro_torch.kernels.sfc_tdmm import tdmm_int8, tdmm_int8_depthwise
 from repro_torch.kernels.sfc_transform import (sfc_transform,
                                                sfc_transform_quantize)
@@ -75,7 +77,7 @@ def quantized_fastconv2d(x: torch.Tensor, wq: torch.Tensor,
     t, M = algo.t, algo.M
     P = t * t
     bt, _, at = c2d.transform_matrices(algo, torch.float32, x.device)
-    B, H, W, C = x.shape
+    _, H, W, C = x.shape
     grid = c2d.tile_grid(H, W, M, algo.R, padding)
     xq = sfc_transform_quantize(x, bt, act_scale, M, padding=padding,
                                 bits=bits)
@@ -83,10 +85,7 @@ def quantized_fastconv2d(x: torch.Tensor, wq: torch.Tensor,
     X = xq.reshape(T, P, C).transpose(0, 1).contiguous()     # (P, T, C)
     Y = tdmm_int8(X, wq, act_scale.reshape(P),
                   w_scale.reshape(P, -1).contiguous(), k_block=k_block)
-    ty = Y.transpose(0, 1).reshape(T, t, t, -1).contiguous()
-    y_tiles = sfc_inverse(ty, at)
-    return untile(y_tiles, algo, (B, grid.out_h, grid.out_w, grid.nH,
-                                  grid.nW))
+    return sfc_inverse_nhwc(Y, at, grid)
 
 
 def quantized_fastconv2d_depthwise(x: torch.Tensor, wq: torch.Tensor,
@@ -103,7 +102,7 @@ def quantized_fastconv2d_depthwise(x: torch.Tensor, wq: torch.Tensor,
     t, M = algo.t, algo.M
     P = t * t
     bt, _, at = c2d.transform_matrices(algo, torch.float32, x.device)
-    B, H, W, C = x.shape
+    _, H, W, C = x.shape
     grid = c2d.tile_grid(H, W, M, algo.R, padding)
     xq = sfc_transform_quantize(x, bt, act_scale, M, padding=padding,
                                 bits=bits)
@@ -111,10 +110,7 @@ def quantized_fastconv2d_depthwise(x: torch.Tensor, wq: torch.Tensor,
     X = xq.reshape(T, P, C).transpose(0, 1).contiguous()     # (P, T, C)
     Y = tdmm_int8_depthwise(X, wq.reshape(P, C), act_scale.reshape(P),
                             w_scale.reshape(P, C).contiguous())
-    ty = Y.transpose(0, 1).reshape(T, t, t, C).contiguous()
-    y_tiles = sfc_inverse(ty, at)
-    return untile(y_tiles, algo, (B, grid.out_h, grid.out_w, grid.nH,
-                                  grid.nW))
+    return sfc_inverse_nhwc(Y, at, grid)
 
 
 _FULL_FP32_LOCK = threading.Lock()
@@ -153,12 +149,13 @@ def full_fp32_matmul():
 
 def transform_domain_fp(tx: torch.Tensor, tw: torch.Tensor, *,
                         depthwise: bool = False) -> torch.Tensor:
-    """tx (nT, t, t, C) f32 with tw (t, t, C, O) -> ty (nT, t, t, O) f32.
+    """tx (nT, t, t, C) f32 with tw (t, t, C, O) -> Y (P, nT, O) f32.
 
     Dense: for each of the P = t^2 positions an f32 product
     (nT, C) @ (C, O), as one ``torch.bmm`` over P, in full float32
-    (:func:`full_fp32_matmul`).  Depthwise (tw (t, t, 1, C)): the
-    broadcast elementwise product.
+    (:func:`full_fp32_matmul`), left in the bmm's (P, nT, O) layout.
+    Depthwise (tw (t, t, 1, C)): the broadcast elementwise product, in
+    tx's (nT, t, t, C) layout.  ``sfc_inverse_nhwc`` reads either.
     """
     nT, t, _, C = tx.shape
     if depthwise:
@@ -166,8 +163,7 @@ def transform_domain_fp(tx: torch.Tensor, tw: torch.Tensor, *,
     P = t * t
     X = tx.reshape(nT, P, C).transpose(0, 1)                # (P, nT, C)
     with full_fp32_matmul():
-        Y = torch.bmm(X, tw.reshape(P, C, -1))               # (P, nT, O)
-    return Y.transpose(0, 1).reshape(nT, t, t, -1).contiguous()
+        return torch.bmm(X, tw.reshape(P, C, -1))            # (P, nT, O)
 
 
 def fastconv2d_fp_transformed(x: torch.Tensor, tw: torch.Tensor,
@@ -175,15 +171,13 @@ def fastconv2d_fp_transformed(x: torch.Tensor, tw: torch.Tensor,
                               padding: str = "SAME",
                               depthwise: bool = False) -> torch.Tensor:
     """Unquantized SFC conv from transformed weights tw (t, t, Cin, Cout)
-    (depthwise: (t, t, 1, C)): B5 -> f32 product -> B3 -> untile."""
+    (depthwise: (t, t, 1, C)): B5 -> f32 product -> B3, NHWC out."""
     bt, _, at = c2d.transform_matrices(algo, torch.float32, x.device)
-    B, H, W, _ = x.shape
+    _, H, W, _ = x.shape
     grid = c2d.tile_grid(H, W, algo.M, algo.R, padding)
     tx = sfc_transform(x, bt, algo.M, padding=padding)
-    ty = transform_domain_fp(tx, tw.to(x.dtype), depthwise=depthwise)
-    y_tiles = sfc_inverse(ty, at)
-    return untile(y_tiles, algo, (B, grid.out_h, grid.out_w, grid.nH,
-                                  grid.nW))
+    Y = transform_domain_fp(tx, tw.to(x.dtype), depthwise=depthwise)
+    return sfc_inverse_nhwc(Y, at, grid)
 
 
 def fastconv2d_fp(x: torch.Tensor, w: torch.Tensor, algo: BilinearAlgorithm,

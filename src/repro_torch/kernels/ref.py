@@ -11,7 +11,8 @@ the *kernel* layout of the JAX package's ``repro/kernels/ref.py``:
               per-position-per-channel weight scales sw (P, N)
   tdmm_dw   : X (P, T, C) int8, W (P, C) int8 -> (P, T, C) f32, with
               sx (P,) and sw (P, C)
-  inverse   : (nT, t, t, O) -> (nT, M, M, O)
+  inverse   : (nT, t, t, O) -> (nT, M, M, O); its NHWC entry
+              (P, nT, O) or (nT, t, t, O) -> (B, H', W', O)
 """
 from __future__ import annotations
 
@@ -81,6 +82,19 @@ def sfc_inverse_ref(ty: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
     return torch.einsum("mt,ntuo,pu->nmpo", at, ty, at)
 
 
+def sfc_inverse_nhwc_ref(y: torch.Tensor, at: torch.Tensor,
+                         grid: c2d.TileGrid) -> torch.Tensor:
+    """The B3 kernel's NHWC entry: Y (P, nT, O) or (nT, t, t, O) -> the
+    inverse of every tile, untiled and cropped to (B, out_h, out_w, O)."""
+    M, t = at.shape
+    if y.dim() == 3:
+        y = y.permute(1, 0, 2).reshape(y.shape[1], t, t, y.shape[2])
+    tiles = sfc_inverse_ref(y, at)
+    return c2d.untile_2d(tiles.reshape(-1, grid.nH, grid.nW, M, M,
+                                       tiles.shape[-1]),
+                         grid.out_h, grid.out_w)
+
+
 def sfc_fused_conv2d_ref(x: torch.Tensor, wq: torch.Tensor,
                          act_scale: torch.Tensor, w_scale: torch.Tensor,
                          algo: BilinearAlgorithm, padding: str = "SAME",
@@ -108,9 +122,7 @@ def sfc_fused_conv2d_ref(x: torch.Tensor, wq: torch.Tensor,
     else:
         Y = tdmm_int8_ref(X, wq, act_scale.reshape(t * t),
                           w_scale.reshape(t * t, -1))
-    ty = Y.permute(1, 0, 2).reshape(T, t, t, -1)
-    y = sfc_inverse_ref(ty, at).reshape(B, grid.nH, grid.nW, M, M, -1)
-    return c2d.untile_2d(y, grid.out_h, grid.out_w)
+    return sfc_inverse_nhwc_ref(Y, at, grid)
 
 
 def quantized_fastconv2d_ref(x: torch.Tensor, w: torch.Tensor,

@@ -26,11 +26,14 @@ quantize), B2 (dequant) and B3 (inverse), and its int32 sums are exact,
 so on the card the fused and the staged datapath are bit-identical at
 every geometry; ``chip_smoke.py`` asserts it at every VGG-16 layer.
 
-B7 has no channel contraction, so its blocks own a group of tiles and
-``cout_block`` channels, with no C_in loop, no accumulator and no cluster:
-each block transforms and quantizes, multiplies by its (P, cb) int8
-weights, dequantizes and inverts, sharing B1's, B6's and B3's device
-functions, so it is bit-identical to the staged depthwise datapath.
+B7 has no channel contraction, so its blocks own a run of tiles along one
+tile row and ``cout_block`` channels, with no C_in loop, no accumulator
+and no cluster; its geometry is :class:`DepthwiseGeometry`, computed per
+layer by :func:`depthwise_geometry`.  TMA brings the run's input region,
+zero-padded, and the block's (P, cb) weights and scales into shared
+memory once; the block transforms and quantizes, multiplies, dequantizes
+and inverts from there, sharing B1's, B6's and B3's device functions, so
+it is bit-identical to the staged depthwise datapath.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ import dataclasses
 import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import conv2d as c2d
@@ -48,7 +52,6 @@ from repro_torch.kernels import _build, ref
 TILES = 16          # tiles per B4 block: the mma M dimension (kTiles)
 THREADS = 512       # threads per B4 block (kThreads in csrc/sfc_fused.cu)
 K_BLOCK = 32        # C_in channels per pipeline stage (mma k = 32)
-COUT_BLOCK = 16     # B7's channels per block
 STAGES = 2          # B4's ring of weight stages (kStages)
 PAIRS = (4, 8, 12, 16, 20)   # the pairs per warp B4 is compiled for
 # B4's output channels per block, in the order the auto geometry tries
@@ -63,12 +66,28 @@ COUT_BLOCKS = (16, 8)
 MIN_BLOCKS = 64
 MAX_CLUSTER = 16
 # shared memory one block may use on an H100, less the kernel's static
-# part: B7's (B^T, A^T, scales), and B4's, which also holds its tiles'
-# coordinates (under 4 KB)
-SMEM_LIMIT_BYTES = 232448 - 4 * 3 * _build.MAX_T * _build.MAX_L
+# part: B4's (B^T, A^T, scales and its tiles' coordinates, under 4 KB) and
+# B7's (an mbarrier, rounded up to 2 KB)
 B4_STATIC_SMEM_BYTES = 4096
 B4_SMEM_LIMIT_BYTES = 232448 - B4_STATIC_SMEM_BYTES
-DW_TILES = 4        # tiles per block of B7 (kCols in csrc/sfc_fused_dw.cu)
+DW_STATIC_SMEM_BYTES = 2048
+DW_SMEM_LIMIT_BYTES = 232448 - DW_STATIC_SMEM_BYTES
+# B7's geometry, from chip_smoke.py --sweep-b7 on an H100 (PERF.md).  The
+# threads per (tile, channel) ("splits", which share its transform rows
+# and its output rows) by the layer's (tile, channel) pairs: 10 below
+# 12288 pairs, 5 below 65536, else 3 (a small layer waits on each thread's
+# chain of FMAs and divisions, a large one on throughput).  Then 32 f32
+# channels a block (128 bytes a pixel: whole lines), else 16, and the
+# longest run of tiles along a tile row (no tile slot idle at the row's
+# end) that makes SMS blocks, a wave of the H100's SMs, else the most
+# blocks; within DW_MAX_THREADS threads a block (kMaxThreads in
+# csrc/sfc_fused_dw.cu), with fewer splits where needed.
+DW_COUT_BLOCKS = (32, 16)
+DW_TILE_RUNS = (4, 2, 1)
+DW_SPLITS = (1, 2, 3, 5, 10)
+DW_SPLIT_PAIRS = ((12288, 10), (65536, 5))
+DW_MAX_THREADS = 384
+SMS = 132
 
 
 @dataclasses.dataclass(frozen=True)
@@ -307,25 +326,146 @@ def _fused_geometry(tml, n_tiles, cin, cout, k_block, cout_block, n_share,
     return max(cands, key=lambda g: g.blocks)
 
 
-def smem_bytes_depthwise(t: int, cb: int) -> int:
-    """Dynamic shared memory of one B7 block: f32 weight scales, int8 xq
-    tiles and int8 weights (the same formula as the launch in
-    csrc/sfc_fused_dw.cu)."""
-    return t * t * cb * (DW_TILES + 5)
+@dataclasses.dataclass(frozen=True)
+class DepthwiseGeometry:
+    """B7's launch geometry for one layer: computed here once and passed
+    to ``csrc/sfc_fused_dw.cu``, which only checks it.
+
+    A block owns a run of ``tiles`` tiles along one tile row (tile columns
+    ``tiles * r`` on; the last run of a row may be short) and ``cb``
+    channels; ``splits`` threads per (tile, channel) share its transform
+    rows and its output rows.  It stages the run's input region, L x
+    ``region_w`` pixels of ``cb`` channels, its weights and weight scales
+    in shared memory.  Grid: ((image, tile row) x runs, channel blocks).
+    """
+
+    t: int
+    M: int
+    L: int
+    tiles: int
+    cb: int
+    splits: int
+    tile_rows: int      # B nH
+    tile_cols: int      # nW
+    channels: int
+
+    @property
+    def positions(self) -> int:
+        return self.t * self.t
+
+    @property
+    def runs(self) -> int:
+        """Runs of tiles per tile row."""
+        return -(-self.tile_cols // self.tiles)
+
+    @property
+    def grid(self) -> tuple:
+        return (self.tile_rows * self.runs, -(-self.channels // self.cb))
+
+    @property
+    def blocks(self) -> int:
+        x, y = self.grid
+        return x * y
+
+    @property
+    def threads(self) -> int:
+        return -(-self.splits * self.tiles * self.cb // 32) * 32
+
+    @property
+    def region_w(self) -> int:
+        """Input columns of a run: M per tile and the R - 1 of the halo."""
+        return self.M * (self.tiles - 1) + self.L
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory: the input region (f32), the weight
+        scales (f32), the weights (int8) and the dequantized products
+        (f32), each on 128 bytes, and 128 to align the first (the same
+        formula as the check in csrc/sfc_fused_dw.cu)."""
+        P = self.positions
+        return 128 + _align128(4 * self.L * self.region_w * self.cb) \
+            + _align128(4 * P * self.cb) + _align128(P * self.cb) \
+            + _align128(4 * P * self.tiles * self.cb)
+
+    def block_tiles(self, bx: int) -> list:
+        """The (tile row, tile column) of each tile block ``bx`` owns."""
+        row, run = divmod(bx, self.runs)
+        return [(row, c) for c in range(run * self.tiles,
+                                        min((run + 1) * self.tiles,
+                                            self.tile_cols))]
+
+    def launch_args(self) -> tuple:
+        """(tiles, cb, splits, threads, smem, grid_x, grid_y) as the C
+        entry point takes them."""
+        return (self.tiles, self.cb, self.splits, self.threads,
+                self.smem_bytes, *self.grid)
 
 
-def resolve_depthwise_block(t: int, cout_block: int) -> int:
-    """The channel block B7 runs at, or ValueError if it cannot run."""
-    if cout_block < 1:
-        raise ValueError(f"sfc_fused_conv2d: the depthwise cout_block must "
-                         f"be positive, got cout_block={cout_block}")
-    need = smem_bytes_depthwise(t, cout_block)
-    if need > SMEM_LIMIT_BYTES:
-        raise ValueError(
-            f"sfc_fused_conv2d: depthwise cout_block={cout_block} needs "
-            f"{need} bytes of shared memory for t={t}; one block has "
-            f"{SMEM_LIMIT_BYTES}")
-    return cout_block
+def _dw_fits(g: DepthwiseGeometry) -> bool:
+    return (g.threads <= DW_MAX_THREADS and g.smem_bytes <= DW_SMEM_LIMIT_BYTES
+            and g.region_w <= 256 and g.grid[1] <= 65535)
+
+
+def depthwise_geometry(algo: BilinearAlgorithm, n_tiles: tuple, C: int,
+                       cout_block: Optional[int] = None, *,
+                       tiles: Optional[int] = None,
+                       splits: Optional[int] = None) -> DepthwiseGeometry:
+    """B7's geometry for the tiles ``n_tiles`` = (B nH, nW), the tile rows
+    of the batch and the tiles in each, of ``algo`` over ``C`` channels,
+    or ValueError if the knobs cannot run.
+
+    ``cout_block`` (channels per block, any positive width that fits),
+    ``tiles`` (tiles per block) and ``splits`` (threads per (tile,
+    channel), at most 10) are picked where None: the splits by the
+    layer's (tile, channel) pairs (``DW_SPLIT_PAIRS``), then the first of
+    ``DW_COUT_BLOCKS`` x ``DW_TILE_RUNS`` that makes ``SMS`` blocks, else
+    the one with the most blocks.  Cached: the wrapper asks once per layer
+    shape.
+    """
+    return _depthwise_geometry((algo.t, algo.M, algo.L), tuple(n_tiles), C,
+                               cout_block, tiles, splits)
+
+
+@functools.lru_cache(maxsize=1024)
+def _depthwise_geometry(tml, n_tiles, C, cout_block, tiles,
+                        splits) -> DepthwiseGeometry:
+    t, M, L = tml
+    for knob, v in (("cout_block", cout_block), ("tiles", tiles),
+                    ("splits", splits)):
+        if v is not None and v < 1:
+            raise ValueError(f"sfc_fused_conv2d: the depthwise {knob} must "
+                             f"be positive, got {knob}={v}")
+    if splits is not None and splits > max(DW_SPLITS):
+        raise ValueError(f"sfc_fused_conv2d: the depthwise splits must be "
+                         f"at most {max(DW_SPLITS)}, got splits={splits}")
+
+    def geometry(cb, tc, s):
+        return DepthwiseGeometry(t=t, M=M, L=L, tiles=tc, cb=cb, splits=s,
+                                 tile_rows=n_tiles[0], tile_cols=n_tiles[1],
+                                 channels=C)
+
+    cbs = (cout_block,) if cout_block is not None else DW_COUT_BLOCKS
+    tcs = (tiles,) if tiles is not None else tuple(
+        tc for tc in DW_TILE_RUNS if tc == 1 or n_tiles[1] % tc == 0)
+    if splits is not None:
+        ss = (splits,)
+    else:
+        pairs = n_tiles[0] * n_tiles[1] * C
+        want = next((s for limit, s in DW_SPLIT_PAIRS if pairs < limit), 3)
+        ss = sorted((s for s in DW_SPLITS if s <= min(want, t)),
+                    reverse=True)
+    for s in ss:       # the most splits that fit a block
+        cands = [g for g in (geometry(cb, tc, s) for cb in cbs for tc in tcs)
+                 if _dw_fits(g)]
+        if cands:
+            return next((g for g in cands if g.blocks >= SMS),
+                        max(cands, key=lambda g: g.blocks))
+    g = geometry(cbs[-1], min(tcs), ss[-1])
+    raise ValueError(
+        f"sfc_fused_conv2d: depthwise cout_block={g.cb} needs "
+        f"{g.smem_bytes} bytes of shared memory and {g.threads} threads a "
+        f"block for t={t} at tiles={g.tiles}, splits={g.splits}; one block "
+        f"has {DW_SMEM_LIMIT_BYTES} bytes and {DW_MAX_THREADS} threads")
 
 
 def sfc_fused_conv2d(x: torch.Tensor, wq: torch.Tensor,
@@ -349,9 +489,9 @@ def sfc_fused_conv2d(x: torch.Tensor, wq: torch.Tensor,
 
     ``depthwise`` (wq (t^2, 1, C), w_scale (t, t, C)) runs B7, the
     function of the staged ``ops.quantized_fastconv2d_depthwise``, with
-    ``cout_block`` channels per block (None = ``COUT_BLOCK``); ``k_block``
-    has no effect there, as in the JAX package: there is no reduction to
-    block.
+    ``cout_block`` channels per block (:func:`depthwise_geometry`; None
+    picks per layer); ``k_block`` has no effect there, as in the JAX
+    package: there is no reduction to block.
     """
     name = "sfc_fused_conv2d"
     if double_buffer:
@@ -361,9 +501,7 @@ def sfc_fused_conv2d(x: torch.Tensor, wq: torch.Tensor,
     if depthwise:
         return sfc_fused_conv2d_depthwise(x, wq, act_scale, w_scale, algo,
                                           padding=padding, bits=bits,
-                                          cout_block=COUT_BLOCK
-                                          if cout_block is None
-                                          else cout_block)
+                                          cout_block=cout_block)
     B, H, W, C = x.shape
     t, M, L = algo.t, algo.M, algo.L
     P = t * t
@@ -407,16 +545,28 @@ def sfc_fused_conv2d(x: torch.Tensor, wq: torch.Tensor,
 sfc_fused_conv2d.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _host_matrices(algo: BilinearAlgorithm) -> tuple:
+    """B^T and A^T as float32 arrays in host memory, which B7 takes by
+    value (the same values as ``c2d.transform_matrices``)."""
+    return tuple(np.ascontiguousarray(m, dtype=np.float32)
+                 for m in (algo.bt(), algo.at()))
+
+
 def sfc_fused_conv2d_depthwise(x: torch.Tensor, wq: torch.Tensor,
                                act_scale: torch.Tensor,
                                w_scale: torch.Tensor,
                                algo: BilinearAlgorithm, *,
                                padding: str = "SAME", bits: int = 8,
-                               cout_block: int = COUT_BLOCK) -> torch.Tensor:
+                               cout_block: Optional[int] = None,
+                               tiles: Optional[int] = None,
+                               splits: Optional[int] = None) -> torch.Tensor:
     """B7: int8 depthwise SFC convolution in one launch.
 
     x (B, H, W, C) f32; wq (t^2, 1, C) int8; act_scale (t, t);
-    w_scale (t, t, C) -> (B, H', W', C) f32.
+    w_scale (t, t, C) -> (B, H', W', C) f32.  ``cout_block``, ``tiles``
+    and ``splits`` set the geometry (:func:`depthwise_geometry`; None
+    picks per layer); every geometry gives the same bits.
     """
     name = "sfc_fused_conv2d_depthwise"
     B, H, W, C = x.shape
@@ -427,7 +577,9 @@ def sfc_fused_conv2d_depthwise(x: torch.Tensor, wq: torch.Tensor,
                          f"{tuple(wq.shape)}, act_scale "
                          f"{tuple(act_scale.shape)}, w_scale "
                          f"{tuple(w_scale.shape)} do not agree for t={t}")
-    cb = resolve_depthwise_block(t, cout_block)
+    grid = c2d.tile_grid(H, W, M, algo.R, padding)
+    geom = depthwise_geometry(algo, (B * grid.nH, grid.nW), C, cout_block,
+                              tiles=tiles, splits=splits)
     if _build.runs_plain(name, x, wq, act_scale, w_scale):
         return ref.sfc_fused_conv2d_ref(x, wq, act_scale, w_scale, algo,
                                         padding, bits, depthwise=True)
@@ -437,17 +589,17 @@ def sfc_fused_conv2d_depthwise(x: torch.Tensor, wq: torch.Tensor,
     _build.require(name, w_scale, "w_scale", torch.float32, 3)
     if t > _build.MAX_T or L > _build.MAX_L or M > _build.MAX_M:
         raise ValueError(f"{name}: unsupported tile (t={t}, L={L}, M={M})")
-    grid = c2d.tile_grid(H, W, M, algo.R, padding)
-    bt, _, at = c2d.transform_matrices(algo, torch.float32, x.device)
+    bt, at = _host_matrices(algo)
     out = torch.empty((B, grid.out_h, grid.out_w, C), dtype=torch.float32,
                       device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.sfc_fused_conv2d_depthwise_launch(
             x.data_ptr(), wq.data_ptr(), act_scale.data_ptr(),
-            w_scale.data_ptr(), bt.data_ptr(), at.data_ptr(), out.data_ptr(),
+            w_scale.data_ptr(), bt.ctypes.data, at.ctypes.data, out.data_ptr(),
             B, H, W, C, M, L, t, grid.lo_h, grid.lo_w, grid.nH, grid.nW,
-            grid.out_h, grid.out_w, cb, float(2 ** (bits - 1) - 1),
+            grid.out_h, grid.out_w, *geom.launch_args(),
+            float(2 ** (bits - 1) - 1),
             _build.stream_handle(x.device))
     _build.check(err, name)
     sfc_fused_conv2d_depthwise.launches += 1

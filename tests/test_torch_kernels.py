@@ -115,6 +115,62 @@ def test_b3_agrees(name):
                                atol=1e-5)
 
 
+# B3's NHWC entry on a ragged 13x11 grid: O not a multiple of 32
+B3_O = 37
+
+
+@pytest.mark.parametrize("padding", PADDINGS)
+@pytest.mark.parametrize("name", ALGOS)
+def test_b3_nhwc_entry_against_jax_inverse_and_untile(name, padding):
+    # the plain version of sfc_inverse_nhwc, from the (P, T, O) layout of
+    # B2's and B6's output, against the JAX kernel in interpret mode on
+    # the (T, t, t, O) layout followed by the JAX package's untile
+    algo, jalgo = registry.get_algorithm(name), jregistry.get_algorithm(name)
+    B, H, W = X_SHAPE[:3]
+    grid = c2d.tile_grid(H, W, algo.M, algo.R, padding)
+    T, P = B * grid.nH * grid.nW, algo.t ** 2
+    y = np.random.RandomState(13).randn(P, T, B3_O).astype(np.float32)
+    at = c2d.transform_matrices(algo, device="cpu")[2]
+    mine = kernels.sfc_inverse_nhwc(torch.from_numpy(y), at, grid)
+    ty = np.ascontiguousarray(y.transpose(1, 0, 2)).reshape(
+        T, algo.t, algo.t, B3_O)
+    jat = jc2d.transform_matrices(jalgo, "float32")[2]
+    theirs = jops.untile(jsfc_inverse(jnp.asarray(ty), jat, interpret=True),
+                         jalgo, (B, grid.out_h, grid.out_w, grid.nH,
+                                 grid.nW))
+    assert mine.shape == theirs.shape == (B, grid.out_h, grid.out_w, B3_O)
+    np.testing.assert_allclose(mine.numpy(), np.asarray(theirs), rtol=1e-5,
+                               atol=1e-5)
+    # the (T, t, t, O) layout gives the same values
+    np.testing.assert_array_equal(
+        kernels.sfc_inverse_nhwc(torch.from_numpy(ty), at, grid).numpy(),
+        mine.numpy())
+
+
+@pytest.mark.parametrize("name", ("wino2", "wino4", "sfc6_6_r4",
+                                  "sfc6_7_r2"))
+def test_b3_run_time_algorithms_agree(name):
+    # algorithms whose (t, M) the kernel takes at run time: both entries'
+    # plain versions against the JAX kernel in interpret mode (+ untile)
+    algo, jalgo = registry.get_algorithm(name), jregistry.get_algorithm(name)
+    B, H, W = X_SHAPE[:3]
+    grid = c2d.tile_grid(H, W, algo.M, algo.R, "SAME")
+    T = B * grid.nH * grid.nW
+    ty = np.random.RandomState(14).randn(T, algo.t, algo.t, B3_O).astype(
+        np.float32)
+    at = c2d.transform_matrices(algo, device="cpu")[2]
+    jat = jc2d.transform_matrices(jalgo, "float32")[2]
+    theirs = jsfc_inverse(jnp.asarray(ty), jat, interpret=True)
+    np.testing.assert_allclose(sfc_inverse(torch.from_numpy(ty), at).numpy(),
+                               np.asarray(theirs), rtol=1e-5, atol=1e-5)
+    y = np.ascontiguousarray(ty.reshape(T, -1, B3_O).transpose(1, 0, 2))
+    np.testing.assert_allclose(
+        kernels.sfc_inverse_nhwc(torch.from_numpy(y), at, grid).numpy(),
+        np.asarray(jops.untile(theirs, jalgo, (B, grid.out_h, grid.out_w,
+                                               grid.nH, grid.nW))),
+        rtol=1e-5, atol=1e-5)
+
+
 def _jax_prepared(x, w, name, padding):
     spec = JConvSpec.for_conv2d(x.shape, w.shape, padding=padding,
                                 quant=JINT8_FREQ)
@@ -227,7 +283,7 @@ def test_fused_rejects_unported_options_and_bad_blocks():
     with pytest.raises(ValueError, match="cout_block=0"):
         sfc_fused_conv2d(x, wq_dw, act, ws_dw, algo, depthwise=True,
                          cout_block=0)
-    with pytest.raises(ValueError, match="cout_block=512 needs 460800 bytes"):
+    with pytest.raises(ValueError, match="cout_block=512 needs 592000 bytes"):
         sfc_fused_conv2d(x, wq_dw, act, ws_dw, algo, depthwise=True,
                          cout_block=512)
     with pytest.raises(ValueError, match="do not agree"):
