@@ -14,8 +14,10 @@ csrc`` at first use.  Phases, each of which raises on failure:
      tolerance stated beside each check; the fused kernels also bit for bit
      against the staged ones (B4 against B1 -> B2 -> B3, B7 against
      B1 -> B6 -> B3) on snapped and raw inputs at a second geometry, B7 at
-     batch 4, VALID and a run-time algorithm too, and B3's NHWC entry
-     bit for bit against its tile entry followed by ``untile``;
+     batch 4, VALID and a run-time algorithm too, B3's NHWC entry
+     bit for bit against its tile entry followed by ``untile``, and B1's
+     (P, T, C) entry against its plain version and bit for bit against
+     its tile entry, B1 and B5 also at a second geometry;
   4. the paths, each forward of which starts from launch counts of 0 and
      must launch its own kernels, and only those, the stated number of
      times; every layer is held against the ``reference`` backend on the
@@ -34,14 +36,17 @@ csrc`` at first use.  Phases, each of which raises on failure:
   5. per kernel, the times over the layers of one batch-1 request: the
      kernel, its plain version, one PyTorch library call where one
      computes the same function, and the least time the card could take
-     (B3 as the paths call it: its NHWC entry on the product's output);
-     also B3's tile entry and the copies the NHWC entry replaced, B1 and
-     B3 over the depthwise layers, and the card's time for a launch of
-     nothing.
+     (B1 and B3 as the paths call them: B1's (P, T, C) entry, B3's NHWC
+     entry on the product's output); also B3's tile entry and the copies
+     the NHWC entry replaced, B1, B3 and B5 over the depthwise layers, the
+     card's time for a launch of nothing, and one batch-1 fp and staged
+     VGG-16 forward under ``torch.profiler`` (the card's kernels by name,
+     and its busy share), where the profiler traces the card.
 
-``--sweep-b4`` and ``--sweep-b7`` time B4's and B7's geometries per layer
-instead (each held bit for bit to the default) and write
-``chiprun_out/b4_sweep.json`` and ``b7_sweep.json``.
+``--sweep-b4``, ``--sweep-b7`` and ``--sweep-b1`` time B4's, B7's and
+B1's and B5's geometries per layer instead (each held bit for bit to the
+default) and write ``chiprun_out/b4_sweep.json``, ``b7_sweep.json`` and
+``b1_sweep.json``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  A longer report goes to
@@ -120,6 +125,11 @@ DW_CHECKS = (("sfc6_6", 112, 32, 1, "SAME"), ("sfc6_6", 56, 144, 4, "SAME"),
              ("sfc6_7", 7, 960, 1, "SAME"), ("sfc6_6", 14, 384, 4, "VALID"),
              ("sfc4_4", 13, 40, 2, "VALID"), ("wino4", 13, 48, 1, "SAME"))
 B7_ALT = {"cout_block": 16, "tiles": 4, "splits": 3}
+# B1 and B5 at a geometry other than the per-layer default: 18 channels a
+# block (no multiple of 4: plain loads, not TMA, and a channel tail), runs
+# of 3 tiles (some idle at a row's end), 3 threads a (tile, channel) (rows
+# unevenly shared); bit for bit the same
+B1_ALT = {"channel_block": 18, "tiles": 3, "splits": 3}
 REPLACES = {
     "sfc_transform_quantize": ("src/repro_torch/csrc/sfc_transform.cu",
                                "src/repro/kernels/sfc_transform.py:36"),
@@ -318,6 +328,81 @@ def sweep_b7(dev, timed, smi) -> None:
     log(f"sweep: {smi}; every geometry bit-identical to the default")
 
 
+def sweep_b1(dev, timed, smi) -> None:
+    """B1's (its (P, T, C) entry, as the staged paths call it) and B5's card
+    time per VGG-16 and depthwise layer shape at batch 1 and 4 over a set
+    of geometries (``python3 chip_smoke.py --sweep-b1``:
+    ``transform_geometry``'s ``channel_block``, ``tiles`` and ``splits``),
+    each output held bit for bit to the per-layer default's; the rows go
+    to ``chiprun_out/b1_sweep.json`` and the log."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.api import registry
+    from repro_torch.core import conv2d as c2d
+    from repro_torch.kernels.sfc_transform import transform_geometry
+
+    algo = registry.get_algorithm(ALGO)
+    t, M = algo.t, algo.M
+    bt = c2d.transform_matrices(algo, torch.float32, dev)[0]
+    act = torch.full((t, t), 0.05, device=dev)
+    vgg, _ = vgg_layers()
+    shapes = [(f"vgg {hw}x{hw}x{cin}", hw, cin) for _, hw, cin, _ in vgg]
+    shapes += [(name, hw, c) for name, hw, c in DW_LAYERS]
+    rows_out, seen = [], set()
+    for batch in (1, 4):
+        for lname, hw, c in shapes:
+            if (batch, hw, c) in seen:
+                continue
+            seen.add((batch, hw, c))
+            x = torch.tensor(np.random.RandomState(hw + c).randn(
+                batch, hw, hw, c), dtype=torch.float32, device=dev)
+            grid = c2d.tile_grid(hw, hw, M, algo.R, "SAME")
+            tiles = (batch * grid.nH, grid.nW)
+            cbs = (c,) if c < 16 else (16, 32, 64)
+            variants = [dict(channel_block=cb, tiles=tc, splits=sp)
+                        for cb in cbs for tc in (1, 2, 4, 8)
+                        for sp in (t, -(-t // 2), -(-t // 3), -(-t // 5))]
+            dflt = transform_geometry(algo, tiles, c)
+            for kname, fn in (
+                    ("sfc_transform_quantize", lambda **k: kernels.
+                     sfc_transform_quantize_pt(x, bt, act, M, **k)),
+                    ("sfc_transform", lambda **k: kernels.sfc_transform(
+                        x, bt, M, **k))):
+                base = fn()
+                row = {"kernel": kname, "batch": batch, "layer": lname,
+                       "hw": hw, "c": c,
+                       "default": [dflt.cb, dflt.tiles, dflt.splits],
+                       "default_blocks": dflt.blocks,
+                       "default_ms": timed(fn), "variants": []}
+                for v in variants:
+                    try:
+                        g = transform_geometry(algo, tiles, c, **v)
+                        y = fn(**v)
+                    except (ValueError, RuntimeError) as e:
+                        row["variants"].append({**v,
+                                                "refused": str(e)[:80]})
+                        continue
+                    if not torch.equal(y, base):
+                        raise AssertionError(f"{kname} at {v} differs from "
+                                             f"the default geometry: {row}")
+                    row["variants"].append({
+                        **v, "blocks": g.blocks, "threads": g.threads,
+                        "smem": g.smem_bytes,
+                        "ms": timed(lambda: fn(**v))})
+                best = min((r for r in row["variants"] if "ms" in r),
+                           key=lambda r: r["ms"])
+                log(f"sweep: {kname} batch {batch} {lname} {hw}x{hw}x{c}: "
+                    f"default {row['default']} {row['default_ms']:.4f} ms; "
+                    f"best {json.dumps(best)}")
+                rows_out.append(row)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "b1_sweep.json").write_text(json.dumps(
+        {"device": smi, "rows": rows_out}, indent=1))
+    log(f"sweep: {smi}; every geometry bit-identical to the default")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -406,6 +491,9 @@ def main() -> None:
     if "--sweep-b7" in sys.argv[1:]:
         sweep_b7(dev, timed, smi)
         return
+    if "--sweep-b1" in sys.argv[1:]:
+        sweep_b1(dev, timed, smi)
+        return
 
     def snapped(rng, shape):
         return torch.tensor(np.round(rng.randn(*shape) * 16) / 16,
@@ -470,25 +558,63 @@ def main() -> None:
     # ---- 3. each kernel against its plain version ------------------------
     max_err = {k: 0.0 for k in REPLACES}
 
-    def check_b5(case, x, xr, xq_raw, bt, scale, M):
+    def check_b5(case, x, xr, xq_raw, bt, scale, M, padding="SAME"):
         """B5 against its plain version: exact on snapped inputs x, within
-        1e-6 of the output's scale on raw inputs xr; and on xr exactly the
-        value B1 quantized into xq_raw (one device function, one order)."""
-        tx, tx_ref = kernels.sfc_transform(x, bt, M), \
-            ref.sfc_transform_nhwc_ref(x, bt, M)
+        1e-6 of the output's scale on raw inputs xr; on xr exactly the
+        value B1 quantized into xq_raw (one device function, one order);
+        and at B1_ALT bit for bit the per-layer geometry's."""
+        tx = kernels.sfc_transform(x, bt, M, padding=padding)
+        tx_ref = ref.sfc_transform_nhwc_ref(x, bt, M, padding)
         case["b5_mismatch_snapped"] = int((tx != tx_ref).sum())
-        txr, txr_ref = kernels.sfc_transform(xr, bt, M), \
-            ref.sfc_transform_nhwc_ref(xr, bt, M)
+        txr = kernels.sfc_transform(xr, bt, M, padding=padding)
+        txr_ref = ref.sfc_transform_nhwc_ref(xr, bt, M, padding)
         err = (txr - txr_ref).abs().max().item()
         case["b5_scaled_err_raw"] = err / txr_ref.abs().max().item()
         q = torch.clamp(torch.round(txr / scale[None, :, :, None]), -127,
                         127).to(torch.int8)
         case["b5_b1_grid_mismatch"] = int((q != xq_raw).sum())
+        case["b5_alt_geometry_equal"] = bool(torch.equal(
+            kernels.sfc_transform(xr, bt, M, padding=padding, **B1_ALT),
+            txr))
         if case["b5_mismatch_snapped"] or case["b5_scaled_err_raw"] > 1e-6 \
-                or case["b5_b1_grid_mismatch"]:
-            raise AssertionError(f"B5 differs from its plain version or "
-                                 f"from what B1 quantizes: {case}")
+                or case["b5_b1_grid_mismatch"] \
+                or not case["b5_alt_geometry_equal"]:
+            raise AssertionError(f"B5 differs from its plain version, from "
+                                 f"what B1 quantizes or across geometries: "
+                                 f"{case}")
         max_err["sfc_transform"] = max(max_err["sfc_transform"], err)
+
+    def check_b1_pt(case, x, xr, xq, xq_raw, bt, scale, M, padding="SAME"):
+        """B1's (P, T, C) entry, which the staged paths call: exact against
+        its plain version on snapped inputs x, and bit for bit the tile
+        entry's values xq (on x) and xq_raw (on raw inputs xr) written
+        position-major; both entries at B1_ALT bit for bit the per-layer
+        geometry's."""
+        T, t, _, C = xq.shape
+
+        def pt(q):
+            return q.reshape(T, t * t, C).transpose(0, 1)
+        xp = kernels.sfc_transform_quantize_pt(x, bt, scale, M,
+                                               padding=padding)
+        case["b1_pt_mismatch_snapped"] = int((
+            xp != ref.sfc_transform_quantize_pt_ref(x, bt, scale, M,
+                                                    padding)).sum())
+        case["b1_pt_equals_tiles"] = bool(
+            torch.equal(xp, pt(xq)) and torch.equal(
+                kernels.sfc_transform_quantize_pt(xr, bt, scale, M,
+                                                  padding=padding),
+                pt(xq_raw)))
+        case["b1_alt_geometry_equal"] = all(
+            torch.equal(kernels.sfc_transform_quantize(
+                xx, bt, scale, M, padding=padding, **B1_ALT), q)
+            and torch.equal(kernels.sfc_transform_quantize_pt(
+                xx, bt, scale, M, padding=padding, **B1_ALT), pt(q))
+            for xx, q in ((x, xq), (xr, xq_raw)))
+        if case["b1_pt_mismatch_snapped"] or not case["b1_pt_equals_tiles"] \
+                or not case["b1_alt_geometry_equal"]:
+            raise AssertionError(f"B1's (P, T, C) entry differs from its "
+                                 f"plain version or from the tile entry, or "
+                                 f"B1 differs across geometries: {case}")
     checks = []
     rng = np.random.RandomState(11)
     for algo_name, hw, cin, cout, batch in KERNEL_CHECKS:
@@ -526,6 +652,7 @@ def main() -> None:
         # the output's scale, and exactly the value B1 quantizes (one
         # device function, one summation order)
         check_b5(case, x, xr, xq_raw, bt, prep.act_scale, algo.M)
+        check_b1_pt(case, x, xr, xq, xq_raw, bt, prep.act_scale, algo.M)
         # B2 on the same int8 operands: int32 exact, f32 output to 1e-6
         X = xq.reshape(-1, P, cin).transpose(0, 1).contiguous()
         sx = prep.act_scale.reshape(P).contiguous()
@@ -600,10 +727,20 @@ def main() -> None:
         xr = torch.tensor(rng.randn(batch, hw, hw, c), dtype=torch.float32,
                           device=dev)
         xq_raw = kernels.sfc_transform_quantize(xr, bt, prep.act_scale,
-                                                algo.M)
-        check_b5(case, x, xr, xq_raw, bt, prep.act_scale, algo.M)
+                                                algo.M, padding=padding)
+        check_b5(case, x, xr, xq_raw, bt, prep.act_scale, algo.M, padding)
+        # B1 on snapped inputs: exact; its (P, T, C) entry
+        xq = kernels.sfc_transform_quantize(x, bt, prep.act_scale, algo.M,
+                                            padding=padding)
+        case["b1_mismatch_snapped"] = int((
+            xq != ref.sfc_transform_quantize_nhwc_ref(
+                x, bt, prep.act_scale, algo.M, padding)).sum())
+        if case["b1_mismatch_snapped"]:
+            raise AssertionError(f"B1 differs from its plain version on "
+                                 f"snapped inputs: {case}")
+        check_b1_pt(case, x, xr, xq, xq_raw, bt, prep.act_scale, algo.M,
+                    padding)
         # B6 on the same int8 operands: exact (int32 products, one dequant)
-        xq = kernels.sfc_transform_quantize(x, bt, prep.act_scale, algo.M)
         X = xq.reshape(-1, P, c).transpose(0, 1).contiguous()
         wq2 = prep.wq.reshape(P, c)
         sx = prep.act_scale.reshape(P).contiguous()
@@ -957,10 +1094,12 @@ def main() -> None:
     totals = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                   "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": None}
               for k in REPLACES}
-    # B1 and B3 over the depthwise layers of the batch-1 staged request
+    # B1, B5 and B3 over the depthwise layers at batch 1, as the staged and
+    # fp depthwise paths run them
     dw_totals = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                      "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": None}
-                 for k in ("sfc_transform_quantize", "sfc_inverse")}
+                 for k in ("sfc_transform_quantize", "sfc_transform",
+                           "sfc_inverse")}
     glue = {"fp_contraction_ms": 0.0}
     fp_b3 = {"sfc_inverse_ms": 0.0}         # B3 on the fp request's inputs
     # B3's tile entry on the same values (the JAX kernel's contract, which
@@ -1049,8 +1188,7 @@ def main() -> None:
         row["b4_geometry"] = geometry_of(x, prep, algo)
         sx = prep.act_scale.reshape(P).contiguous()
         sw = prep.w_scale.reshape(P, -1).contiguous()
-        xq = kernels.sfc_transform_quantize(x, bt, prep.act_scale, M)
-        X = xq.reshape(T, P, cin).transpose(0, 1).contiguous()
+        X = kernels.sfc_transform_quantize_pt(x, bt, prep.act_scale, M)
         Y = kernels.tdmm_int8(X, prep.wq, sx, sw)
         ty = Y.transpose(0, 1).reshape(T, t, t, cout).contiguous()
         Y6 = Y.view(t, t, B, grid.nH, grid.nW, cout)
@@ -1067,7 +1205,7 @@ def main() -> None:
         f32_b3 = inverse_ops(algo, T, cout, at)
         f32_dq = T * cout * 2 * t * t
         work = {
-            "sfc_transform_quantize": (4 * x.numel() + xq.numel(), 0, f32_b1),
+            "sfc_transform_quantize": (4 * x.numel() + X.numel(), 0, f32_b1),
             "tdmm_int8": (X.numel() + prep.wq.numel() + 4 * (P + sw.numel())
                           + 4 * Y.numel(), 2 * P * T * cin * cout, 0),
             "sfc_inverse": (4 * Y.numel() + 4 * B * grid.out_h * grid.out_w
@@ -1080,9 +1218,9 @@ def main() -> None:
         }
         fns = {
             "sfc_transform_quantize": (
-                lambda: kernels.sfc_transform_quantize(x, bt, prep.act_scale,
-                                                       M),
-                lambda: ref.sfc_transform_quantize_nhwc_ref(
+                lambda: kernels.sfc_transform_quantize_pt(
+                    x, bt, prep.act_scale, M),
+                lambda: ref.sfc_transform_quantize_pt_ref(
                     x, bt, prep.act_scale, M), None),
             "tdmm_int8": (lambda: kernels.tdmm_int8(X, prep.wq, sx, sw),
                           lambda: ref.tdmm_int8_ref(X, prep.wq, sx, sw),
@@ -1112,8 +1250,9 @@ def main() -> None:
         layer_times.append(row)
         log("times:", json.dumps(row))
 
-    # B6 and B7 over the depthwise layers of the batch-1 requests, and B1
-    # and B3 on the same inputs as the staged depthwise path runs them
+    # B6 and B7 over the depthwise layers of the batch-1 requests, and B1,
+    # B5 and B3 on the same inputs as the staged and fp depthwise paths run
+    # them
     for lname, p, prep, x in dw_states[(1, "fused")]:
         algo = p.algorithm
         t, M, P = algo.t, algo.M, algo.t ** 2
@@ -1124,8 +1263,7 @@ def main() -> None:
         sx = prep.act_scale.reshape(P).contiguous()
         wq2 = prep.wq.reshape(P, c)
         sw = prep.w_scale.reshape(P, c).contiguous()
-        xq = kernels.sfc_transform_quantize(x, bt, prep.act_scale, M)
-        X = xq.reshape(T, P, c).transpose(0, 1).contiguous()
+        X = kernels.sfc_transform_quantize_pt(x, bt, prep.act_scale, M)
         args7 = (x, prep.wq, prep.act_scale, prep.w_scale, algo)
         # cuDNN's fp16 depthwise conv of the same shape, a yardstick only
         x16 = x.permute(0, 3, 1, 2).half().contiguous(
@@ -1154,22 +1292,80 @@ def main() -> None:
         }
         row = {"layer": lname, "hw": H, "c": c, "path": "dw_fused"}
         time_kernels(row, fns, work)
+        tiles, _ = kernels.extract_tiles(x, algo)
         time_kernels(row, {
             "sfc_transform_quantize": (
-                lambda: kernels.sfc_transform_quantize(x, bt, prep.act_scale,
-                                                       M),
-                lambda: ref.sfc_transform_quantize_nhwc_ref(
+                lambda: kernels.sfc_transform_quantize_pt(
+                    x, bt, prep.act_scale, M),
+                lambda: ref.sfc_transform_quantize_pt_ref(
                     x, bt, prep.act_scale, M), None),
+            "sfc_transform": (
+                lambda: kernels.sfc_transform(x, bt, M),
+                lambda: ref.sfc_transform_nhwc_ref(x, bt, M),
+                lambda: torch.einsum("ti,nijc,uj->ntuc", bt, tiles, bt)),
             "sfc_inverse": (
                 lambda: kernels.sfc_inverse_nhwc(Y, at, grid),
                 lambda: ref.sfc_inverse_nhwc_ref(Y, at, grid),
                 lambda: torch.einsum("mt,tubhwo,pu->bhmwpo", at, Y6, at))}, {
-            "sfc_transform_quantize": (4 * x.numel() + xq.numel(), 0,
+            "sfc_transform_quantize": (4 * x.numel() + X.numel(), 0,
                                        transform_ops(algo, T, c, bt, True)),
+            "sfc_transform": (4 * x.numel() + 4 * X.numel(), 0,
+                              transform_ops(algo, T, c, bt, False)),
             "sfc_inverse": (4 * Y.numel() + 4 * x.numel() + 4 * at.numel(),
                             0, inverse_ops(algo, T, c, at))}, sums=dw_totals)
         layer_times.append(row)
         log("times:", json.dumps(row))
+
+    # one batch-1 forward of the fp and the staged VGG-16 path under
+    # torch.profiler: the card's kernels by name (whether anything runs
+    # between the port's kernels and the product, a copy of an operand
+    # say) and the card's busy share of the forward
+    def profile_forward(fn):
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            spans = [(e.time_range.start, e.time_range.end, e.name)
+                     for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+        except Exception as e:     # the profiler may not trace this card
+            return {"not_measured": f"{type(e).__name__}: {e}"[:200]}
+        if not spans:
+            return {"not_measured": "the trace holds no device events"}
+        by_name = {}
+        for start, end, kname in spans:
+            n, us = by_name.get(kname, (0, 0.0))
+            by_name[kname] = (n + 1, us + end - start)
+        busy = sum(end - start for start, end, _ in spans)
+        span = max(e for _, e, _ in spans) - min(s for s, _, _ in spans)
+        return {"kernels": {k: {"count": n, "us": us}
+                            for k, (n, us) in sorted(by_name.items())},
+                "busy_us": busy, "device_span_us": span, "wall_us": wall_us,
+                "busy_share_of_span": busy / span if span else None,
+                "busy_share_of_wall": busy / wall_us}
+
+    profiles = {}
+    for dp in ("fp", "staged"):
+        images, state = served[(0, dp)]
+        profiles[dp] = profile_forward(lambda: forward(images, state))
+        pf = profiles[dp]
+        if "not_measured" in pf:
+            log(f"profile: batch-1 {dp} VGG-16 forward not measured: "
+                f"{pf['not_measured']}")
+            continue
+        log(f"profile: batch-1 {dp} VGG-16 forward: card busy "
+            f"{pf['busy_us']:.1f} us of a {pf['device_span_us']:.1f} us "
+            f"device span ({pf['busy_share_of_span']:.3f}) and "
+            f"{pf['wall_us']:.1f} us wall ({pf['busy_share_of_wall']:.3f}), "
+            f"the profiler's own cost included; kernels "
+            + json.dumps({k[:60]: v["count"] for k, v in
+                          pf["kernels"].items()}))
 
     # device memory of serving the batch-4 int8 request: the peak above
     # what was allocated before it (weights, inputs, everything resident)
@@ -1210,7 +1406,8 @@ def main() -> None:
     report["phases"]["kernel_times"] = {
         "per_layer": layer_times, "totals": totals, "glue": glue,
         "fp_request": fp_b3, "depthwise_staged": dw_totals,
-        "b3_tile": b3_tile, "launch_floor_ms": launch_floor_ms}
+        "b3_tile": b3_tile, "launch_floor_ms": launch_floor_ms,
+        "profiles": profiles}
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke_report.json").write_text(json.dumps(report, indent=1))
@@ -1234,15 +1431,15 @@ def main() -> None:
         f"of the batch-1 int8 request, against its tile entry "
         f"{b3_tile['tile_ms']:.4f} ms (bound {b3_tile['tile_bound_ms']:.4f}) "
         f"and the copies around the tile entry {b3_tile['glue_ms']:.4f} ms")
-    log("depthwise staged path: " + "; ".join(
+    log("depthwise staged and fp paths: " + "; ".join(
         f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}, plain "
         f"{v['plain_ms']:.4f})" for k, v in dw_totals.items())
         + f" over the {len(DW_LAYERS)} depthwise convs at batch 1")
     log(f"launch floor: {launch_floor_ms:.4f} ms a timed call (a one-float "
         f"fill)")
     log(f"times above: sums, median of {TIMED_RUNS} runs each, on {smi}: "
-        f"B1-B4 over the 13 convs of one batch-1 int8 VGG-16 request (B3 "
-        f"its NHWC entry), B5 "
+        f"B1-B4 over the 13 convs of one batch-1 int8 VGG-16 request (B1 "
+        f"its (P, T, C) entry, B3 its NHWC entry), B5 "
         f"over those of the batch-1 fp request, B6 and B7 over the "
         f"{len(DW_LAYERS)} depthwise convs at batch 1")
     log(json.dumps(line))

@@ -157,7 +157,10 @@ class ConvPlan:
                 "the rank-1 depthwise causal conv is a later slice of the "
                 "port (queue item A12)")
         algo = self.algorithm
-        tw = transform_weights_2d(w, algo)
+        # contiguous: the cuda backend's fp product reads tw as (t^2, Cin,
+        # Cout) in place (the einsum leaves a permuted view, which that
+        # reshape copied on every forward)
+        tw = transform_weights_2d(w, algo).contiguous()
         if not self.spec.quant.enabled or act_scale is None:
             return PreparedWeights(w=w, tw=tw)
         t = algo.t

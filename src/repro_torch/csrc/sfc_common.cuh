@@ -24,6 +24,8 @@
 #include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
+#include <utility>
 
 namespace sfc {
 
@@ -57,8 +59,9 @@ constexpr int kMaxM = 12;
 // tx[u, 0..t), rows first, each sum in ascending index order.  The fp
 // transform (B5) stores them as they are; transform_quantize_row (B1, B4,
 // B7) quantizes them, so B5's output is exactly the value B1 quantizes.
-// The rows of a tile are independent, so the kernels give each
-// (tile, channel, u) its own thread.
+// The rows of a tile are independent: the kernels share them out over a
+// few threads per (tile, channel).  (The compile-time form below gives the
+// same bits.)
 //   load(i, j)  -> float, the tile's input at row i, column j (zero
 //                  outside the image: the caller masks the padding);
 //   bt          -> t x L row-major (shared or global memory);
@@ -106,36 +109,197 @@ __device__ __forceinline__ void transform_quantize_row(
   });
 }
 
-// transform_quantize_row with t = T and L fixed at compile time and its
-// loops unrolled, so the t sums and divisions of the row interleave; a
-// zero coefficient of B^T discards its FMAs (a select, not a branch, so
-// nothing orders the loads).  Output for output it gives the bits of the
-// run-time form: the same FMAs in the same order, the same zero
-// coefficients skipped in the row pass and none in the column pass, the
-// same quantizer.  B7 (sfc_fused_dw.cu) calls it; B1, B4 and B5 call
-// transform_row.
-template <int T, int L, class Load, class Store>
-__device__ __forceinline__ void transform_quantize_row(
-    Load load, const float* bt, const float* scale, float qmax, int u,
-    Store store) {
+// B^T at compile time for the algorithms whose (t, L) the kernels fix:
+// sfc6_6, sfc6_7 and sfc4_4, entries -1, 0, 1 (tests/test_torch_kernels.py
+// holds these tables to the registry's B^T).  A launcher takes them only
+// where fixed_bt_matches says the B^T it was given is this one.
+template <int T, int L> struct FixedBt;
+
+template <> struct FixedBt<10, 8> {   // sfc6_6
+  __host__ __device__ static constexpr int at(int u, int i) {
+    constexpr signed char v[10 * 8] = {
+         0,  1,  1,  1,  1,  1,  1,  0,
+         0,  1,  0, -1, -1,  0,  1,  0,
+         0,  0,  1,  1,  0, -1, -1,  0,
+         0,  1,  1,  0, -1, -1,  0,  0,
+         0,  1, -1,  0,  1, -1,  0,  0,
+         0,  0,  1, -1,  0,  1, -1,  0,
+         0,  1,  0, -1,  1,  0, -1,  0,
+         0,  1, -1,  1, -1,  1, -1,  0,
+         1,  0,  0,  0,  0,  0, -1,  0,
+         0, -1,  0,  0,  0,  0,  0,  1,
+    };
+    return v[u * 8 + i];
+  }
+};
+
+template <> struct FixedBt<12, 9> {   // sfc6_7
+  __host__ __device__ static constexpr int at(int u, int i) {
+    constexpr signed char v[12 * 9] = {
+         0,  1,  1,  1,  1,  1,  1,  0,  0,
+         0,  1,  0, -1, -1,  0,  1,  0,  0,
+         0,  0,  1,  1,  0, -1, -1,  0,  0,
+         0,  1,  1,  0, -1, -1,  0,  0,  0,
+         0,  1, -1,  0,  1, -1,  0,  0,  0,
+         0,  0,  1, -1,  0,  1, -1,  0,  0,
+         0,  1,  0, -1,  1,  0, -1,  0,  0,
+         0,  1, -1,  1, -1,  1, -1,  0,  0,
+         1,  0,  0,  0,  0,  0, -1,  0,  0,
+         0, -1,  0,  0,  0,  0,  0,  1,  0,
+         0, -1,  0,  0,  0,  0,  0,  1,  0,
+         0,  0, -1,  0,  0,  0,  0,  0,  1,
+    };
+    return v[u * 9 + i];
+  }
+};
+
+template <> struct FixedBt<7, 6> {   // sfc4_4
+  __host__ __device__ static constexpr int at(int u, int i) {
+    constexpr signed char v[7 * 6] = {
+         0,  1,  1,  1,  1,  0,
+         0,  1,  0, -1,  0,  0,
+         0,  0,  1,  0, -1,  0,
+         0,  1,  1, -1, -1,  0,
+         0,  1, -1,  1, -1,  0,
+         1,  0,  0,  0, -1,  0,
+         0, -1,  0,  0,  0,  1,
+    };
+    return v[u * 6 + i];
+  }
+};
+
+template <class Bt, int T, int L>
+inline bool fixed_bt_matches(const float* bt) {
+  for (int u = 0; u < T; ++u)
+    for (int i = 0; i < L; ++i)
+      if (bt[u * L + i] != static_cast<float>(Bt::at(u, i))) return false;
+  return true;
+}
+
+namespace detail {
+
+// r[j] = fma(bt[U, I], x[I, j], r[j]) where that compile-time coefficient
+// is nonzero; nothing where it is zero
+template <class Bt, int U, int I, int L, class Load>
+__device__ __forceinline__ void fixed_row_term(Load& load, float (&r)[L]) {
+  constexpr int b = Bt::at(U, I);
+  if constexpr (b != 0) {
+#pragma unroll
+    for (int j = 0; j < L; ++j)
+      r[j] = fmaf(static_cast<float>(b), load(I, j), r[j]);
+  }
+}
+
+template <class Bt, int U, int L, class Load, int... I>
+__device__ __forceinline__ void fixed_row(Load& load, float (&r)[L],
+                                          std::integer_sequence<int, I...>) {
+  (fixed_row_term<Bt, U, I, L>(load, r), ...);
+}
+
+// the row pass of row u, u sent to its compile-time code
+template <class Bt, int T, int L, int U = 0, class Load>
+__device__ __forceinline__ void fixed_row_at(int u, Load& load,
+                                             float (&r)[L]) {
+  if constexpr (U < T) {
+    if (u == U)
+      fixed_row<Bt, U, L>(load, r, std::make_integer_sequence<int, L>());
+    else
+      fixed_row_at<Bt, T, L, U + 1>(u, load, r);
+  }
+}
+
+}  // namespace detail
+
+// transform_row with t = T and L fixed at compile time and its loops
+// unrolled, so the t sums of the row (and, quantizing, its t divisions)
+// interleave.  Output for output it gives the bits of the run-time form:
+// the same FMAs in the same order, the same zero coefficients skipped in
+// the row pass and none in the column pass.  With B^T passed by value (a
+// kernel parameter), the coefficients of the column pass are constant
+// operands.  In the row pass, a zero coefficient of B^T discards its FMAs
+// by a select (nothing orders the loads); with Fixed = FixedBt<T, L>, B^T
+// as it is for sfc6_6, sfc6_7 or sfc4_4, row u's pass is compiled for its
+// own coefficients (u sent to it by a branch), so it loads, and adds, only
+// the input rows whose coefficient is nonzero.
+template <int T, int L, class Fixed = void, class Load, class Emit>
+__device__ __forceinline__ void transform_row(Load load, const float* bt,
+                                              int u, Emit emit) {
   // r[j] = sum_i bt[u, i] * x[i, j]
   float r[L];
 #pragma unroll
   for (int j = 0; j < L; ++j) r[j] = 0.f;
+  if constexpr (std::is_void_v<Fixed>) {
 #pragma unroll
-  for (int i = 0; i < L; ++i) {
-    const float b = bt[u * L + i];
-    const bool nz = b != 0.f;
+    for (int i = 0; i < L; ++i) {
+      const float b = bt[u * L + i];
+      const bool nz = b != 0.f;
 #pragma unroll
-    for (int j = 0; j < L; ++j) r[j] = nz ? fmaf(b, load(i, j), r[j]) : r[j];
+      for (int j = 0; j < L; ++j)
+        r[j] = nz ? fmaf(b, load(i, j), r[j]) : r[j];
+    }
+  } else {
+    detail::fixed_row_at<Fixed, T, L>(u, load, r);
   }
 #pragma unroll
   for (int v = 0; v < T; ++v) {
     float acc = 0.f;
 #pragma unroll
     for (int j = 0; j < L; ++j) acc = fmaf(bt[v * L + j], r[j], acc);
-    store(v, quantize(acc, scale[u * T + v], qmax));
+    emit(v, acc);
   }
+}
+
+// transform_quantize_row with t = T and L fixed at compile time: the
+// compile-time transform_row, quantized by the same quantizer, so it gives
+// the run-time form's bits.  B1 (sfc_transform.cu, with Fixed) and B7
+// (sfc_fused_dw.cu) call it for sfc6_6, sfc6_7 and sfc4_4; B4 calls the
+// run-time form.
+template <int T, int L, class Fixed = void, class Load, class Store>
+__device__ __forceinline__ void transform_quantize_row(
+    Load load, const float* bt, const float* scale, float qmax, int u,
+    Store store) {
+  transform_row<T, L, Fixed>(load, bt, u, [&](int v, float tx) {
+    store(v, quantize(tx, scale[u * T + v], qmax));
+  });
+}
+
+// quantize() without its division, for a scale s with |s| in [2^-60, 2^60]
+// (reciprocal_quantizer_fits) and y = 1 / s correctly rounded: the same
+// int8, bit for bit.  q0 = tx y is within 1.5 ulp of tx / s; one step
+// q1 = q0 + (tx - s q0) y (the remainder exact, by an FMA) makes it within
+// an ulp, and a second step from q1 rounds to the IEEE quotient
+// (Markstein's theorem: y within half an ulp of 1 / s, q1 within an ulp,
+// the remainder exact).  Nothing overflows where |q0| < 2^64; elsewhere (an
+// infinite tx, a huge quotient) q0 itself has the quotient's sign and
+// clips to the same +-qmax, and a NaN stays NaN.  Where a remainder
+// underflows, |tx / s| < 2^-40 and both round to 0.  Five FP operations
+// and no branch, where the IEEE division is a branch region of its own.
+__device__ __forceinline__ int8_t quantize_by_reciprocal(float tx, float s,
+                                                         float y,
+                                                         float qmax) {
+  const float q0 = __fmul_rn(tx, y);
+  const float q1 = __fmaf_rn(__fmaf_rn(-s, q0, tx), y, q0);
+  const float q2 = __fmaf_rn(__fmaf_rn(-s, q1, tx), y, q1);
+  const float q = fabsf(q0) < 0x1p64f ? q2 : q0;
+  return static_cast<int8_t>(fminf(fmaxf(rintf(q), -qmax), qmax));
+}
+
+inline bool reciprocal_quantizer_fits(float s) {
+  const float a = s < 0.f ? -s : s;
+  return a >= 0x1p-60f && a <= 0x1p60f;
+}
+
+// transform_quantize_row<T, L, Fixed> by quantize_by_reciprocal: the same
+// bits.  scale, rscale -> t x t scales and their reciprocals.  B1
+// (sfc_transform.cu) calls it, with scales and reciprocals by value.
+template <int T, int L, class Fixed = void, class Load, class Store>
+__device__ __forceinline__ void transform_quantize_row_by_reciprocal(
+    Load load, const float* bt, const float* scale, const float* rscale,
+    float qmax, int u, Store store) {
+  transform_row<T, L, Fixed>(load, bt, u, [&](int v, float tx) {
+    store(v, quantize_by_reciprocal(tx, scale[u * T + v], rscale[u * T + v],
+                                    qmax));
+  });
 }
 
 // The dequantized transform-domain value of one int32 accumulator.

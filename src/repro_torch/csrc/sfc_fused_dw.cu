@@ -23,10 +23,11 @@
 // tiles along one tile row and cb channels:
 //   0. one thread has TMA copy the run's input region, (L) x (M tiles +
 //      R - 1) pixels x cb channels, into shared memory, zero-filled where
-//      it reaches outside the image (the SAME/VALID padding) and past C,
-//      and the (P, cb) int8 weights and f32 weight scales beside it, all
-//      completing on one mbarrier (plain loads where the shape rules TMA
-//      out: C or cb no multiple of 16);
+//      it reaches outside the image (the SAME/VALID padding) and past C
+//      (sfc::region_tma_start, which B1 and B5 share), and the (P, cb)
+//      int8 weights and f32 weight scales beside it, all completing on
+//      one mbarrier (plain loads where the shape rules TMA out: C or cb
+//      no multiple of 16);
 //   1. `splits` threads per (tile, channel) transform and quantize the
 //      tile's rows u = g, g + splits, ... from shared memory
 //      (sfc::transform_quantize_row, the staged B1's arithmetic), multiply
@@ -115,25 +116,15 @@ __global__ void __launch_bounds__(kMaxThreads) fused_dw_kernel(
   const int tid = threadIdx.x, nthreads = blockDim.x;
   if (a.tma) {
     if (tid == 0) {
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(&a.tmap_x) : "memory");
-      sfc::mbar_init(&bar, 1);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      sfc::mbar_expect(&bar, (unsigned)(region_bytes + 5 * P * cb));
-      sfc::tma_load_4d(region, &a.tmap_x, &bar, c0, w_in, h_in, b);
+      sfc::region_tma_start(region, &a.tmap_x, &bar,
+                            (unsigned)(region_bytes + 5 * P * cb), b, h_in,
+                            w_in, c0);
       sfc::tma_load_2d(sw, &a.tmap_sw, &bar, c0, 0);
       sfc::tma_load_2d(w, &a.tmap_w, &bar, c0, 0);
     }
   } else {
-    for (int i = tid; i < L * region_w * cb; i += nthreads) {
-      const int cc = i % cb, px = i / cb;
-      const int hh = h_in + px / region_w, ww = w_in + px % region_w;
-      const bool in = hh >= 0 && hh < a.H && ww >= 0 && ww < a.W &&
-                      c0 + cc < a.C;
-      region[i] = in ? __ldg(a.x + (((long long)b * a.H + hh) * a.W + ww) *
-                                       a.C + c0 + cc)
-                     : 0.f;
-    }
+    sfc::region_load(region, a.x, a.H, a.W, a.C, b, h_in, w_in, c0, L,
+                     region_w, cb);
     for (int i = tid; i < P * cb; i += nthreads) {
       const int p = i / cb, ch = c0 + i % cb;
       const bool in = ch < a.C;
@@ -277,19 +268,13 @@ extern "C" int sfc_fused_conv2d_depthwise_launch(
           (uintptr_t)x % 16 == 0 && (uintptr_t)wq % 16 == 0 &&
           (uintptr_t)w_scale % 16 == 0;
   if (a.tma) {
-    // x (B, H, W, C) as (C, W, H, B), box (cb, region_w, L, 1)
-    const cuuint64_t xdims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
-                                 (cuuint64_t)B};
-    const cuuint64_t xstrides[3] = {4ull * C, 4ull * C * W, 4ull * C * W * H};
-    const cuuint32_t xbox[4] = {(cuuint32_t)cb, (cuuint32_t)region_w,
-                                (cuuint32_t)L, 1};
     // wq and w_scale (P, C) as (C, P), boxes (cb, P)
     const cuuint64_t pdims[2] = {(cuuint64_t)C, (cuuint64_t)P};
     const cuuint64_t wstride[1] = {(cuuint64_t)C};
     const cuuint64_t sstride[1] = {4ull * C};
     const cuuint32_t pbox[2] = {(cuuint32_t)cb, (cuuint32_t)P};
-    cudaError_t e = sfc::encode(&a.tmap_x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                                4, x, xdims, xstrides, xbox);
+    cudaError_t e = sfc::region_map(&a.tmap_x, x, B, H, W, C, cb,
+                                    (int)region_w, L);
     if (e == cudaSuccess)
       e = sfc::encode(&a.tmap_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, wq, pdims,
                       wstride, pbox);

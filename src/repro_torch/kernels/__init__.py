@@ -5,6 +5,7 @@ launches its kernel on CUDA tensors, counting launches in its
 ``launches`` attribute:
 
   B1 ``sfc_transform_quantize``       csrc/sfc_transform.cu
+     (also ``sfc_transform_quantize_pt``, the same kernel and launch count)
   B2 ``tdmm_int8``                    csrc/sfc_tdmm.cu
   B3 ``sfc_inverse``                  csrc/sfc_inverse.cu
      (also ``sfc_inverse_nhwc``, the same kernel and launch count)
@@ -23,7 +24,8 @@ from repro_torch.kernels.sfc_fused import (sfc_fused_conv2d,
 from repro_torch.kernels.sfc_inverse import sfc_inverse, sfc_inverse_nhwc
 from repro_torch.kernels.sfc_tdmm import tdmm_int8, tdmm_int8_depthwise
 from repro_torch.kernels.sfc_transform import (sfc_transform,
-                                               sfc_transform_quantize)
+                                               sfc_transform_quantize,
+                                               sfc_transform_quantize_pt)
 
 KERNELS = (sfc_transform_quantize, tdmm_int8, sfc_inverse, sfc_fused_conv2d,
            sfc_transform, tdmm_int8_depthwise, sfc_fused_conv2d_depthwise)
@@ -40,7 +42,8 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "sfc_transform_quantize", "tdmm_int8", "sfc_inverse", "sfc_inverse_nhwc",
+    "sfc_transform_quantize", "sfc_transform_quantize_pt", "tdmm_int8",
+    "sfc_inverse", "sfc_inverse_nhwc",
     "sfc_fused_conv2d", "sfc_transform", "tdmm_int8_depthwise",
     "sfc_fused_conv2d_depthwise", "quantized_fastconv2d",
     "quantized_fastconv2d_depthwise", "fastconv2d_fp", "quantize_weights",

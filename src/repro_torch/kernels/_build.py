@@ -40,8 +40,8 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 # argtypes of every C entry point; pointers and the stream are c_void_p
 SIGNATURES = {
-    "sfc_transform_quantize_launch": (_P, _P, _P, _P) + (_I,) * 11 + (_F, _P),
-    "sfc_transform_launch": (_P, _P, _P) + (_I,) * 11 + (_P,),
+    "sfc_transform_quantize_launch": (_P,) * 5 + (_I,) * 18 + (_F, _I, _P),
+    "sfc_transform_launch": (_P, _P, _P) + (_I,) * 18 + (_P,),
     "tdmm_int8_launch": (_P,) * 5 + (_I,) * 4 + (_P,),
     "tdmm_int8_depthwise_launch": (_P,) * 5 + (_I,) * 3 + (_P,),
     "sfc_inverse_launch": (_P, _P, _P) + (_I,) * 4 + (_LL, _LL)

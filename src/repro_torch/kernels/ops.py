@@ -11,10 +11,10 @@ pipeline:
 product (no channel contraction).  ``fastconv2d_fp`` is the unquantized
 path: B5 (the f32 transform) -> a P-batched f32 product outside any kernel
 (``torch.bmm``, as the JAX package leaves its ``jnp.einsum`` to XLA) ->
-B3.  B3 reads Y in the (P, nT, O) layout the product leaves and writes the
-cropped NHWC output itself (``sfc_inverse_nhwc``): nothing is copied
-between the kernels but B1's int8 output, which B2 and B6 read as
-(P, nT, C).
+B3.  B1 writes its int8 output in the (P, nT, C) layout B2 and B6 read
+(``sfc_transform_quantize_pt``), and B3 reads Y in the (P, nT, O) layout
+the products leave and writes the cropped NHWC output itself
+(``sfc_inverse_nhwc``): nothing is copied between the kernels.
 
 Scales are static (PTQ-calibrated): act_scale (t, t), w_scale (t, t, Cout).
 The same code runs the plain PyTorch versions on CPU tensors and the CUDA
@@ -33,7 +33,7 @@ from repro_torch.core.generator import BilinearAlgorithm
 from repro_torch.kernels.sfc_inverse import sfc_inverse_nhwc
 from repro_torch.kernels.sfc_tdmm import tdmm_int8, tdmm_int8_depthwise
 from repro_torch.kernels.sfc_transform import (sfc_transform,
-                                               sfc_transform_quantize)
+                                               sfc_transform_quantize_pt)
 
 
 def extract_tiles(x: torch.Tensor, algo: BilinearAlgorithm,
@@ -77,12 +77,10 @@ def quantized_fastconv2d(x: torch.Tensor, wq: torch.Tensor,
     t, M = algo.t, algo.M
     P = t * t
     bt, _, at = c2d.transform_matrices(algo, torch.float32, x.device)
-    _, H, W, C = x.shape
+    _, H, W, _ = x.shape
     grid = c2d.tile_grid(H, W, M, algo.R, padding)
-    xq = sfc_transform_quantize(x, bt, act_scale, M, padding=padding,
-                                bits=bits)
-    T = xq.shape[0]
-    X = xq.reshape(T, P, C).transpose(0, 1).contiguous()     # (P, T, C)
+    X = sfc_transform_quantize_pt(x, bt, act_scale, M, padding=padding,
+                                  bits=bits)                 # (P, T, C)
     Y = tdmm_int8(X, wq, act_scale.reshape(P),
                   w_scale.reshape(P, -1).contiguous(), k_block=k_block)
     return sfc_inverse_nhwc(Y, at, grid)
@@ -104,10 +102,8 @@ def quantized_fastconv2d_depthwise(x: torch.Tensor, wq: torch.Tensor,
     bt, _, at = c2d.transform_matrices(algo, torch.float32, x.device)
     _, H, W, C = x.shape
     grid = c2d.tile_grid(H, W, M, algo.R, padding)
-    xq = sfc_transform_quantize(x, bt, act_scale, M, padding=padding,
-                                bits=bits)
-    T = xq.shape[0]
-    X = xq.reshape(T, P, C).transpose(0, 1).contiguous()     # (P, T, C)
+    X = sfc_transform_quantize_pt(x, bt, act_scale, M, padding=padding,
+                                  bits=bits)                 # (P, T, C)
     Y = tdmm_int8_depthwise(X, wq.reshape(P, C), act_scale.reshape(P),
                             w_scale.reshape(P, C).contiguous())
     return sfc_inverse_nhwc(Y, at, grid)
@@ -153,9 +149,10 @@ def transform_domain_fp(tx: torch.Tensor, tw: torch.Tensor, *,
 
     Dense: for each of the P = t^2 positions an f32 product
     (nT, C) @ (C, O), as one ``torch.bmm`` over P, in full float32
-    (:func:`full_fp32_matmul`), left in the bmm's (P, nT, O) layout.
-    Depthwise (tw (t, t, 1, C)): the broadcast elementwise product, in
-    tx's (nT, t, t, C) layout.  ``sfc_inverse_nhwc`` reads either.
+    (:func:`full_fp32_matmul`), left in the bmm's (P, nT, O) layout; the
+    bmm reads tx position-major by strides (no copy).  Depthwise (tw
+    (t, t, 1, C)): the broadcast elementwise product, in tx's (nT, t, t, C)
+    layout.  ``sfc_inverse_nhwc`` reads either.
     """
     nT, t, _, C = tx.shape
     if depthwise:

@@ -5,7 +5,7 @@ Each kernel wrapper runs its plain version here for tensors on the CPU;
 the *kernel* layout of the JAX package's ``repro/kernels/ref.py``:
 
   tiles     : (nT, L, L, C)      flattened spatial tiles, channels last
-  transform : (nT, t, t, C)
+  transform : (nT, t, t, C); B1's (P, T, C) entry (t^2, nT, C)
   tdmm      : X (P, T, K) int8, W (P, K, N) int8 -> (P, T, N) f32
               with per-position activation scales sx (P,) and
               per-position-per-channel weight scales sw (P, N)
@@ -54,6 +54,17 @@ def sfc_transform_quantize_nhwc_ref(x: torch.Tensor, bt: torch.Tensor,
     tiles, _ = c2d.overlapping_tiles(x, M, L - M + 1, padding)
     return sfc_transform_quantize_ref(tiles.reshape(-1, L, L, x.shape[-1]),
                                       bt, scale, bits)
+
+
+def sfc_transform_quantize_pt_ref(x: torch.Tensor, bt: torch.Tensor,
+                                  scale: torch.Tensor, M: int,
+                                  padding: str = "SAME", bits: int = 8
+                                  ) -> torch.Tensor:
+    """B1's (P, T, C) entry: the B1 function's int8 (T, t, t, C) output
+    written position-major, int8 (t^2, B*nH*nW, C)."""
+    xq = sfc_transform_quantize_nhwc_ref(x, bt, scale, M, padding, bits)
+    T, t, _, C = xq.shape
+    return xq.reshape(T, t * t, C).transpose(0, 1).contiguous()
 
 
 def tdmm_int8_ref(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,

@@ -34,7 +34,8 @@ from repro_torch.kernels import (ops, quantized_fastconv2d,  # noqa: E402
                                  quantized_fastconv2d_depthwise,
                                  sfc_fused_conv2d, sfc_fused_conv2d_depthwise,
                                  sfc_inverse, sfc_transform,
-                                 sfc_transform_quantize, tdmm_int8,
+                                 sfc_transform_quantize,
+                                 sfc_transform_quantize_pt, tdmm_int8,
                                  tdmm_int8_depthwise)
 
 ALGOS = ("sfc4_4", "sfc6_6", "sfc6_7")
@@ -54,19 +55,24 @@ def _act_scale(x, name, padding):
         jnp.asarray(x), jregistry.get_algorithm(name), JINT8_FREQ, padding))
 
 
-def _b1_pair(x, name, padding):
-    """(port B1 output, JAX B1 output) on the same input and scales."""
+def _b1_pair(x, name, padding, pt=False):
+    """(port B1 output, JAX B1 output) on the same input and scales; with
+    ``pt``, the port's (P, T, C) entry and the JAX output transposed to
+    (P, T, C)."""
     algo, jalgo = registry.get_algorithm(name), jregistry.get_algorithm(name)
     s = _act_scale(x, name, padding)
     bt = c2d.transform_matrices(algo, device="cpu")[0]
-    mine = sfc_transform_quantize(torch.from_numpy(x), bt,
-                                  torch.from_numpy(s), algo.M,
-                                  padding=padding)
+    entry = sfc_transform_quantize_pt if pt else sfc_transform_quantize
+    mine = entry(torch.from_numpy(x), bt, torch.from_numpy(s), algo.M,
+                 padding=padding)
     tiles, _ = jops.extract_tiles(jnp.asarray(x), jalgo, padding)
     jbt = jc2d.transform_matrices(jalgo, "float32")[0]
-    theirs = jsfc_transform_quantize(tiles, jbt, jnp.asarray(s),
-                                     interpret=True)
-    return mine.numpy(), np.asarray(theirs)
+    theirs = np.asarray(jsfc_transform_quantize(tiles, jbt, jnp.asarray(s),
+                                                interpret=True))
+    if pt:
+        T, t, _, C = theirs.shape
+        theirs = theirs.reshape(T, t * t, C).transpose(1, 0, 2)
+    return mine.numpy(), theirs
 
 
 @pytest.mark.parametrize("padding", PADDINGS)
@@ -85,6 +91,98 @@ def test_b1_flips_bounded_on_random_inputs(name):
     diff = mine.astype(np.int32) - theirs.astype(np.int32)
     assert np.abs(diff).max() <= 1
     assert np.count_nonzero(diff) <= max(1, diff.size // 10000)
+
+
+@pytest.mark.parametrize("padding", PADDINGS)
+@pytest.mark.parametrize("name", ALGOS)
+def test_b1_pt_entry_exact_on_snapped_inputs(name, padding):
+    # the (P, T, C) entry the staged paths call: the JAX kernel's output,
+    # position-major
+    mine, theirs = _b1_pair(_snapped(np.random.RandomState(0), X_SHAPE),
+                            name, padding, pt=True)
+    assert mine.dtype == np.int8 and mine.shape == theirs.shape
+    assert mine.shape[0] == registry.get_algorithm(name).t ** 2
+    np.testing.assert_array_equal(mine, theirs)
+
+
+@pytest.mark.parametrize("name", ALGOS)
+def test_b1_pt_entry_flips_bounded_on_random_inputs(name):
+    x = np.random.RandomState(1).randn(*X_SHAPE).astype(np.float32)
+    mine, theirs = _b1_pair(x, name, "SAME", pt=True)
+    diff = mine.astype(np.int32) - theirs.astype(np.int32)
+    assert np.abs(diff).max() <= 1
+    assert np.count_nonzero(diff) <= max(1, diff.size // 10000)
+
+
+@pytest.mark.parametrize("name", ALGOS)
+def test_compiled_bt_tables_are_the_registrys(name):
+    # B1 and B5 compile B^T of sfc4_4, sfc6_6 and sfc6_7 into their row
+    # pass (csrc/sfc_common.cuh, FixedBt): the tables must be the
+    # generator's, and the JAX package's
+    import pathlib
+    import re
+    src = (pathlib.Path(c2d.__file__).resolve().parents[1] / "csrc"
+           / "sfc_common.cuh").read_text()
+    algo = registry.get_algorithm(name)
+    m = re.search(r"struct FixedBt<(\d+), (\d+)> \{\s*// " + name
+                  + r"\b.*?= \{(.*?)\};", src, re.S)
+    assert m is not None and (int(m[1]), int(m[2])) == (algo.t, algo.L)
+    table = np.array([int(v) for v in m[3].replace(",", " ").split()],
+                     dtype=np.float32).reshape(algo.t, algo.L)
+    np.testing.assert_array_equal(table, np.asarray(algo.bt(), np.float32))
+    np.testing.assert_array_equal(
+        table, np.asarray(jc2d.transform_matrices(
+            jregistry.get_algorithm(name), "float32")[0]))
+
+
+def _rn32(x):
+    """The float32 nearest the rational x, ties to even."""
+    from fractions import Fraction
+    c = np.float32(float(x))
+    cands = [v for v in (np.nextafter(c, np.float32(-np.inf)), c,
+                         np.nextafter(c, np.float32(np.inf)))
+             if np.isfinite(v)]
+    return min(cands, key=lambda v: (abs(Fraction(float(v)) - x),
+                                     int(np.float32(v).view(np.int32)) & 1))
+
+
+def _quantize_by_reciprocal(tx, s, qmax=127):
+    """csrc/sfc_common.cuh's quantize_by_reciprocal, each FP operation
+    rounded once, as on the card (an FMA rounds a*b + c once)."""
+    from fractions import Fraction as F
+    y = np.float32(1) / s
+    q0 = _rn32(F(float(tx)) * F(float(y)))
+
+    def step(q):
+        r = _rn32(-F(float(s)) * F(float(q)) + F(float(tx)))
+        return _rn32(F(float(r)) * F(float(y)) + F(float(q)))
+    q2 = step(step(q0))
+    q = q2 if abs(q0) < 2.0 ** 64 else q0
+    return int(np.clip(np.rint(q), -qmax, qmax))
+
+
+def test_division_free_quantizer_is_the_ieee_division():
+    # B1's compiled kernels quantize by the scale's reciprocal with two
+    # correction steps, B4 and the JAX package by IEEE division: the int8
+    # must agree everywhere, near the rounding ties above all
+    from fractions import Fraction as F
+    rng = np.random.RandomState(16)
+    cases = []
+    for _ in range(400):
+        s = np.float32(np.exp(rng.uniform(np.log(1e-4), np.log(1e3))))
+        cases += [(np.float32(v), s) for v in rng.randn(4) * 60 * s]
+        # quotients within a few ulps of a half-integer
+        k = rng.randint(-130, 130)
+        mid = _rn32((F(k) + F(1, 2)) * F(float(s)))
+        for d in range(-3, 4):
+            v = mid
+            for _ in range(abs(d)):
+                v = np.nextafter(v, np.float32(np.inf if d > 0 else -np.inf))
+            cases.append((np.float32(v), s))
+        cases += [(np.float32(0.0), s), (np.float32(-0.0), s)]
+    for tx, s in cases:
+        want = int(np.clip(np.rint(tx / s), -127, 127))
+        assert _quantize_by_reciprocal(tx, s) == want, (tx, s)
 
 
 @pytest.mark.parametrize("k_block", [None, 2, 4])

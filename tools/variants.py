@@ -3,15 +3,22 @@
 
     python3 tools/variants.py b7-loaders   # B7: TMA copies or plain loads
     python3 tools/variants.py b3-splits    # B3: 1, 2 or 3 threads a tile
+    python3 tools/variants.py b1-quantizer # B1: reciprocal or division
+    python3 tools/variants.py b1-loaders   # B1 and B5: TMA or plain loads
+    python3 tools/variants.py b4-zero      # B4: division or zero guard
 
 A variant is a copy of ``src/repro_torch`` under ``build/variants/<study>/
 <name>/`` with lines of one CUDA source replaced (the first variant is the
 source as it is).  The copies are built at once, then timed each in its
 own process in turns (first .. last, last .. first) at the layer shapes of
 ``chip_smoke.py`` (B7: the depthwise layers at batch 1 and 4; B3: VGG-16's
-and the depthwise layers' shapes at batch 1, both entries), each output
-held bit for bit to the first variant's.  Card milliseconds are the median
-of 25 spin-queued runs, as in ``chip_smoke.py``.  Writes
+and the depthwise layers' shapes at batch 1, both entries; B1 and B5: B1's
+(P, T, C) entry and B5 at VGG-16's and the depthwise layers' input shapes
+at batch 1; B4: VGG-16's layers at batch 1), each output held bit for bit
+to the first variant's.  VGG-16's inputs past the first layer are
+non-negative with a quarter of the channels zero, as a ReLU leaves them,
+and the activation scales are calibrated on the inputs.  Card milliseconds
+are the median of 25 spin-queued runs, as in ``chip_smoke.py``.  Writes
 ``chiprun_out/<study>.json`` and a summary to standard output.
 """
 from __future__ import annotations
@@ -35,6 +42,34 @@ STUDIES = {
         "tma": [],
         "plain": [("sfc_fused_dw.cu", "  a.tma = C % 16 == 0",
                    "  a.tma = false && C % 16 == 0")],
+    },
+    "b1-loaders": {
+        "tma": [],
+        "plain": [("sfc_transform.cu",
+                   "  a.tma = sfc::region_tma_ok(x, C, cb, (int)region_w);",
+                   "  a.tma = false;")],
+    },
+    "b1-quantizer": {
+        "reciprocal": [],
+        "division": [
+            ("sfc_transform.cu",
+             "        sfc::transform_quantize_row_by_reciprocal<kT, kL,",
+             "        sfc::transform_quantize_row<kT, kL,"),
+            ("sfc_transform.cu",
+             "            x_at, a.bt, a.sc, a.rc, a.qmax, u, store);",
+             "            x_at, a.bt, s, a.qmax, u, store);")],
+    },
+    # a zero dividend sends the IEEE division down its slow path, and
+    # whole tiles are zero where a ReLU left a channel dead: "guard"
+    # divides |s| / 4 instead (|s| capped at the largest float), whose
+    # quotient rounds to the same 0 (0 where s is infinite, NaN where s is
+    # 0 or NaN, as 0 / s)
+    "b4-zero": {
+        "divide": [],
+        "guard": [("sfc_common.cuh",
+                   "  const float q = rintf(__fdiv_rn(tx, s));",
+                   "  const float q = rintf(__fdiv_rn(tx == 0.f ? 0.25f * "
+                   "fminf(fabsf(s), 0x1.fffffep127f) : tx, s));")],
     },
     "b3-splits": {
         f"splits{k}": [] if k == 2 else
@@ -127,6 +162,49 @@ def worker(study: str, copy: pathlib.Path, build_only: bool) -> None:
                 rows.append({"batch": batch, "hw": hw, "c": c,
                              "digest": digest(run()),
                              "ms": timed(run, torch)})
+    elif study == "b4-zero":
+        from repro_torch.api import tuning
+        from repro_torch.quant import INT8_FREQ
+        vgg, _ = chip_smoke.vgg_layers()
+        for hw, cin, cout in dict.fromkeys((hw, cin, cout)
+                                           for _, hw, cin, cout in vgg):
+            rng = np.random.RandomState(hw + cin)
+            x = rng.randn(1, hw, hw, cin)
+            if cin > 3:     # a ReLU's output: a quarter of the channels dead
+                x = np.maximum(x, 0) * (rng.rand(cin) >= 0.25)
+            x = torch.tensor(x, dtype=torch.float32, device=dev)
+            wq = torch.tensor(rng.randint(-127, 128, (P, cin, cout)),
+                              dtype=torch.int8, device=dev)
+            ws = torch.full((t, t, cout), 1e-3, device=dev)
+            act = tuning.calibrate_act_scale(x, algo, INT8_FREQ)
+
+            def run():
+                return kernels.sfc_fused_conv2d(x, wq, act, ws, algo)
+            rows.append({"hw": hw, "cin": cin, "cout": cout,
+                         "digest": digest(run()), "ms": timed(run, torch)})
+    elif study.startswith("b1-"):
+        from repro_torch.api import tuning
+        from repro_torch.quant import INT8_FREQ
+        bt = c2d.transform_matrices(algo, torch.float32, dev)[0]
+        vgg, _ = chip_smoke.vgg_layers()
+        shapes = [(hw, cin, cin > 3) for _, hw, cin, _ in vgg] \
+            + [(hw, c, False) for _, hw, c in chip_smoke.DW_LAYERS]
+        for hw, c, relu in dict.fromkeys(shapes):
+            rng = np.random.RandomState(hw + c)
+            x = rng.randn(1, hw, hw, c)
+            if relu:    # a ReLU's output: a quarter of the channels dead
+                x = np.maximum(x, 0) * (rng.rand(c) >= 0.25)
+            x = torch.tensor(x, dtype=torch.float32, device=dev)
+            act = tuning.calibrate_act_scale(x, algo, INT8_FREQ)
+
+            def b1():
+                return kernels.sfc_transform_quantize_pt(x, bt, act, M)
+
+            def b5():
+                return kernels.sfc_transform(x, bt, M)
+            rows.append({"hw": hw, "c": c, "relu": relu,
+                         "digest": digest(b1()) + digest(b5()),
+                         "ms": timed(b1, torch), "b5_ms": timed(b5, torch)})
     else:
         at = c2d.transform_matrices(algo, torch.float32, dev)[2]
         vgg, _ = chip_smoke.vgg_layers()
@@ -174,7 +252,9 @@ def main(study: str) -> None:
     runs = {n: [] for n in names}
     for n in names + names[::-1]:
         runs[n].append(run_worker(study, copies[n]))
-    keys = ("ms",) if study == "b7-loaders" else ("nhwc_ms", "tile_ms")
+    keys = {"b3-splits": ("nhwc_ms", "tile_ms"),
+            "b1-quantizer": ("ms", "b5_ms"),
+            "b1-loaders": ("ms", "b5_ms")}.get(study, ("ms",))
     rows = []
     for i, first in enumerate(runs[names[0]][0]):
         row = {k: v for k, v in first.items()
