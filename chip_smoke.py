@@ -17,8 +17,17 @@ csrc`` at first use.  Phases, each of which raises on failure:
      batch 4, VALID and a run-time algorithm too, B3's NHWC entry
      bit for bit against its tile entry followed by ``untile``, and B1's
      (P, T, C) entry against its plain version and bit for bit against
-     its tile entry, B1 and B5 also at a second geometry;
-  4. the paths, each forward of which starts from launch counts of 0 and
+     its tile entry, B1 and B5 also at a second geometry; then B2 and B6
+     bit for bit against their plain versions at the per-layer geometry
+     and at a second one, B2 at every VGG-16 layer shape and at ragged
+     tiles and channels (T 1, 9, 17; K 3, 40; N 8, 24, 520), B6 at every
+     depthwise layer and at C 3, 20 and 960;
+  4. the direct path on the card under PyTorch's default TF32 flags (the
+     run sets none): a 1x1, a 3x3 and a 3x3/2 ``"direct"`` plan against the
+     same plan on CPU copies of the inputs, within 1e-4 rel L2 and 1e-4 of
+     max |y|, and, as what the guard prevents, the same plans with the
+     port's cuDNN guard taken out;
+  5. the paths, each forward of which starts from launch counts of 0 and
      must launch its own kernels, and only those, the stated number of
      times; every layer is held against the ``reference`` backend on the
      same input:
@@ -33,7 +42,7 @@ csrc`` at first use.  Phases, each of which raises on failure:
         (width 1.0, 224x224) and the repo's ``dw3x3`` workload, each a
         request of batch 1 and of batch 4, on the int8 fused, int8 staged
         and fp paths; fused and staged must be bit-identical;
-  5. per kernel, the times over the layers of one batch-1 request: the
+  6. per kernel, the times over the layers of one batch-1 request: the
      kernel, its plain version, one PyTorch library call where one
      computes the same function, and the least time the card could take
      (B1 and B3 as the paths call them: B1's (P, T, C) entry, B3's NHWC
@@ -43,10 +52,14 @@ csrc`` at first use.  Phases, each of which raises on failure:
      VGG-16 forward under ``torch.profiler`` (the card's kernels by name,
      and its busy share), where the profiler traces the card.
 
-``--sweep-b4``, ``--sweep-b7`` and ``--sweep-b1`` time B4's, B7's and
-B1's and B5's geometries per layer instead (each held bit for bit to the
-default) and write ``chiprun_out/b4_sweep.json``, ``b7_sweep.json`` and
-``b1_sweep.json``.
+``--sweep-b4``, ``--sweep-b7``, ``--sweep-b1`` and ``--sweep-b2`` time
+B4's, B7's, B1's and B5's, and B2's and B6's geometries per layer instead
+(each held bit for bit to the default) and write
+``chiprun_out/b4_sweep.json``, ``b7_sweep.json``, ``b1_sweep.json`` and
+``b2_sweep.json``.
+
+The run keeps PyTorch's default TF32 flags: the port guards its own
+float32 library calls (``repro_torch.core.precision``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  A longer report goes to
@@ -130,6 +143,25 @@ B7_ALT = {"cout_block": 16, "tiles": 4, "splits": 3}
 # of 3 tiles (some idle at a row's end), 3 threads a (tile, channel) (rows
 # unevenly shared); bit for bit the same
 B1_ALT = {"channel_block": 18, "tiles": 3, "splits": 3}
+# B2's checks beyond VGG-16's layers, (T, K, N) at P = 100: one, 9 and 17
+# tiles, K 3 and 40 (X by bytes), N 8, 24 and 520 (W by bytes, Y by
+# floats); each at the per-layer geometry and at b2_alt's
+B2_CHECKS = tuple((T, K, N) for T in (1, 9, 17)
+                  for K, N in ((3, 8), (40, 24), (64, 520)))
+# the direct path's checks under PyTorch's default TF32 flags: (label, x
+# shape, w shape, stride, algo) of three "direct" plans: a 1x1 conv, a 3x3
+# conv planned direct, and a 3x3/2 conv planned direct
+DIRECT_CHECKS = (("1x1 56x56 256->128", (1, 56, 56, 256), (1, 1, 256, 128),
+                  1, "auto"),
+                 ("3x3 28x28 256->256 direct", (1, 28, 28, 256),
+                  (3, 3, 256, 256), 1, "direct"),
+                 ("3x3/2 56x56 128->256 direct", (1, 56, 56, 128),
+                  (3, 3, 128, 256), 2, "direct"))
+# B6's checks beyond the depthwise layers: C 3 and 20 (channels one at a
+# time, a partial group) and 960, at 9 tiles; each at the per-layer
+# geometry and at B6_ALT (3 groups, 5 lanes, runs of 2)
+B6_CHECKS = (3, 20, 960)
+B6_ALT = {"groups": 3, "lanes": 5, "run": 2}
 REPLACES = {
     "sfc_transform_quantize": ("src/repro_torch/csrc/sfc_transform.cu",
                                "src/repro/kernels/sfc_transform.py:36"),
@@ -183,6 +215,157 @@ def vgg_layers():
 
 def log(*args):
     print(*args, flush=True)
+
+
+def tf32_flags() -> dict:
+    """cuBLAS's and cuDNN's float32 settings, by the API this PyTorch has."""
+    import torch
+    matmul = torch.backends.cuda.matmul
+    conv = getattr(torch.backends.cudnn, "conv", None)
+    if hasattr(matmul, "fp32_precision") and hasattr(conv, "fp32_precision"):
+        return {"cuda.matmul.fp32_precision": matmul.fp32_precision,
+                "cudnn.conv.fp32_precision": conv.fp32_precision}
+    return {"cuda.matmul.allow_tf32": matmul.allow_tf32,
+            "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}
+
+
+def b2_alt(g) -> dict:
+    """B2's knobs for a geometry other than ``g`` in row tile, column tile
+    (where the shape has a kernel for another), stages and row tiles a
+    block (where the layer has more than one)."""
+    knobs = {"block_m": 32 if g.bm != 32 else 64,
+             "stages": 3 if g.stages != 3 else 2,
+             "tiles": 2 if g.tiles != 2 else 1}
+    if g.vec_a and g.vec_b:
+        knobs["block_n"] = 64 if g.bn == 128 else 128
+    return knobs
+
+
+def int8_operands(rng, dev, x_shape, w_shape):
+    """Random int8 X and W of these shapes, positive scales sx (P,) and sw
+    (P, the last of w_shape)."""
+    import torch
+    P, n = x_shape[0], w_shape[-1]
+    return (torch.tensor(rng.randint(-127, 128, x_shape), dtype=torch.int8,
+                         device=dev),
+            torch.tensor(rng.randint(-127, 128, w_shape), dtype=torch.int8,
+                         device=dev),
+            torch.tensor(rng.uniform(0.01, 0.1, P), dtype=torch.float32,
+                         device=dev),
+            torch.tensor(rng.uniform(1e-4, 1e-3, (P, n)), dtype=torch.float32,
+                         device=dev))
+
+
+def sweep_b2(dev, timed, smi) -> None:
+    """B2's card time per VGG-16 layer and B6's per depthwise layer of
+    ``DW_LAYERS``, at batch 1 and 4, over a set of geometries (``python3
+    chip_smoke.py --sweep-b2``: ``tdmm_geometry``'s ``block_m``,
+    ``block_n``, ``block_k``, ``stages`` and ``tiles``;
+    ``dw_product_geometry``'s
+    ``groups``, ``lanes`` and ``run``), each output held bit for bit to the
+    per-layer default's; the rows go to ``chiprun_out/b2_sweep.json`` and
+    the log."""
+    import torch
+
+    from repro_torch.api import registry
+    from repro_torch.core import conv2d as c2d
+    from repro_torch.kernels import sfc_tdmm
+
+    algo = registry.get_algorithm(ALGO)
+    P = algo.t ** 2
+    layers, _ = vgg_layers()
+    gemm_variants = [dict(block_m=bm, block_n=bn, block_k=bk, stages=st,
+                          tiles=tc)
+                     for bm in (16, 32, 64, 128) for bn in (64, 128)
+                     for bk in (32, 64) for st, tc in (
+                         (2, 1), (4, 1), (6, 1), (2, 4), (4, 4), (6, 4),
+                         (4, 2), (4, 8))]
+    dw_variants = [dict(groups=gx, lanes=ty, run=r)
+                   for gx in (1, 2, 4, 8, 16, 32)
+                   for ty in (2, 4, 8, 16, 32, 64)
+                   for r in (1, 2, 4) if 32 <= gx * ty <= 512]
+    rows_out, seen = [], set()
+
+    def sweep(row, fn, variants, geometry):
+        base = fn()
+        row["default_ms"] = timed(fn)
+        row["variants"] = []
+        for v in variants:
+            if geometry(v) is None:
+                continue
+            try:
+                y = fn(**v)
+            except (ValueError, RuntimeError) as e:
+                row["variants"].append({**v, "refused": str(e)[:80]})
+                continue
+            if not torch.equal(y, base):
+                raise AssertionError(f"{row['kernel']} at {v} differs from "
+                                     f"the default geometry: {row}")
+            row["variants"].append({**v, **geometry(v),
+                                    "ms": timed(lambda: fn(**v))})
+        best = min((r for r in row["variants"] if "ms" in r),
+                   key=lambda r: r["ms"])
+        log(f"sweep: {row['kernel']} batch {row['batch']} {row['layer']}: "
+            f"default {row['default']} {row['default_ms']:.4f} ms; best "
+            f"{json.dumps(best)}")
+        rows_out.append(row)
+
+    for batch in (1, 4):
+        for lname, hw, cin, cout in layers:
+            grid = c2d.tile_grid(hw, hw, algo.M, algo.R, "SAME")
+            T = batch * grid.nH * grid.nW
+            if (T, cin, cout) in seen:
+                continue
+            seen.add((T, cin, cout))
+            X, W, sx, sw = int8_operands(np.random.RandomState(hw + cin),
+                                         dev, (P, T, cin), (P, cin, cout))
+            d = sfc_tdmm.tdmm_geometry(P, T, cin, cout)
+
+            def gemm_geometry(v, T=T, cin=cin, cout=cout):
+                try:
+                    g = sfc_tdmm.tdmm_geometry(P, T, cin, cout, **v)
+                except ValueError:
+                    return None
+                if g.tiles != v["tiles"]:   # cut to the layer's row tiles
+                    return None
+                return {"blocks": g.blocks, "smem": g.smem_bytes,
+                        "resident": g.resident}
+
+            sweep({"kernel": "tdmm_int8", "batch": batch,
+                   "layer": f"{hw}x{hw}x{cin}->{cout}", "T": T,
+                   "default": [d.bm, d.bn, d.bk, d.stages, d.tiles],
+                   "default_blocks": d.blocks},
+                  lambda **k: sfc_tdmm.tdmm_int8(X, W, sx, sw, **k),
+                  gemm_variants, gemm_geometry)
+        for lname, hw, c in DW_LAYERS:
+            grid = c2d.tile_grid(hw, hw, algo.M, algo.R, "SAME")
+            T = batch * grid.nH * grid.nW
+            if (T, c) in seen:
+                continue
+            seen.add((T, c))
+            X, W, sx, sw = int8_operands(np.random.RandomState(hw + c),
+                                         dev, (P, T, c), (P, c))
+            d = sfc_tdmm.dw_product_geometry(P, T, c)
+
+            def dw_geometry(v, T=T, c=c):
+                try:
+                    g = sfc_tdmm.dw_product_geometry(P, T, c, **v)
+                except ValueError:
+                    return None
+                return {"blocks": g.blocks, "threads": g.threads}
+
+            sweep({"kernel": "tdmm_int8_depthwise", "batch": batch,
+                   "layer": f"{lname} {hw}x{hw}x{c}", "T": T,
+                   "default": [d.groups, d.lanes, d.run],
+                   "default_blocks": d.blocks},
+                  lambda **k: sfc_tdmm.tdmm_int8_depthwise(X, W, sx, sw,
+                                                           **k),
+                  dw_variants, dw_geometry)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "b2_sweep.json").write_text(json.dumps(
+        {"device": smi, "rows": rows_out}, indent=1))
+    log(f"sweep: {smi}; every geometry bit-identical to the default")
 
 
 def sweep_b4(dev, timed, smi) -> None:
@@ -413,15 +596,11 @@ def main() -> None:
     from repro_torch import kernels
     from repro_torch.api import ConvSpec, plan, tuning
     from repro_torch.core import conv2d as c2d
-    from repro_torch.kernels import _build, ops, ref, sfc_fused
+    from repro_torch.kernels import _build, ops, ref, sfc_fused, sfc_tdmm
     from repro_torch.quant import FP32, INT8_FREQ
     from repro_torch.testing import DEFAULT_TOL
 
     dev = torch.device("cuda", 0)
-    # every reference compared against runs in full float32: cuDNN and
-    # cuBLAS would otherwise use TF32 for f32 convolutions / matmuls
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     report = {"phases": {}}
 
     # ---- 1. probe -------------------------------------------------------
@@ -440,7 +619,8 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(smi)
-    log("probe: TF32 off for cuDNN and cuBLAS (references run in float32)")
+    log(f"probe: PyTorch's default TF32 flags, none set by this run: "
+        f"{tf32_flags()}")
     report["device"] = {"name": name, "nvidia_smi": smi,
                         "torch": torch.__version__,
                         "cuda": torch.version.cuda}
@@ -493,6 +673,9 @@ def main() -> None:
         return
     if "--sweep-b1" in sys.argv[1:]:
         sweep_b1(dev, timed, smi)
+        return
+    if "--sweep-b2" in sys.argv[1:]:
+        sweep_b2(dev, timed, smi)
         return
 
     def snapped(rng, shape):
@@ -653,17 +836,22 @@ def main() -> None:
         # device function, one summation order)
         check_b5(case, x, xr, xq_raw, bt, prep.act_scale, algo.M)
         check_b1_pt(case, x, xr, xq, xq_raw, bt, prep.act_scale, algo.M)
-        # B2 on the same int8 operands: int32 exact, f32 output to 1e-6
+        # B2 on the same int8 operands: bit for bit its plain version (int32
+        # exact, one dequant), with k_block None and 64 and at b2_alt
         X = xq.reshape(-1, P, cin).transpose(0, 1).contiguous()
         sx = prep.act_scale.reshape(P).contiguous()
         sw = prep.w_scale.reshape(P, -1).contiguous()
         Y_ref = ref.tdmm_int8_ref(X, prep.wq, sx, sw)
-        for k_block in (None, 64):
-            Y = kernels.tdmm_int8(X, prep.wq, sx, sw, k_block=k_block)
-            torch.testing.assert_close(Y, Y_ref, rtol=1e-6, atol=0)
-            case[f"b2_bit_equal_kblock_{k_block}"] = bool(torch.equal(Y, Y_ref))
+        alt = b2_alt(sfc_tdmm.tdmm_geometry(P, X.shape[1], cin, cout))
+        for what, knobs in (("kblock_None", {}),
+                            ("kblock_64", {"k_block": 64}), ("alt", alt)):
+            Y = kernels.tdmm_int8(X, prep.wq, sx, sw, **knobs)
+            case[f"b2_bit_equal_{what}"] = bool(torch.equal(Y, Y_ref))
             max_err["tdmm_int8"] = max(max_err["tdmm_int8"],
                                        (Y - Y_ref).abs().max().item())
+        Y = kernels.tdmm_int8(X, prep.wq, sx, sw)
+        if not all(v for k, v in case.items() if k.startswith("b2_bit")):
+            raise AssertionError(f"B2 differs from its plain version: {case}")
         # B3: rtol 1e-5, atol 1e-5 of the output's scale
         ty = Y.transpose(0, 1).reshape(-1, t, t, cout).contiguous()
         yt, yt_ref = kernels.sfc_inverse(ty, at), ref.sfc_inverse_ref(ty, at)
@@ -740,14 +928,17 @@ def main() -> None:
                                  f"snapped inputs: {case}")
         check_b1_pt(case, x, xr, xq, xq_raw, bt, prep.act_scale, algo.M,
                     padding)
-        # B6 on the same int8 operands: exact (int32 products, one dequant)
+        # B6 on the same int8 operands: exact (int32 products, one dequant),
+        # at the per-layer geometry and at B6_ALT
         X = xq.reshape(-1, P, c).transpose(0, 1).contiguous()
         wq2 = prep.wq.reshape(P, c)
         sx = prep.act_scale.reshape(P).contiguous()
         sw = prep.w_scale.reshape(P, c).contiguous()
         Y = kernels.tdmm_int8_depthwise(X, wq2, sx, sw)
         Y_ref = ref.tdmm_int8_depthwise_ref(X, wq2, sx, sw)
-        case["b6_bit_equal"] = bool(torch.equal(Y, Y_ref))
+        case["b6_bit_equal"] = bool(torch.equal(Y, Y_ref)) and bool(
+            torch.equal(kernels.tdmm_int8_depthwise(X, wq2, sx, sw, **B6_ALT),
+                        Y_ref))
         if not case["b6_bit_equal"]:
             raise AssertionError(f"B6 differs from its plain version: {case}")
         max_err["tdmm_int8_depthwise"] = max(
@@ -787,7 +978,95 @@ def main() -> None:
         checks.append(case)
     report["phases"]["kernel_checks"] = checks
 
-    # ---- 4. the paths ----------------------------------------------------
+    # B2 bit for bit at every VGG-16 layer shape and at B2_CHECKS, B6 at
+    # every depthwise layer and at B6_CHECKS, each at the per-layer
+    # geometry and at a second one, on random int8 operands
+    prng = np.random.RandomState(12)
+    vgg, _ = vgg_layers()
+    b2_shapes = [(math.ceil(hw / 6) ** 2, cin, cout)
+                 for _, hw, cin, cout in vgg]
+    b2_rows = []
+    for T, K, N in b2_shapes + list(B2_CHECKS):
+        X, W, sx, sw = int8_operands(prng, dev, (100, T, K), (100, K, N))
+        Y_ref = ref.tdmm_int8_ref(X, W, sx, sw)
+        g = sfc_tdmm.tdmm_geometry(100, T, K, N)
+        alt = b2_alt(g)
+        ga = sfc_tdmm.tdmm_geometry(100, T, K, N, **alt)
+        row = {"T": T, "K": K, "N": N,
+               "geometry": [g.bm, g.bn, g.bk, g.stages, g.tiles],
+               "alt": [ga.bm, ga.bn, ga.bk, ga.stages, ga.tiles],
+               "equal": bool(torch.equal(kernels.tdmm_int8(X, W, sx, sw),
+                                         Y_ref)),
+               "alt_equal": bool(torch.equal(
+                   kernels.tdmm_int8(X, W, sx, sw, **alt), Y_ref))}
+        b2_rows.append(row)
+        if not (row["equal"] and row["alt_equal"]):
+            raise AssertionError(f"B2 differs from its plain version: {row}")
+    b6_shapes = [(math.ceil(hw / 6) ** 2, c) for _, hw, c in DW_LAYERS]
+    b6_rows = []
+    for T, C in b6_shapes + [(9, c) for c in B6_CHECKS]:
+        X, W, sx, sw = int8_operands(prng, dev, (100, T, C), (100, C))
+        Y_ref = ref.tdmm_int8_depthwise_ref(X, W, sx, sw)
+        g = sfc_tdmm.dw_product_geometry(100, T, C)
+        row = {"T": T, "C": C, "geometry": [g.groups, g.lanes, g.run],
+               "equal": bool(torch.equal(
+                   kernels.tdmm_int8_depthwise(X, W, sx, sw), Y_ref)),
+               "alt_equal": bool(torch.equal(
+                   kernels.tdmm_int8_depthwise(X, W, sx, sw, **B6_ALT),
+                   Y_ref))}
+        b6_rows.append(row)
+        if not (row["equal"] and row["alt_equal"]):
+            raise AssertionError(f"B6 differs from its plain version: {row}")
+    torch.cuda.synchronize()
+    log(f"kernels: B2 bit-identical to its plain version at {len(b2_rows)} "
+        f"shapes, each at two geometries: "
+        + json.dumps([[r["T"], r["K"], r["N"], r["geometry"], r["alt"]]
+                      for r in b2_rows]))
+    log(f"kernels: B6 bit-identical to its plain version at {len(b6_rows)} "
+        f"shapes, each at two geometries: "
+        + json.dumps([[r["T"], r["C"], r["geometry"]] for r in b6_rows]))
+    report["phases"]["b2_b6_checks"] = {"b2": b2_rows, "b6": b6_rows}
+
+    # ---- 4. the direct path under PyTorch's default TF32 flags -----------
+    # the same "direct" plan on the card and on CPU copies of its inputs
+    # (the CPU has no TF32); and with the port's cuDNN guard taken out,
+    # what the default flags would give
+    from repro_torch.core import conv2d as core_c2d
+    direct_rows = []
+    for label, shape, w_shape, stride, algo_name in DIRECT_CHECKS:
+        drng = np.random.RandomState(shape[1] + w_shape[-1])
+        x = torch.tensor(drng.randn(*shape), dtype=torch.float32, device=dev)
+        w = torch.tensor(drng.randn(*w_shape) / math.sqrt(
+            w_shape[0] * w_shape[1] * w_shape[2]), dtype=torch.float32,
+            device=dev)
+        p = plan(ConvSpec.for_conv2d(x.shape, w.shape, stride=stride,
+                                     quant=FP32), backend="cuda",
+                 algo=algo_name)
+        if p.path != "direct":
+            raise AssertionError(f"direct check {label}: the plan took the "
+                                 f"{p.path} path")
+        y_cpu = p.apply(x.cpu(), w.cpu())
+        y = p.apply(x, w).cpu()
+        guard = core_c2d.full_fp32_conv
+        try:
+            core_c2d.full_fp32_conv = contextlib.nullcontext
+            y_unguarded = p.apply(x, w).cpu()
+        finally:
+            core_c2d.full_fp32_conv = guard
+        row = {"plan": label, "flags": tf32_flags()}
+        for what, yy in (("", y), ("unguarded_", y_unguarded)):
+            row[f"{what}rel_l2"] = ((yy - y_cpu).norm()
+                                    / y_cpu.norm().clamp_min(1e-30)).item()
+            row[f"{what}scaled_max"] = scaled_err(yy, y_cpu)
+        direct_rows.append(row)
+        log("direct:", json.dumps(row))
+        if not (row["rel_l2"] <= 1e-4 and row["scaled_max"] <= 1e-4
+                and torch.isfinite(y).all()):
+            raise AssertionError(f"direct plan {label} on the card misses "
+                                 f"1e-4 against the CPU: {row}")
+    report["phases"]["direct_default_flags"] = direct_rows
+
+    # ---- 5. the paths ----------------------------------------------------
     launches = {k: 0 for k in REPLACES}   # summed over the paths' forwards
     path_launches = {path: {k: 0 for k in REPLACES} for path in EXPECTED}
     n_forwards = {path: 0 for path in EXPECTED}
@@ -820,7 +1099,7 @@ def main() -> None:
             runs.append((time.perf_counter() - t0) * 1e3)
         return runs, statistics.median(runs)
 
-    # -- 4a/4b. VGG-16, int8 (fused, staged) and fp ------------------------
+    # -- 5a/5b. VGG-16, int8 (fused, staged) and fp ------------------------
     layers, stage_ends = vgg_layers()
     wrng = np.random.RandomState(0)
     weights = {n: he_normal(wrng, cin, cout) for n, _, cin, cout in layers}
@@ -914,7 +1193,7 @@ def main() -> None:
                              f"{len(vgg_equal)} layer requests, not "
                              f"{N_VGG * len(REQUEST_BATCHES)}")
 
-    # -- 4b, TF32 on. The fp path's product runs in full float32 whatever
+    # -- 5b, TF32 on. The fp path's product runs in full float32 whatever
     # the caller allowed: one more forward of the batch-1 fp request with
     # the caller's TF32 on for cuBLAS, every layer held to the fp bounds
     # against the reference (TF32 off) and to bit equality with the same
@@ -971,7 +1250,7 @@ def main() -> None:
         f"max |ref| {max(r['unguarded_scaled_max'] for r in tf32_rows):.3e} "
         f"(bounds {BOUNDS['fp'][0]}, {BOUNDS['fp'][1]})")
 
-    # -- 4c. depthwise: MobileNetV2's stride-1 depthwise convs and dw3x3 ---
+    # -- 5c. depthwise: MobileNetV2's stride-1 depthwise convs and dw3x3 ---
     dw_weights = [he_normal(np.random.RandomState(300 + li), 1, c)
                   for li, (_, _, c) in enumerate(DW_LAYERS)]
     dw_rows, dw_stacks, dw_states = [], [], {}
@@ -1090,7 +1369,7 @@ def main() -> None:
         f"version: {sum(r['xq_flips'] for r in dw_rows)} of "
         f"{sum(r['xq_values'] for r in dw_rows)}")
 
-    # ---- 5. per-kernel times over the layers of a batch-1 request --------
+    # ---- 6. per-kernel times over the layers of a batch-1 request --------
     totals = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                   "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": None}
               for k in REPLACES}
@@ -1190,6 +1469,9 @@ def main() -> None:
         sw = prep.w_scale.reshape(P, -1).contiguous()
         X = kernels.sfc_transform_quantize_pt(x, bt, prep.act_scale, M)
         Y = kernels.tdmm_int8(X, prep.wq, sx, sw)
+        g2 = sfc_tdmm.tdmm_geometry(P, T, cin, cout)
+        row["b2_geometry"] = [g2.bm, g2.bn, g2.bk, g2.stages, g2.tiles,
+                              g2.blocks]
         ty = Y.transpose(0, 1).reshape(T, t, t, cout).contiguous()
         Y6 = Y.view(t, t, B, grid.nH, grid.nW, cout)
         args4 = (x, prep.wq, prep.act_scale, prep.w_scale, algo)
@@ -1290,7 +1572,9 @@ def main() -> None:
                 lambda: ref.sfc_fused_conv2d_ref(*args7, depthwise=True),
                 lambda: F.conv2d(x16, w16, padding=1, groups=c)),
         }
-        row = {"layer": lname, "hw": H, "c": c, "path": "dw_fused"}
+        g6 = sfc_tdmm.dw_product_geometry(P, T, c)
+        row = {"layer": lname, "hw": H, "c": c, "path": "dw_fused",
+               "b6_geometry": [g6.groups, g6.lanes, g6.run, g6.blocks]}
         time_kernels(row, fns, work)
         tiles, _ = kernels.extract_tiles(x, algo)
         time_kernels(row, {

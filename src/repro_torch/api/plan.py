@@ -6,7 +6,9 @@ of the deployment story:
   * :meth:`ConvPlan.prepare_weights` — the offline half: transform weights
     into the algorithm's domain once, optionally quantizing them to int8
     with calibrated static scales (paper §5-6).  Prepared weights are
-    memoized per plan, keyed on the weight tensor's identity.
+    memoized per plan, keyed on each operand tensor's identity and version,
+    so an in-place update (``w.mul_``, ``copy_``, ``load_state_dict``, an
+    optimizer step) prepares them anew.
   * :meth:`ConvPlan.apply` — the online half: one signature for every
     backend and precision.  ``apply(x, w)`` accepts either raw weights
     (prepared on the fly) or a :class:`PreparedWeights`.
@@ -33,11 +35,25 @@ from repro_torch.core.generator import BilinearAlgorithm
 _PREP_CACHE_MAX = 16
 
 
-class PrepCache:
-    """Identity-keyed FIFO of prepared weights.
+def _version(o) -> Optional[int]:
+    """A tensor's in-place version counter; None for anything else, and for
+    an inference tensor, which keeps none."""
+    if not isinstance(o, torch.Tensor):
+        return None
+    try:
+        return o._version
+    except RuntimeError:
+        return None
 
-    Keys are operand object ids; entries pin the operands so ids stay
-    valid for the entry's lifetime.
+
+class PrepCache:
+    """FIFO of prepared weights keyed on the operands' identity and version.
+
+    Keys hold each operand's id and, for a tensor, its ``_version``, which
+    every in-place update advances: JAX arrays cannot change in place, torch
+    tensors can, so a hit needs the same objects at the same versions.  An
+    entry pins its operands so the ids stay valid for its lifetime; a newer
+    version of the same operands replaces it.
     """
 
     def __init__(self, maxsize: int = _PREP_CACHE_MAX):
@@ -47,7 +63,7 @@ class PrepCache:
 
     @staticmethod
     def key_for(operands) -> tuple:
-        return tuple(id(o) for o in operands)
+        return tuple((id(o), _version(o)) for o in operands)
 
     def get(self, key, operands):
         with self._lock:
@@ -59,6 +75,10 @@ class PrepCache:
 
     def put(self, key, operands, value) -> None:
         with self._lock:
+            # an older version of the same operands is stale
+            for k, (ops, _) in list(self._entries.items()):
+                if all(a is b for a, b in zip(ops, operands)):
+                    del self._entries[k]
             while len(self._entries) >= self._maxsize:
                 self._entries.pop(next(iter(self._entries)))
             # the cache entry keeps the operands alive: ids stay valid
@@ -138,7 +158,9 @@ class ConvPlan:
         (``tuning.calibrate_act_scale``); it is required for the
         static-int8 execution path.  ``w_scale`` defaults to absmax scales
         at the spec's weight granularity, broadcast to (t, t, Cout).
-        Results are cached per weight tensor.
+        Results are cached per weight tensor and version; the scales are
+        copied, so a PreparedWeights stays as it was prepared when the
+        caller updates its operands in place.
         """
         operands = (w, act_scale, w_scale)
         key = PrepCache.key_for(operands)
@@ -171,13 +193,16 @@ class ConvPlan:
             amax = torch.amax(torch.abs(tw), dim=axes, keepdim=True)
             w_scale = amax / fq.qmax_for_bits(self.spec.quant.bits_weight) \
                 + 1e-12
-        w_scale = _normalize_w_scale(w_scale, t, cout, tw.device)
+        # copies: _normalize_w_scale and reshape may return the caller's
+        # tensors, whose later in-place updates would reach this snapshot
+        w_scale = _normalize_w_scale(w_scale, t, cout, tw.device).clone()
         wq = fq.quantize_transformed_weights(
             tw, w_scale, self.spec.quant.bits_weight)
         act_scale = torch.as_tensor(act_scale, dtype=torch.float32,
                                     device=tw.device).reshape(t, t)
         return PreparedWeights(w=w, tw=tw, wq=wq, w_scale=w_scale,
-                               act_scale=act_scale.contiguous())
+                               act_scale=act_scale.clone(
+                                   memory_format=torch.contiguous_format))
 
     # ------------------------------------------------------------------
     # online: execution

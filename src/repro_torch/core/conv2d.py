@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.generator import BilinearAlgorithm
+from repro_torch.core.precision import (full_fp32_conv,
+                                        full_fp32_matmul)
 
 
 @functools.lru_cache(maxsize=None)
@@ -109,11 +111,11 @@ def transform_domain_matmul(tx: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
     """(B,nH,nW,t,t,Cin) x (t,t,Cin,Cout) -> (B,nH,nW,t,t,Cout).
 
     t^2 independent GEMMs of shape (B*nH*nW, Cin) x (Cin, Cout), one per
-    transform-domain position.  On the card a float32 product runs in full
-    float32 only while ``torch.backends.cuda.matmul.allow_tf32`` is False
-    (PyTorch's default).
+    transform-domain position, in full float32 whatever the caller allowed
+    cuBLAS (``precision.full_fp32_matmul``).
     """
-    return torch.einsum("bnwtuc,tuco->bnwtuo", tx, tw)
+    with full_fp32_matmul():
+        return torch.einsum("bnwtuc,tuco->bnwtuo", tx, tw)
 
 
 def inverse_transform_2d(ty: torch.Tensor, algo: BilinearAlgorithm,
@@ -167,8 +169,9 @@ def conv2d_direct(x: torch.Tensor, w: torch.Tensor,
                   stride: int = 1, groups: int = 1) -> torch.Tensor:
     """Reference direct convolution via ``F.conv2d`` (NHWC, HWIO).
 
-    On the card ``F.conv2d`` runs through cuDNN, in TF32 unless
-    ``torch.backends.cudnn.allow_tf32`` is False.
+    On the card ``F.conv2d`` runs through cuDNN, in full float32 whatever
+    the caller allowed cuDNN (``precision.full_fp32_conv``; PyTorch's
+    default would let it use TF32).
     """
     if padding == "SAME":
         lo_h, hi_h = same_pads(x.shape[1], w.shape[0], stride)
@@ -176,8 +179,10 @@ def conv2d_direct(x: torch.Tensor, w: torch.Tensor,
         x = F.pad(x, (0, 0, lo_w, hi_w, lo_h, hi_h))
     elif padding != "VALID":
         raise ValueError(f"padding must be SAME or VALID, got {padding}")
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype).permute(3, 2, 0, 1),
-                 stride=stride, groups=groups)
+    with full_fp32_conv():
+        y = F.conv2d(x.permute(0, 3, 1, 2),
+                     w.to(x.dtype).permute(3, 2, 0, 1), stride=stride,
+                     groups=groups)
     y = y.permute(0, 2, 3, 1).contiguous()
     if bias is not None:
         y = y + bias

@@ -384,6 +384,55 @@ __device__ __forceinline__ void inverse_tile(Load load, const float* at,
   }
 }
 
+// Copies into shared memory by cp.async: 16 bytes, zero-filled past
+// src_bytes (0: nothing is read), in copy groups that a thread commits and
+// waits for.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until every copy group of this thread has landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// wait until at most N of this thread's copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The slot in a 32-deep k row that holds k when a B fragment is formed by
+// ldsm_x4_trans from rows k = lane (lane 8m + j gives row 8m + j) and
+// __byte_perm (B4): lane c4 gets k = 2 c4, 2 c4 + 1, 2 c4 + 8, 2 c4 + 9
+// and the same + 16, so the A fragments hold k in that order too.  slot_k
+// is its inverse.
+__host__ __device__ constexpr int k_slot(int k) {
+  return (k & ~15) | ((k >> 1) & 3) << 2 | ((k >> 3) & 1) << 1 | (k & 1);
+}
+
+__host__ __device__ constexpr int slot_k(int s) {
+  return (s & ~15) | ((s >> 2) & 3) << 1 | ((s >> 1) & 1) << 3 | (s & 1);
+}
+
+// four 8 x 8 matrices of 16-bit elements, transposed: lanes 8m .. 8m + 7
+// give the rows of matrix m, and lane (g, c4) gets its column g, rows
+// 2 c4 and 2 c4 + 1, in r[m]
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"((unsigned)__cvta_generic_to_shared(p)));
+}
+
 // One int8 tensor-core product D = A(16x32) * B(32x8) + C, s8 x s8 -> s32.
 // Fragments follow the PTX ISA layout of mma.m16n8k32 (.row.col):
 //   a[0] = A[g][4c..4c+3]     a[1] = A[g+8][4c..]

@@ -91,27 +91,11 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src,
                "l"(src), "r"(src_bytes));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(src_bytes));
-}
-
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           int src_bytes) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until every copy group of this thread has landed
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
 struct Args {
@@ -135,34 +119,17 @@ struct Args {
 constexpr int kTma = 17;
 constexpr int kStages = 2;  // the weight ring
 
-// The slot in a 32-channel row of xq that holds channel k: the order of k
-// in which ldmatrix.trans and __byte_perm deliver a B fragment (lane c4
-// gets k = 2 c4, 2 c4 + 1, 2 c4 + 8, 2 c4 + 9 and the same + 16), so the
-// A fragments read xq in that order too.  slot_k is its inverse.
-__host__ __device__ constexpr int k_slot(int k) {
-  return (k & ~15) | ((k >> 1) & 3) << 2 | ((k >> 3) & 1) << 1 | (k & 1);
-}
-
-__host__ __device__ constexpr int slot_k(int s) {
-  return (s & ~15) | ((s >> 2) & 3) << 1 | ((s >> 1) & 1) << 3 | (s & 1);
-}
-
-// four 8 x 8 matrices of 16-bit elements, transposed: lanes 8m .. 8m + 7
-// give the rows of matrix m, and lane (g, c4) gets its column g, rows
-// 2 c4 and 2 c4 + 1, in r[m]
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"((unsigned)__cvta_generic_to_shared(p)));
-}
-
 using sfc::align128;
+using sfc::cp_async16;
+using sfc::cp_async_commit;
+using sfc::cp_async_wait_all;
 using sfc::encode;
+using sfc::k_slot;
+using sfc::ldsm_x4_trans;
 using sfc::mbar_expect;
 using sfc::mbar_init;
 using sfc::mbar_wait;
+using sfc::slot_k;
 using sfc::smem_u32;
 using sfc::tma_load_3d;
 using sfc::tma_load_4d;

@@ -42,8 +42,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "sfc_transform_quantize_launch": (_P,) * 5 + (_I,) * 18 + (_F, _I, _P),
     "sfc_transform_launch": (_P, _P, _P) + (_I,) * 18 + (_P,),
-    "tdmm_int8_launch": (_P,) * 5 + (_I,) * 4 + (_P,),
-    "tdmm_int8_depthwise_launch": (_P,) * 5 + (_I,) * 3 + (_P,),
+    "tdmm_int8_launch": (_P,) * 5 + (_I,) * 10 + (_P,),
+    "tdmm_int8_depthwise_launch": (_P,) * 5 + (_I,) * 6 + (_P,),
     "sfc_inverse_launch": (_P, _P, _P) + (_I,) * 4 + (_LL, _LL)
     + (_I,) * 5 + (_P,),
     "sfc_fused_conv2d_launch": (_P,) * 7 + (_I,) * 27 + (_F, _P),

@@ -22,14 +22,13 @@ kernels on CUDA tensors.
 """
 from __future__ import annotations
 
-import contextlib
-import threading
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core import conv2d as c2d
 from repro_torch.core.generator import BilinearAlgorithm
+from repro_torch.core.precision import full_fp32_matmul
 from repro_torch.kernels.sfc_inverse import sfc_inverse_nhwc
 from repro_torch.kernels.sfc_tdmm import tdmm_int8, tdmm_int8_depthwise
 from repro_torch.kernels.sfc_transform import (sfc_transform,
@@ -107,40 +106,6 @@ def quantized_fastconv2d_depthwise(x: torch.Tensor, wq: torch.Tensor,
     Y = tdmm_int8_depthwise(X, wq.reshape(P, C), act_scale.reshape(P),
                             w_scale.reshape(P, C).contiguous())
     return sfc_inverse_nhwc(Y, at, grid)
-
-
-_FULL_FP32_LOCK = threading.Lock()
-
-
-@contextlib.contextmanager
-def full_fp32_matmul():
-    """Run the float32 products inside in full float32, never in TF32.
-
-    cuBLAS computes a float32 product in TF32 (about three decimal digits)
-    when the caller allowed it.  This sets the cuBLAS precision to IEEE
-    float32 for the block and restores the caller's setting after it,
-    through the API this PyTorch has: ``fp32_precision`` where it exists
-    (mixing it with the older ``allow_tf32`` makes reads of the latter
-    raise), else ``allow_tf32``.  PyTorch reads the setting on the host when
-    a product is enqueued, so the product keeps IEEE float32 whenever the
-    card runs it.
-
-    The setting is process-wide.  A lock serialises the blocks, so two
-    threads inside this guard cannot restore each other's setting before
-    the other's product is enqueued.  A thread outside it that changes the
-    setting during the block defeats it, and float32 products that other
-    threads enqueue during the block run in IEEE float32 too.
-    """
-    matmul = torch.backends.cuda.matmul
-    name, full = ("fp32_precision", "ieee") \
-        if hasattr(matmul, "fp32_precision") else ("allow_tf32", False)
-    with _FULL_FP32_LOCK:
-        previous = getattr(matmul, name)
-        setattr(matmul, name, full)
-        try:
-            yield
-        finally:
-            setattr(matmul, name, previous)
 
 
 def transform_domain_fp(tx: torch.Tensor, tw: torch.Tensor, *,

@@ -359,3 +359,86 @@ def test_register_backend_round_trip():
             "reference_alias"
     finally:
         del backends._BACKENDS["reference_alias"]
+
+
+def _jax_applied(x, w, quant, act=None, w_scale=None):
+    """The JAX reference backend's output of sfc6_6 on numpy operands."""
+    jspec = japi.ConvSpec.for_conv2d(x.shape, w.shape, quant=quant)
+    jp = japi.plan(jspec, backend="reference", algo="sfc6_6")
+    if act is None:
+        return np.asarray(jp.apply(jnp.asarray(x), jnp.asarray(w)))
+    jprep = jp.prepare_weights(
+        jnp.asarray(w), act_scale=jnp.asarray(act),
+        w_scale=None if w_scale is None else jnp.asarray(w_scale))
+    return np.asarray(jp.apply(jnp.asarray(x), jprep))
+
+
+# (in-place update, precision): the weights scaled or overwritten, or the
+# weight scales scaled, which only a quantized plan takes
+INPLACE_CASES = [("mul", "fp32"), ("copy", "fp32"), ("mul", "int8"),
+                 ("copy", "int8"), ("w_scale", "int8")]
+
+
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+@pytest.mark.parametrize("update,precision", INPLACE_CASES,
+                         ids=["-".join(c) for c in INPLACE_CASES])
+def test_inplace_updates_reach_the_prepared_weights(update, precision,
+                                                    backend):
+    # a plan applied after its weights (or weight scales) were updated in
+    # place serves the updated ones, as the JAX package does given the
+    # updated array; a PreparedWeights prepared before stays as it was
+    rng = np.random.RandomState(21)
+    x = _snapped(rng, (1, 12, 12, 4))
+    w_np = (rng.randn(3, 3, 4, 5) * 0.3).astype(np.float32)
+    w2_np = (rng.randn(3, 3, 4, 5) * 0.3).astype(np.float32)
+    int8 = precision == "int8"
+    quant, jquant = (INT8_FREQ, JINT8_FREQ) if int8 else (FP32, JFP32)
+    p = plan(ConvSpec.for_conv2d(x.shape, w_np.shape, quant=quant),
+             backend=backend, algo="sfc6_6")
+    xt, w = torch.from_numpy(x), torch.from_numpy(w_np.copy())
+    act = tuning.calibrate_act_scale(xt, p.algorithm, INT8_FREQ) \
+        if int8 else None
+    ws = torch.full((10, 10, 5), 2e-3) if update == "w_scale" else None
+
+    def applied():
+        if not int8:
+            return p.apply(xt, w)
+        return p.apply(xt, p.prepare_weights(w, act_scale=act, w_scale=ws))
+
+    before = applied()
+    held = p.prepare_weights(w, act_scale=act, w_scale=ws)
+    held_out = p.apply(xt, held)
+    if update == "mul":
+        w.mul_(2)
+    elif update == "copy":
+        w.copy_(torch.from_numpy(w2_np))
+    else:
+        ws.mul_(1.5)
+    got = applied()
+    want = _jax_applied(x, w.numpy(), jquant,
+                        None if act is None else act.numpy(),
+                        None if ws is None else ws.numpy())
+    assert not torch.equal(got, before)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
+                               atol=1e-4 * np.abs(want).max())
+    assert torch.equal(p.apply(xt, held), held_out)
+
+
+def test_prepared_weights_cache_keeps_one_version_per_operands():
+    rng = np.random.RandomState(22)
+    w = torch.from_numpy(rng.randn(3, 3, 3, 7).astype(np.float32))
+    act = torch.full((10, 10), 0.1)
+    # plans are cached per spec: count the entries this test adds
+    p = plan(ConvSpec.for_conv2d((1, 9, 9, 3), w.shape, quant=INT8_FREQ),
+             backend="cuda", algo="sfc6_6")
+    first = p.prepare_weights(w, act_scale=act)
+    entries = len(p._prep)
+    w.add_(1)
+    second = p.prepare_weights(w, act_scale=act)
+    assert second is not first and len(p._prep) == entries
+    assert p.prepare_weights(w, act_scale=act) is second
+    act.mul_(2)
+    third = p.prepare_weights(w, act_scale=act)
+    assert third is not second and len(p._prep) == entries
+    assert torch.equal(third.act_scale, act)
+    assert not torch.equal(second.act_scale, act)

@@ -533,6 +533,75 @@ def test_full_fp32_matmul_restores_the_callers_setting(caller_tf32):
         setattr(matmul, name, before)
 
 
+def _cudnn_fp32_setting():
+    """This PyTorch's cuDNN float32 convolution setting: the object that
+    holds it, its name, and its values for TF32 and for IEEE float32."""
+    cudnn = torch.backends.cudnn
+    conv = getattr(cudnn, "conv", None)
+    if hasattr(conv, "fp32_precision"):
+        return conv, "fp32_precision", "tf32", "ieee"
+    return cudnn, "allow_tf32", True, False
+
+
+@pytest.mark.parametrize("caller_tf32", (False, True))
+def test_full_fp32_conv_restores_the_callers_setting(caller_tf32):
+    from repro_torch.core.precision import full_fp32_conv
+    obj, name, tf32, ieee = _cudnn_fp32_setting()
+    before = getattr(obj, name)
+    try:
+        setattr(obj, name, tf32 if caller_tf32 else ieee)
+        caller = getattr(obj, name)
+        with full_fp32_conv():
+            assert getattr(obj, name) == ieee
+        assert getattr(obj, name) == caller
+        with pytest.raises(KeyError):
+            with full_fp32_conv():
+                raise KeyError("raised inside the guard")
+        assert getattr(obj, name) == caller
+    finally:
+        setattr(obj, name, before)
+
+
+@pytest.mark.parametrize("call", ("conv2d_direct", "transform_domain_matmul"))
+def test_library_calls_run_inside_their_guards(call, monkeypatch):
+    # the direct conv's F.conv2d sees cuDNN in IEEE float32, the reference
+    # einsum sees cuBLAS in IEEE float32, whatever the caller set
+    if call == "conv2d_direct":
+        obj, name, tf32, ieee = _cudnn_fp32_setting()
+        target, attr = torch.nn.functional, "conv2d"
+    else:
+        obj = torch.backends.cuda.matmul
+        name, tf32, ieee = _cublas_fp32_setting()
+        target, attr = torch, "einsum"
+    library = getattr(target, attr)
+    seen = []
+
+    def observed(*args, **kwargs):
+        seen.append(getattr(obj, name))
+        return library(*args, **kwargs)
+
+    monkeypatch.setattr(target, attr, observed)
+    rng = np.random.RandomState(23)
+    before = getattr(obj, name)
+    try:
+        setattr(obj, name, tf32)
+        if call == "conv2d_direct":
+            x = torch.from_numpy(rng.randn(1, 9, 9, 4).astype(np.float32))
+            w = torch.from_numpy(rng.randn(3, 3, 4, 5).astype(np.float32))
+            y = c2d.conv2d_direct(x, w, "SAME", stride=2)
+            assert y.shape == (1, 5, 5, 5)
+        else:
+            tx = torch.from_numpy(rng.randn(1, 2, 2, 10, 10, 4).astype(
+                np.float32))
+            tw = torch.from_numpy(rng.randn(10, 10, 4, 5).astype(np.float32))
+            y = c2d.transform_domain_matmul(tx, tw)
+            assert y.shape == (1, 2, 2, 10, 10, 5)
+        assert seen == [ieee]
+        assert getattr(obj, name) == tf32
+    finally:
+        setattr(obj, name, before)
+
+
 def test_full_fp32_matmul_serialises_threads():
     # a second thread waits at the guard until the first has left it, so
     # neither can restore the caller's TF32 setting inside the other's block
