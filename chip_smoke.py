@@ -10,23 +10,25 @@ csrc`` at first use.  Phases, each of which raises on failure:
   1. probe: PyTorch, CUDA, the card, ``nvcc``, its name and power limit;
   2. build the kernels and report the seconds it took;
   3. each kernel against its plain PyTorch version on the card, at VGG-16
-     layer shapes and at depthwise shapes of MobileNetV2, with the
-     tolerance stated beside each check; the fused kernels also bit for bit
-     against the staged ones (B4 against B1 -> B2 -> B3, B7 against
-     B1 -> B6 -> B3) on snapped and raw inputs at a second geometry, B7 at
-     batch 4, VALID and a run-time algorithm too, B3's NHWC entry
-     bit for bit against its tile entry followed by ``untile``, and B1's
-     (P, T, C) entry against its plain version and bit for bit against
-     its tile entry, B1 and B5 also at a second geometry; then B2 and B6
-     bit for bit against their plain versions at the per-layer geometry
-     and at a second one, B2 at every VGG-16 layer shape and at ragged
-     tiles and channels (T 1, 9, 17; K 3, 40; N 8, 24, 520), B6 at every
-     depthwise layer and at C 3, 20 and 960;
+     layer shapes, at depthwise shapes of MobileNetV2 and at the lowered
+     convs' sub-conv shapes (sfc6_7_r2, sfc6_6_r4, sfc4_4_r2, sfc4_5_r2,
+     VALID, each also timed beside a compiled algorithm on the same input),
+     with the tolerance stated beside each check; the fused kernels also
+     bit for bit against the staged ones (B4 against B1 -> B2 -> B3, B7
+     against B1 -> B6 -> B3) on snapped and raw inputs at a second
+     geometry, B7 at batch 4, VALID and a run-time algorithm too, B3's NHWC
+     entry bit for bit against its tile entry followed by ``untile``, and
+     B1's (P, T, C) entry against its plain version and bit for bit
+     against its tile entry, B1 and B5 also at a second geometry; then B2
+     and B6 bit for bit against their plain versions at the per-layer
+     geometry and at a second one, B2 at every VGG-16 layer shape and at
+     ragged tiles and channels (T 1, 9, 17; K 3, 40; N 8, 24, 520), B6 at
+     every depthwise layer and at C 3, 20 and 960;
   4. the direct path on the card under PyTorch's default TF32 flags (the
-     run sets none): a 1x1, a 3x3 and a 3x3/2 ``"direct"`` plan against the
-     same plan on CPU copies of the inputs, within 1e-4 rel L2 and 1e-4 of
-     max |y|, and, as what the guard prevents, the same plans with the
-     port's cuDNN guard taken out;
+     run sets none): a 1x1, a 3x3, a 3x3/2 and a lowered 3x3/2's 1x1 phase
+     as ``"direct"`` plans against the same plan on CPU copies of the
+     inputs, within 1e-4 rel L2 and 1e-4 of max |y|, and, as what the guard
+     prevents, the same plans with the port's cuDNN guard taken out;
   5. the paths, each forward of which starts from launch counts of 0 and
      must launch its own kernels, and only those, the stated number of
      times; every layer is held against the ``reference`` backend on the
@@ -42,6 +44,25 @@ csrc`` at first use.  Phases, each of which raises on failure:
         (width 1.0, 224x224) and the repo's ``dw3x3`` workload, each a
         request of batch 1 and of batch 4, on the int8 fused, int8 staged
         and fp paths; fused and staged must be bit-identical;
+     d. the lowered convs (``repro_torch.api.lowering``) at 224x224 widths,
+        batch 1 and 4: ResNet-18's 7x7/2 stem and 3x3/2 transitions (int8
+        fused, int8 staged, fp; ``algo="sfc6_6"``), MobileNetV2's four
+        stride-2 depthwise convs (``auto`` planned direct, int8 sfc4_4_r2
+        fused and staged, fp sfc6_6) and a 56x56 128->128 groups=4 conv
+        (int8 fused and staged); each timed, card and wall, beside the
+        strided direct conv (cuDNN, full fp32) and cuDNN's fp16 conv, with
+        the glue (the phase cut, the sums) timed apart;
+     e. the measured tier: ``tuning.autotune`` of VGG-16's and ResNet-18's
+        distinct specs at batch 1 into the run's own cache
+        (``build/chip_smoke_tuning.json``, deleted first), each spec's
+        candidates, winner and the card time of each datapath printed;
+        then a tuned VGG-16 request (no config given: each plan carries its
+        winner) at batch 1 and 4, bit for bit the fused and staged ones;
+     f. ResNet-18's 20-conv stack at 224x224, batch 1 and 4 (ReLU,
+        residual adds, the max-pool; no normalization or head), on the int8
+        fused, staged and tuned datapaths and fp, every layer against the
+        reference backend, fused = staged = tuned bit for bit, card and
+        wall time and the batch-4 peak memory;
   6. per kernel, the times over the layers of one batch-1 request: the
      kernel, its plain version, one PyTorch library call where one
      computes the same function, and the least time the card could take
@@ -93,8 +114,8 @@ ALGO = "sfc6_6"
 # the 13 stride-1 depthwise 3x3 convs of MobileNetV2 at width 1.0 and
 # 224x224 (Sandler et al. 2018, arXiv:1801.04381, Table 2), named by
 # bottleneck block and repeat, as (name, H = W, C); its four stride-2
-# depthwise convs need the lowering pass (ROADMAP A6).  Then the repo's
-# own depthwise workload, dw3x3 of benchmarks/table3_throughput.py.
+# depthwise convs are LOWERED_DW below.  Then the repo's own depthwise
+# workload, dw3x3 of benchmarks/table3_throughput.py.
 DW_LAYERS = (("mbv2_b1.1", 112, 32), ("mbv2_b2.2", 56, 144),
              ("mbv2_b3.2", 28, 192), ("mbv2_b3.3", 28, 192),
              ("mbv2_b4.2", 14, 384), ("mbv2_b4.3", 14, 384),
@@ -103,6 +124,24 @@ DW_LAYERS = (("mbv2_b1.1", 112, 32), ("mbv2_b2.2", 56, 144),
              ("mbv2_b6.2", 7, 960), ("mbv2_b6.3", 7, 960),
              ("mbv2_b7.1", 7, 960), ("dw3x3", 28, 256))
 DW_BATCHES = (1, 4)
+# the convs the lowering pass rewrites, at 224x224 and published widths:
+# ResNet-18's 7x7/2 stem and 3x3/2 stage transitions
+# (RESNET_LOWERED_LAYERS, benchmarks/table3_throughput.py), as (name,
+# H = W, C_in, C_out, R); MobileNetV2's four stride-2 depthwise 3x3 convs
+# (the first depthwise conv of bottleneck blocks 2, 3, 4 and 6), as (name,
+# H = W, C); and one grouped conv, (name, H = W, C_in, C_out, groups)
+LOWERED_LAYERS = (("stem7x7s2", 224, 3, 64, 7), ("s1tos2", 56, 64, 128, 3),
+                  ("s2tos3", 28, 128, 256, 3), ("s3tos4", 14, 256, 512, 3))
+LOWERED_DW = (("mbv2_b2.1", 112, 96), ("mbv2_b3.1", 56, 144),
+              ("mbv2_b4.1", 28, 192), ("mbv2_b6.1", 14, 576))
+LOWERED_GROUPED = (("g4_56", 56, 128, 128, 4),)
+LOWERED_BATCHES = (1, 4)
+DW_LOWERED_ALGO = "sfc4_4_r2"
+# ResNet-18 (He et al. 2016, arXiv:1512.03385, Table 1; RESNET18 in
+# src/repro/configs/resnet18.py): blocks per stage and widths
+RESNET_STAGES = (2, 2, 2, 2)
+RESNET_WIDTHS = (64, 128, 256, 512)
+RESNET_BATCHES = (1, 4)
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM, int8 tensor cores, and
 # float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -111,18 +150,28 @@ F32_OPS_PER_S = 67e12
 TIMED_RUNS = 25
 SPIN_CYCLES = 20_000_000        # ~10 ms at the H100's clock; doubled on need
 SERVE_REPEATS = 5
-# (algo, H = W, C_in, C_out, batch): VGG-16 shapes, sfc6_7, sfc4_4, a
-# ragged sfc6_6 case whose channel counts are no multiple of any block,
-# the deepest layer at batch 4 (36 tiles, three groups of 16), and B4's
-# other weight loaders: C_out 20 (no multiple of 8: weights copied by
+# (algo, H = W, C_in, C_out, batch, padding): VGG-16 shapes, sfc6_7,
+# sfc4_4, a ragged sfc6_6 case whose channel counts are no multiple of any
+# block, the deepest layer at batch 4 (36 tiles, three groups of 16), and
+# B4's other weight loaders: C_out 20 (no multiple of 8: weights copied by
 # bytes, scales 16 bytes a copy) and C_out 13 (no multiple of 4: scales by
 # single loads), the latter with wino4, whose (t, L, M) B4 takes at run
-# time
-KERNEL_CHECKS = (("sfc6_6", 224, 3, 64, 1), ("sfc6_6", 56, 256, 256, 1),
-                 ("sfc6_6", 14, 512, 512, 1), ("sfc6_7", 56, 256, 256, 1),
-                 ("sfc4_4", 28, 64, 128, 1), ("sfc6_6", 13, 40, 24, 1),
-                 ("sfc6_6", 14, 512, 512, 4), ("sfc6_6", 13, 40, 20, 1),
-                 ("wino4", 13, 40, 13, 1))
+# time; then the lowered convs' dense sub-convs at their own shapes (VALID,
+# the phase's input extent): sfc6_7_r2 at ResNet-18's 56x56 3x3/2
+# transition (also at batch 4) and sfc6_6_r4 at its stem, both tiles B1,
+# B5, B3 and B4 take at run time
+KERNEL_CHECKS = (("sfc6_6", 224, 3, 64, 1, "SAME"),
+                 ("sfc6_6", 56, 256, 256, 1, "SAME"),
+                 ("sfc6_6", 14, 512, 512, 1, "SAME"),
+                 ("sfc6_7", 56, 256, 256, 1, "SAME"),
+                 ("sfc4_4", 28, 64, 128, 1, "SAME"),
+                 ("sfc6_6", 13, 40, 24, 1, "SAME"),
+                 ("sfc6_6", 14, 512, 512, 4, "SAME"),
+                 ("sfc6_6", 13, 40, 20, 1, "SAME"),
+                 ("wino4", 13, 40, 13, 1, "SAME"),
+                 ("sfc6_7_r2", 29, 64, 128, 1, "VALID"),
+                 ("sfc6_7_r2", 29, 64, 128, 4, "VALID"),
+                 ("sfc6_6_r4", 115, 3, 64, 1, "VALID"))
 # B4 at a geometry other than the per-layer default: 8 output channels
 # per block, four of them sharing each transform, C_in split in two; bit
 # for bit the same
@@ -136,7 +185,20 @@ B4_ALT = {"cout_block": 8, "n_share": 4, "k_split": 2}
 # block (plain loads), on snapped and on raw inputs
 DW_CHECKS = (("sfc6_6", 112, 32, 1, "SAME"), ("sfc6_6", 56, 144, 4, "SAME"),
              ("sfc6_7", 7, 960, 1, "SAME"), ("sfc6_6", 14, 384, 4, "VALID"),
-             ("sfc4_4", 13, 40, 2, "VALID"), ("wino4", 13, 48, 1, "SAME"))
+             ("sfc4_4", 13, 40, 2, "VALID"), ("wino4", 13, 48, 1, "SAME"),
+             # the strided depthwise convs' sub-convs at their own shapes:
+             # sfc4_4_r2 at MobileNetV2's 112x112 C96 and 56x56 C144 (batch
+             # 4), sfc4_5_r2 at 28x28 C192, tiles B1, B5, B3 and B7 take at
+             # run time
+             ("sfc4_4_r2", 57, 96, 1, "VALID"),
+             ("sfc4_4_r2", 29, 144, 4, "VALID"),
+             ("sfc4_5_r2", 15, 192, 1, "VALID"))
+# each sub-algorithm of the lowered convs beside a compiled algorithm, on
+# the same input, for the kernel times at the new tiles: sfc6_7_r2 (t 10,
+# L 8) beside sfc6_6 (t 10, L 8: the same transform work), the others
+# beside the 3x3 algorithm of the nearest tile
+TILE_PAIRS = {"sfc6_7_r2": "sfc6_6", "sfc6_6_r4": "sfc6_6",
+              "sfc4_4_r2": "sfc4_4", "sfc4_5_r2": "sfc4_4"}
 B7_ALT = {"cout_block": 16, "tiles": 4, "splits": 3}
 # B1 and B5 at a geometry other than the per-layer default: 18 channels a
 # block (no multiple of 4: plain loads, not TMA, and a channel tail), runs
@@ -149,14 +211,17 @@ B1_ALT = {"channel_block": 18, "tiles": 3, "splits": 3}
 B2_CHECKS = tuple((T, K, N) for T in (1, 9, 17)
                   for K, N in ((3, 8), (40, 24), (64, 520)))
 # the direct path's checks under PyTorch's default TF32 flags: (label, x
-# shape, w shape, stride, algo) of three "direct" plans: a 1x1 conv, a 3x3
-# conv planned direct, and a 3x3/2 conv planned direct
+# shape, w shape, stride, algo) of four "direct" plans: a 1x1 conv, a 3x3
+# conv planned direct, a 3x3/2 conv planned direct, and the 1x1 phase of
+# ResNet-18's 56x56 3x3/2 transition
 DIRECT_CHECKS = (("1x1 56x56 256->128", (1, 56, 56, 256), (1, 1, 256, 128),
                   1, "auto"),
                  ("3x3 28x28 256->256 direct", (1, 28, 28, 256),
                   (3, 3, 256, 256), 1, "direct"),
                  ("3x3/2 56x56 128->256 direct", (1, 56, 56, 128),
-                  (3, 3, 128, 256), 2, "direct"))
+                  (3, 3, 128, 256), 2, "direct"),
+                 ("1x1 28x28 64->128, a lowered 3x3/2's direct phase",
+                  (1, 28, 28, 64), (1, 1, 64, 128), 1, "auto"))
 # B6's checks beyond the depthwise layers: C 3 and 20 (channels one at a
 # time, a partial group) and 960, at 9 tiles; each at the per-layer
 # geometry and at B6_ALT (3 groups, 5 lanes, runs of 2)
@@ -211,6 +276,51 @@ def vgg_layers():
         ends.append(len(layers) - 1)
         hw //= 2
     return layers, set(ends)
+
+
+def resnet_convs():
+    """(name, R, stride, H = W of its input, C_in, C_out) of ResNet-18's 20
+    convs in forward order: the 7x7/2 stem, then per basic block conv1
+    (3x3/2 where a stage opens), conv2 and, where the block changes width,
+    the 1x1 projection of the shortcut (src/repro/models/cnn.py,
+    init_resnet)."""
+    convs = [("stem", 7, 2, IMAGE, 3, RESNET_WIDTHS[0])]
+    hw, cin = IMAGE // 4, RESNET_WIDTHS[0]      # after the 3x3/2 max-pool
+    for si, (n, width) in enumerate(zip(RESNET_STAGES, RESNET_WIDTHS)):
+        for bi in range(n):
+            stride = 2 if bi == 0 and si > 0 else 1
+            name = f"s{si}b{bi}"
+            out = -(-hw // stride)
+            convs.append((f"{name}.conv1", 3, stride, hw, cin, width))
+            convs.append((f"{name}.conv2", 3, 1, out, width, width))
+            if stride != 1 or cin != width:
+                convs.append((f"{name}.proj", 1, stride, hw, cin, width))
+            hw, cin = out, width
+    return convs
+
+
+def resnet_forward(x, conv):
+    """ResNet-18's conv stack as ``resnet_forward`` (src/repro/models/
+    cnn.py) runs it, normalization and head left out: ReLU after the stem,
+    a 3x3/2 SAME max-pool, basic blocks with ReLU and residual adds;
+    ``conv(name, h)`` runs one conv."""
+    import torch
+    import torch.nn.functional as F
+    h = torch.relu(conv("stem", x))
+    # 3x3/2 SAME max-pool (XLA's padding: the odd pixel after the image)
+    pad = max((-(-h.shape[1] // 2) - 1) * 2 + 3 - h.shape[1], 0)
+    h = F.max_pool2d(F.pad(h.permute(0, 3, 1, 2),
+                           (pad // 2, pad - pad // 2, pad // 2,
+                            pad - pad // 2), value=float("-inf")),
+                     3, 2).permute(0, 2, 3, 1).contiguous()
+    for si, n in enumerate(RESNET_STAGES):
+        for bi in range(n):
+            name = f"s{si}b{bi}"
+            y = torch.relu(conv(f"{name}.conv1", h))
+            y = conv(f"{name}.conv2", y)
+            sc = conv(f"{name}.proj", h) if si > 0 and bi == 0 else h
+            h = torch.relu(y + sc)
+    return h
 
 
 def log(*args):
@@ -594,7 +704,7 @@ def main() -> None:
     import torch.nn.functional as F
 
     from repro_torch import kernels
-    from repro_torch.api import ConvSpec, plan, tuning
+    from repro_torch.api import ConvSpec, plan, registry, tuning
     from repro_torch.core import conv2d as c2d
     from repro_torch.kernels import _build, ops, ref, sfc_fused, sfc_tdmm
     from repro_torch.quant import FP32, INT8_FREQ
@@ -602,6 +712,11 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
     report = {"phases": {}}
+    # the run's own timing cache, emptied first: every run tunes afresh,
+    # and no plan before phase 5e carries a measured config
+    cache = ROOT / "build" / "chip_smoke_tuning.json"
+    cache.unlink(missing_ok=True)
+    tuning.set_cache_path(str(cache))
 
     # ---- 1. probe -------------------------------------------------------
     cap = torch.cuda.get_device_capability(0)
@@ -682,18 +797,22 @@ def main() -> None:
         return torch.tensor(np.round(rng.randn(*shape) * 16) / 16,
                             dtype=torch.float32, device=dev)
 
-    def he_normal(rng, cin, cout):
-        w = rng.randn(3, 3, cin, cout) * math.sqrt(2.0 / (9 * cin))
+    def he_normal(rng, cin, cout, r=3):
+        w = rng.randn(r, r, cin, cout) * math.sqrt(2.0 / (r * r * cin))
         return torch.tensor(w, dtype=torch.float32, device=dev)
 
-    def prepared(x, w, algo_name, config=None, depthwise=False):
+    def prepared(x, w, algo_name, config=None, depthwise=False,
+                 padding="SAME"):
         make = ConvSpec.for_conv2d_depthwise if depthwise \
             else ConvSpec.for_conv2d
-        spec = make(x.shape, w.shape, quant=INT8_FREQ)
+        spec = make(x.shape, w.shape, padding=padding, quant=INT8_FREQ)
         p = plan(spec, backend="cuda", algo=algo_name)
+        if p.algorithm is None or p.algo_name != algo_name:
+            raise AssertionError(f"{algo_name} at {spec} planned "
+                                 f"{p.algo_name}")
         if config is not None:
             p = p.with_config(config)
-        act = tuning.calibrate_act_scale(x, p.algorithm, INT8_FREQ)
+        act = tuning.calibrate_act_scale(x, p.algorithm, INT8_FREQ, padding)
         return p, p.prepare_weights(w, act_scale=act)
 
     def prepared_fp(x, w, algo_name, depthwise=False):
@@ -707,10 +826,10 @@ def main() -> None:
         return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)
                 ).item()
 
-    def geometry_of(x, prep, algo):
+    def geometry_of(x, prep, algo, padding="SAME"):
         """B4's geometry for this input and these weights."""
         B, H, W, cin = x.shape
-        grid = c2d.tile_grid(H, W, algo.M, algo.R, "SAME")
+        grid = c2d.tile_grid(H, W, algo.M, algo.R, padding)
         g = sfc_fused.fused_geometry(algo, B * grid.nH * grid.nW, cin,
                                      prep.wq.shape[2])
         return {"cb": g.cb, "n_share": g.n_share, "k_split": g.k_split,
@@ -798,21 +917,76 @@ def main() -> None:
             raise AssertionError(f"B1's (P, T, C) entry differs from its "
                                  f"plain version or from the tile entry, or "
                                  f"B1 differs across geometries: {case}")
+    def kernel_times(x, p, prep, padding):
+        """Card ms of each kernel the int8 and fp paths launch for plan
+        ``p`` on ``x`` (B1 its (P, T, C) entry, B3 its NHWC entry)."""
+        algo = p.algorithm
+        M, P, C = algo.M, algo.t ** 2, x.shape[3]
+        bt, _, at = c2d.transform_matrices(algo, torch.float32, dev)
+        grid = c2d.tile_grid(x.shape[1], x.shape[2], M, algo.R, padding)
+        sx = prep.act_scale.reshape(P).contiguous()
+        args = (x, prep.wq, prep.act_scale, prep.w_scale, algo)
+        X = kernels.sfc_transform_quantize_pt(x, bt, prep.act_scale, M,
+                                              padding=padding)
+        out = {"tiles": X.shape[1], "sfc_transform_quantize": timed(
+            lambda: kernels.sfc_transform_quantize_pt(
+                x, bt, prep.act_scale, M, padding=padding)),
+            "sfc_transform": timed(
+                lambda: kernels.sfc_transform(x, bt, M, padding=padding))}
+        if p.spec.depthwise:
+            wq2 = prep.wq.reshape(P, C)
+            sw = prep.w_scale.reshape(P, C).contiguous()
+            Y = kernels.tdmm_int8_depthwise(X, wq2, sx, sw)
+            out["tdmm_int8_depthwise"] = timed(
+                lambda: kernels.tdmm_int8_depthwise(X, wq2, sx, sw))
+            out["sfc_fused_conv2d_depthwise"] = timed(
+                lambda: kernels.sfc_fused_conv2d(*args, padding=padding,
+                                                 depthwise=True))
+        else:
+            sw = prep.w_scale.reshape(P, -1).contiguous()
+            Y = kernels.tdmm_int8(X, prep.wq, sx, sw)
+            out["tdmm_int8"] = timed(
+                lambda: kernels.tdmm_int8(X, prep.wq, sx, sw))
+            out["sfc_fused_conv2d"] = timed(
+                lambda: kernels.sfc_fused_conv2d(*args, padding=padding))
+        out["sfc_inverse"] = timed(
+            lambda: kernels.sfc_inverse_nhwc(Y, at, grid))
+        return out
+
+    tile_rows = []
+
+    def time_tiles(case, x, p, prep, padding, w_shape):
+        """The kernels at a lowered sub-conv's tile, beside the same
+        kernels with TILE_PAIRS' compiled algorithm on the same input."""
+        pair = TILE_PAIRS[case["algo"]]
+        R = registry.get_algorithm(pair).R
+        pw = he_normal(np.random.RandomState(7), w_shape[2], w_shape[3], R)
+        pp, pprep = prepared(x, pw, pair, padding=padding,
+                             depthwise=p.spec.depthwise)
+        row = {"algo": case["algo"], "shape": list(x.shape),
+               "padding": padding, "times": kernel_times(x, p, prep, padding),
+               "pair": pair,
+               "pair_times": kernel_times(x, pp, pprep, padding)}
+        tile_rows.append(row)
+        log("tiles:", json.dumps(row))
+
     checks = []
     rng = np.random.RandomState(11)
-    for algo_name, hw, cin, cout, batch in KERNEL_CHECKS:
+    for algo_name, hw, cin, cout, batch, padding in KERNEL_CHECKS:
         x = snapped(rng, (batch, hw, hw, cin))
-        w = he_normal(rng, cin, cout)
-        p, prep = prepared(x, w, algo_name)
+        R = registry.get_algorithm(algo_name).R
+        w = he_normal(rng, cin, cout, R)
+        p, prep = prepared(x, w, algo_name, padding=padding)
         algo = p.algorithm
         t, P = algo.t, algo.t ** 2
         bt, _, at = c2d.transform_matrices(algo, torch.float32, dev)
         case = {"algo": algo_name, "hw": hw, "cin": cin, "cout": cout,
-                "batch": batch}
+                "batch": batch, "padding": padding}
         # B1 on snapped inputs: B^T X B is exact in f32 in any order
-        xq = kernels.sfc_transform_quantize(x, bt, prep.act_scale, algo.M)
+        xq = kernels.sfc_transform_quantize(x, bt, prep.act_scale, algo.M,
+                                            padding=padding)
         xq_ref = ref.sfc_transform_quantize_nhwc_ref(x, bt, prep.act_scale,
-                                                     algo.M)
+                                                     algo.M, padding)
         case["b1_mismatch_snapped"] = int((xq != xq_ref).sum())
         if case["b1_mismatch_snapped"]:
             raise AssertionError(f"B1 differs from its plain version on "
@@ -821,9 +995,9 @@ def main() -> None:
         xr = torch.tensor(rng.randn(batch, hw, hw, cin), dtype=torch.float32,
                           device=dev)
         xq_raw = kernels.sfc_transform_quantize(xr, bt, prep.act_scale,
-                                                algo.M)
+                                                algo.M, padding=padding)
         d = (xq_raw.int() - ref.sfc_transform_quantize_nhwc_ref(
-            xr, bt, prep.act_scale, algo.M).int()).abs()
+            xr, bt, prep.act_scale, algo.M, padding).int()).abs()
         flips, worst = int((d != 0).sum()), int(d.max())
         case["b1_flips_raw"], case["b1_values"] = flips, d.numel()
         if worst > 1 or flips * 10000 > d.numel():
@@ -834,8 +1008,9 @@ def main() -> None:
         # B5 on snapped inputs: exact; on raw inputs: max |diff| <= 1e-6 of
         # the output's scale, and exactly the value B1 quantizes (one
         # device function, one summation order)
-        check_b5(case, x, xr, xq_raw, bt, prep.act_scale, algo.M)
-        check_b1_pt(case, x, xr, xq, xq_raw, bt, prep.act_scale, algo.M)
+        check_b5(case, x, xr, xq_raw, bt, prep.act_scale, algo.M, padding)
+        check_b1_pt(case, x, xr, xq, xq_raw, bt, prep.act_scale, algo.M,
+                    padding)
         # B2 on the same int8 operands: bit for bit its plain version (int32
         # exact, one dequant), with k_block None and 64 and at b2_alt
         X = xq.reshape(-1, P, cin).transpose(0, 1).contiguous()
@@ -861,7 +1036,7 @@ def main() -> None:
                                      (yt - yt_ref).abs().max().item())
         # B3's NHWC entry: bit for bit sfc_inverse + untile, from B2's
         # (P, T, C_out) output in place and from the tile layout
-        grid = c2d.tile_grid(hw, hw, algo.M, algo.R, "SAME")
+        grid = c2d.tile_grid(hw, hw, algo.M, algo.R, padding)
         untiled = kernels.untile(yt, algo, (batch, grid.out_h, grid.out_w,
                                             grid.nH, grid.nW))
         case["b3_nhwc_equal"] = all(
@@ -875,9 +1050,9 @@ def main() -> None:
         # (B1 -> B2 -> B3) on snapped and on raw inputs, at the per-layer
         # geometry and at B4_ALT
         args = (x, prep.wq, prep.act_scale, prep.w_scale, algo)
-        yf = kernels.sfc_fused_conv2d(*args)
-        ys = kernels.quantized_fastconv2d(*args)
-        y_ref = ref.sfc_fused_conv2d_ref(*args)
+        yf = kernels.sfc_fused_conv2d(*args, padding=padding)
+        ys = kernels.quantized_fastconv2d(*args, padding=padding)
+        y_ref = ref.sfc_fused_conv2d_ref(*args, padding=padding)
         scale = y_ref.abs().max().item()
         torch.testing.assert_close(yf, y_ref, rtol=DEFAULT_TOL,
                                    atol=DEFAULT_TOL * scale)
@@ -887,11 +1062,11 @@ def main() -> None:
         case["b4_fused_equals_staged"] = bool(torch.equal(yf, ys))
         rargs = (xr,) + args[1:]
         case["b4_fused_equals_staged_raw"] = bool(torch.equal(
-            kernels.sfc_fused_conv2d(*rargs),
-            kernels.quantized_fastconv2d(*rargs)))
+            kernels.sfc_fused_conv2d(*rargs, padding=padding),
+            kernels.quantized_fastconv2d(*rargs, padding=padding)))
         case["b4_alt_geometry_equal"] = bool(torch.equal(
-            kernels.sfc_fused_conv2d(*args, **B4_ALT), yf))
-        case["b4_geometry"] = geometry_of(x, prep, algo)
+            kernels.sfc_fused_conv2d(*args, padding=padding, **B4_ALT), yf))
+        case["b4_geometry"] = geometry_of(x, prep, algo, padding)
         if not (case["b4_fused_equals_staged"]
                 and case["b4_fused_equals_staged_raw"]
                 and case["b4_alt_geometry_equal"]):
@@ -899,14 +1074,16 @@ def main() -> None:
                                  f"path or across geometries: {case}")
         max_err["sfc_fused_conv2d"] = max(max_err["sfc_fused_conv2d"],
                                           (yf - y_ref).abs().max().item())
+        if algo_name in TILE_PAIRS and batch == 1:
+            time_tiles(case, x, p, prep, padding, tuple(w.shape))
         torch.cuda.synchronize()
         log("kernels:", json.dumps(case))
         checks.append(case)
 
     for algo_name, hw, c, batch, padding in DW_CHECKS:
         x = snapped(rng, (batch, hw, hw, c))
-        w = he_normal(rng, 1, c)
-        p, prep = prepared(x, w, algo_name, depthwise=True)
+        w = he_normal(rng, 1, c, registry.get_algorithm(algo_name).R)
+        p, prep = prepared(x, w, algo_name, depthwise=True, padding=padding)
         algo = p.algorithm
         t, P = algo.t, algo.t ** 2
         bt = c2d.transform_matrices(algo, torch.float32, dev)[0]
@@ -973,10 +1150,13 @@ def main() -> None:
         max_err["sfc_fused_conv2d_depthwise"] = max(
             max_err["sfc_fused_conv2d_depthwise"],
             (yf - y_ref).abs().max().item())
+        if algo_name in TILE_PAIRS and batch == 1:
+            time_tiles(case, x, p, prep, padding, tuple(w.shape))
         torch.cuda.synchronize()
         log("kernels:", json.dumps(case))
         checks.append(case)
     report["phases"]["kernel_checks"] = checks
+    report["phases"]["sub_algorithm_tiles"] = tile_rows
 
     # B2 bit for bit at every VGG-16 layer shape and at B2_CHECKS, B6 at
     # every depthwise layer and at B6_CHECKS, each at the per-layer
@@ -1068,33 +1248,66 @@ def main() -> None:
 
     # ---- 5. the paths ----------------------------------------------------
     launches = {k: 0 for k in REPLACES}   # summed over the paths' forwards
-    path_launches = {path: {k: 0 for k in REPLACES} for path in EXPECTED}
-    n_forwards = {path: 0 for path in EXPECTED}
+    path_launches = {}                    # path -> launches of its forwards
+    path_kernels = {}                     # path -> the kernels it launches
+    n_forwards = {}
 
-    def counted(path, what, fn, times=1):
+    def counted(path, what, fn, times=1, want=None):
         """Run one forward of ``path`` (``times`` layers of a depthwise
         stack) with every launch count set to 0 just before it, and check
-        just after it what it launched."""
-        want = {k: n * times for k, n in EXPECTED[path].items()}
+        just after it what it launched: ``want``, or ``EXPECTED[path]``."""
+        if want is None:
+            want = {k: n * times for k, n in EXPECTED[path].items()}
         kernels.reset_launch_counts()
         out = fn()
         got = kernels.launch_counts()
         if got != want:
             raise AssertionError(f"{what}: the {path} forward launched "
                                  f"{got}, not {want}")
+        tally = path_launches.setdefault(path, {k: 0 for k in REPLACES})
         for k in launches:
             launches[k] += got[k]
-            path_launches[path][k] += got[k]
-        n_forwards[path] += 1
+            tally[k] += got[k]
+        path_kernels.setdefault(path, set()).update(
+            k for k, v in want.items() if v)
+        n_forwards[path] = n_forwards.get(path, 0) + 1
         return out
 
-    def walls(path, what, fn, times=1):
+    def plan_launches(p, fp=False):
+        """What one forward of plan ``p`` launches: per fast (sub-)plan B4
+        or B7 (the fused datapath), B1, B2 or B6, B3 (staged), B5, B3
+        (``fp``: no calibrated int8 weights); a direct one none."""
+        want, stack = only(), [p]
+        while stack:
+            q = stack.pop()
+            if q.path == "lowered":
+                stack.extend(q.sub_plans)
+                continue
+            if q.path != "fast":
+                continue
+            dw = q.spec.depthwise
+            if fp:
+                names = ("sfc_transform", "sfc_inverse")
+            elif (q.config or tuning.DEFAULT_FUSED).datapath == "fused":
+                names = ("sfc_fused_conv2d_depthwise" if dw
+                         else "sfc_fused_conv2d",)
+            else:
+                names = ("sfc_transform_quantize", "sfc_inverse",
+                         "tdmm_int8_depthwise" if dw else "tdmm_int8")
+            for k in names:
+                want[k] += 1
+        return want
+
+    def add_launches(*wants):
+        return {k: sum(w[k] for w in wants) for k in REPLACES}
+
+    def walls(path, what, fn, times=1, want=None):
         """Wall ms of SERVE_REPEATS counted forwards, and their median."""
         runs = []
         for _ in range(SERVE_REPEATS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            counted(path, what, fn, times)
+            counted(path, what, fn, times, want)
             torch.cuda.synchronize()
             runs.append((time.perf_counter() - t0) * 1e3)
         return runs, statistics.median(runs)
@@ -1115,6 +1328,8 @@ def main() -> None:
     saved = []                    # (request, datapath, layer, x, plan, prep)
     fused_out = {}                # (request, layer) -> the fused output
     vgg_equal = []                # (request, layer) where fused == staged
+    tuned_equal = []              # (request, layer) where fused == tuned
+    finals = {}                   # (request, datapath) -> the stack output
     per_layer, stacks, served = [], [], {}
 
     def forward(images, state):
@@ -1150,11 +1365,12 @@ def main() -> None:
             # at every layer (so every layer's input and calibration agree)
             if dp == "fused":
                 fused_out[(ri, lname)] = y
-            elif dp == "staged":
-                if not torch.equal(fused_out.pop((ri, lname)), y):
+            elif dp in ("staged", "tuned"):
+                if not torch.equal(fused_out[(ri, lname)], y):
                     raise AssertionError(f"request {ri} {lname}: the fused "
-                                         f"and the staged outputs differ")
-                vgg_equal.append((ri, lname))
+                                         f"and the {dp} outputs differ")
+                (vgg_equal if dp == "staged" else tuned_equal).append(
+                    (ri, lname))
             state.append((p, prep, biases[lname]))
             h = torch.relu(y)
             if li in stage_ends:
@@ -1165,12 +1381,14 @@ def main() -> None:
     vgg_runs = [(ri, images, dp) for ri, images in enumerate(requests)
                 for dp in datapaths]
     vgg_runs += [(ri, images, "fp") for ri, images in enumerate(fp_requests)]
-    for ri, images, dp in vgg_runs:
+
+    def vgg_request(ri, images, dp):
         path = f"vgg_{dp}"
         # the checking pass: calibrate, prepare and apply every layer, each
         # held against the reference backend on the same input
         h, state = counted(path, f"request {ri} checked",
                            lambda: check_pass(ri, images, dp))
+        finals[(ri, dp)] = h
         want = (images.shape[0], IMAGE // 32, IMAGE // 32, VGG_WIDTHS[-1])
         if h.shape != want or not torch.isfinite(h).all():
             raise AssertionError(f"request {ri} {dp}: stack output "
@@ -1187,6 +1405,9 @@ def main() -> None:
                        "datapath": dp, "wall_ms_runs": runs,
                        "wall_ms": wall})
         served[(ri, dp)] = (images, state)
+
+    for ri, images, dp in vgg_runs:
+        vgg_request(ri, images, dp)
     torch.cuda.synchronize()
     if len(vgg_equal) != N_VGG * len(REQUEST_BATCHES):
         raise AssertionError(f"fused and staged were compared on "
@@ -1307,15 +1528,335 @@ def main() -> None:
             dw_states[(batch, mode)] = state
     torch.cuda.synchronize()
 
+    # -- 5d. the lowered convs at full width -------------------------------
+    def prepare_any(p, x, w):
+        """Prepared weights for plan ``p`` on ``x``: int8-calibrated wherever
+        the plan has a transform domain (per sub-conv when lowered)."""
+        if not p.spec.quant.enabled or p.path == "direct":
+            return p.prepare_weights(w)
+        if p.path == "lowered":
+            return p.prepare_weights(w, act_scale=p.calibrate(x))
+        return p.prepare_weights(w, act_scale=tuning.calibrate_act_scale(
+            x, p.algorithm, p.spec.quant, p.spec.padding))
+
+    def yardsticks(x, w, stride, groups):
+        """Card ms of the same conv as one strided direct plan (cuDNN in
+        full fp32) and as cuDNN's fp16 conv (a yardstick only)."""
+        spec = ConvSpec.for_conv2d(x.shape, w.shape, stride=stride,
+                                   groups=groups, quant=FP32)
+        pd = plan(spec, backend="cuda", algo="direct")
+        x16 = x.permute(0, 3, 1, 2).half().contiguous(
+            memory_format=torch.channels_last)
+        w16 = w.permute(3, 2, 0, 1).half().contiguous(
+            memory_format=torch.channels_last)
+        pad = w.shape[0] // 2
+        return {"direct_fp32_ms": timed(lambda: pd.apply(x, w)),
+                "cudnn_fp16_ms": timed(lambda: F.conv2d(
+                    x16, w16, stride=stride, padding=pad, groups=groups))}
+
+    def glue_times(p, x, prep):
+        """Card ms of a lowered plan's glue (cutting the input into its
+        sub-convs' operands, and summing or concatenating their outputs)
+        and of each sub-conv alone."""
+        xs = p._sub_inputs(x)
+        ys = [sp.apply(xi, pr) for sp, xi, pr in
+              zip(p.sub_plans, xs, prep.subs)]
+
+        def combine():
+            if p.kind == "grouped":
+                return torch.cat(ys, dim=-1)
+            y = ys[0]
+            for yi in ys[1:]:
+                y = y + yi
+            return y
+        return {"cut_ms": timed(lambda: p._sub_inputs(x)),
+                "combine_ms": timed(combine),
+                "sub_ms": [timed(lambda: sp.apply(xi, pr)) for sp, xi, pr
+                           in zip(p.sub_plans, xs, prep.subs)]}
+
+    lowered_rows = []
+
+    def lowered_layer(lname, x, w, spec_of, modes, stride, groups=1):
+        """One lowered conv on ``x``: each mode (label, quant, algo, config,
+        path wanted) planned, prepared, applied with its launches asserted
+        and held against the reference backend on the same plan; int8
+        fused and staged bit-identical; card and wall ms beside the
+        yardsticks, and the glue's share."""
+        row = {"layer": lname, "batch": x.shape[0], "shape": list(x.shape),
+               "modes": {}}
+        outs = {}
+        for label, quant, algo, cfg, path_wanted in modes:
+            spec = spec_of(quant)
+            p = plan(spec, backend="cuda", algo=algo)
+            if cfg is not None:
+                p = p.with_config(cfg)
+            if p.path != path_wanted:
+                raise AssertionError(f"{lname} {label}: planned {p.path} "
+                                     f"({p.algo_name}), not {path_wanted}")
+            prep = prepare_any(p, x, w)
+            fp = quant is FP32
+            want = plan_launches(p, fp)
+            what = f"{lname} batch {x.shape[0]} {label}"
+            y = counted(f"lowered_{label}", what, lambda: p.apply(x, prep),
+                        want=want)
+            y_ref = plan(spec, backend="reference", algo=algo).apply(x, prep)
+            rel_l2, scaled = held(what, y, y_ref, "fp" if fp else "int8")
+            runs, wall = walls(f"lowered_{label}", what,
+                               lambda: p.apply(x, prep), want=want)
+            m = {"plan": p.algo_name, "path": p.path, "rel_l2": rel_l2,
+                 "scaled_max": scaled, "wall_ms": wall,
+                 "card_ms": timed(lambda: p.apply(x, prep)),
+                 "launches": {k: v for k, v in want.items() if v}}
+            if p.path == "lowered":
+                m.update(glue_times(p, x, prep))
+                m["glue_share"] = (m["cut_ms"] + m["combine_ms"]) \
+                    / m["card_ms"]
+            row["modes"][label] = m
+            outs[label] = y
+        if "int8_fused" in outs:
+            row["fused_equals_staged"] = bool(torch.equal(
+                outs["int8_fused"], outs["int8_staged"]))
+            if not row["fused_equals_staged"]:
+                raise AssertionError(f"{lname} batch {x.shape[0]}: the fused "
+                                     f"and the staged outputs differ")
+        row.update(yardsticks(x, w, stride, groups))
+        lowered_rows.append(row)
+        log("lowered:", json.dumps(row))
+
+    int8_dense = [("int8_fused", INT8_FREQ, ALGO, tuning.DEFAULT_FUSED,
+                   "lowered"),
+                  ("int8_staged", INT8_FREQ, ALGO, tuning.DEFAULT_STAGED,
+                   "lowered")]
+    for bi, batch in enumerate(LOWERED_BATCHES):
+        lw = np.random.RandomState(700)
+        for lname, hw, cin, cout, R in LOWERED_LAYERS:
+            x = torch.tensor(np.random.RandomState(710 + 10 * bi + R).randn(
+                batch, hw, hw, cin), dtype=torch.float32, device=dev)
+            w = he_normal(lw, cin, cout, R)
+            lowered_layer(
+                lname, x, w, lambda q: ConvSpec.for_conv2d(
+                    x.shape, w.shape, stride=2, quant=q),
+                int8_dense + [("fp", FP32, ALGO, None, "lowered")], 2)
+        for lname, hw, c in LOWERED_DW:
+            x = torch.tensor(np.random.RandomState(730 + 10 * bi + c).randn(
+                batch, hw, hw, c), dtype=torch.float32, device=dev)
+            w = he_normal(lw, 1, c)
+            fp_path = plan(ConvSpec.for_conv2d_depthwise(
+                x.shape, w.shape, stride=2, quant=FP32), backend="cuda",
+                algo=ALGO).path
+            lowered_layer(
+                lname, x, w, lambda q: ConvSpec.for_conv2d_depthwise(
+                    x.shape, w.shape, stride=2, quant=q),
+                [("int8_auto", INT8_FREQ, "auto", None, "direct"),
+                 ("int8_fused", INT8_FREQ, DW_LOWERED_ALGO,
+                  tuning.DEFAULT_FUSED, "lowered"),
+                 ("int8_staged", INT8_FREQ, DW_LOWERED_ALGO,
+                  tuning.DEFAULT_STAGED, "lowered"),
+                 ("fp", FP32, ALGO, None, fp_path)], 2, groups=c)
+        for lname, hw, cin, cout, g in LOWERED_GROUPED:
+            x = torch.tensor(np.random.RandomState(750 + bi).randn(
+                batch, hw, hw, cin), dtype=torch.float32, device=dev)
+            w = he_normal(lw, cin // g, cout)
+            lowered_layer(
+                lname, x, w, lambda q: ConvSpec.for_conv2d(
+                    x.shape, w.shape, groups=g, quant=q), int8_dense, 1,
+                groups=g)
+    torch.cuda.synchronize()
+    report["phases"]["lowered_layers"] = lowered_rows
+
+    # -- 5e. the measured tier: autotune at batch 1 -----------------------
+    vgg_specs = {(hw, cin, cout): ConvSpec.for_conv2d(
+        (1, hw, hw, cin), (3, 3, cin, cout), quant=INT8_FREQ)
+        for _, hw, cin, cout in layers}
+    resnet = resnet_convs()
+    if len(resnet) != 20:
+        raise AssertionError(f"ResNet-18 has 20 convs, not {len(resnet)}")
+    resnet_specs = {(R, s, hw, cin, cout): ConvSpec.for_conv2d(
+        (1, hw, hw, cin), (R, R, cin, cout), stride=s, quant=INT8_FREQ)
+        for _, R, s, hw, cin, cout in resnet}
+    tune_rows = []
+    t_tune = time.perf_counter()
+    for label, spec in [(f"vgg {k}", v) for k, v in vgg_specs.items()] \
+            + [(f"resnet {k}", v) for k, v in resnet_specs.items()]:
+        lines = []
+        fast = plan(spec, backend="cuda", algo=ALGO).path != "direct"
+        results = tuning.autotune(spec, "cuda", device=dev, algos=[ALGO],
+                                  log=lines.append)
+        row = {"spec": label, "results": results, "log": lines}
+        if fast:
+            if ALGO not in results \
+                    or tuning.get_config(spec, "cuda", ALGO) is None:
+                raise AssertionError(f"tune {label}: no winner recorded: "
+                                     f"{results}")
+            # the card time of each datapath on an input like autotune's
+            trng = np.random.RandomState(800)
+            x = torch.tensor(trng.randn(1, *spec.spatial, spec.in_channels),
+                             dtype=torch.float32, device=dev)
+            w = he_normal(trng, spec.in_channels, spec.out_channels,
+                          spec.kernel_size)
+            row["card_ms"] = {}
+            for dp, cfg in (("fused", tuning.DEFAULT_FUSED),
+                            ("staged", tuning.DEFAULT_STAGED)):
+                p = plan(spec, backend="cuda", algo=ALGO).with_config(cfg)
+                prep = prepare_any(p, x, w)
+                row["card_ms"][dp] = timed(lambda: p.apply(x, prep))
+            row["winner"] = results[ALGO]["config"]
+        elif "direct" not in results:
+            raise AssertionError(f"tune {label}: direct not timed")
+        tune_rows.append(row)
+        log(f"tune: {label}: winner {row.get('winner')}, wall ms "
+            + json.dumps({k: round(v["time_s"] * 1e3, 4)
+                          for k, v in results.items()})
+            + f", card ms {json.dumps(row.get('card_ms'))}; "
+            + "; ".join(lines))
+    tune_seconds = time.perf_counter() - t_tune
+    log(f"tune: {len(tune_rows)} specs in {tune_seconds:.1f} s, cache "
+        f"{tuning.cache_path()}")
+
+    # the tuned VGG-16 request: every layer planned without a config, so
+    # each carries its measured winner; bit for bit the fused and staged
+    EXPECTED["vgg_tuned"] = add_launches(*[
+        plan_launches(plan(spec, backend="cuda", algo=ALGO))
+        for spec in (vgg_specs[(hw, cin, cout)]
+                     for _, hw, cin, cout in layers)])
+    datapaths["tuned"] = None
+    for ri in (0, len(requests) - 1):
+        vgg_request(ri, requests[ri], "tuned")
+        for dp in ("fused", "staged"):
+            if not torch.equal(finals[(ri, "tuned")], finals[(ri, dp)]):
+                raise AssertionError(f"request {ri}: the tuned VGG-16 "
+                                     f"output differs from the {dp} one")
+    if len(tuned_equal) != 2 * N_VGG:
+        raise AssertionError(f"fused and tuned were compared on "
+                             f"{len(tuned_equal)} layers, not {2 * N_VGG}")
+    log(f"vgg: the tuned request launches "
+        f"{json.dumps({k: v for k, v in EXPECTED['vgg_tuned'].items() if v})}"
+        f"; bit for bit the fused and the staged at batch 1 and 4")
+    report["phases"]["tuning"] = {"specs": tune_rows,
+                                  "seconds": tune_seconds,
+                                  "vgg_tuned_launches":
+                                      EXPECTED["vgg_tuned"]}
+
+    # -- 5f. ResNet-18's conv stack, the slice's main path -----------------
+    by_name = {lname: (R, s, hw, cin, cout)
+               for lname, R, s, hw, cin, cout in resnet}
+    rw = {lname: he_normal(np.random.RandomState(900 + i), cin, cout, R)
+          for i, (lname, R, _, _, cin, cout) in enumerate(resnet)}
+    resnet_modes = {"fused": (INT8_FREQ, tuning.DEFAULT_FUSED),
+                    "staged": (INT8_FREQ, tuning.DEFAULT_STAGED),
+                    "tuned": (INT8_FREQ, None), "fp": (FP32, None)}
+    resnet_rows, resnet_stacks, resnet_memory = [], [], {}
+    for batch in RESNET_BATCHES:
+        images = torch.tensor(np.random.RandomState(950 + batch).randn(
+            batch, IMAGE, IMAGE, 3), dtype=torch.float32, device=dev)
+        outs = {}
+        for mode, (quant, cfg) in resnet_modes.items():
+            plans = {}
+            for lname, (R, s, hw, cin, cout) in by_name.items():
+                p = plan(ConvSpec.for_conv2d((batch, hw, hw, cin),
+                                             (R, R, cin, cout), stride=s,
+                                             quant=quant),
+                         backend="cuda", algo=ALGO)
+                plans[lname] = p if cfg is None else p.with_config(cfg)
+            want = add_launches(*[plan_launches(p, quant is FP32)
+                                  for p in plans.values()])
+            state, layer_out = {}, {}
+
+            def check_conv(lname, h):
+                p = plans[lname]
+                prep = prepare_any(p, h, rw[lname])
+                y = p.apply(h, prep)
+                y_ref = plan(p.spec, backend="reference", algo=ALGO).apply(
+                    h, prep)
+                rel_l2, scaled = held(f"resnet batch {batch} {mode} {lname}",
+                                      y, y_ref,
+                                      "fp" if quant is FP32 else "int8")
+                resnet_rows.append({"batch": batch, "mode": mode,
+                                    "layer": lname, "plan": p.algo_name,
+                                    "rel_l2": rel_l2, "scaled_max": scaled})
+                state[lname] = (p, prep)
+                layer_out[lname] = y
+                return y
+
+            def served_conv(lname, h):
+                p, prep = state[lname]
+                return p.apply(h, prep)
+
+            path = f"resnet_{mode}"
+            h = counted(path, f"batch {batch} checked",
+                        lambda: resnet_forward(images, check_conv),
+                        want=want)
+            shape = (batch, IMAGE // 32, IMAGE // 32, RESNET_WIDTHS[-1])
+            if h.shape != shape or not torch.isfinite(h).all():
+                raise AssertionError(f"resnet batch {batch} {mode}: output "
+                                     f"{tuple(h.shape)} is not a finite "
+                                     f"{shape}")
+            if not torch.equal(counted(path, f"batch {batch} served",
+                                       lambda: resnet_forward(images,
+                                                              served_conv),
+                                       want=want), h):
+                raise AssertionError(f"resnet batch {batch} {mode}: the "
+                                     f"served forward differs")
+            runs, wall = walls(path, f"batch {batch} timed",
+                               lambda: resnet_forward(images, served_conv),
+                               want=want)
+            card = timed(lambda: resnet_forward(images, served_conv),
+                         runs=SERVE_REPEATS)
+            resnet_stacks.append({
+                "batch": batch, "path": mode, "wall_ms_runs": runs,
+                "wall_ms": wall, "card_ms": card,
+                "plans": {n: p.algo_name for n, p in plans.items()
+                          if p.path == "lowered"},
+                "configs": {n: None if p.config is None
+                            else p.config.to_json()
+                            for n, p in plans.items()},
+                "launches": {k: v for k, v in want.items() if v}})
+            log(f"resnet: batch {batch} {mode}: 20 convs {wall:.3f} ms "
+                f"wall, {card:.3f} ms on the card (medians of "
+                f"{SERVE_REPEATS}); launches "
+                f"{json.dumps(resnet_stacks[-1]['launches'])}")
+            outs[mode] = layer_out
+            if batch == RESNET_BATCHES[-1]:
+                torch.cuda.synchronize()
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                resnet_forward(images, served_conv)
+                torch.cuda.synchronize()
+                resnet_memory[mode] = \
+                    torch.cuda.max_memory_allocated() - resident
+                log(f"memory: resnet batch {batch} {mode}: peak "
+                    f"{resnet_memory[mode] / 2**20:.1f} MiB above resident")
+        for mode in ("staged", "tuned"):
+            for lname, y in outs["fused"].items():
+                if not torch.equal(outs[mode][lname], y):
+                    raise AssertionError(f"resnet batch {batch} {lname}: the "
+                                         f"fused and the {mode} outputs "
+                                         f"differ")
+        log(f"resnet: batch {batch}: fused, staged and tuned bit-identical "
+            f"at all 20 layers")
+    torch.cuda.synchronize()
+    for mode in resnet_modes:
+        rows = [r for r in resnet_rows if r["mode"] == mode]
+        worst = max(rows, key=lambda r: r["rel_l2"])
+        log(f"resnet: {mode} worst layer vs reference rel L2 "
+            f"{worst['rel_l2']:.3e} ({worst['layer']}, batch "
+            f"{worst['batch']}), max |diff| / max |ref| "
+            f"{max(r['scaled_max'] for r in rows):.3e}")
+    report["phases"]["resnet18"] = {"per_layer": resnet_rows,
+                                    "stacks": resnet_stacks,
+                                    "memory_peak_above_resident_bytes":
+                                        resnet_memory}
+
+    for path, ran in sorted(path_kernels.items()):
+        if any(path_launches[path][k] <= 0 for k in ran):
+            raise AssertionError(f"a kernel of {path} never launched: "
+                                 f"{path_launches[path]}")
+    log("paths: forwards per path " + json.dumps(n_forwards))
+
     for path in EXPECTED:
         log(f"paths: each of {n_forwards[path]} {path} forwards launched "
             f"{json.dumps({k: v for k, v in EXPECTED[path].items() if v})}"
             f"{' per layer' if path.startswith('dw_') else ''}")
-        ran = {k for k, v in EXPECTED[path].items() if v}
-        if n_forwards[path] == 0 \
-                or any(path_launches[path][k] <= 0 for k in ran):
-            raise AssertionError(f"a kernel of {path} never launched: "
-                                 f"{path_launches[path]}")
     log("paths: launches over all paths", json.dumps(launches))
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel never launched: {launches}")

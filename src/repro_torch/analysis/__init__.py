@@ -1,1 +1,3 @@
-"""Static analysis of the int8 datapath (overflow certificates)."""
+"""Static analysis of the int8 datapath: overflow certificates
+(``ranges``) and the launch checks of the ``cuda`` kernels'
+geometries (``kernel_checks``)."""

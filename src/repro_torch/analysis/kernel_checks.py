@@ -1,0 +1,219 @@
+"""Static resource checks of the ``cuda`` datapaths' launches.
+
+The counterpart of the JAX package's ``repro.analysis.kernel_checks``,
+written over the port's own launch geometries, which the wrappers compute
+in Python and the kernels only check:
+
+  * B4 ``kernels.sfc_fused.fused_geometry`` and B7 ``depthwise_geometry``
+    (the fused datapath);
+  * B1 ``kernels.sfc_transform.transform_geometry``, B2
+    ``kernels.sfc_tdmm.tdmm_geometry`` and B6 ``dw_product_geometry``
+    (the staged datapath; B3's geometry is fixed in its source).
+
+Nothing is launched.  The findings:
+
+  * **KC001, shared memory**: a block's dynamic shared memory exceeds the
+    kernel's limit on an H100.  Replaces the JAX check of the same code,
+    the per-grid-step VMEM budget of the TPU.
+  * **KC002, grid and block shape**: threads per block beyond the kernel's
+    limit, a grid dimension beyond CUDA's (2^31 - 1 for x, 65535 for y and
+    z), or an input region wider than the staging kernels take.  Replaces
+    the JAX KC002, the strip and block bounds of the TPU grid's index maps.
+  * **KC003, cluster and registers**: a B4 cluster of more than
+    ``MAX_CLUSTER`` blocks, a C_in split finer than the C_out block (each
+    slice finishes cb / k_split channels), an epilogue that does not fit
+    the shared memory it reuses, or more int32 fragments per warp than B4
+    is compiled for.  Replaces the JAX KC003, the scratch accumulator's
+    write races and the double buffer's DMA slots: on the card the
+    cross-block reduction runs over the cluster's distributed shared
+    memory, and the accumulator lives in registers.
+  * **KC004, no geometry**: the config's knobs name no kernel (B4's
+    ``k_block`` 32 or 64 and ``cout_block`` 8 or 16, a staged ``k_block``
+    of at least 1, a tile no kernel takes), so the geometry function
+    refuses them.  The JAX geometry takes any block size and has no such
+    check.
+
+:func:`check_candidates` is the autotuner's pre-flight: it filters a
+``KernelConfig`` sweep down to launchable candidates.  The JAX package's
+``fold_fits``, the serving batcher's view, comes with the serving slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+from repro_torch.core import conv2d as c2d
+from repro_torch.kernels import _build, sfc_fused, sfc_tdmm
+from repro_torch.kernels.sfc_transform import (TRANSFORM_MAX_THREADS,
+                                               TRANSFORM_SMEM_LIMIT_BYTES,
+                                               TransformGeometry,
+                                               transform_geometry)
+
+ERROR = "ERROR"
+
+GRID_X_MAX = 2 ** 31 - 1
+GRID_YZ_MAX = 65535
+MAX_REGION_W = 256      # widest input region B1, B5 and B7 stage
+B2_SMEM_LIMIT_BYTES = 232448
+B2_MAX_THREADS = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class Finding:
+    """One static-analysis finding (the JAX package's shape)."""
+
+    code: str          # e.g. 'KC001'
+    severity: str      # ERROR (the JAX package also has WARNING)
+    message: str
+    where: str = ""    # the geometry or config
+
+    def __str__(self) -> str:
+        loc = f" [{self.where}]" if self.where else ""
+        return f"{self.severity} {self.code}{loc}: {self.message}"
+
+
+def _grid_findings(kernel, grid, where) -> List[Finding]:
+    out = []
+    for axis, (n, hi) in enumerate(zip(grid, (GRID_X_MAX, GRID_YZ_MAX,
+                                              GRID_YZ_MAX))):
+        if n > hi:
+            out.append(Finding(
+                "KC002", ERROR, f"{kernel}: grid dimension {axis} is {n}, "
+                f"beyond CUDA's {hi}", where))
+    return out
+
+
+def _limit(code, kernel, what, need, limit, where) -> List[Finding]:
+    if need <= limit:
+        return []
+    return [Finding(code, ERROR, f"{kernel}: {what} {need} exceeds the "
+                    f"kernel's limit of {limit}", where)]
+
+
+def check_geometry(geom) -> List[Finding]:
+    """Verify one resolved launch geometry.  Empty list == launchable."""
+    where = repr(geom)
+    if isinstance(geom, sfc_fused.FusedGeometry):
+        k = "B4"
+        out = _limit("KC001", k, "shared memory (bytes)", geom.smem_bytes,
+                     sfc_fused.B4_SMEM_LIMIT_BYTES, where)
+        out += _limit("KC002", k, "threads per block", geom.threads, 1024,
+                      where)
+        out += _grid_findings(k, geom.grid, where)
+        out += _limit("KC003", k, "cluster size (blocks)",
+                      geom.n_share * geom.k_split, sfc_fused.MAX_CLUSTER,
+                      where)
+        out += _limit("KC003", k, "C_in split", geom.k_split, geom.cb, where)
+        out += _limit("KC003", k, "epilogue shared memory (bytes)",
+                      geom.epilogue_bytes, geom._reused_bytes, where)
+        if geom.pairs not in sfc_fused.PAIRS:
+            out.append(Finding(
+                "KC003", ERROR, f"{k}: {geom.pairs} fragment pairs per warp; "
+                f"the kernel is compiled for {sfc_fused.PAIRS}", where))
+        return out
+    if isinstance(geom, sfc_fused.DepthwiseGeometry):
+        k = "B7"
+        out = _limit("KC001", k, "shared memory (bytes)", geom.smem_bytes,
+                     sfc_fused.DW_SMEM_LIMIT_BYTES, where)
+        out += _limit("KC002", k, "threads per block", geom.threads,
+                      sfc_fused.DW_MAX_THREADS, where)
+        out += _limit("KC002", k, "input region width", geom.region_w,
+                      MAX_REGION_W, where)
+        return out + _grid_findings(k, geom.grid, where)
+    if isinstance(geom, TransformGeometry):
+        k = "B1/B5"
+        out = _limit("KC001", k, "shared memory (bytes)", geom.smem_bytes,
+                     TRANSFORM_SMEM_LIMIT_BYTES, where)
+        out += _limit("KC002", k, "threads per block", geom.threads,
+                      TRANSFORM_MAX_THREADS, where)
+        out += _limit("KC002", k, "input region width", geom.region_w,
+                      MAX_REGION_W, where)
+        return out + _grid_findings(k, geom.grid, where)
+    if isinstance(geom, sfc_tdmm.TdmmGeometry):
+        k = "B2"
+        out = _limit("KC001", k, "shared memory (bytes)", geom.smem_bytes,
+                     B2_SMEM_LIMIT_BYTES, where)
+        out += _limit("KC002", k, "threads per block", geom.threads,
+                      B2_MAX_THREADS, where)
+        return out + _grid_findings(k, geom.grid, where)
+    if isinstance(geom, sfc_tdmm.DwProductGeometry):
+        k = "B6"
+        out = _limit("KC002", k, "threads per block", geom.threads,
+                     sfc_tdmm.DW_MAX_THREADS, where)
+        return out + _grid_findings(k, geom.grid, where)
+    raise TypeError(f"no check for a {type(geom).__name__}")
+
+
+def geometries_for(algo, config, B: int, H: int, W: int, C: int, Cout: int,
+                   *, padding: str = "SAME", depthwise: bool = False
+                   ) -> list:
+    """The launch geometries a ``config`` would use on this workload, as
+    the wrappers resolve them; ValueError where the knobs name none."""
+    if algo.t > _build.MAX_T or algo.L > _build.MAX_L \
+            or algo.M > _build.MAX_M:
+        raise ValueError(f"no kernel takes the tile (t={algo.t}, "
+                         f"L={algo.L}, M={algo.M})")
+    grid = c2d.tile_grid(H, W, algo.M, algo.R, padding)
+    rows, cols = B * grid.nH, grid.nW
+    T, P = rows * cols, algo.t * algo.t
+    if config.datapath == "fused":
+        if depthwise:
+            return [sfc_fused.depthwise_geometry(algo, (rows, cols), C,
+                                                 config.cout_block)]
+        return [sfc_fused.fused_geometry(algo, T, C, Cout,
+                                         k_block=config.k_block,
+                                         cout_block=config.cout_block)]
+    if config.k_block is not None and config.k_block < 1:
+        raise ValueError(f"the staged k_block must be positive or None, "
+                         f"got {config.k_block}")
+    product = sfc_tdmm.dw_product_geometry(P, T, C) if depthwise \
+        else sfc_tdmm.tdmm_geometry(P, T, C, Cout)
+    return [transform_geometry(algo, (rows, cols), C), product]
+
+
+def check_config(algo, config, B: int, H: int, W: int, C: int, Cout: int,
+                 *, padding: str = "SAME",
+                 depthwise: bool = False) -> List[Finding]:
+    """Findings for one ``KernelConfig`` candidate on one workload."""
+    where = (f"{config.datapath}(k={config.k_block},co={config.cout_block})"
+             f" B{B} {H}x{W} {C}->{Cout}")
+    try:
+        geoms = geometries_for(algo, config, B, H, W, C, Cout,
+                               padding=padding, depthwise=depthwise)
+    except ValueError as e:
+        return [Finding("KC004", ERROR, str(e), where)]
+    return [f for g in geoms for f in check_geometry(g)]
+
+
+def check_spec_config(spec, algo, config, *,
+                      batch: int = 1) -> Optional[List[Finding]]:
+    """:func:`check_config` from a fully-hinted ``ConvSpec``.
+
+    None when the spec lacks the shape hints a geometry needs, or is not
+    a rank-2 shape.
+    """
+    if spec.rank != 2 or spec.spatial is None \
+            or spec.in_channels is None or spec.out_channels is None:
+        return None
+    H, W = spec.spatial
+    return check_config(algo, config, batch, H, W, spec.in_channels,
+                        spec.out_channels, padding=spec.padding,
+                        depthwise=spec.depthwise)
+
+
+def check_candidates(spec, algo, candidates: Sequence, *, batch: int = 1):
+    """Partition a candidate sweep into (launchable, rejected).
+
+    ``rejected`` pairs each dropped config with its ERROR findings; the
+    autotuner logs and skips them instead of timing a launch that would
+    be refused.
+    """
+    ok, rejected = [], []
+    for cfg in candidates:
+        findings = check_spec_config(spec, algo, cfg, batch=batch)
+        errors = [f for f in (findings or []) if f.severity == ERROR]
+        if errors:
+            rejected.append((cfg, errors))
+        else:
+            ok.append(cfg)
+    return ok, rejected

@@ -6,27 +6,30 @@
     prepared = p.prepare_weights(w, act_scale=act)      # offline
     y = p.apply(x, prepared)                            # online
 
-The planner resolves the algorithm (registry name or BOPs auto-selection),
-degrades to direct convolution where fast algorithms do not apply (and
-raises for strided or grouped specs the JAX package would lower, until
-the lowering pass is ported), and dispatches execution to the
-``reference`` (plain torch) or ``cuda`` (hand-written kernels) backend
-behind one signature.
+The planner resolves the algorithm (registry name, measured timings from
+``tuning.autotune``, or BOPs auto-selection), lowers strided and grouped
+specs onto SFC sub-problems (``lowering``: a ``CompositePlan``, whose
+``calibrate`` gives the per-sub activation scales), degrades to direct
+convolution where fast algorithms do not apply, and dispatches execution
+to the ``reference`` (plain torch) or ``cuda`` (hand-written kernels)
+backend behind one signature.
 """
-from repro_torch.api import tuning
+from repro_torch.api import lowering, tuning
 from repro_torch.api.backends import (get_backend, list_backends,
                                       register_backend)
+from repro_torch.api.lowering import CompositePlan, CompositePrepared
 from repro_torch.api.plan import ConvPlan, PreparedWeights
 from repro_torch.api.planner import estimate_cost, plan, select_algorithm
 from repro_torch.api.registry import (get_algorithm, list_algorithms,
                                       register_algorithm)
 from repro_torch.api.spec import ConvSpec
-from repro_torch.api.tuning import KernelConfig
+from repro_torch.api.tuning import KernelConfig, autotune
 
 __all__ = [
     "ConvSpec", "ConvPlan", "PreparedWeights", "plan",
+    "lowering", "CompositePlan", "CompositePrepared",
     "select_algorithm", "estimate_cost",
     "register_algorithm", "get_algorithm", "list_algorithms",
     "register_backend", "get_backend", "list_backends",
-    "tuning", "KernelConfig",
+    "tuning", "KernelConfig", "autotune",
 ]

@@ -11,7 +11,9 @@ Two backends, both consuming the same ``PreparedWeights``:
     counterpart of the JAX package's ``pallas`` backend, branch for branch.
     The int8 path runs the fused kernel (B4; depthwise B7) by default, or
     the staged trio B1 -> B2 -> B3 (depthwise B1 -> B6 -> B3) when the
-    plan's ``KernelConfig`` says ``datapath="staged"``.  The fp path (a
+    plan's ``KernelConfig`` says ``datapath="staged"``: a plan carries the
+    config ``tuning.autotune`` measured fastest for its spec on this
+    device, else none (the fused default).  The fp path (a
     plan without calibrated int8 weights) runs B5, the transform-domain
     product in full float32 (a ``torch.bmm`` over the t^2 positions;
     depthwise the broadcast product), then B3.  Direct plans run the

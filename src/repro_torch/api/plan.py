@@ -46,14 +46,31 @@ def _version(o) -> Optional[int]:
         return None
 
 
+def _leaves(operands):
+    """The operands with nested tuples and lists flattened, in order."""
+    for o in operands:
+        if isinstance(o, (tuple, list)):
+            yield from _leaves(o)
+        else:
+            yield o
+
+
+def _key(o):
+    if isinstance(o, (tuple, list)):
+        return tuple(_key(v) for v in o)
+    return (id(o), _version(o))
+
+
 class PrepCache:
     """FIFO of prepared weights keyed on the operands' identity and version.
 
     Keys hold each operand's id and, for a tensor, its ``_version``, which
     every in-place update advances: JAX arrays cannot change in place, torch
-    tensors can, so a hit needs the same objects at the same versions.  An
-    entry pins its operands so the ids stay valid for its lifetime; a newer
-    version of the same operands replaces it.
+    tensors can, so a hit needs the same objects at the same versions.
+    Operands may nest tuples and lists (a composite plan's per-sub scales);
+    the key then follows the nesting down to its leaves, so an in-place
+    update of one leaf misses too.  An entry pins the leaves so the ids stay
+    valid for its lifetime; a newer version of the same leaves replaces it.
     """
 
     def __init__(self, maxsize: int = _PREP_CACHE_MAX):
@@ -63,26 +80,32 @@ class PrepCache:
 
     @staticmethod
     def key_for(operands) -> tuple:
-        return tuple((id(o), _version(o)) for o in operands)
+        return tuple(_key(o) for o in operands)
+
+    @staticmethod
+    def _same(pinned, leaves) -> bool:
+        return len(pinned) == len(leaves) and \
+            all(a is b for a, b in zip(pinned, leaves))
 
     def get(self, key, operands):
         with self._lock:
             entry = self._entries.get(key)
         if entry is not None and \
-                all(a is b for a, b in zip(entry[0], operands)):
+                self._same(entry[0], tuple(_leaves(operands))):
             return entry[1]
         return None
 
     def put(self, key, operands, value) -> None:
+        leaves = tuple(_leaves(operands))
         with self._lock:
             # an older version of the same operands is stale
-            for k, (ops, _) in list(self._entries.items()):
-                if all(a is b for a, b in zip(ops, operands)):
+            for k, (pinned, _) in list(self._entries.items()):
+                if self._same(pinned, leaves):
                     del self._entries[k]
             while len(self._entries) >= self._maxsize:
                 self._entries.pop(next(iter(self._entries)))
-            # the cache entry keeps the operands alive: ids stay valid
-            self._entries[key] = (operands, value)
+            # the cache entry keeps the leaves alive: ids stay valid
+            self._entries[key] = (leaves, value)
 
     def __len__(self) -> int:
         with self._lock:

@@ -2,29 +2,32 @@
 
 Algorithm resolution happens in one place, for every call site:
 
-  * strided or grouped 2-D specs with more than one tap raise
-    ``NotImplementedError`` unless ``algo="direct"``: the JAX package
-    lowers them onto the fast path (polyphase stride-2 decomposition,
-    per-group splitting) where its cost model or an explicit algorithm
-    says so, and the port's lowering pass is queue item A6.  A direct plan
-    there would compute another function than the JAX package's
-    int8-quantized fast path, so the port does not guess;
-  * the other shapes a fast algorithm cannot serve natively (pointwise
-    1x1, kernel-tap mismatch with the requested algorithm) degrade to the
-    direct path, as in the JAX package;
-  * ``algo="auto"`` ranks the registered candidates with the paper's BOPs
-    cost model (``repro_torch.quant.bops``) against the direct baseline,
-    at the spec's precision.  Under int8-or-lower quantization Winograd
-    candidates are excluded: their transform dynamic range makes
+  * shapes a fast algorithm cannot serve natively are first handed to the
+    lowering pass (``repro_torch.api.lowering``): stride-2 convs rewrite
+    into polyphase stride-1 sub-specs, grouped convs into per-group dense
+    sub-specs, each sub-spec planned recursively onto the fast path and
+    priced by the same cost model; ``plan`` then returns a
+    ``CompositePlan`` fanning out over the sub-plans;
+  * only shapes that neither run natively nor lower profitably (pointwise
+    1x1, kernel-tap mismatch with the requested algorithm, polyphase that
+    loses to strided direct) degrade to the direct path;
+  * measured wall clock from the tuning cache (``repro_torch.api.tuning``)
+    takes precedence: if this (spec, backend) has been autotuned on this
+    device, ``algo="auto"`` picks the fastest measured algorithm and the
+    plan carries the winning kernel config;
+  * otherwise ``algo="auto"`` ranks the registered candidates with the
+    paper's BOPs cost model (``repro_torch.quant.bops``) against the direct
+    baseline, at the spec's precision.  Under int8-or-lower quantization
+    Winograd candidates are excluded: their transform dynamic range makes
     low-precision execution inaccurate (paper Fig. 5).  The JAX package's
-    measured-timing and calibrated cost-model tiers come with the port of
-    its tuning layer;
+    calibrated cost model, a tier between the two, is not ported yet: the
+    port plans as the JAX package does with that model unfitted;
   * on integer-datapath backends the plan-time overflow pre-flight
     (``repro_torch.analysis.ranges``) rejects specs whose int32
     accumulator could wrap.
 
-A plan's ``config`` stays None (the backend's default datapath) until
-the tuning layer is ported.  Plans are memoized on (spec, backend, algo).
+Plans are memoized on (spec, backend, algo): specs are frozen dataclasses,
+so repeated call sites share one plan and its prepared-weight cache.
 """
 from __future__ import annotations
 
@@ -74,8 +77,15 @@ def estimate_cost(spec: ConvSpec, algo_name: str) -> float:
     return 1.0 if algo is None else algo.arithmetic_complexity_2d
 
 
-def select_algorithm(spec: ConvSpec) -> str:
-    """Cheapest eligible algorithm for the spec by BOPs (may be 'direct')."""
+def select_algorithm(spec: ConvSpec, backend: Optional[str] = None) -> str:
+    """Cheapest eligible algorithm for the spec (may be 'direct').
+
+    With ``backend`` given, measured wall clock from the tuning cache
+    (keyed per device) decides, but only when the BOPs-best candidate has
+    itself been timed: a partial sweep (an autotune restricted to one
+    algorithm, say) must not hide a never-measured candidate that BOPs
+    ranks first.  Otherwise BOPs (``repro_torch.quant.bops``) decides.
+    """
     if not spec.fast_eligible:
         return registry.DIRECT
     candidates = registry.entries(taps=spec.kernel_size)
@@ -88,35 +98,37 @@ def select_algorithm(spec: ConvSpec) -> str:
         cost = estimate_cost(spec, entry.name)
         if cost < best_cost:
             best_name, best_cost = entry.name, cost
+    if backend is not None:
+        from repro_torch.api import tuning
+        measured = tuning.lookup(spec, backend)
+        eligible = {registry.DIRECT} | {e.name for e in candidates}
+        timed = {n: m["time_s"] for n, m in measured.items()
+                 if n in eligible}
+        if timed and best_name in timed:
+            return min(timed, key=timed.get)
     return best_name
 
 
-def needs_lowering(spec: ConvSpec) -> bool:
-    """Whether the JAX package's lowering pass may rewrite ``spec``: a 2-D
-    conv with more than one tap that is strided or grouped (a stride-1
-    depthwise conv plans natively)."""
-    return spec.rank == 2 and spec.kernel_size > 1 \
-        and (spec.stride > 1 or spec.groups > 1)
-
-
 @functools.lru_cache(maxsize=512)
-def _plan_cached(spec: ConvSpec, backend: str, algo: str) -> ConvPlan:
+def _plan_cached(spec: ConvSpec, backend: str, algo: str):
     from repro_torch.api import backends
     backend_obj = backends.get_backend(backend)   # fail fast on unknown
     if algo not in ("auto", registry.DIRECT):
         # raises on unknown names even when the spec degrades to direct
         resolved = registry.get_algorithm(algo)
-    if algo != registry.DIRECT and needs_lowering(spec):
-        raise NotImplementedError(
-            f"plan: the JAX package lowers this spec (stride {spec.stride}, "
-            f"groups {spec.groups}, {spec.kernel_size}x{spec.kernel_size}) "
-            f"onto the fast path by polyphase decomposition or per-group "
-            f"splitting; the port's lowering pass is queue item A6.  Plan "
-            f"it with algo='direct' for the exact direct conv.")
+    if algo != registry.DIRECT:
+        # the lowering pass: stride-2 -> polyphase stride-1 sub-specs,
+        # groups -> per-group dense sub-specs (recursively planned and
+        # cost-checked); None when the spec is native, not lowerable, or
+        # the composite loses to strided or grouped direct
+        from repro_torch.api import lowering
+        lowered = lowering.maybe_lower(spec, backend=backend, algo=algo)
+        if lowered is not None:
+            return lowered
     if not spec.fast_eligible:
         name = registry.DIRECT
     elif algo == "auto":
-        name = select_algorithm(spec)
+        name = select_algorithm(spec, backend)
     elif algo == registry.DIRECT:
         name = registry.DIRECT
     else:
@@ -128,19 +140,33 @@ def _plan_cached(spec: ConvSpec, backend: str, algo: str) -> ConvPlan:
         # int8 x int8 products in int32 on this backend
         from repro_torch.analysis import ranges
         ranges.check_spec_accumulator(spec, algorithm, algo_name=name)
+    from repro_torch.api import tuning
+    # a measured winner from the tuning cache, else None (the backend's
+    # default datapath)
+    config = tuning.get_config(spec, backend, name)
     return ConvPlan(spec=spec, backend=backend, algo_name=name,
-                    algorithm=algorithm, cost=estimate_cost(spec, name))
+                    algorithm=algorithm, cost=estimate_cost(spec, name),
+                    config=config)
 
 
 def plan(spec: ConvSpec, *, backend: str = "reference",
-         algo: str = "auto") -> ConvPlan:
+         algo: str = "auto"):
     """Resolve a :class:`ConvSpec` into an executable plan.
 
-    Inspect ``plan.path`` ('fast' | 'direct') to see where execution lands.
+    Returns a :class:`ConvPlan` for native specs, or a
+    ``lowering.CompositePlan`` (same ``apply``/``prepare_weights``
+    surface) when the spec lowers onto SFC sub-problems; inspect
+    ``plan.path`` ('fast' | 'lowered' | 'direct') rather than
+    ``plan.algorithm`` to see where execution lands.
     """
     return _plan_cached(spec, backend, algo)
 
 
 def invalidate_plan_cache() -> None:
-    """Drop memoized plans (the registry calls this when it changes)."""
+    """Drop memoized plans.
+
+    The registry and the tuning cache call this when their state changes:
+    memoized plans embed algorithm selections and kernel configs resolved
+    against that state.
+    """
     _plan_cached.cache_clear()

@@ -92,9 +92,9 @@ def entries(taps: Optional[int] = None) -> Tuple[AlgorithmEntry, ...]:
 # Paper evaluation set (§6): SFC variants + Winograd baselines for 3-tap
 # 2-D convs, and the SFC-6 4-tap algorithm for the Mamba2 depthwise conv1d.
 # The 2-tap SFC algorithms serve the polyphase lowering of stride-2 convs
-# (a later slice of the port): the even/odd phases of an R-tap strided kernel
-# have ceil(R/2) taps, so stride-2 3x3 lowers onto 2-tap sub-convs (and the
-# stride-2 7x7 stem onto the 4-/3-tap algorithms above).
+# (``repro_torch.api.lowering``): the even/odd phases of an R-tap strided
+# kernel have ceil(R/2) taps, so stride-2 3x3 lowers onto 2-tap sub-convs
+# (and the stride-2 7x7 stem onto the 4-/3-tap algorithms above).
 for _name, _factory, _taps, _kind in [
     ("sfc6_7", lambda: generate_sfc(6, 7, 3), 3, "sfc"),
     ("sfc6_6", lambda: generate_sfc(6, 6, 3), 3, "sfc"),

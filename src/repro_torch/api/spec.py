@@ -6,11 +6,11 @@ grouped vs depthwise, dtype, and the quantization policy.  Channel counts
 and spatial extents are optional *cost-model hints* — planning works
 without them but auto-selection degrades to arithmetic-complexity ranking.
 
-:attr:`fast_eligible` describes the native stride-1 construct.  The
-port's planner has no lowering pass yet (stride-2 polyphase and per-group
-splitting come with a later slice): it plans the other specs direct where
-the JAX package does too, and raises for strided and grouped specs that
-the JAX package may lower, unless the caller asks for ``algo="direct"``.
+A spec need not be *natively* servable by a fast algorithm to reach the
+fast path: the planner's lowering pass (``repro_torch.api.lowering``)
+rewrites stride-2 specs into polyphase stride-1 sub-specs and grouped
+specs into per-group dense sub-specs before algorithm selection, so
+:attr:`fast_eligible` describes only the native stride-1 construct.
 
 Specs are frozen dataclasses so ``plan()`` can memoize on them directly.
 """
@@ -91,9 +91,12 @@ class ConvSpec:
 
         Fast algorithms are stride-1 constructs over >=2-tap kernels
         (dense or depthwise — 2-D depthwise runs the transform-domain
-        elementwise path).  Shapes outside this set run the direct path;
-        this property is the one place the branch lives, instead of every
-        call site.
+        elementwise path).  Shapes outside this set are not lost causes:
+        the planner first tries the lowering pass
+        (``repro_torch.api.lowering``: polyphase stride-2 decomposition,
+        per-group splitting) and only then degrades to the direct path —
+        this property and that pass are the two places the branch lives,
+        instead of every call site.
         """
         return self.stride == 1 and self.kernel_size > 1 and self.groups == 1
 

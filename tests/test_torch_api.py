@@ -13,13 +13,15 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 import repro.api as japi  # noqa: E402
+from repro.api.lowering import (  # noqa: E402
+    CompositePrepared as JCompositePrepared)
 from repro.quant.fake_quant import FP32 as JFP32  # noqa: E402
 from repro.quant.fake_quant import INT8_FREQ as JINT8_FREQ  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.analysis.ranges import AccumulatorOverflowError  # noqa: E402
-from repro_torch.api import (ConvSpec, KernelConfig, plan,  # noqa: E402
-                             select_algorithm, tuning)
+from repro_torch.api import (CompositePrepared, ConvSpec,  # noqa: E402
+                             KernelConfig, plan, select_algorithm, tuning)
 from repro_torch.interop import prepared_from_jax  # noqa: E402
 from repro_torch.quant import FP32, INT8_FREQ  # noqa: E402
 from repro_torch.testing import assert_conv_conformance  # noqa: E402
@@ -28,6 +30,14 @@ CONFIGS = {"fused": tuning.DEFAULT_FUSED, "staged": tuning.DEFAULT_STAGED,
            "staged_kblock": KernelConfig(datapath="staged", k_block=2),
            "fused_full_k": KernelConfig(datapath="fused", k_block=None,
                                         cout_block=8)}
+
+
+@pytest.fixture(autouse=True)
+def _isolated_port_tuning_cache(tmp_path):
+    """Plans carry configs from the port's timing cache: keep it empty."""
+    tuning.set_cache_path(str(tmp_path / "port_tuning.json"))
+    yield
+    tuning.set_cache_path(None)
 
 
 def _snapped(rng, shape):
@@ -149,40 +159,66 @@ def _spec_pair(x_shape, w_shape, stride, groups, depthwise):
                                      groups=groups, quant=JINT8_FREQ))
 
 
+def _sub_plans(p):
+    """(sub-spec fields, resolved algorithm) of each sub-plan, in order."""
+    out = []
+    for sp in getattr(p, "sub_plans", ()):
+        fields = dict(vars(sp.spec))
+        fields.pop("quant")
+        out.append((fields, sp.algo_name, _sub_plans(sp)))
+    return out
+
+
+def _jax_prepared(jp, x, w):
+    """A JAX plan's prepared weights, int8-calibrated on ``x`` wherever it
+    has a transform domain (per sub-conv when lowered)."""
+    if jp.path == "lowered":
+        return jp.prepare_weights(w, act_scale=jp.calibrate(x))
+    if jp.path == "fast":
+        act = japi.tuning.calibrate_act_scale(x, jp.algorithm, JINT8_FREQ,
+                                              jp.spec.padding)
+        return jp.prepare_weights(w, act_scale=act)
+    return jp.prepare_weights(w)
+
+
+def _port_prepared(jprep):
+    if isinstance(jprep, JCompositePrepared):
+        return CompositePrepared(w=torch.from_numpy(np.array(jprep.w)),
+                                 subs=tuple(map(_port_prepared, jprep.subs)))
+    return prepared_from_jax(jprep, device="cpu")
+
+
 @pytest.mark.parametrize("algo", ["sfc6_6", "auto", "direct"])
 @pytest.mark.parametrize("case", PLANNER_SPECS, ids=[c[0] for c in PLANNER_SPECS])
-def test_plans_take_the_jax_path_or_raise(case, algo):
-    # the port raises wherever the JAX package lowers (it has no lowering
-    # pass yet, queue item A6), and any plan it returns has JAX's path
+def test_plans_take_the_jax_path_and_give_its_output(case, algo):
+    # the port resolves the path, algo_name and sub-plans the JAX package
+    # resolves, lowering strided and grouped specs where it lowers them,
+    # and gives its output on the same prepared weights
     label, x_shape, w_shape, stride, groups, depthwise = case
     spec, jspec = _spec_pair(x_shape, w_shape, stride, groups, depthwise)
-    jpath = japi.plan(jspec, backend="pallas", algo=algo).path
-    strided_or_grouped = w_shape[0] > 1 and (stride > 1 or groups > 1)
-    if strided_or_grouped and algo != "direct":
-        with pytest.raises(NotImplementedError, match="A6"):
-            plan(spec, backend="cuda", algo=algo)
-        return
-    assert jpath != "lowered", (label, algo)
+    jp = japi.plan(jspec, backend="pallas", algo=algo)
     p = plan(spec, backend="cuda", algo=algo)
-    assert p.path == jpath, (label, algo)
-    if p.path == "direct":
-        # the direct conv agrees with JAX's, strided and grouped included
-        rng = np.random.RandomState(5)
-        x = rng.randn(*x_shape).astype(np.float32)
-        w = rng.randn(*w_shape).astype(np.float32)
-        got = p.apply(torch.from_numpy(x), torch.from_numpy(w))
-        want = japi.plan(jspec, backend="reference", algo=algo).apply(
-            jnp.asarray(x), jnp.asarray(w))
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
-                                   atol=1e-5)
+    assert (p.path, p.algo_name) == (jp.path, jp.algo_name), (label, algo)
+    assert _sub_plans(p) == _sub_plans(jp), (label, algo)
+    rng = np.random.RandomState(5)
+    x = _snapped(rng, x_shape)
+    w = (rng.randn(*w_shape) * 0.3).astype(np.float32)
+    jref = japi.plan(jspec, backend="reference", algo=algo)
+    jprep = _jax_prepared(jref, jnp.asarray(x), jnp.asarray(w))
+    want = np.asarray(jref.apply(jnp.asarray(x), jprep))
+    got = p.apply(torch.from_numpy(x), _port_prepared(jprep))
+    tol = 1e-5 if p.path == "direct" else 1e-4
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
 
 
-def test_strided_int8_spec_is_lowered_by_jax_and_refused_by_the_port():
+def test_strided_int8_spec_is_lowered_as_jax_lowers_it():
     spec, jspec = _spec_pair((1, 9, 9, 3), (3, 3, 3, 4), 2, 1, False)
     for algo in ("sfc6_6", "auto"):
-        assert japi.plan(jspec, backend="pallas", algo=algo).path == "lowered"
-        with pytest.raises(NotImplementedError, match="A6"):
-            plan(spec, backend="cuda", algo=algo)
+        jp = japi.plan(jspec, backend="pallas", algo=algo)
+        p = plan(spec, backend="cuda", algo=algo)
+        assert p.path == jp.path == "lowered"
+        assert p.algo_name == jp.algo_name
+        assert _sub_plans(p) == _sub_plans(jp)
 
 
 def _jax_fp(x, w, name, padding, depthwise):
