@@ -23,7 +23,10 @@ csrc`` at first use.  Phases, each of which raises on failure:
      and B6 bit for bit against their plain versions at the per-layer
      geometry and at a second one, B2 at every VGG-16 layer shape and at
      ragged tiles and channels (T 1, 9, 17; K 3, 40; N 8, 24, 520), B6 at
-     every depthwise layer and at C 3, 20 and 960;
+     every depthwise layer and at C 3, 20 and 960; B1, B4 and B7 at 4
+     bits (``INT4_FREQ``), B4 and B7 bit for bit the staged paths;
+     phases 3-6 run with the degradation chain off, so a kernel that
+     fails raises;
   4. the direct path on the card under PyTorch's default TF32 flags (the
      run sets none): a 1x1, a 3x3, a 3x3/2 and a lowered 3x3/2's 1x1 phase
      as ``"direct"`` plans against the same plan on CPU copies of the
@@ -71,7 +74,19 @@ csrc`` at first use.  Phases, each of which raises on failure:
      the NHWC entry replaced, B1, B3 and B5 over the depthwise layers, the
      card's time for a launch of nothing, and one batch-1 fp and staged
      VGG-16 forward under ``torch.profiler`` (the card's kernels by name,
-     and its busy share), where the profiler traces the card.
+     and its busy share), where the profiler traces the card;
+  7. the serving path: ``repro_torch.serve.Engine`` over VGG-16's
+     third-stage conv (256 -> 256, int8 sfc6_6, buckets 28x28, 42x42 and
+     56x56, EDF with a 2 ms hold, at most 8 a batch), 32 requests of six
+     shapes: a deterministic pass (launch counts checked per dispatch,
+     every answer bit for bit its own ``plan.apply`` and within the int8
+     bounds of the reference backend), a threaded pass (requests/s, e2e
+     p50 and p99, service ms, occupancy), armed fused faults (served by
+     staged bit for bit, the breaker opened, raised with the chain off),
+     and the cost model fitted on the card (fit error, its top-1 beside
+     the measured winner and the card's fastest datapath per VGG-16 and
+     ResNet-18 spec; a cold bucket warmed from it); any resilience event
+     it did not arm fails the run.
 
 ``--sweep-b4``, ``--sweep-b7``, ``--sweep-b1`` and ``--sweep-b2`` time
 B4's, B7's, B1's and B5's, and B2's and B6's geometries per layer instead
@@ -90,6 +105,9 @@ numpy seeds.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
+import gc
 import json
 import math
 import pathlib
@@ -150,6 +168,7 @@ F32_OPS_PER_S = 67e12
 TIMED_RUNS = 25
 SPIN_CYCLES = 20_000_000        # ~10 ms at the H100's clock; doubled on need
 SERVE_REPEATS = 5
+CHAIN_REPEATS = 25              # wall runs of each chain-cost quarter
 # (algo, H = W, C_in, C_out, batch, padding): VGG-16 shapes, sfc6_7,
 # sfc4_4, a ragged sfc6_6 case whose channel counts are no multiple of any
 # block, the deepest layer at batch 4 (36 tiles, three groups of 16), and
@@ -227,6 +246,27 @@ DIRECT_CHECKS = (("1x1 56x56 256->128", (1, 56, 56, 256), (1, 1, 256, 128),
 # geometry and at B6_ALT (3 groups, 5 lanes, runs of 2)
 B6_CHECKS = (3, 20, 960)
 B6_ALT = {"groups": 3, "lanes": 5, "run": 2}
+# INT4_FREQ (4-bit activations and weights on the int8 carrier; the
+# kernels take qmax at run time): (algo, H = W, C_in, C_out, batch) of a
+# dense check (B1 and B4, B4 also bit for bit the staged path) and a
+# depthwise one (C_out None: B7, bit for bit the staged depthwise path)
+INT4_CHECKS = (("sfc6_6", 56, 64, 64, 1), ("sfc6_6", 56, 144, None, 1))
+# phase 7, the serving path: VGG-16's third-stage 3x3 conv (256 -> 256,
+# SAME, int8 sfc6_6) at the extents of 112, 168 and 224 px inputs
+SERVE_C = 256
+SERVE_BUCKETS = ((28, 28), (42, 42), (56, 56))
+SERVE_MIX = ((24, 24), (28, 28), (36, 36), (42, 42), (48, 48), (56, 56))
+SERVE_REQUESTS = 32
+SERVE_MAX_BATCH = 8
+SERVE_HOLD_MS = 2.0
+# the measured windows: open-loop Poisson arrivals at each offered rate
+# (requests/s), SERVE_WINDOW_REQUESTS each, images from a host pool of
+# SERVE_POOL per shape; the first SERVE_WINDOW_CHECKED answers of each
+# window are held bit for bit to their own plan.apply
+SERVE_WINDOW_RATES = (500.0, 1000.0, 2000.0)
+SERVE_WINDOW_REQUESTS = 3000
+SERVE_POOL = 4
+SERVE_WINDOW_CHECKED = 64
 REPLACES = {
     "sfc_transform_quantize": ("src/repro_torch/csrc/sfc_transform.cu",
                                "src/repro/kernels/sfc_transform.py:36"),
@@ -704,19 +744,24 @@ def main() -> None:
     import torch.nn.functional as F
 
     from repro_torch import kernels
-    from repro_torch.api import ConvSpec, plan, registry, tuning
+    from repro_torch.api import (ConvSpec, costmodel, plan, registry,
+                                 resilience, tuning)
     from repro_torch.core import conv2d as c2d
     from repro_torch.kernels import _build, ops, ref, sfc_fused, sfc_tdmm
-    from repro_torch.quant import FP32, INT8_FREQ
+    from repro_torch.quant import FP32, INT4_FREQ, INT8_FREQ
     from repro_torch.testing import DEFAULT_TOL
 
     dev = torch.device("cuda", 0)
     report = {"phases": {}}
-    # the run's own timing cache, emptied first: every run tunes afresh,
-    # and no plan before phase 5e carries a measured config
+    # the run's own timing cache and cost-model store, emptied first: every
+    # run tunes and fits afresh, no plan before phase 5e carries a measured
+    # config and none before phase 7's fit a modelled one
     cache = ROOT / "build" / "chip_smoke_tuning.json"
     cache.unlink(missing_ok=True)
     tuning.set_cache_path(str(cache))
+    coef_store = ROOT / "build" / "chip_smoke_costmodel.json"
+    coef_store.unlink(missing_ok=True)
+    costmodel.set_cache_path(str(coef_store))
 
     # ---- 1. probe -------------------------------------------------------
     cap = torch.cuda.get_device_capability(0)
@@ -858,6 +903,11 @@ def main() -> None:
         return int((xq != xq_ref).sum()), xq.numel()
 
     # ---- 3. each kernel against its plain version ------------------------
+    # phases 3-6 hold kernels: the degradation chain is off, so a kernel
+    # that fails raises (resilience.configured(enabled=False), kept on
+    # until phase 7)
+    chain_policy = resilience.policy()
+    resilience.configure(dataclasses.replace(chain_policy, enabled=False))
     max_err = {k: 0.0 for k in REPLACES}
 
     def check_b5(case, x, xr, xq_raw, bt, scale, M, padding="SAME"):
@@ -1155,7 +1205,59 @@ def main() -> None:
         torch.cuda.synchronize()
         log("kernels:", json.dumps(case))
         checks.append(case)
+    # INT4_FREQ: B1 (its (P, T, C) entry) exact against its plain version
+    # on snapped inputs, B4 and B7 against their plain versions within
+    # DEFAULT_TOL of the output's scale and bit for bit the staged paths on
+    # snapped and raw inputs
+    int4_rows = []
+    for algo_name, hw, cin, cout, batch in INT4_CHECKS:
+        dw = cout is None
+        x = snapped(rng, (batch, hw, hw, cin))
+        xr = torch.tensor(rng.randn(batch, hw, hw, cin), dtype=torch.float32,
+                          device=dev)
+        w = he_normal(rng, 1 if dw else cin, cin if dw else cout)
+        make = ConvSpec.for_conv2d_depthwise if dw else ConvSpec.for_conv2d
+        p = plan(make(x.shape, w.shape, quant=INT4_FREQ), backend="cuda",
+                 algo=algo_name)
+        algo = p.algorithm
+        act = tuning.calibrate_act_scale(x, algo, INT4_FREQ)
+        prep = p.prepare_weights(w, act_scale=act)
+        if int(prep.wq.abs().max()) > 7:
+            raise AssertionError("INT4_FREQ weights beyond 4 bits")
+        bt = c2d.transform_matrices(algo, torch.float32, dev)[0]
+        row = {"algo": algo_name, "hw": hw, "cin": cin, "cout": cout,
+               "batch": batch}
+        xq = kernels.sfc_transform_quantize_pt(x, bt, prep.act_scale,
+                                               algo.M, bits=4)
+        row["b1_mismatch_snapped"] = int((
+            xq != ref.sfc_transform_quantize_pt_ref(
+                x, bt, prep.act_scale, algo.M, bits=4)).sum())
+        row["b1_max_abs_q"] = int(xq.abs().max())
+        args = (x, prep.wq, prep.act_scale, prep.w_scale, algo)
+        fused = kernels.sfc_fused_conv2d(*args, bits=4, depthwise=dw)
+        y_ref = ref.sfc_fused_conv2d_ref(*args, bits=4, depthwise=dw)
+        torch.testing.assert_close(fused, y_ref, rtol=DEFAULT_TOL,
+                                   atol=DEFAULT_TOL * y_ref.abs().max().item())
+        staged = kernels.quantized_fastconv2d_depthwise if dw \
+            else kernels.quantized_fastconv2d
+        row["fused_scaled_err"] = scaled_err(fused, y_ref)
+        row["fused_equals_staged"] = all(
+            torch.equal(kernels.sfc_fused_conv2d(xx, *args[1:], bits=4,
+                                                 depthwise=dw),
+                        staged(xx, *args[1:], bits=4)) for xx in (x, xr))
+        k = "sfc_fused_conv2d_depthwise" if dw else "sfc_fused_conv2d"
+        max_err[k] = max(max_err[k], (fused - y_ref).abs().max().item())
+        if row["b1_mismatch_snapped"] or row["b1_max_abs_q"] > 7 \
+                or not row["fused_equals_staged"]:
+            raise AssertionError(f"INT4_FREQ: B1 differs from its plain "
+                                 f"version, leaves 4 bits, or "
+                                 f"{'B7' if dw else 'B4'} is not the staged "
+                                 f"path bit for bit: {row}")
+        torch.cuda.synchronize()
+        log("int4:", json.dumps(row))
+        int4_rows.append(row)
     report["phases"]["kernel_checks"] = checks
+    report["phases"]["int4_checks"] = int4_rows
     report["phases"]["sub_algorithm_tiles"] = tile_rows
 
     # B2 bit for bit at every VGG-16 layer shape and at B2_CHECKS, B6 at
@@ -1869,6 +1971,83 @@ def main() -> None:
             f"{row['datapath']}: 13 convs {row['wall_ms']:.3f} ms wall, "
             f"{row['card_ms']:.3f} ms on the card (medians of "
             f"{SERVE_REPEATS})")
+    def host_ms(fn, runs):
+        """Host ms of one ``fn`` call: ``runs`` calls enqueued behind a
+        spin kernel that outlasts them, so the host never waits for the
+        card (the spin doubles until it does, as in ``timed``)."""
+        fn()
+        torch.cuda.synchronize()
+        for doubling in range(8):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            torch.cuda._sleep(SPIN_CYCLES << doubling)
+            ev[1].record()
+            t0 = time.perf_counter()
+            for _ in range(runs):
+                fn()
+            host = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            if host < ev[0].elapsed_time(ev[1]):
+                return host / runs
+        log(f"host_ms: the host outran every spin; {host:.1f} ms to "
+            f"enqueue, the time includes waits for the card")
+        return host / runs
+
+    # the degradation chain's host cost: phases 3-6 run with it off, a
+    # user's cuda plans with it on. The batch-1 fused and staged stacks,
+    # chain off, on, on, off, twice: the host's enqueue time of a forward
+    # (the chain's cost, free of the card), the wall clock and the card
+    # time
+    chain_cost = []
+    for dp in ("fused", "staged"):
+        images, state = served[(0, dp)]
+        modes = {m: {"host_ms_runs": [], "wall_ms_runs": [],
+                     "card_ms_runs": []} for m in ("off", "on")}
+        for mode in ("off", "on", "on", "off") * 2:
+            with resilience.configured(enabled=mode == "on"):
+                m = modes[mode]
+                # SERVE_REPEATS forwards a spin: more would fill the
+                # card's launch queue and block the host on the spin
+                m["host_ms_runs"] += [
+                    host_ms(lambda: forward(images, state), SERVE_REPEATS)
+                    for _ in range(CHAIN_REPEATS // SERVE_REPEATS)]
+                for _ in range(CHAIN_REPEATS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    forward(images, state)
+                    torch.cuda.synchronize()
+                    m["wall_ms_runs"].append(
+                        (time.perf_counter() - t0) * 1e3)
+                m["card_ms_runs"].append(
+                    timed(lambda: forward(images, state),
+                          runs=SERVE_REPEATS))
+                if resilience.stats():
+                    raise AssertionError(f"chain cost {dp}: resilience "
+                                         f"events {resilience.stats()}")
+        row = {"datapath": dp, "batch": images.shape[0], "convs": len(state)}
+        for mode, m in modes.items():
+            m["host_ms"] = statistics.mean(m["host_ms_runs"])
+            m["wall_ms"] = statistics.median(m["wall_ms_runs"])
+            m["card_ms"] = statistics.median(m["card_ms_runs"])
+            row[mode] = m
+        row["host_us_per_apply"] = (row["on"]["host_ms"]
+                                    - row["off"]["host_ms"]) * 1e3 \
+            / len(state)
+        chain_cost.append(row)
+        log(f"chain: batch-1 {dp} VGG-16 stack, chain off / on (off, on, "
+            f"on, off, twice): host {row['off']['host_ms']:.4f} / "
+            f"{row['on']['host_ms']:.4f} ms a forward (means of "
+            f"{4 * CHAIN_REPEATS} enqueued behind spins, "
+            f"{SERVE_REPEATS} a spin; spread "
+            f"{min(row['off']['host_ms_runs']):.4f}-"
+            f"{max(row['off']['host_ms_runs']):.4f} / "
+            f"{min(row['on']['host_ms_runs']):.4f}-"
+            f"{max(row['on']['host_ms_runs']):.4f}), "
+            f"{row['host_us_per_apply']:+.2f} us a conv; wall "
+            f"{row['off']['wall_ms']:.3f} / {row['on']['wall_ms']:.3f} ms "
+            f"(medians of {4 * CHAIN_REPEATS}); card "
+            f"{row['off']['card_ms']:.3f} / {row['on']['card_ms']:.3f} ms; "
+            f"on {smi}")
     for row in dw_stacks:
         state = dw_states[(row["batch"], row["path"])]
         row["card_ms"] = timed(lambda: dw_stack(state), runs=SERVE_REPEATS)
@@ -2219,6 +2398,7 @@ def main() -> None:
             f"{memory[dp]['f32_transformed_weights_bytes'] / 2**20:.1f} MiB")
     report["phases"]["vgg_paths"] = {"per_layer": per_layer,
                                      "stacks": stacks, "memory": memory,
+                                     "chain_cost": chain_cost,
                                      "fused_equals_staged_layers":
                                          len(vgg_equal)}
     report["phases"]["fp_with_caller_tf32"] = {"setting": tf32_name,
@@ -2233,6 +2413,512 @@ def main() -> None:
         "fp_request": fp_b3, "depthwise_staged": dw_totals,
         "b3_tile": b3_tile, "launch_floor_ms": launch_floor_ms,
         "profiles": profiles}
+    # ---- 7. the serving path: VGG-16's conv3 layer behind the engine ------
+    from repro_torch import faults
+    from repro_torch.serve import (BATCH, INTERACTIVE, BucketTable, Engine,
+                                   SchedulerPolicy, ShapeMix,
+                                   fold_rows_per_step, results, synthesize)
+    # phases 3-6 ran with the chain off; from here it is on, and every
+    # event it records must be one this phase armed
+    if resilience.stats():
+        raise AssertionError(f"resilience events in phases 3-6: "
+                             f"{resilience.stats()}")
+    resilience.configure(chain_policy)
+    serve_w = he_normal(np.random.RandomState(1700), SERVE_C, SERVE_C)
+    table = BucketTable.for_workload(SERVE_BUCKETS, kernel_size=3,
+                                     in_channels=SERVE_C,
+                                     out_channels=SERVE_C, quant=INT8_FREQ)
+    b28, b42, b56 = table.buckets
+    srng = np.random.RandomState(0)
+    mix = ShapeMix(shapes=SERVE_MIX)
+    serve_shapes = [mix.sample(srng) for _ in range(SERVE_REQUESTS)]
+    serve_slos = [INTERACTIVE if srng.rand() < 0.5 else BATCH
+                  for _ in range(SERVE_REQUESTS)]
+    irng = np.random.RandomState(1701)
+    serve_x = [irng.randn(h, w_, SERVE_C).astype(np.float32)
+               for h, w_ in serve_shapes]
+    serve_launches = {k: 0 for k in REPLACES}
+    serve_report = {"buckets": [b.name for b in table.buckets],
+                    "shapes": serve_shapes,
+                    "slos": [s.name for s in serve_slos]}
+
+    def make_engine(warm_compile=False):
+        return Engine(serve_w, table, backend="cuda", algo=ALGO, device=dev,
+                      max_batch=SERVE_MAX_BATCH, round_batches=True,
+                      scheduler=SchedulerPolicy(kind="edf",
+                                                max_hold_ms=SERVE_HOLD_MS),
+                      retry_backoff_s=0.0, warm_compile=warm_compile)
+
+    def state_of(eng, bucket):
+        """The (plan, prepared weights) the engine serves ``bucket`` with."""
+        return eng.cache.get(bucket.spec, eng.w, backend="cuda", algo=ALGO,
+                             act_scale=eng._act_scales[bucket.name],
+                             key=("serve", bucket.name, eng.device))
+
+    def dispatch_launches(eng, bucket, n):
+        """What one dispatch of ``n`` requests on ``bucket`` launches: B4
+        once for the whole (rounded) batch, or B1, B2 and B3 once each
+        where the bucket's config is staged."""
+        p, _ = state_of(eng, bucket)
+        if (p.config or tuning.DEFAULT_FUSED).datapath == "staged":
+            return only(sfc_transform_quantize=1, tdmm_int8=1, sfc_inverse=1)
+        if fold_rows_per_step(p, eng._round_batch(n)) is None:
+            raise AssertionError(f"serve: a batch of {n} on {bucket.name} "
+                                 f"does not fold into one B4 launch")
+        return only(sfc_fused_conv2d=1)
+
+    def add_serve(got):
+        for k in serve_launches:
+            serve_launches[k] += got[k]
+
+    def drain_counted(eng, futs, what):
+        """Step until every future resolved, the launch counts set to 0
+        just before each dispatch and checked just after it."""
+        rows, pending = [], set(range(len(futs)))
+        while pending:
+            kernels.reset_launch_counts()
+            n = eng.step(timeout=1.0)
+            got = kernels.launch_counts()
+            done = sorted(i for i in pending if futs[i].done())
+            if n != len(done):
+                raise AssertionError(f"serve {what}: a step took {n} "
+                                     f"requests and resolved {len(done)}")
+            if not n:
+                continue
+            pending -= set(done)
+            bucket = table.by_name(futs[done[0]].result().bucket_name)
+            want = dispatch_launches(eng, bucket, n)
+            if got != want:
+                raise AssertionError(f"serve {what}: a dispatch of {n} on "
+                                     f"{bucket.name} launched {got}, not "
+                                     f"{want}")
+            add_serve(got)
+            rows.append({"bucket": bucket.name, "requests": n,
+                         "launches": {k: v for k, v in got.items() if v}})
+        return rows
+
+    def same_outputs(rs, what):
+        for r, want in zip(rs, res1):
+            if not torch.equal(r.y, want.y):
+                raise AssertionError(f"serve {what}: request "
+                                     f"{r.request_id} differs from the "
+                                     f"deterministic pass")
+
+    # provenance, part 1: the 28x28 bucket tuned into the run's cache
+    t_serve = time.perf_counter()
+    tune28 = tuning.autotune(b28.spec, "cuda", device=dev, algos=[ALGO])
+    eng = make_engine()
+    sources1 = dict(eng.warm_sources)
+    if sources1[b28.name] != "measured" or sources1[b42.name] != "default":
+        raise AssertionError(f"serve: warm sources before the fit "
+                             f"{sources1}")
+    configs = {b.name: (state_of(eng, b)[0].config or tuning.DEFAULT_FUSED
+                        ).to_json() for b in table.buckets}
+    log(f"serve: buckets {serve_report['buckets']}, warm sources "
+        f"{json.dumps(sources1)}, configs {json.dumps(configs)} (28x28 "
+        f"tuned: {json.dumps(tune28.get(ALGO))})")
+
+    # pass 1, deterministic: every request bit for bit its own plan.apply
+    # on its bucket, and within the int8 bounds of the reference backend
+    futs1 = [eng.submit(x, slo) for x, slo in zip(serve_x, serve_slos)]
+    disp1 = drain_counted(eng, futs1, "pass 1")
+    res1 = results(futs1)
+    serve_rows = []
+    for x, r in zip(serve_x, res1):
+        b = table.by_name(r.bucket_name)
+        h, w_ = x.shape[:2]
+        if tuple(r.y.shape) != (h, w_, SERVE_C):
+            raise AssertionError(f"serve: request {r.request_id} output "
+                                 f"{tuple(r.y.shape)}")
+        p, prep = state_of(eng, b)
+        xb = BucketTable.pad_to(torch.from_numpy(x).to(dev), b)[None]
+        own = BucketTable.crop_output(p.apply(xb, prep)[0], h, w_, b)
+        if not torch.equal(own, r.y):
+            raise AssertionError(f"serve: request {r.request_id} batched "
+                                 f"({r.batch_size}) differs from its own "
+                                 f"plan.apply")
+        y_ref = BucketTable.crop_output(plan(b.spec, backend="reference",
+                                             algo=ALGO).apply(xb, prep)[0],
+                                        h, w_, b)
+        rel_l2, scaled = held(f"serve request {r.request_id}", r.y, y_ref,
+                              "int8")
+        serve_rows.append({"shape": [h, w_], "bucket": b.name,
+                           "batch": r.batch_size, "rel_l2": rel_l2,
+                           "scaled_max": scaled})
+    torch.cuda.synchronize()
+    log(f"serve: pass 1: {SERVE_REQUESTS} requests in {len(disp1)} "
+        f"dispatches " + json.dumps([[d["bucket"], d["requests"],
+                                      d["launches"]] for d in disp1])
+        + f"; batched = per-request bit for bit; worst rel L2 vs reference "
+        f"{max(r['rel_l2'] for r in serve_rows):.3e}, max |diff| / max "
+        f"|ref| {max(r['scaled_max'] for r in serve_rows):.3e}")
+
+    @contextlib.contextmanager
+    def gc_watch():
+        """The interpreter's collections inside the block, as (generation,
+        s into the block, ms): they place a tail's stalls."""
+        events, start, t_in = [], [], time.perf_counter()
+
+        def probe(phase, info):
+            now = time.perf_counter()
+            if phase == "start":
+                start[:] = [now]
+            elif start:
+                events.append((info["generation"], start[0] - t_in,
+                               (now - start[0]) * 1e3))
+
+        gc.callbacks.append(probe)
+        try:
+            yield events
+        finally:
+            gc.callbacks.remove(probe)
+
+    # pass 2, threaded: start / submit (a burst) / drain / stop. A check of
+    # the threaded engine; its times are a smoke reading (32 requests)
+    teng = make_engine()
+    kernels.reset_launch_counts()
+    teng.start()
+    with gc_watch() as gc2:
+        t0 = time.perf_counter()
+        futs2 = [teng.submit(x, slo) for x, slo in zip(serve_x, serve_slos)]
+        if not teng.drain(timeout=120):
+            raise AssertionError("serve: the threaded pass did not drain")
+        wall_s = time.perf_counter() - t0
+    teng.stop(raise_on_error=True)
+    got = kernels.launch_counts()
+    res2 = results(futs2)
+    same_outputs(res2, "pass 2")
+    if any(got[k] for k in ("sfc_transform", "tdmm_int8_depthwise",
+                            "sfc_fused_conv2d_depthwise")) \
+            or not got["sfc_fused_conv2d"] + got["tdmm_int8"]:
+        raise AssertionError(f"serve: the threaded pass launched {got}")
+    add_serve(got)
+    snap2 = teng.snapshot()
+    threaded = {
+        "wall_s": wall_s, "requests_per_s": SERVE_REQUESTS / wall_s,
+        "e2e_ms": snap2["e2e_ms"], "service_ms": snap2["service_ms"],
+        "queue_wait_ms": snap2["queue_wait_ms"],
+        "occupancy": snap2["batch_occupancy"],
+        "slo": snap2["slo"], "launches": {k: v for k, v in got.items() if v},
+        "gc": gc2,
+        "launches_per_dispatch": sum(got.values())
+        / snap2["batch_occupancy"]["dispatches"]}
+    log(f"serve: pass 2 (threaded, {SERVE_REQUESTS} requests at once): "
+        f"{threaded['requests_per_s']:.1f} requests/s, e2e p50 "
+        f"{snap2['e2e_ms']['p50_ms']:.3f} ms p99 "
+        f"{snap2['e2e_ms']['p99_ms']:.3f} ms, service "
+        f"{snap2['service_ms']['mean_ms']:.3f} ms a dispatch (p50 "
+        f"{snap2['service_ms']['p50_ms']:.3f}), "
+        f"{snap2['batch_occupancy']['dispatches']} dispatches, occupancy "
+        f"{snap2['batch_occupancy']['mean']:.2f} (max "
+        f"{snap2['batch_occupancy']['max']}), launches "
+        f"{json.dumps(threaded['launches'])}, gc collections (generation, "
+        f"s in, ms) {json.dumps([[g, round(a, 3), round(m, 1)] for g, a, m in gc2])}"
+        f", on {smi}")
+    # pass 2b, the measured windows: open-loop Poisson arrivals of
+    # SERVE_WINDOW_REQUESTS requests at each offered rate, the same shape
+    # and SLO mix, submitted from this thread while the engine's thread
+    # dispatches; each engine warmed every (bucket, batch shape) first
+    # (warm_compile). The images come from a seeded pool already on the
+    # card, so a submit costs the client no host-to-card copy and the
+    # figures are the engine's. requests/s and the e2e percentiles are
+    # read here; the 32-request burst above is a check
+    pool_rng = np.random.RandomState(1702)
+    pool = {sh: [torch.from_numpy(pool_rng.randn(sh[0], sh[1], SERVE_C)
+                                  .astype(np.float32)).to(dev)
+                 for _ in range(SERVE_POOL)] for sh in SERVE_MIX}
+    windows, weng_all = [], []
+    for rate in SERVE_WINDOW_RATES:
+        events = synthesize(SERVE_WINDOW_REQUESTS, process="poisson",
+                            rate_hz=rate, mix=mix, seed=int(rate))
+        weng = make_engine(warm_compile=True)
+        weng_all.append(weng)
+        kernels.reset_launch_counts()
+        weng.start()
+        late_ms, rows, rejects, kept = [], [], [], {}
+
+        def on_done(f, j, sh, i, slo, at):
+            """One row a request, written when its future resolves; the
+            first SERVE_WINDOW_CHECKED answers are kept for the check,
+            the rest dropped once their shape is read, as a server that
+            has sent them would."""
+            if f.exception() is not None:
+                rejects.append(j)
+                return
+            r = f.result()
+            rows.append((r.e2e_ms, r.queue_wait_ms, slo, at,
+                         tuple(r.y.shape) == (sh[0], sh[1], SERVE_C)))
+            if j < SERVE_WINDOW_CHECKED:
+                kept[j] = (r, sh, i)
+
+        # the interpreter's collections and the caching allocator's
+        # segments during the window, to place the tail's stalls
+        mem0 = torch.cuda.memory_stats(dev)
+        with gc_watch() as gc_events:
+            t0 = time.perf_counter()
+            for j, ev in enumerate(events):
+                wait = t0 + ev.t - time.perf_counter()
+                if wait > 0:
+                    time.sleep(wait)
+                at = time.perf_counter() - t0
+                late_ms.append((at - ev.t) * 1e3)
+                i = j % SERVE_POOL
+                weng.submit(pool[ev.shape][i], ev.slo).add_done_callback(
+                    functools.partial(on_done, j=j, sh=ev.shape, i=i,
+                                      slo=ev.slo, at=at))
+            if not weng.drain(timeout=300):
+                raise AssertionError(f"serve: the {rate:g}/s window did "
+                                     f"not drain")
+            span_s = time.perf_counter() - t0
+        mem1 = torch.cuda.memory_stats(dev)
+        weng.stop(raise_on_error=True)
+        got = kernels.launch_counts()
+        snap = weng.snapshot()
+        n_disp = snap["batch_occupancy"]["dispatches"]
+        if got["sfc_fused_conv2d"] + got["tdmm_int8"] != n_disp \
+                or not got["sfc_transform_quantize"] == got["tdmm_int8"] \
+                == got["sfc_inverse"] \
+                or any(got[k] for k in ("sfc_transform",
+                                        "tdmm_int8_depthwise",
+                                        "sfc_fused_conv2d_depthwise")):
+            raise AssertionError(f"serve: the {rate:g}/s window launched "
+                                 f"{got} over {n_disp} dispatches")
+        add_serve(got)
+        if len(rows) + len(rejects) != len(events) \
+                or not all(row[4] for row in rows):
+            raise AssertionError(f"serve: the {rate:g}/s window resolved "
+                                 f"{len(rows)} + {len(rejects)} of "
+                                 f"{len(events)}, or a shape was wrong")
+        for j, (r, sh, i) in sorted(kept.items()):
+            b = table.by_name(r.bucket_name)
+            p, prep = state_of(weng, b)
+            xb = BucketTable.pad_to(pool[sh][i], b)[None]
+            own = BucketTable.crop_output(p.apply(xb, prep)[0], sh[0],
+                                          sh[1], b)
+            if not torch.equal(own, r.y) or not torch.isfinite(r.y).all():
+                raise AssertionError(f"serve: window request {r.request_id} "
+                                     f"differs from its own plan.apply")
+        kept.clear()
+        e2e = np.array([row[0] for row in rows])
+        qw = np.array([row[1] for row in rows])
+        by_class = {}
+        for cls in (INTERACTIVE, BATCH):
+            ce = np.array([row[0] for row in rows if row[2] is cls])
+            if len(ce):
+                by_class[cls.name] = {
+                    "n": int(len(ce)),
+                    "p50_ms": float(np.percentile(ce, 50)),
+                    "p99_ms": float(np.percentile(ce, 99))}
+        w = {"offered_per_s": rate, "requests": len(events),
+             "served": len(rows), "rejected": len(rejects),
+             "span_s": span_s, "served_per_s": len(rows) / span_s,
+             "e2e_ms": {q: float(np.percentile(e2e, v)) for q, v in
+                        (("p50", 50), ("p90", 90), ("p99", 99),
+                         ("p99.9", 99.9), ("max", 100))},
+             "queue_wait_ms": {"p50": float(np.percentile(qw, 50)),
+                               "p99": float(np.percentile(qw, 99))},
+             "e2e_by_class": by_class,
+             "service_ms": snap["service_ms"], "dispatches": n_disp,
+             "occupancy": snap["batch_occupancy"],
+             "launches": {k: v for k, v in got.items() if v},
+             "launches_per_dispatch": sum(got.values()) / n_disp,
+             "submit_late_ms": {"p50": float(np.percentile(late_ms, 50)),
+                                "p99": float(np.percentile(late_ms, 99))},
+             "gc": {"collections": [sum(1 for g in gc_events if g[0] == k)
+                                    for k in range(3)],
+                    "ms": sum(g[2] for g in gc_events),
+                    "longest": sorted(gc_events, key=lambda g: -g[2])[:3]},
+             "allocator": {k: mem1.get(k, 0) - mem0.get(k, 0) for k in
+                           ("segment.all.allocated", "num_alloc_retries",
+                            "num_device_alloc", "num_device_free")},
+             "worst_e2e": sorted(((row[0], row[3]) for row in rows),
+                                 reverse=True)[:3]}
+        windows.append(w)
+        log(f"serve: window {rate:g}/s offered, {len(events)} Poisson "
+            f"requests in {span_s:.3f} s: {w['served_per_s']:.1f} served/s, "
+            f"{w['rejected']} rejected; e2e p50 {w['e2e_ms']['p50']:.3f} p90 "
+            f"{w['e2e_ms']['p90']:.3f} p99 {w['e2e_ms']['p99']:.3f} p99.9 "
+            f"{w['e2e_ms']['p99.9']:.3f} max {w['e2e_ms']['max']:.3f} ms; "
+            f"queue wait p50 {w['queue_wait_ms']['p50']:.3f} p99 "
+            f"{w['queue_wait_ms']['p99']:.3f} ms; service "
+            f"{snap['service_ms']['mean_ms']:.3f} ms a dispatch (p50 "
+            f"{snap['service_ms']['p50_ms']:.3f}, p99 "
+            f"{snap['service_ms']['p99_ms']:.3f}); {n_disp} dispatches, "
+            f"occupancy {snap['batch_occupancy']['mean']:.2f}; launches "
+            f"{json.dumps(w['launches'])}; submits late p50 "
+            f"{w['submit_late_ms']['p50']:.3f} p99 "
+            f"{w['submit_late_ms']['p99']:.3f} ms; gc collections "
+            f"{w['gc']['collections']} taking {w['gc']['ms']:.1f} ms, longest "
+            + json.dumps([[g, round(at, 3), round(ms, 1)]
+                          for g, at, ms in w['gc']['longest']])
+            + " (generation, s into the window, ms); allocator "
+            + json.dumps(w["allocator"]) + "; worst e2e "
+            + json.dumps([[round(e, 1), round(at, 3)]
+                          for e, at in w['worst_e2e']])
+            + f" (ms, arrival s into the window); on {smi}")
+    for e in [eng, teng] + weng_all:
+        hid = {k: v for k, v in e.snapshot()["counters"].items()
+               if k.startswith("resilience_")}
+        if hid or resilience.stats():
+            raise AssertionError(f"serve: unarmed resilience events "
+                                 f"{hid} {resilience.stats()}")
+
+    # pass 4, faults (before the fit, while the 42x42 bucket runs B4): an
+    # armed fused failure is served by staged bit for bit and counted in
+    # the engine's registry; repeated ones open the breaker; with the
+    # chain off the same fault raises
+    idx42 = [i for i, r in enumerate(res1) if r.bucket_name == b42.name]
+    feng = make_engine()
+    p42, prep42 = state_of(feng, b42)
+    if (p42.config or tuning.DEFAULT_FUSED).datapath != "fused":
+        raise AssertionError("serve: the 42x42 bucket is not fused")
+    staged_once = only(sfc_transform_quantize=1, tdmm_int8=1, sfc_inverse=1)
+    with faults.inject({faults.APPLY_FUSED: faults.FaultSpec(times=1)}) \
+            as fp:
+        futs4 = [feng.submit(serve_x[i]) for i in idx42[:4]]
+        kernels.reset_launch_counts()
+        while not all(f.done() for f in futs4):
+            feng.step(timeout=1.0)
+        got = kernels.launch_counts()
+    c = feng.snapshot()["counters"]
+    if fp.injected(faults.APPLY_FUSED) != 1 or got != staged_once \
+            or c.get("resilience_fallback_staged") != 1:
+        raise AssertionError(f"serve: the armed fused fault: injected "
+                             f"{fp.injected()}, launches {got}, counters "
+                             f"{c}")
+    add_serve(got)
+    for f, i in zip(futs4, idx42):
+        if not torch.equal(f.result().y, res1[i].y):
+            raise AssertionError("serve: the staged fallback differs from "
+                                 "the fused answer")
+    thr = resilience.policy().failure_threshold
+    resilience.reset()        # the fused breaker counts from zero again
+    disp4 = []
+    with faults.inject({faults.APPLY_FUSED: faults.FaultSpec()}) as fp:
+        kernels.reset_launch_counts()
+        for i in idx42[:1] * (thr + 2):
+            f = feng.submit(serve_x[i])
+            while not f.done():
+                feng.step(timeout=1.0)
+            disp4.append(torch.equal(f.result().y, res1[i].y))
+        got = kernels.launch_counts()
+    board = {k.rsplit("|", 1)[1]: v for k, v in
+             resilience.board_snapshot().items()
+             if k.startswith(str(b42.spec))}
+    c = feng.snapshot()["counters"]
+    if not all(disp4) or fp.hits(faults.APPLY_FUSED) != thr \
+            or board.get("fused", {}).get("state") != resilience.OPEN \
+            or c.get("resilience_breaker_trip") != 1 \
+            or c.get("resilience_breaker_skip") != 2 \
+            or got != only(thr + 2, sfc_transform_quantize=1, tdmm_int8=1,
+                           sfc_inverse=1):
+        raise AssertionError(f"serve: repeated fused faults: hits "
+                             f"{fp.hits(faults.APPLY_FUSED)}, board "
+                             f"{board}, counters {c}, launches {got}")
+    add_serve(got)
+    xb42 = BucketTable.pad_to(torch.from_numpy(serve_x[idx42[0]]).to(dev),
+                              b42)[None]
+    with resilience.configured(enabled=False):
+        with faults.inject({faults.APPLY_FUSED: faults.FaultSpec()}):
+            try:
+                p42.apply(xb42, prep42)
+                raise AssertionError("serve: with the chain off the fused "
+                                     "fault did not raise")
+            except faults.InjectedFault:
+                pass
+    fault_counters = {k: v for k, v in c.items()
+                      if k.startswith("resilience_")}
+    log(f"serve: pass 4 (faults): one armed fused failure served by staged "
+        f"bit for bit (B1, B2, B3 once, B4 none), {thr} repeated ones "
+        f"opened the breaker ({thr + 2} requests served, bit for bit), "
+        f"with the chain off the fault raised; the engine's counters "
+        f"{json.dumps(fault_counters)}")
+    resilience.reset()
+
+    # pass 3, provenance: the cost model fitted on the card with VGG-16's
+    # and ResNet-18's distinct specs as probes; a new engine warms the
+    # 42x42 bucket, which has no timing entry, from the model
+    fit_lines = []
+    t0 = time.perf_counter()
+    probes = list(vgg_specs.values()) + list(resnet_specs.values())
+    fit = costmodel.fit_coefficients(probes, "cuda", device=dev,
+                                     log=fit_lines.append)
+    fit_s = time.perf_counter() - t0
+    tuned = {r["spec"]: r for r in tune_rows}
+    ranking = []
+    for label, spec in [(f"vgg {k}", v) for k, v in vgg_specs.items()] \
+            + [(f"resnet {k}", v) for k, v in resnet_specs.items()]:
+        row = tuned[label]
+        if "card_ms" not in row:
+            continue
+        model_cfg = costmodel.best_config(spec, "cuda", ALGO)
+        if model_cfg is None:         # lowered: priced per sub-spec only
+            continue
+        card_best = min(row["card_ms"], key=row["card_ms"].get)
+        ranking.append({
+            "spec": label, "model": model_cfg.to_json(),
+            "measured": row["winner"], "card_fastest": card_best,
+            "card_ms": row["card_ms"],
+            "model_datapath_is_measured": model_cfg.datapath
+            == row["winner"]["datapath"],
+            "model_datapath_is_card_fastest": model_cfg.datapath
+            == card_best})
+    eng2 = make_engine()
+    sources2 = dict(eng2.warm_sources)
+    if sources2[b28.name] != "measured" or sources2[b42.name] != "model":
+        raise AssertionError(f"serve: warm sources after the fit "
+                             f"{sources2}")
+    futs3 = [eng2.submit(x, slo) for x, slo in zip(serve_x, serve_slos)]
+    disp3 = drain_counted(eng2, futs3, "pass 3")
+    same_outputs(results(futs3), "pass 3")
+    seen = set(sources1.values()) | set(sources2.values())
+    if not {"measured", "model", "default"} <= seen:
+        raise AssertionError(f"serve: warm sources seen {seen}")
+    hid = {k: v for k, v in eng2.snapshot()["counters"].items()
+           if k.startswith("resilience_")}
+    if hid or resilience.stats():
+        raise AssertionError(f"serve: unarmed resilience events {hid} "
+                             f"{resilience.stats()}")
+    log(f"serve: cost model fitted on {len(probes)} probe specs in "
+        f"{fit_s:.1f} s, samples {json.dumps(fit['samples'])}, fit error "
+        + json.dumps({dp: {k: round(v, 4) for k, v in e.items()}
+                      for dp, e in fit["fit_error"].items()})
+        + f", coefficients {json.dumps(fit['coefficients'])}")
+    for r in ranking:
+        log(f"serve: model top-1 {r['spec']}: {r['model']['datapath']}"
+            f"(k={r['model']['k_block']},co={r['model']['cout_block']}); "
+            f"measured winner {r['measured']['datapath']}; card fastest "
+            f"{r['card_fastest']} {json.dumps(r['card_ms'])}")
+    log(f"serve: the model's datapath is the measured winner's at "
+        f"{sum(r['model_datapath_is_measured'] for r in ranking)} of "
+        f"{len(ranking)} specs and the card's fastest at "
+        f"{sum(r['model_datapath_is_card_fastest'] for r in ranking)}; warm "
+        f"sources after the fit {json.dumps(sources2)}; pass 3 "
+        f"{len(disp3)} dispatches bit for bit pass 1; no unarmed resilience "
+        f"event in phases 3-7")
+    serve_seconds = time.perf_counter() - t_serve
+    on_path = ("sfc_transform_quantize", "tdmm_int8", "sfc_inverse",
+               "sfc_fused_conv2d")
+    if any(serve_launches[k] <= 0 for k in on_path) \
+            or any(v for k, v in serve_launches.items() if k not in on_path):
+        raise AssertionError(f"serve: the path's kernels B1-B4, and only "
+                             f"they, must launch: {serve_launches}")
+    for k in launches:
+        launches[k] += serve_launches[k]
+    path_launches["serve"] = serve_launches
+    log(f"serve: phase 7 launched {json.dumps({k: v for k, v in serve_launches.items() if v})} "
+        f"in {serve_seconds:.1f} s")
+    serve_report.update({
+        "warm_sources": [sources1, sources2], "configs": configs,
+        "tune_28x28": tune28, "pass1": {"dispatches": disp1,
+                                        "requests": serve_rows},
+        "threaded": threaded, "windows": windows, "faults": fault_counters,
+        "fit": {k: v for k, v in fit.items()}, "fit_seconds": fit_s,
+        "fit_log": fit_lines, "ranking": ranking,
+        "pass3_dispatches": disp3, "launches": serve_launches,
+        "seconds": serve_seconds})
+    report["phases"]["serving"] = serve_report
+
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke_report.json").write_text(json.dumps(report, indent=1))

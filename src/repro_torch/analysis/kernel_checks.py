@@ -7,8 +7,9 @@ in Python and the kernels only check:
   * B4 ``kernels.sfc_fused.fused_geometry`` and B7 ``depthwise_geometry``
     (the fused datapath);
   * B1 ``kernels.sfc_transform.transform_geometry``, B2
-    ``kernels.sfc_tdmm.tdmm_geometry`` and B6 ``dw_product_geometry``
-    (the staged datapath; B3's geometry is fixed in its source).
+    ``kernels.sfc_tdmm.tdmm_geometry``, B6 ``dw_product_geometry`` and B3
+    ``kernels.sfc_inverse.InverseGeometry`` (the staged datapath; B3's
+    launch is fixed in its source, the dataclass describes it).
 
 Nothing is launched.  The findings:
 
@@ -34,8 +35,9 @@ Nothing is launched.  The findings:
     check.
 
 :func:`check_candidates` is the autotuner's pre-flight: it filters a
-``KernelConfig`` sweep down to launchable candidates.  The JAX package's
-``fold_fits``, the serving batcher's view, comes with the serving slice.
+``KernelConfig`` sweep down to launchable candidates.  :func:`fold_fits`
+is the serving batcher's view: whether one launch of the config takes a
+whole batch of images.
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ from typing import List, Optional, Sequence
 
 from repro_torch.core import conv2d as c2d
 from repro_torch.kernels import _build, sfc_fused, sfc_tdmm
+from repro_torch.kernels.sfc_inverse import INVERSE_THREADS, InverseGeometry
 from repro_torch.kernels.sfc_transform import (TRANSFORM_MAX_THREADS,
                                                TRANSFORM_SMEM_LIMIT_BYTES,
                                                TransformGeometry,
@@ -141,6 +144,10 @@ def check_geometry(geom) -> List[Finding]:
         out = _limit("KC002", k, "threads per block", geom.threads,
                      sfc_tdmm.DW_MAX_THREADS, where)
         return out + _grid_findings(k, geom.grid, where)
+    if isinstance(geom, InverseGeometry):
+        # the bound of csrc/sfc_inverse.cu: a thread index in 31 bits
+        return _limit("KC002", "B3", "threads of the launch",
+                      geom.blocks * INVERSE_THREADS, GRID_X_MAX, where)
     raise TypeError(f"no check for a {type(geom).__name__}")
 
 
@@ -168,7 +175,8 @@ def geometries_for(algo, config, B: int, H: int, W: int, C: int, Cout: int,
                          f"got {config.k_block}")
     product = sfc_tdmm.dw_product_geometry(P, T, C) if depthwise \
         else sfc_tdmm.tdmm_geometry(P, T, C, Cout)
-    return [transform_geometry(algo, (rows, cols), C), product]
+    inverse = InverseGeometry(algo.t, algo.M, T, C if depthwise else Cout)
+    return [transform_geometry(algo, (rows, cols), C), product, inverse]
 
 
 def check_config(algo, config, B: int, H: int, W: int, C: int, Cout: int,
@@ -217,3 +225,21 @@ def check_candidates(spec, algo, candidates: Sequence, *, batch: int = 1):
         else:
             ok.append(cfg)
     return ok, rejected
+
+
+def fold_fits(algo, config, imgs: int, H: int, W: int, C: int, Cout: int,
+              *, padding: str = "SAME") -> bool:
+    """Whether one launch of ``config`` takes ``imgs`` images: the serving
+    batcher's view of the datapath.
+
+    The JAX package's ``fold_fits`` asks whether ``rows_per_step`` tile
+    rows fit the fused kernel's VMEM budget in one grid step.  B4 has no
+    such knob: it takes every tile of the images it is given in one
+    launch, its geometry (``fused_geometry`` over the images' tiles) sized
+    per launch.  So the question here is whether that launch's geometry
+    exists and passes KC001-KC004 (shared memory, grid and block shape,
+    cluster and registers, knobs), as :func:`check_config` resolves it.
+    """
+    return not [f for f in check_config(algo, config, imgs, H, W, C, Cout,
+                                        padding=padding)
+                if f.severity == ERROR]

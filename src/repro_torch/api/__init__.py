@@ -7,14 +7,17 @@
     y = p.apply(x, prepared)                            # online
 
 The planner resolves the algorithm (registry name, measured timings from
-``tuning.autotune``, or BOPs auto-selection), lowers strided and grouped
-specs onto SFC sub-problems (``lowering``: a ``CompositePlan``, whose
-``calibrate`` gives the per-sub activation scales), degrades to direct
-convolution where fast algorithms do not apply, and dispatches execution
-to the ``reference`` (plain torch) or ``cuda`` (hand-written kernels)
-backend behind one signature.
+``tuning.autotune``, the calibrated ``costmodel``, or BOPs
+auto-selection), lowers strided and grouped specs onto SFC sub-problems
+(``lowering``: a ``CompositePlan``, whose ``calibrate`` gives the per-sub
+activation scales), degrades to direct convolution where fast algorithms
+do not apply, and dispatches execution to the ``reference`` (plain torch)
+or ``cuda`` (hand-written kernels) backend behind one signature; on
+``cuda`` through the degradation chain of ``resilience``.
+``serving_cache`` holds one (plan, prepared weights) per served spec.
 """
-from repro_torch.api import lowering, tuning
+from repro_torch.api import (costmodel, lowering, resilience, serving_cache,
+                             tuning)
 from repro_torch.api.backends import (get_backend, list_backends,
                                       register_backend)
 from repro_torch.api.lowering import CompositePlan, CompositePrepared
@@ -32,4 +35,5 @@ __all__ = [
     "register_algorithm", "get_algorithm", "list_algorithms",
     "register_backend", "get_backend", "list_backends",
     "tuning", "KernelConfig", "autotune",
+    "costmodel", "resilience", "serving_cache",
 ]

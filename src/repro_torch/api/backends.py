@@ -19,7 +19,13 @@ Two backends, both consuming the same ``PreparedWeights``:
     depthwise the broadcast product), then B3.  Direct plans run the
     reference direct path, as the JAX package's pallas backend runs XLA's
     convolution.  The rank-1 conv has no kernel yet and raises
-    ``NotImplementedError``: nothing falls back to the reference backend.
+    ``NotImplementedError``.  The backend itself never falls back: the
+    degradation chain around it (``repro_torch.api.resilience``, engaged
+    by ``ConvPlan.apply``) does, and counts every fallback.
+
+The fault sites of ``repro_torch.faults`` sit where the JAX package puts
+them: ``APPLY_REFERENCE`` on entry to the reference backend,
+``APPLY_FUSED`` and ``APPLY_STAGED`` around the ``cuda`` int8 datapaths.
 
 On CPU tensors the ``cuda`` backend's kernel wrappers run their plain
 versions, which is how the CPU tests drive this dispatch.
@@ -31,6 +37,7 @@ from typing import Dict
 import torch
 
 import repro_torch.quant.fake_quant as fq
+from repro_torch import faults
 from repro_torch.core import conv2d as c2d
 
 
@@ -67,6 +74,7 @@ class ReferenceBackend:
     name = "reference"
 
     def apply(self, plan, x, prep, *, bias=None, elementwise_hook=None):
+        faults.maybe_fault(faults.APPLY_REFERENCE, detail=plan)
         _check_hook_supported(plan, elementwise_hook, prep)
         if plan.algorithm is None:
             return _direct(plan, x, prep, bias)
@@ -112,6 +120,9 @@ class CudaBackend:
                 "quantization into the plan (spec.quant + calibrated "
                 "prepare_weights) or use backend='reference'")
         if plan.algorithm is None:
+            # the reference backend's direct path, its fault site included,
+            # as the JAX package's pallas backend delegates to its reference
+            faults.maybe_fault(faults.APPLY_REFERENCE, detail=plan)
             return _direct(plan, x, prep, bias)
         if plan.spec.rank == 1:
             raise NotImplementedError(
@@ -129,19 +140,24 @@ class CudaBackend:
         from repro_torch.api import tuning
         cfg = plan.config or tuning.DEFAULT_FUSED
         bits = plan.spec.quant.bits_act
-        if cfg.datapath == "staged" and depthwise:
-            y = ops.quantized_fastconv2d_depthwise(
-                x, prep.wq, prep.act_scale, prep.w_scale, algo,
-                padding=padding, bits=bits)
-        elif cfg.datapath == "staged":
-            y = ops.quantized_fastconv2d(
-                x, prep.wq, prep.act_scale, prep.w_scale, algo,
-                padding=padding, bits=bits, k_block=cfg.k_block)
+        if cfg.datapath == "staged":
+            faults.maybe_fault(faults.APPLY_STAGED, detail=plan)
+            if depthwise:
+                y = ops.quantized_fastconv2d_depthwise(
+                    x, prep.wq, prep.act_scale, prep.w_scale, algo,
+                    padding=padding, bits=bits)
+            else:
+                y = ops.quantized_fastconv2d(
+                    x, prep.wq, prep.act_scale, prep.w_scale, algo,
+                    padding=padding, bits=bits, k_block=cfg.k_block)
+            y = faults.maybe_corrupt(faults.APPLY_STAGED, y, detail=plan)
         else:
+            faults.maybe_fault(faults.APPLY_FUSED, detail=plan)
             y = sfc_fused.sfc_fused_conv2d(
                 x, prep.wq, prep.act_scale, prep.w_scale, algo,
                 padding=padding, bits=bits, k_block=cfg.k_block,
                 cout_block=cfg.cout_block, depthwise=depthwise)
+            y = faults.maybe_corrupt(faults.APPLY_FUSED, y, detail=plan)
         return _add_bias(y, bias)
 
 

@@ -11,10 +11,10 @@ of the deployment story:
     optimizer step) prepares them anew.
   * :meth:`ConvPlan.apply` — the online half: one signature for every
     backend and precision.  ``apply(x, w)`` accepts either raw weights
-    (prepared on the fly) or a :class:`PreparedWeights`.
-
-``apply`` calls the backend directly: there is no degradation chain, so a
-kernel that fails raises instead of being replaced by another datapath.
+    (prepared on the fly) or a :class:`PreparedWeights`.  On the ``cuda``
+    backend it runs through the degradation chain of
+    ``repro_torch.api.resilience`` (fused -> staged, and -> reference
+    only for tensors on the CPU).
 """
 from __future__ import annotations
 
@@ -185,6 +185,8 @@ class ConvPlan:
         copied, so a PreparedWeights stays as it was prepared when the
         caller updates its operands in place.
         """
+        from repro_torch import faults
+        faults.maybe_fault(faults.PREPARE, detail=self)
         operands = (w, act_scale, w_scale)
         key = PrepCache.key_for(operands)
         cached = self._prep.get(key, operands)
@@ -238,10 +240,22 @@ class ConvPlan:
         ``elementwise_hook(tx, tw) -> (tx, tw)`` injects transform-domain
         processing on the reference backend's fp fast path; static-int8
         plans and the ``cuda`` backend do not take hooks.
+
+        ``cuda``-backend applies run through the resilience layer
+        (``repro_torch.api.resilience``): on a kernel failure the datapath
+        degrades fused -> staged (bit-identical), each fallback counted;
+        on the card a staged failure is raised (the reference level
+        follows only for tensors on the CPU), guarded by per-level circuit breakers so a
+        persistently broken config stops being retried.  The chain
+        disengages when an elementwise hook is passed (the hook's backend
+        errors are contract errors, not kernel faults) and under
+        ``resilience.configured(enabled=False)``.
         """
-        from repro_torch.api import backends  # late: avoids import cycle
+        from repro_torch.api import backends, resilience  # late: cycle
         prep = w if isinstance(w, PreparedWeights) else \
             self.prepare_weights(w)
+        if elementwise_hook is None and resilience.engaged(self):
+            return resilience.apply_resilient(self, x, prep, bias=bias)
         return backends.get_backend(self.backend).apply(
             self, x, prep, bias=bias, elementwise_hook=elementwise_hook)
 

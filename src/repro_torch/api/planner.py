@@ -15,13 +15,15 @@ Algorithm resolution happens in one place, for every call site:
     takes precedence: if this (spec, backend) has been autotuned on this
     device, ``algo="auto"`` picks the fastest measured algorithm and the
     plan carries the winning kernel config;
+  * next the calibrated cost model (``repro_torch.api.costmodel``), when
+    fitted for this backend and device: it ranks the candidates by
+    predicted time, and a cold spec's plan carries its predicted-best
+    config;
   * otherwise ``algo="auto"`` ranks the registered candidates with the
     paper's BOPs cost model (``repro_torch.quant.bops``) against the direct
     baseline, at the spec's precision.  Under int8-or-lower quantization
     Winograd candidates are excluded: their transform dynamic range makes
-    low-precision execution inaccurate (paper Fig. 5).  The JAX package's
-    calibrated cost model, a tier between the two, is not ported yet: the
-    port plans as the JAX package does with that model unfitted;
+    low-precision execution inaccurate (paper Fig. 5);
   * on integer-datapath backends the plan-time overflow pre-flight
     (``repro_torch.analysis.ranges``) rejects specs whose int32
     accumulator could wrap.
@@ -80,11 +82,16 @@ def estimate_cost(spec: ConvSpec, algo_name: str) -> float:
 def select_algorithm(spec: ConvSpec, backend: Optional[str] = None) -> str:
     """Cheapest eligible algorithm for the spec (may be 'direct').
 
-    With ``backend`` given, measured wall clock from the tuning cache
-    (keyed per device) decides, but only when the BOPs-best candidate has
-    itself been timed: a partial sweep (an autotune restricted to one
-    algorithm, say) must not hide a never-measured candidate that BOPs
-    ranks first.  Otherwise BOPs (``repro_torch.quant.bops``) decides.
+    With ``backend`` given, selection walks three tiers of evidence:
+
+      1. **measured** wall clock from the tuning cache (keyed per device),
+         but only when the BOPs-best candidate has itself been timed: a
+         partial sweep (an autotune restricted to one algorithm, say)
+         must not hide a never-measured candidate that BOPs ranks first;
+      2. the **calibrated cost model** (``repro_torch.api.costmodel``),
+         when fitted for this backend and device and able to price every
+         eligible candidate (the same partial-knowledge rule);
+      3. raw **BOPs** (``repro_torch.quant.bops``) otherwise.
     """
     if not spec.fast_eligible:
         return registry.DIRECT
@@ -99,13 +106,17 @@ def select_algorithm(spec: ConvSpec, backend: Optional[str] = None) -> str:
         if cost < best_cost:
             best_name, best_cost = entry.name, cost
     if backend is not None:
-        from repro_torch.api import tuning
+        from repro_torch.api import costmodel, tuning
         measured = tuning.lookup(spec, backend)
         eligible = {registry.DIRECT} | {e.name for e in candidates}
         timed = {n: m["time_s"] for n, m in measured.items()
                  if n in eligible}
         if timed and best_name in timed:
             return min(timed, key=timed.get)
+        modeled = costmodel.select_algorithm(spec, sorted(eligible),
+                                             backend)
+        if modeled is not None:
+            return modeled
     return best_name
 
 
@@ -140,10 +151,14 @@ def _plan_cached(spec: ConvSpec, backend: str, algo: str):
         # int8 x int8 products in int32 on this backend
         from repro_torch.analysis import ranges
         ranges.check_spec_accumulator(spec, algorithm, algo_name=name)
-    from repro_torch.api import tuning
-    # a measured winner from the tuning cache, else None (the backend's
+    from repro_torch.api import costmodel, tuning
+    # config precedence mirrors the algorithm tiers: a measured winner
+    # from the tuning cache first, else the cost model's predicted best
+    # for a cold spec (None when the model is unfitted: the backend's
     # default datapath)
     config = tuning.get_config(spec, backend, name)
+    if config is None and algorithm is not None:
+        config = costmodel.best_config(spec, backend, name)
     return ConvPlan(spec=spec, backend=backend, algo_name=name,
                     algorithm=algorithm, cost=estimate_cost(spec, name),
                     config=config)
@@ -159,14 +174,16 @@ def plan(spec: ConvSpec, *, backend: str = "reference",
     ``plan.path`` ('fast' | 'lowered' | 'direct') rather than
     ``plan.algorithm`` to see where execution lands.
     """
+    from repro_torch import faults
+    faults.maybe_fault(faults.PLAN, detail=spec)
     return _plan_cached(spec, backend, algo)
 
 
 def invalidate_plan_cache() -> None:
     """Drop memoized plans.
 
-    The registry and the tuning cache call this when their state changes:
-    memoized plans embed algorithm selections and kernel configs resolved
-    against that state.
+    The registry, the tuning cache and the cost model call this when their
+    state changes: memoized plans embed algorithm selections and kernel
+    configs resolved against that state.
     """
     _plan_cached.cache_clear()

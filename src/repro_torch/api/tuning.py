@@ -21,9 +21,10 @@ package's ``repro.api.tuning`` does:
 
 The device is part of the key (:func:`device_token`: the card's name, or
 ``cpu``), so an entry timed on the CPU's plain versions never governs a
-plan on the card.  The JAX package's calibrated cost model, which prices
-cold specs and lets ``autotune`` time only its top-k candidates, is not
-ported yet: every launchable candidate is measured.
+plan on the card.  With the calibrated cost model
+(``repro_torch.api.costmodel``) fitted for the backend and device,
+``autotune`` measures only the model's ``top_k`` candidates and records
+the model's prediction beside each winner's time (``predicted_s``).
 """
 from __future__ import annotations
 
@@ -239,7 +240,8 @@ def get_config(spec: ConvSpec, backend: str, algo_name: str,
 
 
 def record(spec: ConvSpec, backend: str, algo_name: str, time_s: float,
-           config: Optional[KernelConfig] = None, *, device=None,
+           config: Optional[KernelConfig] = None, *,
+           predicted_s: Optional[float] = None, device=None,
            persist: bool = True) -> None:
     """Store one measurement (``autotune`` calls it; exposed for tests and
     offline calibration).  The last measurement wins: a re-tune must be
@@ -256,6 +258,10 @@ def record(spec: ConvSpec, backend: str, algo_name: str, time_s: float,
         entry[algo_name] = {"time_s": float(time_s)}
         if config is not None:
             entry[algo_name]["config"] = config.to_json()
+        if predicted_s is not None:
+            # cost-model self-validation: the model's prediction for the
+            # measured winner beside the ground truth
+            entry[algo_name]["predicted_s"] = float(predicted_s)
         if persist:
             _write(cache_path(), _snapshot_locked())
     _invalidate_plans()
@@ -370,7 +376,8 @@ def autotune(spec: ConvSpec, backend: str = "cuda", *, device=None,
              algos: Optional[Sequence[str]] = None,
              candidates: Sequence[KernelConfig] = DEFAULT_CANDIDATES,
              include_direct: bool = True, reps: int = 3,
-             persist: bool = True, log=None) -> Dict[str, Dict]:
+             top_k: Optional[int] = 3, persist: bool = True,
+             log=None) -> Dict[str, Dict]:
     """Measure candidate configs for ``spec`` and persist the winners.
 
     Times candidate (algorithm, config) pairs on synthetic operands (one
@@ -387,6 +394,13 @@ def autotune(spec: ConvSpec, backend: str = "cuda", *, device=None,
     each distinct one once.  Algorithms that the plan-time overflow
     pre-flight rejects, and configs that no launch geometry can run
     (``analysis.kernel_checks``), are never timed.
+
+    ``top_k``: when the cost model (``repro_torch.api.costmodel``) is
+    fitted for this backend and device, a native spec's launchable
+    candidates are ranked by predicted time and only the top ``top_k``
+    are measured; the winner's prediction is recorded beside its time
+    (``predicted_s``).  With the model unfitted (or ``top_k=None``) every
+    launchable candidate is measured.
     """
     from repro_torch.analysis import ranges
     from repro_torch.api import planner, registry
@@ -432,6 +446,20 @@ def autotune(spec: ConvSpec, backend: str = "cuda", *, device=None,
             for cfg, errs in rejected:
                 log(f"autotune {name} {_cfg_label(cfg)}: rejected by "
                     f"pre-flight [{errs[0].code}]")
+        predictions: Dict[KernelConfig, float] = {}
+        if top_k is not None and p_name.path == "fast":
+            # fitted cost model: measure only the predicted top-k
+            from repro_torch.api import costmodel
+            ranked = costmodel.rank_candidates(
+                spec, p_name.algorithm, launchable, backend=backend,
+                device=device, batch=x.shape[0])
+            if ranked is not None:
+                predictions = dict(ranked)
+                launchable = [cfg for cfg, _ in ranked[:top_k]]
+                if log and len(ranked) > len(launchable):
+                    log(f"autotune {name}: cost model kept top-"
+                        f"{len(launchable)} of {len(ranked)} launchable "
+                        f"candidates")
         best: Optional[float] = None
         best_cfg: Optional[KernelConfig] = None
         for cfg in launchable:
@@ -443,9 +471,12 @@ def autotune(spec: ConvSpec, backend: str = "cuda", *, device=None,
             if best is None or dt < best:
                 best, best_cfg = dt, cfg
         if best is not None:
-            record(spec, backend, name, best, best_cfg, device=device,
+            record(spec, backend, name, best, best_cfg,
+                   predicted_s=predictions.get(best_cfg), device=device,
                    persist=False)
             results[name] = {"time_s": best, "config": best_cfg.to_json()}
+            if best_cfg in predictions:
+                results[name]["predicted_s"] = predictions[best_cfg]
     if persist:
         _save()
     return results

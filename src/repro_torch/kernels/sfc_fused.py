@@ -48,6 +48,7 @@ import torch
 from repro_torch.core import conv2d as c2d
 from repro_torch.core.generator import BilinearAlgorithm
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.sfc_tdmm import resident_blocks, waves
 
 TILES = 16          # tiles per B4 block: the mma M dimension (kTiles)
 THREADS = 512       # threads per B4 block (kThreads in csrc/sfc_fused.cu)
@@ -192,6 +193,47 @@ class FusedGeometry:
         the check in csrc/sfc_fused.cu)."""
         return 128 + _align128(4 * self.positions * self.cb) \
             + self._reused_bytes
+
+    @property
+    def waves(self) -> int:
+        """Rounds of blocks over the SMS SMs: a B4 block holds an SM (its
+        int32 fragments fill the registers)."""
+        return waves(self.blocks, 1)
+
+    def compute_ops(self) -> dict:
+        """Operations of the launch: the int8 products of every block (a
+        multiply-add is two, padded channels and tiles included), and in
+        f32 each cluster's transform and quantization of its tiles (dense
+        B^T), the dequantization and the inverse (dense A^T)."""
+        t, L, M, P = self.t, self.L, self.M, self.positions
+        tiles = self.grid[1] * self.tiles
+        clusters = self.cout_blocks // self.n_share
+        transform = tiles * clusters * self.cin \
+            * (2 * t * L * L + 2 * t * t * L + 3 * t * t)
+        epilogue = self.n_tiles * self.cout \
+            * (2 * P + 2 * M * t * t + 2 * M * M * t)
+        return {"int8": 2 * P * tiles * self.cin * self._cout_padded,
+                "f32": transform + epilogue}
+
+    @property
+    def _cout_padded(self) -> int:
+        """C_out rounded up to whole channel blocks: the blocks past it
+        (a cluster's blocks with no channels) only share the transform."""
+        return -(-self.cout // self.cb) * self.cb
+
+    def hbm_bytes(self) -> dict:
+        """Bytes the launch moves: each cluster's input patches (f32, L x L
+        a tile, every C_out cluster of a tile group reading them), each
+        block's weights (int8) and weight scales, the output (f32)."""
+        groups = self.grid[1]
+        clusters = self.cout_blocks // self.n_share
+        L, P = self.L, self.positions
+        x = 4 * groups * clusters * self.tiles * L * L * self.cin
+        w = groups * self._cout_padded * P * self.cin
+        scales = 4 * groups * self._cout_padded * self.k_split * P
+        y = 4 * self.n_tiles * self.M * self.M * self.cout
+        return {"x": x, "w": w, "scales": scales, "y": y,
+                "total": x + w + scales + y}
 
     def tiles_of(self, n_rank: int) -> range:
         """The tiles of a group that C_out rank ``n_rank`` transforms."""
@@ -386,6 +428,33 @@ class DepthwiseGeometry:
         return 128 + _align128(4 * self.L * self.region_w * self.cb) \
             + _align128(4 * P * self.cb) + _align128(P * self.cb) \
             + _align128(4 * P * self.tiles * self.cb)
+
+    @property
+    def waves(self) -> int:
+        return waves(self.blocks, resident_blocks(self.threads,
+                                                  self.smem_bytes))
+
+    def compute_ops(self) -> dict:
+        """f32 operations for every (tile, channel): the transform and its
+        quantization (dense B^T), the int32 product and its dequantization
+        on CUDA cores, the inverse (dense A^T)."""
+        t, L, M = self.t, self.L, self.M
+        per = (2 * t * L * L + 2 * t * t * L + 3 * t * t + 2 * t * t
+               + 2 * M * t * t + 2 * M * M * t)
+        return {"int8": 0,
+                "f32": self.tile_rows * self.tile_cols * self.channels * per}
+
+    def hbm_bytes(self) -> dict:
+        """Each block's input region (f32), weights (int8) and weight
+        scales, the output (f32)."""
+        P = self.positions
+        x = 4 * self.blocks * self.L * self.region_w * self.cb
+        w = self.grid[0] * P * self.channels
+        scales = 4 * self.grid[0] * P * self.channels
+        y = 4 * self.tile_rows * self.tile_cols * self.M * self.M \
+            * self.channels
+        return {"x": x, "w": w, "scales": scales, "y": y,
+                "total": x + w + scales + y}
 
     def block_tiles(self, bx: int) -> list:
         """The (tile row, tile column) of each tile block ``bx`` owns."""

@@ -13,10 +13,53 @@ through the tile grid, so the staged and fp paths copy nothing around it.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.core import conv2d as c2d
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.sfc_tdmm import waves
+
+# B3's launch, fixed in csrc/sfc_inverse.cu: kThreads threads a block,
+# kSplits threads a (tile, channel), __launch_bounds__(kThreads, 3)
+INVERSE_THREADS = 128
+INVERSE_SPLITS = 2
+INVERSE_RESIDENT = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class InverseGeometry:
+    """B3's launch for ``n_tiles`` tiles of ``channels`` channels: the
+    grid ``csrc/sfc_inverse.cu`` computes itself, as data for the cost
+    model (B3 takes no geometry from the wrapper)."""
+
+    t: int
+    M: int
+    n_tiles: int
+    channels: int
+
+    @property
+    def blocks(self) -> int:
+        splits = min(INVERSE_SPLITS, self.M)
+        return -(-self.n_tiles * splits * self.channels // INVERSE_THREADS)
+
+    @property
+    def waves(self) -> int:
+        return waves(self.blocks, INVERSE_RESIDENT)
+
+    def compute_ops(self) -> dict:
+        """f32 operations of A^T Y A for every (tile, channel), dense A^T
+        (a multiply-add is two)."""
+        t, M = self.t, self.M
+        return {"int8": 0, "f32": self.n_tiles * self.channels
+                * (2 * M * t * t + 2 * M * M * t)}
+
+    def hbm_bytes(self) -> dict:
+        """Y (f32) read once, the M x M outputs a tile (f32) written."""
+        y = 4 * self.t * self.t * self.n_tiles * self.channels
+        out = 4 * self.M * self.M * self.n_tiles * self.channels
+        return {"y": y, "out": out, "total": y + out}
 
 
 def _launch(name, y, at, out, n_tiles, O, t, M, tile_stride, pos_stride,

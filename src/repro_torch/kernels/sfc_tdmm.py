@@ -50,6 +50,25 @@ TDMM_TILE_RUN = 2
 TDMM_RUN_FROM = 8
 
 
+def resident_blocks(threads: int, smem_bytes: int = 0,
+                    registers: int = 0) -> int:
+    """Blocks of ``threads`` threads, ``smem_bytes`` of dynamic shared
+    memory and ``registers`` registers a thread that one SM holds at once
+    (1 KB of shared memory reserved a block, at most 32 blocks)."""
+    n = min(THREADS_PER_SM // threads, SMEM_PER_SM // (smem_bytes + 1024),
+            32)
+    if registers:
+        n = min(n, REGISTERS_PER_SM // (threads * registers))
+    return n
+
+
+def waves(blocks: int, resident: int) -> int:
+    """Waves of ``blocks`` over the H100's SMS SMs, ``resident`` a SM (at
+    least one): the cost model's count of a launch's sequential block
+    rounds."""
+    return -(-blocks // (SMS * max(1, resident)))
+
+
 @dataclasses.dataclass(frozen=True)
 class TdmmGeometry:
     """B2's launch geometry for one layer: computed here once and passed
@@ -122,9 +141,28 @@ class TdmmGeometry:
     def resident(self) -> int:
         """Blocks an SM holds at once: by threads, by the declared
         register budget and by shared memory (1 KB a block reserved)."""
-        return min(THREADS_PER_SM // self.threads,
-                   REGISTERS_PER_SM // (self.threads * TDMM_REGISTERS),
-                   SMEM_PER_SM // (self.smem_bytes + 1024), 32)
+        return resident_blocks(self.threads, self.smem_bytes, TDMM_REGISTERS)
+
+    @property
+    def waves(self) -> int:
+        return waves(self.blocks, self.resident)
+
+    def compute_ops(self) -> dict:
+        """Operations of the launch: the int8 products (a multiply-add is
+        two) and the f32 dequantization (two a value)."""
+        return {"int8": 2 * self.P * self.T * self.K * self.N,
+                "f32": 2 * self.P * self.T * self.N}
+
+    def hbm_bytes(self) -> dict:
+        """Bytes the launch reads and writes: X once per column tile, W
+        once per run of row tiles, the scales, Y (f32)."""
+        gx, gy, _ = self.grid
+        x = gx * self.P * self.T * self.K
+        w = gy * self.P * self.K * self.N
+        scales = 4 * self.P * (self.N + 1)
+        y = 4 * self.P * self.T * self.N
+        return {"x": x, "w": w, "scales": scales, "y": y,
+                "total": x + w + scales + y}
 
     def block_tile(self, bx: int, by: int, bz: int) -> tuple:
         """(p, rows, columns) of Y that block (bx, by, bz) writes."""
@@ -286,6 +324,24 @@ class DwProductGeometry:
     def blocks(self) -> int:
         x, y, z = self.grid
         return x * y * z
+
+    @property
+    def waves(self) -> int:
+        return waves(self.blocks, resident_blocks(self.threads))
+
+    def compute_ops(self) -> dict:
+        """The int32 products and their dequantization, on CUDA cores
+        (counted as f32 operations, two a value)."""
+        return {"int8": 0, "f32": 2 * self.P * self.T * self.C}
+
+    def hbm_bytes(self) -> dict:
+        """X (int8) and W (int8) read, the scales, Y (f32) written."""
+        x = self.P * self.T * self.C
+        w = self.P * self.C
+        scales = 4 * self.P * (self.C + 1)
+        y = 4 * self.P * self.T * self.C
+        return {"x": x, "w": w, "scales": scales, "y": y,
+                "total": x + w + scales + y}
 
     def thread_items(self, bx: int, by: int, bz: int, x: int,
                      y: int) -> tuple:

@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.core import conv2d as c2d
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.sfc_tdmm import resident_blocks, waves
 
 SMS = 132           # the H100's SMs: a wave of blocks
 # shared memory one block may use on an H100, less the kernel's static
@@ -111,6 +112,29 @@ class TransformGeometry:
         128 to align it (the formula of the check in
         csrc/sfc_transform.cu)."""
         return 128 + _align128(4 * self.L * self.region_w * self.cb)
+
+    @property
+    def waves(self) -> int:
+        return waves(self.blocks, resident_blocks(self.threads,
+                                                  self.smem_bytes))
+
+    def compute_ops(self, quantize: bool = True) -> dict:
+        """f32 operations of B^T X B for every (tile, channel) (dense B^T;
+        a multiply-add is two) and, for B1, the quantizer's divide, round
+        and clip a value."""
+        t, L = self.t, self.L
+        per = 2 * t * L * L + 2 * t * t * L + (3 * t * t if quantize else 0)
+        return {"int8": 0,
+                "f32": self.tile_rows * self.tile_cols * self.channels * per}
+
+    def hbm_bytes(self, quantize: bool = True) -> dict:
+        """Bytes the launch moves: each block's input region (f32, halos
+        read again by the next run) and the transform written, int8 for B1
+        or f32 for B5."""
+        x = 4 * self.blocks * self.L * self.region_w * self.cb
+        out = (1 if quantize else 4) * self.t * self.t \
+            * self.tile_rows * self.tile_cols * self.channels
+        return {"x": x, "out": out, "total": x + out}
 
     def rows_of(self, g: int) -> range:
         """The transform rows thread ``g`` of a (tile, channel) takes."""

@@ -13,6 +13,11 @@ The JAX package holds its Pallas datapaths to bit identity; across
 implementations (and across the summation orders of different devices)
 the port's contract is int32 exactness given the same int8 operands and
 fp32 outputs within ``DEFAULT_TOL``.
+
+Every configuration runs on its backend directly, never through the
+degradation chain of ``repro_torch.api.resilience``: a chain would serve a
+failed fused launch from the staged datapath and compare staged with
+staged.
 """
 from __future__ import annotations
 
@@ -32,6 +37,12 @@ def calibrated_prep(x, w, spec, algo_name: str):
     act = tuning.calibrate_act_scale(x, p_cuda.algorithm, spec.quant,
                                      spec.padding)
     return p_ref, p_cuda, p_cuda.prepare_weights(w, act_scale=act)
+
+
+def _run(p, x, prep):
+    """``p`` on its backend, outside the degradation chain."""
+    from repro_torch.api import backends
+    return backends.get_backend(p.backend).apply(p, x, prep)
 
 
 def _close(got, want, rtol, atol, what):
@@ -58,11 +69,11 @@ def assert_conv_conformance(x, w, spec, algo_name: str = "auto", *,
     if prep is None:
         prep = p_cuda.prepare_weights(w)
         y_ref = p_ref.apply(x, prep)
-        _close(p_cuda.apply(x, prep), y_ref, rtol, atol, "cuda vs reference")
+        _close(_run(p_cuda, x, prep), y_ref, rtol, atol, "cuda vs reference")
         return y_ref
     y_ref = p_ref.apply(x, prep)
-    y_staged = p_cuda.with_config(tuning.DEFAULT_STAGED).apply(x, prep)
+    y_staged = _run(p_cuda.with_config(tuning.DEFAULT_STAGED), x, prep)
     _close(y_staged, y_ref, rtol, atol, "staged vs reference int8 simulation")
-    y_fused = p_cuda.with_config(tuning.DEFAULT_FUSED).apply(x, prep)
+    y_fused = _run(p_cuda.with_config(tuning.DEFAULT_FUSED), x, prep)
     _close(y_fused, y_staged, rtol, atol, "fused vs staged")
     return y_ref
