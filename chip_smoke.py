@@ -86,7 +86,31 @@ csrc`` at first use.  Phases, each of which raises on failure:
      and the cost model fitted on the card (fit error, its top-1 beside
      the measured winner and the card's fastest datapath per VGG-16 and
      ResNet-18 spec; a cold bucket warmed from it); any resilience event
-     it did not arm fails the run.
+     it did not arm fails the run;
+  8. the paper's CNNs (``repro_torch.models.cnn``), the chain off again:
+     a. VGG-16 and ResNet-18 at 224x224, published widths and 1000
+        classes, weights from a seeded ``torch.Generator`` on the card, a
+        batch of 2 images, each with ``conv_algo`` "direct", "sfc6_6" and
+        "sfc6_6" with ``quant="int8"`` (dynamic fake quant through the
+        hook) on the reference backend, which launches no kernel of the
+        port: fp32 sfc6_6 against direct within rtol = atol = 1e-3, int8
+        logits against fp32 within rel L2 0.15, ResNet-18 lowered against
+        ``lowering.disabled()`` within 1e-3, the wall ms of each forward
+        and the card's busy ms and launches from a ``torch.profiler``
+        trace; ``CIFAR_RESNET18`` on the card against CPU copies within
+        1e-4 rel L2;
+     b. PTQ deployment: every native 3x3/1 conv of both networks, its
+        input the fp32 activation of the model's own forward (recorded at
+        the module's ``conv_apply``), calibrated by a
+        ``PTQLayer(INT8_FREQ)`` on 4 images through the reference backend
+        and deployed by ``PTQLayer.prepare`` on a ``cuda`` plan on 2 others:
+        B4 once (fused), B1, B2, B3 once each (staged), bit for bit equal,
+        within the int8 bounds of the reference deployment and of the
+        ``quantized_hook()`` simulation; its rel L2 against the fp32 direct
+        conv printed; the lowered transitions refused by ``prepare``;
+     c. ``iterative_conv1d`` on the card for the three pairs of
+        ``benchmarks/appendixB_iterative.py``, within 1e-3 of the direct
+        correlation.
 
 ``--sweep-b4``, ``--sweep-b7``, ``--sweep-b1`` and ``--sweep-b2`` time
 B4's, B7's, B1's and B5's, and B2's and B6's geometries per layer instead
@@ -121,11 +145,13 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# VGG-16 conv layers (HxW, C_in, C_out) at 224x224: stages (2,2,3,3,3),
-# widths (64,128,256,512,512), as benchmarks/table3_throughput.py lists them
-VGG_STAGES = (2, 2, 3, 3, 3)
-VGG_WIDTHS = (64, 128, 256, 512, 512)
-IMAGE = 224
+from repro_torch.configs.resnet18 import RESNET18, VGG16  # noqa: E402
+
+# VGG-16's conv stack at 224x224 (VGG16 of repro_torch.configs): convs per
+# stage and widths, (2, 2, 3, 3, 3) and (64, 128, 256, 512, 512)
+VGG_STAGES = VGG16.stages
+VGG_WIDTHS = VGG16.widths
+IMAGE = VGG16.image_size
 REQUEST_BATCHES = (1, 1, 1, 4)
 FP_REQUEST_BATCHES = (1, 4)
 ALGO = "sfc6_6"
@@ -155,10 +181,10 @@ LOWERED_DW = (("mbv2_b2.1", 112, 96), ("mbv2_b3.1", 56, 144),
 LOWERED_GROUPED = (("g4_56", 56, 128, 128, 4),)
 LOWERED_BATCHES = (1, 4)
 DW_LOWERED_ALGO = "sfc4_4_r2"
-# ResNet-18 (He et al. 2016, arXiv:1512.03385, Table 1; RESNET18 in
-# src/repro/configs/resnet18.py): blocks per stage and widths
-RESNET_STAGES = (2, 2, 2, 2)
-RESNET_WIDTHS = (64, 128, 256, 512)
+# ResNet-18 (He et al. 2016, arXiv:1512.03385, Table 1; RESNET18 of
+# repro_torch.configs): blocks per stage and widths
+RESNET_STAGES = RESNET18.stages
+RESNET_WIDTHS = RESNET18.widths
 RESNET_BATCHES = (1, 4)
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM, int8 tensor cores, and
 # float32 outside the tensor cores
@@ -267,6 +293,22 @@ SERVE_WINDOW_RATES = (500.0, 1000.0, 2000.0)
 SERVE_WINDOW_REQUESTS = 3000
 SERVE_POOL = 4
 SERVE_WINDOW_CHECKED = 64
+# phase 8, the paper's CNNs (repro_torch.models.cnn): VGG16 and RESNET18 at
+# IMAGE and the widths above (1000 classes), weights from a torch.Generator
+# seeded CNN_SEED on the card, CNN_BATCH N(0, 1) images; PTQ calibration on
+# PTQ_CALIB_IMAGES images, deployment on PTQ_HELD_IMAGES others; the int8
+# logits against fp32 within CNN_INT8_REL (rel L2, the JAX package's bound)
+CNN_SEED = 1900
+CNN_BATCH = 2
+CNN_INT8_REL = 0.15
+PTQ_CALIB_IMAGES = 4
+PTQ_HELD_IMAGES = 2
+CIFAR_REL = 1e-4               # CIFAR_RESNET18, card against CPU, rel L2
+# benchmarks/appendixB_iterative.py's (kernel, inner (N, M, R), outer), and
+# its bound on |y - direct correlation|
+ITERATIVE_PAIRS = ((30, (6, 5, 5), (6, 6, 6)), (9, (4, 3, 3), (6, 7, 3)),
+                   (24, (6, 4, 4), (6, 6, 6)))
+ITERATIVE_BOUND = 1e-3
 REPLACES = {
     "sfc_transform_quantize": ("src/repro_torch/csrc/sfc_transform.cu",
                                "src/repro/kernels/sfc_transform.py:36"),
@@ -345,14 +387,10 @@ def resnet_forward(x, conv):
     a 3x3/2 SAME max-pool, basic blocks with ReLU and residual adds;
     ``conv(name, h)`` runs one conv."""
     import torch
-    import torch.nn.functional as F
+
+    from repro_torch.models.cnn import max_pool_same
     h = torch.relu(conv("stem", x))
-    # 3x3/2 SAME max-pool (XLA's padding: the odd pixel after the image)
-    pad = max((-(-h.shape[1] // 2) - 1) * 2 + 3 - h.shape[1], 0)
-    h = F.max_pool2d(F.pad(h.permute(0, 3, 1, 2),
-                           (pad // 2, pad - pad // 2, pad // 2,
-                            pad - pad // 2), value=float("-inf")),
-                     3, 2).permute(0, 2, 3, 1).contiguous()
+    h = max_pool_same(h, 3, 2)
     for si, n in enumerate(RESNET_STAGES):
         for bi in range(n):
             name = f"s{si}b{bi}"
@@ -365,6 +403,344 @@ def resnet_forward(x, conv):
 
 def log(*args):
     print(*args, flush=True)
+
+
+@contextlib.contextmanager
+def conv_inputs(params):
+    """Record ``(name, x, w, b, stride)`` of every conv a forward of
+    ``repro_torch.models.cnn`` runs through its ``conv_apply``, named by
+    the weight's place in ``params`` (``s0c1``, ``s1b0.conv1``, ...)."""
+    from repro_torch.models import cnn
+
+    def names(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from names(v, prefix + k + ".")
+            elif k == "w":
+                yield id(v), prefix[:-1]
+
+    by_id, seen, conv_apply = dict(names(params)), [], cnn.conv_apply
+
+    def recording(x, w, b, cfg, stride=1, qhook=None):
+        seen.append((by_id[id(w)], x, w, b, stride))
+        return conv_apply(x, w, b, cfg, stride=stride, qhook=qhook)
+
+    cnn.conv_apply = recording
+    try:
+        yield seen
+    finally:
+        cnn.conv_apply = conv_apply
+
+
+def profile_forward(fn):
+    """One ``fn`` call under ``torch.profiler``: the card's kernels by name
+    and count, its busy time (the kernels' summed durations), the device
+    span and the wall time; ``not_measured`` where the profiler does not
+    trace the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        spans = [(e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as e:     # the profiler may not trace this card
+        return {"not_measured": f"{type(e).__name__}: {e}"[:200]}
+    if not spans:
+        return {"not_measured": "the trace holds no device events"}
+    by_name = {}
+    for start, end, kname in spans:
+        n, us = by_name.get(kname, (0, 0.0))
+        by_name[kname] = (n + 1, us + end - start)
+    busy = sum(end - start for start, end, _ in spans)
+    span = max(e for _, e, _ in spans) - min(s for s, _, _ in spans)
+    return {"kernels": {k: {"count": n, "us": us}
+                        for k, (n, us) in sorted(by_name.items())},
+            "busy_us": busy, "device_span_us": span, "wall_us": wall_us,
+            "busy_share_of_span": busy / span if span else None,
+            "busy_share_of_wall": busy / wall_us}
+
+
+def tree_to(tree, device):
+    """A nested parameter dict with every tensor copied to ``device``."""
+    return {k: tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def rel_l2(y, ref) -> float:
+    return ((y - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+
+
+def paper_cnns(dev, counted, held) -> dict:
+    """Phase 8: the paper's CNNs through ``repro_torch.models.cnn`` on the
+    card (8a), their native 3x3/1 convs PTQ-calibrated and deployed through
+    B4 and B1 -> B2 -> B3 (8b), iterative SFC (8c).  Raises on any miss;
+    returns the phase's report."""
+    import torch
+
+    from repro_torch.api import ConvSpec, lowering, plan, tuning
+    from repro_torch.configs import CIFAR_RESNET18
+    from repro_torch.core import iterative
+    from repro_torch.core.generator import generate_sfc
+    from repro_torch.models import cnn
+    from repro_torch.quant import INT8_FREQ, PTQLayer
+
+    out = {"forwards": [], "cifar": [], "ptq": [], "iterative": []}
+    nets = {
+        "vgg16": (dataclasses.replace(VGG16, widths=VGG_WIDTHS,
+                                      image_size=IMAGE),
+                  cnn.init_vgg, cnn.vgg_forward),
+        "resnet18": (dataclasses.replace(RESNET18, widths=RESNET_WIDTHS,
+                                         image_size=IMAGE),
+                     cnn.init_resnet, cnn.resnet_forward)}
+    modes = {"direct": {"conv_algo": "direct"},
+             "sfc6_6": {"conv_algo": ALGO},
+             "sfc6_6 int8": {"conv_algo": ALGO, "quant": "int8"}}
+
+    def images(seed, n, size=IMAGE):
+        return torch.tensor(np.random.RandomState(seed).randn(
+            n, size, size, 3), dtype=torch.float32, device=dev)
+
+    def reference_only(what, fn):
+        """One no-grad forward that must launch no kernel of the port."""
+        with torch.no_grad():
+            return counted("cnn_reference", what, fn, want=only())
+
+    def timings(fn):
+        """Median wall ms of SERVE_REPEATS synchronised calls, and the card's
+        busy ms and kernel launches of one call from torch.profiler's
+        trace.  A reference forward launches hundreds of kernels, so calls
+        queued behind a spin (``timed``) would overrun the card's launch
+        queue and time the host's gaps."""
+        def call():
+            with torch.no_grad():
+                fn()
+        walls = []
+        for _ in range(SERVE_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        prof = profile_forward(call)
+        if "not_measured" in prof:
+            return {"wall_ms": statistics.median(walls),
+                    "card_busy_ms": "not measured: " + prof["not_measured"]}
+        return {"wall_ms": statistics.median(walls),
+                "card_busy_ms": prof["busy_us"] / 1e3,
+                "device_span_ms": prof["device_span_us"] / 1e3,
+                "kernels": sum(v["count"] for v in prof["kernels"].values())}
+
+    # -- 8a. the models at full width, reference backend --------------------
+    x = images(CNN_SEED, CNN_BATCH)
+    params = {}
+    for net, (cfg0, init, fwd) in nets.items():
+        params[net] = init(torch.Generator(device=dev).manual_seed(CNN_SEED),
+                           cfg0, device=dev)
+        logits = {}
+        for mode, kw in modes.items():
+            cfg = dataclasses.replace(cfg0, **kw)
+            y = reference_only(f"{net} {mode}",
+                               lambda: fwd(params[net], cfg, x))
+            if y.shape != (CNN_BATCH, cfg.n_classes) \
+                    or not torch.isfinite(y).all():
+                raise AssertionError(f"cnn: {net} {mode}: logits "
+                                     f"{tuple(y.shape)} not finite "
+                                     f"({CNN_BATCH}, {cfg.n_classes})")
+            t = timings(lambda: fwd(params[net], cfg, x))
+            logits[mode] = y
+            out["forwards"].append({"net": net, "mode": mode, **t})
+            card = (f"card busy {t['card_busy_ms']:.3f} ms of a "
+                    f"{t['device_span_ms']:.3f} ms device span, "
+                    f"{t['kernels']} kernels (one traced call)"
+                    if "kernels" in t else f"card busy {t['card_busy_ms']}")
+            log(f"cnn: {net} {mode} batch {CNN_BATCH} at {IMAGE}x{IMAGE}, "
+                f"reference backend, no kernel of the port launched: "
+                f"{t['wall_ms']:.3f} ms wall (median of {SERVE_REPEATS}); "
+                f"{card}")
+        fp_rel = rel_l2(logits["sfc6_6"], logits["direct"])
+        if not torch.allclose(logits["sfc6_6"], logits["direct"], rtol=1e-3,
+                              atol=1e-3):
+            raise AssertionError(f"cnn: {net} fp32 sfc6_6 against direct: "
+                                 f"rel L2 {fp_rel}, outside rtol = atol = "
+                                 f"1e-3")
+        q_rel = rel_l2(logits["sfc6_6 int8"], logits["sfc6_6"])
+        if not q_rel < CNN_INT8_REL:
+            raise AssertionError(f"cnn: {net} int8 logits against fp32: rel "
+                                 f"L2 {q_rel} (bound {CNN_INT8_REL})")
+        row = {"net": net, "fp32_sfc_vs_direct_rel_l2": fp_rel,
+               "int8_vs_fp32_rel_l2": q_rel}
+        log(f"cnn: {net}: fp32 sfc6_6 against direct rel L2 {fp_rel:.3e} "
+            f"(held to rtol = atol = 1e-3); dynamic int8 sfc6_6 against "
+            f"fp32 rel L2 {q_rel:.4e} (bound {CNN_INT8_REL})")
+        if net == "resnet18":
+            cfg = dataclasses.replace(cfg0, conv_algo=ALGO)
+            with lowering.disabled():
+                y_pre = reference_only("resnet18 lowering disabled",
+                                       lambda: fwd(params[net], cfg, x))
+            low_rel = rel_l2(logits["sfc6_6"], y_pre)
+            if not torch.allclose(logits["sfc6_6"], y_pre, rtol=1e-3,
+                                  atol=1e-3):
+                raise AssertionError(f"cnn: resnet18 lowered against "
+                                     f"lowering disabled: rel L2 {low_rel}")
+            row["lowered_vs_disabled_rel_l2"] = low_rel
+            log(f"cnn: resnet18 fp32 sfc6_6, lowered against lowering "
+                f"disabled: rel L2 {low_rel:.3e} (held to 1e-3)")
+        out.setdefault("accuracy", []).append(row)
+    # CIFAR_RESNET18 on the card and on CPU copies of its inputs
+    cx = images(CNN_SEED + 1, CNN_BATCH, CIFAR_RESNET18.image_size)
+    cp = cnn.init_resnet(torch.Generator(device=dev).manual_seed(CNN_SEED),
+                         CIFAR_RESNET18, device=dev)
+    cp_cpu, cx_cpu = tree_to(cp, "cpu"), cx.cpu()
+    for algo in ("direct", ALGO):
+        cfg = dataclasses.replace(CIFAR_RESNET18, conv_algo=algo)
+        y = reference_only(f"cifar {algo}",
+                           lambda: cnn.resnet_forward(cp, cfg, cx))
+        with torch.no_grad():
+            y_cpu = cnn.resnet_forward(cp_cpu, cfg, cx_cpu)
+        r = rel_l2(y.cpu(), y_cpu)
+        if not r <= CIFAR_REL:
+            raise AssertionError(f"cnn: CIFAR_RESNET18 {algo}: card against "
+                                 f"CPU rel L2 {r} (bound {CIFAR_REL})")
+        out["cifar"].append({"algo": algo, "card_vs_cpu_rel_l2": r})
+        log(f"cnn: CIFAR_RESNET18 {algo}: card against CPU rel L2 {r:.3e} "
+            f"(bound {CIFAR_REL})")
+
+    # -- 8b. PTQ deployment through the kernels -----------------------------
+    calib = images(CNN_SEED + 2, PTQ_CALIB_IMAGES)
+    held_x = images(CNN_SEED + 3, PTQ_HELD_IMAGES)
+    fused_want = only(sfc_fused_conv2d=1)
+    staged_want = only(sfc_transform_quantize=1, tdmm_int8=1, sfc_inverse=1)
+    lowered_checked = []
+    for net, (cfg0, _, fwd) in nets.items():
+        # each conv's input: the fp32 activation of the model's own
+        # forward, on the calibration and on the held-out images
+        cfg = dataclasses.replace(cfg0, conv_algo="direct")
+        with torch.no_grad(), conv_inputs(params[net]) as seen:
+            fwd(params[net], cfg, calib)
+            fwd(params[net], cfg, held_x)
+        half = len(seen) // 2
+        for (name, xc, w, b, stride), (_, xh, _, _, _) in zip(seen[:half],
+                                                             seen[half:]):
+            if w.shape[0] != 3:
+                continue               # the 7x7 stem, the 1x1 projections
+            if stride != 1:
+                # planned as the model's forward plans it (the reference
+                # backend, whose lowering no card timing steers)
+                spec_q = ConvSpec.for_conv2d(tuple(xh.shape), tuple(w.shape),
+                                             stride=stride, quant=INT8_FREQ)
+                p = plan(spec_q, backend="reference", algo=ALGO)
+                if p.path != "lowered":
+                    raise AssertionError(f"ptq: {net} {name} planned "
+                                         f"{p.path}, not lowered")
+                try:
+                    PTQLayer(INT8_FREQ).prepare(p, w)
+                except NotImplementedError:
+                    lowered_checked.append(f"{net} {name}")
+                    continue
+                raise AssertionError(f"ptq: PTQLayer.prepare took the "
+                                     f"lowered {net} {name}")
+            layer = PTQLayer(INT8_FREQ)
+            fp_spec = ConvSpec.for_conv2d(tuple(xc.shape), tuple(w.shape))
+            with torch.no_grad():
+                plan(fp_spec, backend="reference", algo=ALGO).apply(
+                    xc, w, bias=b, elementwise_hook=layer.calibration_hook())
+            spec_q = ConvSpec.for_conv2d(tuple(xh.shape), tuple(w.shape),
+                                         quant=INT8_FREQ)
+            p = plan(spec_q, backend="cuda", algo=ALGO)
+            if p.path != "fast" or p.algo_name != ALGO:
+                raise AssertionError(f"ptq: {net} {name} planned {p.path} "
+                                     f"{p.algo_name}")
+            prep = layer.prepare(p, w)
+            fused, staged = (p.with_config(tuning.DEFAULT_FUSED),
+                             p.with_config(tuning.DEFAULT_STAGED))
+            y = counted("ptq_fused", f"{net} {name}",
+                        lambda: fused.apply(xh, prep, bias=b),
+                        want=fused_want)
+            y_staged = counted("ptq_staged", f"{net} {name}",
+                               lambda: staged.apply(xh, prep, bias=b),
+                               want=staged_want)
+            if not torch.equal(y, y_staged):
+                raise AssertionError(f"ptq: {net} {name}: the fused and the "
+                                     f"staged deployment differ")
+            with torch.no_grad():
+                p_ref = plan(spec_q, backend="reference", algo=ALGO)
+                y_ref = p_ref.apply(xh, layer.prepare(p_ref, w), bias=b)
+                y_sim = plan(ConvSpec.for_conv2d(tuple(xh.shape),
+                                                 tuple(w.shape)),
+                             backend="reference", algo=ALGO).apply(
+                    xh, w, bias=b, elementwise_hook=layer.quantized_hook())
+                y_fp = plan(ConvSpec.for_conv2d(tuple(xh.shape),
+                                                tuple(w.shape)),
+                            backend="reference", algo="direct").apply(
+                    xh, w, bias=b)
+            ref_rel, ref_scaled = held(f"ptq {net} {name} against the "
+                                       f"reference deployment", y, y_ref,
+                                       "int8")
+            sim_rel, sim_scaled = held(f"ptq {net} {name} against the "
+                                       f"quantized_hook simulation", y,
+                                       y_sim, "int8")
+            fp_rel = rel_l2(y, y_fp)
+            out["ptq"].append({
+                "net": net, "layer": name, "hw": xh.shape[1],
+                "cin": w.shape[2], "cout": w.shape[3],
+                "vs_reference_rel_l2": ref_rel,
+                "vs_reference_scaled_max": ref_scaled,
+                "vs_simulation_rel_l2": sim_rel,
+                "vs_simulation_scaled_max": sim_scaled,
+                "vs_fp32_direct_rel_l2": fp_rel})
+            log(f"ptq: {net} {name} {xh.shape[1]}x{xh.shape[2]} "
+                f"{w.shape[2]}->{w.shape[3]}: int8 deployment (B4 = B1 -> "
+                f"B2 -> B3 bit for bit) against fp32 direct rel L2 "
+                f"{fp_rel:.4e}; against the reference deployment "
+                f"{ref_rel:.2e}, the quantized_hook simulation {sim_rel:.2e}")
+    if not lowered_checked:
+        raise AssertionError("ptq: no lowered conv was offered to PTQLayer")
+    log(f"ptq: PTQLayer.prepare raised NotImplementedError on the lowered "
+        f"{', '.join(lowered_checked)}")
+    for net in nets:
+        rows = [r for r in out["ptq"] if r["net"] == net]
+        log(f"ptq: {net}: {len(rows)} native 3x3/1 convs calibrated on "
+            f"{PTQ_CALIB_IMAGES} images and deployed on {PTQ_HELD_IMAGES}; "
+            f"int8 against fp32 direct rel L2 "
+            f"{min(r['vs_fp32_direct_rel_l2'] for r in rows):.4e} to "
+            f"{max(r['vs_fp32_direct_rel_l2'] for r in rows):.4e}")
+    out["lowered_rejected"] = lowered_checked
+
+    # -- 8c. iterative SFC (Appendix B) on the card -------------------------
+    for ksize, inner_nmr, outer_nmr in ITERATIVE_PAIRS:
+        inner, outer = generate_sfc(*inner_nmr), generate_sfc(*outer_nmr)
+        rng = np.random.RandomState(0)
+        Rw, Mt = inner.R * outer.R, inner.M * outer.M
+        xs = rng.randn(Mt + Rw - 1).astype(np.float32)
+        ws = rng.randn(Rw).astype(np.float32)
+        y = iterative.iterative_conv1d(torch.tensor(xs, device=dev),
+                                       torch.tensor(ws, device=dev),
+                                       inner, outer)
+        if y.device != dev or y.shape != (Mt,):
+            raise AssertionError(f"iterative: {ksize}: {y.shape} on "
+                                 f"{y.device}")
+        ref = np.array([(xs[m:m + Rw].astype(np.float64) * ws).sum()
+                        for m in range(Mt)])
+        err = float(np.abs(y.cpu().numpy() - ref).max())
+        if not err < ITERATIVE_BOUND:
+            raise AssertionError(f"iterative: kernel {ksize}: max |y - "
+                                 f"direct| {err} (bound {ITERATIVE_BOUND})")
+        report = iterative.large_kernel_report(ksize, inner, outer)
+        out["iterative"].append({**report, "max_abs_err": err})
+        log(f"iterative: kernel {ksize} ({inner.name} in {outer.name}) on "
+            f"the card: max |y - direct| {err:.2e} (bound "
+            f"{ITERATIVE_BOUND}); {report['nested_mults']} mults for "
+            f"{report['outputs_2d']} outputs, {report['ratio_pct']:.2f}% of "
+            f"direct")
+    return out
 
 
 def tf32_flags() -> dict:
@@ -748,6 +1124,7 @@ def main() -> None:
                                  resilience, tuning)
     from repro_torch.core import conv2d as c2d
     from repro_torch.kernels import _build, ops, ref, sfc_fused, sfc_tdmm
+    from repro_torch.models.cnn import max_pool_same
     from repro_torch.quant import FP32, INT4_FREQ, INT8_FREQ
     from repro_torch.testing import DEFAULT_TOL
 
@@ -1440,8 +1817,7 @@ def main() -> None:
         for li, (p, prep, bias) in enumerate(state):
             h = torch.relu(p.apply(h, prep, bias=bias))
             if li in stage_ends:
-                h = F.max_pool2d(h.permute(0, 3, 1, 2), 2).permute(
-                    0, 2, 3, 1).contiguous()
+                h = max_pool_same(h, 2, 2)
         return h
 
     def check_pass(ri, images, dp):
@@ -1476,8 +1852,7 @@ def main() -> None:
             state.append((p, prep, biases[lname]))
             h = torch.relu(y)
             if li in stage_ends:
-                h = F.max_pool2d(h.permute(0, 3, 1, 2), 2).permute(
-                    0, 2, 3, 1).contiguous()
+                h = max_pool_same(h, 2, 2)
         return h, state
 
     vgg_runs = [(ri, images, dp) for ri, images in enumerate(requests)
@@ -2324,36 +2699,6 @@ def main() -> None:
     # torch.profiler: the card's kernels by name (whether anything runs
     # between the port's kernels and the product, a copy of an operand
     # say) and the card's busy share of the forward
-    def profile_forward(fn):
-        from torch.profiler import ProfilerActivity, profile
-        fn()
-        torch.cuda.synchronize()
-        try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t0) * 1e6
-            spans = [(e.time_range.start, e.time_range.end, e.name)
-                     for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
-        except Exception as e:     # the profiler may not trace this card
-            return {"not_measured": f"{type(e).__name__}: {e}"[:200]}
-        if not spans:
-            return {"not_measured": "the trace holds no device events"}
-        by_name = {}
-        for start, end, kname in spans:
-            n, us = by_name.get(kname, (0, 0.0))
-            by_name[kname] = (n + 1, us + end - start)
-        busy = sum(end - start for start, end, _ in spans)
-        span = max(e for _, e, _ in spans) - min(s for s, _, _ in spans)
-        return {"kernels": {k: {"count": n, "us": us}
-                            for k, (n, us) in sorted(by_name.items())},
-                "busy_us": busy, "device_span_us": span, "wall_us": wall_us,
-                "busy_share_of_span": busy / span if span else None,
-                "busy_share_of_wall": busy / wall_us}
-
     profiles = {}
     for dp in ("fp", "staged"):
         images, state = served[(0, dp)]
@@ -2918,6 +3263,27 @@ def main() -> None:
         "pass3_dispatches": disp3, "launches": serve_launches,
         "seconds": serve_seconds})
     report["phases"]["serving"] = serve_report
+
+    # ---- 8. the paper's CNNs ----------------------------------------------
+    # with the chain off, as in phases 3-6: a kernel that fails raises
+    resilience.configure(dataclasses.replace(chain_policy, enabled=False))
+    t_cnn = time.perf_counter()
+    cnn_report = paper_cnns(dev, counted, held)
+    if resilience.stats():
+        raise AssertionError(f"resilience events in phase 8: "
+                             f"{resilience.stats()}")
+    resilience.configure(chain_policy)
+    for path in ("ptq_fused", "ptq_staged"):
+        if any(path_launches[path][k] <= 0 for k in path_kernels[path]):
+            raise AssertionError(f"a kernel of {path} never launched: "
+                                 f"{path_launches[path]}")
+    cnn_report["launches"] = {path: {k: v for k, v in
+                                     path_launches[path].items() if v}
+                              for path in ("ptq_fused", "ptq_staged")}
+    cnn_report["seconds"] = time.perf_counter() - t_cnn
+    log(f"cnn: phase 8 launched {json.dumps(cnn_report['launches'])} in "
+        f"{cnn_report['seconds']:.1f} s")
+    report["phases"]["paper_cnns"] = cnn_report
 
     out = ROOT / "build"
     out.mkdir(exist_ok=True)

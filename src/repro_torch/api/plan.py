@@ -71,6 +71,10 @@ class PrepCache:
     the key then follows the nesting down to its leaves, so an in-place
     update of one leaf misses too.  An entry pins the leaves so the ids stay
     valid for its lifetime; a newer version of the same leaves replaces it.
+    Operands that autograd is recording through are never cached, as the
+    JAX package never caches tracers: a cached transform would carry the
+    graph of an earlier forward (freed by its backward), or none at all if
+    it was prepared under ``torch.no_grad``.
     """
 
     def __init__(self, maxsize: int = _PREP_CACHE_MAX):
@@ -87,7 +91,14 @@ class PrepCache:
         return len(pinned) == len(leaves) and \
             all(a is b for a, b in zip(pinned, leaves))
 
+    @staticmethod
+    def _recorded(leaves) -> bool:
+        return torch.is_grad_enabled() and any(
+            isinstance(o, torch.Tensor) and o.requires_grad for o in leaves)
+
     def get(self, key, operands):
+        if self._recorded(_leaves(operands)):
+            return None
         with self._lock:
             entry = self._entries.get(key)
         if entry is not None and \
@@ -97,6 +108,8 @@ class PrepCache:
 
     def put(self, key, operands, value) -> None:
         leaves = tuple(_leaves(operands))
+        if self._recorded(leaves):
+            return
         with self._lock:
             # an older version of the same operands is stale
             for k, (pinned, _) in list(self._entries.items()):

@@ -73,8 +73,19 @@ def test_quant_config_constants_equal():
 
 
 def test_hook_waits_for_training_slice():
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fq.INT8_FREQ.hook()
+    """The training slice has come: QuantConfig.hook() is the JAX
+    package's dynamic fake-quant hook, bit for bit on the same operands
+    (None when the config is disabled)."""
+    assert fq.FP32.hook() is None and jfq.FP32.hook() is None
+    rng = np.random.RandomState(4)
+    tx = (rng.randn(2, 2, 3, 10, 10, 6) * 4).astype(np.float32)
+    tw = (rng.randn(10, 10, 6, 5) * 2).astype(np.float32)
+    for name in ("INT8_FREQ", "INT8_TENSOR", "INT6_FREQ", "INT4_FREQ"):
+        mine = getattr(fq, name).hook()(torch.from_numpy(tx),
+                                        torch.from_numpy(tw))
+        theirs = getattr(jfq, name).hook()(jnp.asarray(tx), jnp.asarray(tw))
+        for a, b in zip(mine, theirs):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
 @pytest.mark.parametrize("padding", ["SAME", "VALID"])
