@@ -110,7 +110,46 @@ csrc`` at first use.  Phases, each of which raises on failure:
         conv printed; the lowered transitions refused by ``prepare``;
      c. ``iterative_conv1d`` on the card for the three pairs of
         ``benchmarks/appendixB_iterative.py``, within 1e-3 of the direct
-        correlation.
+        correlation;
+  9. training on the card (``repro_torch.train``: ``Trainer``,
+     ``make_train_step``, AdamW, the checkpointer), the chain off and
+     cuDNN deterministic; a train step runs the reference path and its
+     autograd and must launch no kernel of the port:
+     a. ResNet-18 at 224x224, published widths, 1000 classes, trained 8
+        steps at batch 16 on ``SyntheticImagePipeline`` (seed 3) with
+        ``AdamW(cosine_schedule(1e-3, 2, 8), weight_decay=1e-4)``,
+        checkpoints every 4 steps under ``build/``, with ``conv_algo``
+        "direct" and with int8 "sfc6_6" (dynamic fake quant through the
+        STE): finite losses; a ``TransientError`` at step 6 rolls back to
+        step 4 and the resumed losses are the first run's within 1e-5
+        relative; step wall ms, one traced step's card busy ms and
+        kernels, peak memory; then one step's loss and gradients at batch
+        2 on the card against CPU copies: direct and fp32 sfc6_6 within
+        1e-4 of max |g| (and again with the backward's float32 guard taken
+        out, as what it prevents); int8 sfc6_6 with the loss within 1e-4
+        relative and every leaf within 1e-2 rel L2, or 3x the CPU's own
+        spread when the images move by 1e-7 where that is larger (dynamic
+        int8 is chaotic: the spread is ~0.35 at this depth), the biases
+        that feed a normalization, whose gradient is rounding noise,
+        within 1e-4 of max |g|; and each native 3x3/1 conv alone through
+        the int8 hook, input and weight gradients within 1e-2 rel L2;
+     b. the paper's §6.1 experiment: ``CIFAR_RESNET18`` trained 150 steps
+        at batch 32 with the example's recipe (``AdamW(cosine_schedule(
+        3e-3, 10, 150), weight_decay=1e-4)``, "direct"): the mean loss of
+        the last 5 steps at least 0.5 below the first 5's, held-out fp32
+        accuracy (6 batches from index 5000) at least 0.5; the example's
+        seven-row accuracy table; a ``PTQLayer(INT8_FREQ)`` per native
+        3x3/1 conv (13) calibrated on 4 other batches on the "sfc6_6"
+        config, the ``quantized_hook()`` simulation, and a deployed
+        forward with those 13 convs on ``cuda`` plans (13 B4 launches
+        fused, 13 each of B1, B2, B3 staged, bit for bit each other),
+        within 1e-3 rel L2 of the simulation's logits (or 3x the
+        simulation's own spread when the images move by 1e-7, where that
+        is larger) and agreeing on the argmax of 99% of the held-out
+        images; per layer, on the trained
+        model's own activations, the deployed output within 1e-4 rel L2 of
+        the simulation on the same input, against the fp32 direct conv,
+        and Fig. 5's MSE ratio of sfc6_6 and wino4 to direct int8.
 
 ``--sweep-b4``, ``--sweep-b7``, ``--sweep-b1`` and ``--sweep-b2`` time
 B4's, B7's, B1's and B5's, and B2's and B6's geometries per layer instead
@@ -309,6 +348,56 @@ CIFAR_REL = 1e-4               # CIFAR_RESNET18, card against CPU, rel L2
 ITERATIVE_PAIRS = ((30, (6, 5, 5), (6, 6, 6)), (9, (4, 3, 3), (6, 7, 3)),
                    (24, (6, 4, 4), (6, 6, 6)))
 ITERATIVE_BOUND = 1e-3
+# phase 9, training on the card (repro_torch.train, the reference path and
+# its autograd): RESNET18 at IMAGE and RESNET_WIDTHS (1000 classes) trained
+# TRAIN_STEPS steps at batch TRAIN_BATCH in TRAIN_MODES, checkpointed every
+# TRAIN_CKPT_EVERY steps, then again with a TransientError at FAULT_STEP
+# (the resumed losses within RESUME_REL of the first run's); gradients on
+# the card against CPU copies at batch GRAD_BATCH, fp32 within GRAD_TOL of
+# max |g|, int8 within INT8_GRAD_REL rel L2 per leaf.  Then the paper's
+# §6.1 experiment: CIFAR_RESNET18 trained CIFAR_STEPS steps at batch
+# CIFAR_BATCH (the example's recipe), its loss down MIN_LOSS_DROP and its
+# held-out accuracy (HELD_BATCHES batches from HELD_INDEX) at least
+# MIN_HELD_ACC; its 13 native 3x3/1 convs PTQ-calibrated on CALIB_BATCHES
+# batches from CALIB_INDEX and deployed on B4 and B1 -> B2 -> B3, within
+# DEPLOY_REL of the simulation, argmax agreeing on MIN_ARGMAX_AGREE
+TRAIN_SEED = 0
+TRAIN_BATCH = 16
+TRAIN_STEPS = 8
+TRAIN_CKPT_EVERY = 4
+FAULT_STEP = 6
+TRAIN_MODES = (("direct", {"conv_algo": "direct"}),
+               ("sfc6_6 int8", {"conv_algo": ALGO, "quant": "int8"}))
+RESUME_REL = 1e-5
+GRAD_BATCH = 2
+GRAD_TOL = 1e-4
+INT8_GRAD_REL = 1e-2
+CIFAR_STEPS = 150
+CIFAR_BATCH = 32
+HELD_INDEX, HELD_BATCHES = 5000, 6
+CALIB_INDEX, CALIB_BATCHES = 9000, 4
+MIN_LOSS_DROP = 0.5
+MIN_HELD_ACC = 0.5
+DEPLOY_REL = 1e-3
+# dynamic and static int8 networks are chaotic functions of their input:
+# .5 ties flip (C4), and the rounding error the scale's gradient sums is
+# re-drawn wherever activations move by a quantization step.  Where a
+# network-level int8 comparison of two implementations is bounded, the
+# bound is the stated one or CHAOS_FACTOR times the spread the reference
+# shows when the images move by NUDGE (relative), whichever is larger
+NUDGE = 1e-7
+CHAOS_FACTOR = 3.0
+LAYER_SIM_REL = 1e-4           # one conv, deployed against the simulation
+MIN_ARGMAX_AGREE = 0.99
+# examples/train_cnn_sfc_torch.py's accuracy table: (row, config changes)
+ACCURACY_ROWS = (
+    ("direct fp32", {}),
+    ("direct int8", {"quant": "int8", "conv_algo": "direct"}),
+    ("SFC-6(6x6,3x3) int8", {"conv_algo": "sfc6_6", "quant": "int8"}),
+    ("SFC-6(7x7,3x3) int8", {"conv_algo": "sfc6_7", "quant": "int8"}),
+    ("SFC-6 int6", {"conv_algo": "sfc6_6", "quant": "int6"}),
+    ("Wino(4x4,3x3) int8", {"conv_algo": "wino4", "quant": "int8"}),
+    ("Wino(4x4,3x3) int6", {"conv_algo": "wino4", "quant": "int6"}))
 REPLACES = {
     "sfc_transform_quantize": ("src/repro_torch/csrc/sfc_transform.cu",
                                "src/repro/kernels/sfc_transform.py:36"),
@@ -740,6 +829,524 @@ def paper_cnns(dev, counted, held) -> dict:
             f"{ITERATIVE_BOUND}); {report['nested_mults']} mults for "
             f"{report['outputs_2d']} outputs, {report['ratio_pct']:.2f}% of "
             f"direct")
+    return out
+
+
+class CNNModel:
+    """A CNN of ``repro_torch.models.cnn`` as ``repro_torch.train`` takes a
+    model: ``init(generator)`` on the generator's device and
+    ``loss(params, batch) -> (loss, metrics)``."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def init(self, gen):
+        from repro_torch.models import cnn
+        return cnn.init_resnet(gen, self.cfg, device=gen.device)
+
+    def loss(self, params, batch):
+        from repro_torch.models import cnn
+        return cnn.cnn_loss(params, self.cfg, batch)
+
+
+def native_convs(cfg):
+    """The names of a ResNet's native 3x3/1 convs, which take a hook (the
+    stride-2 conv1 that opens a stage lowers)."""
+    return [f"s{si}b{bi}.conv{k}" for si, n in enumerate(cfg.stages)
+            for bi in range(n) for k in (1, 2)
+            if not (k == 1 and bi == 0 and si > 0)]
+
+
+@contextlib.contextmanager
+def deployed(params, layers, config):
+    """Run the convs named in ``layers`` (name -> calibrated ``PTQLayer``)
+    of a ``repro_torch.models.cnn`` forward on a ``cuda`` plan of ``ALGO``
+    with ``config``, on weights ``PTQLayer.prepare`` quantizes once; every
+    other conv runs as the model runs it (its hook included)."""
+    from repro_torch.api import ConvSpec, plan
+    from repro_torch.models import cnn
+    from repro_torch.quant import INT8_FREQ
+    by_id = {id(params[n.split(".")[0]][n.split(".")[1]]["w"]): n
+             for n in layers}
+    preps, conv_apply = {}, cnn.conv_apply
+
+    def conv(x, w, b, cfg, stride=1, qhook=None):
+        name = by_id.get(id(w))
+        if name is None:
+            return conv_apply(x, w, b, cfg, stride=stride, qhook=qhook)
+        p = plan(ConvSpec.for_conv2d(tuple(x.shape), tuple(w.shape),
+                                     quant=INT8_FREQ),
+                 backend="cuda", algo=ALGO).with_config(config)
+        if p.path != "fast" or p.algo_name != ALGO:
+            raise AssertionError(f"deploy: {name} planned {p.path} "
+                                 f"{p.algo_name}")
+        if name not in preps:
+            preps[name] = layers[name].prepare(p, w)
+        return p.apply(x, preps[name], bias=b)
+
+    cnn.conv_apply = conv
+    try:
+        yield
+    finally:
+        cnn.conv_apply = conv_apply
+
+
+@contextlib.contextmanager
+def backward_unguarded():
+    """The port's float32 guards taken out of the reference path's calls
+    made inside the block (a backward run in it), as what they prevent."""
+    from repro_torch.core import conv2d as c2d
+    saved = c2d.full_fp32_conv, c2d.full_fp32_matmul
+    c2d.full_fp32_conv = c2d.full_fp32_matmul = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        c2d.full_fp32_conv, c2d.full_fp32_matmul = saved
+
+
+def loss_and_grads(params, cfg, batch, backward=contextlib.nullcontext):
+    """``cnn_loss`` and the gradient of every parameter leaf by name; the
+    backward runs inside ``backward()``."""
+    import torch
+
+    from repro_torch.models import cnn
+    from repro_torch.tree import flatten_with_path, tree_map
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, _ = cnn.cnn_loss(live, cfg, batch)
+    named = [("/".join(path), leaf) for path, leaf in
+             flatten_with_path(live)]
+    with backward():
+        grads = torch.autograd.grad(loss, [leaf for _, leaf in named])
+    return loss.item(), {n: g for (n, _), g in zip(named, grads)}
+
+
+def dead_bias(name) -> bool:
+    """A conv bias that feeds a normalization: its gradient is zero in
+    exact arithmetic, rounding noise on any machine."""
+    return name.endswith(("stem/b", "conv1/b", "conv2/b"))
+
+
+def training(dev, counted) -> dict:
+    """Phase 9: ResNet-18 trained at published width on the card (9a), then
+    the paper's §6.1 experiment (9b): CIFAR_RESNET18 trained, its native
+    3x3/1 convs PTQ-calibrated and deployed through B4 and B1 -> B2 -> B3.
+    Raises on any miss; returns the phase's report."""
+    import shutil
+
+    import torch
+
+    from repro_torch.api import ConvSpec, plan, tuning
+    from repro_torch.configs import CIFAR_RESNET18
+    from repro_torch.data import ImagePipelineConfig, SyntheticImagePipeline
+    from repro_torch.models import cnn
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.quant import INT8_FREQ, PTQLayer, QuantConfig
+    from repro_torch.quant import fake_quant as fq
+    from repro_torch.train import (Trainer, TrainerConfig, TransientError,
+                                   make_train_step)
+
+    out = {"resnet18": [], "grads": [], "cifar": {}}
+    ckpt_root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    def on_card(batch):
+        return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    def nudged(batch):
+        """The batch with its images moved by NUDGE relative (seeded)."""
+        x = batch["images"]
+        noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+            1)).to(x.device)
+        return dict(batch, images=x * (1 + NUDGE * noise))
+
+    def trained(name, cfg, opt, batches, steps, every, fault_hook=None):
+        """A ``Trainer`` run from an empty checkpoint directory, which must
+        launch no kernel of the port."""
+        trainer = Trainer(CNNModel(cfg), opt, TrainerConfig(
+            total_steps=steps, checkpoint_every=every,
+            checkpoint_dir=str(ckpt_root / name.replace(" ", "_")),
+            log_every=10 ** 9), fault_hook=fault_hook, device=dev)
+        rep = counted("training", f"train {name}",
+                      lambda: trainer.run(batches, TRAIN_SEED), want=only())
+        trainer.ckpt.close()
+        if not all(math.isfinite(v) for v in rep.losses):
+            raise AssertionError(f"train {name}: losses {rep.losses}")
+        return trainer, rep
+
+    # -- 9a. ResNet-18 at published width ---------------------------------
+    t0 = time.perf_counter()
+    r18 = dataclasses.replace(RESNET18, widths=RESNET_WIDTHS,
+                              image_size=IMAGE)
+    pipe = SyntheticImagePipeline(ImagePipelineConfig(
+        IMAGE, r18.n_classes, global_batch=TRAIN_BATCH, seed=3))
+    out["pipeline_s"] = time.perf_counter() - t0
+
+    def batches(i):
+        return on_card(pipe.batch(i))
+
+    for mode, kw in TRAIN_MODES:
+        cfg = dataclasses.replace(r18, **kw)
+
+        def optimizer():
+            return AdamW(lr=cosine_schedule(1e-3, 2, TRAIN_STEPS),
+                         weight_decay=1e-4)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer, rep = trained(mode, cfg, optimizer(), batches, TRAIN_STEPS,
+                               TRAIN_CKPT_EVERY)
+        peak = torch.cuda.max_memory_allocated()
+        pending = {FAULT_STEP}
+
+        def fault(step):
+            if step in pending:
+                pending.discard(step)
+                raise TransientError(f"injected at step {step}")
+        _, rep_f = trained(f"{mode} fault", cfg, optimizer(), batches,
+                           TRAIN_STEPS, TRAIN_CKPT_EVERY, fault_hook=fault)
+        if rep_f.restarts != 1 or rep_f.steps_run != \
+                FAULT_STEP + TRAIN_STEPS - TRAIN_CKPT_EVERY:
+            raise AssertionError(f"train {mode}: the fault run restarted "
+                                 f"{rep_f.restarts} times and ran "
+                                 f"{rep_f.steps_run} steps")
+        resumed = rep_f.losses[FAULT_STEP:]
+        want = rep.losses[TRAIN_CKPT_EVERY:]
+        resume_rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, want))
+        if not resume_rel <= RESUME_REL:
+            raise AssertionError(f"train {mode}: resumed losses {resumed} "
+                                 f"against {want} (rel {resume_rel})")
+        # one traced step from the final checkpoint
+        state, _ = trainer.init_or_restore(TRAIN_SEED)
+        step_fn = make_train_step(CNNModel(cfg), optimizer())
+        batch = batches(0)
+        prof = counted("training", f"traced {mode} step",
+                       lambda: profile_forward(lambda: step_fn(state, batch)),
+                       want=only())
+        row = {"mode": mode, "losses": rep.losses,
+               "fault_losses": rep_f.losses,
+               "resume_max_rel": resume_rel,
+               "resume_bitwise": resumed == want,
+               "first_steps_bitwise": rep_f.losses[:FAULT_STEP]
+               == rep.losses[:FAULT_STEP],
+               "step_ms_median": statistics.median(rep.step_times[1:]) * 1e3,
+               "first_step_ms": rep.step_times[0] * 1e3,
+               "peak_mib": peak / 2 ** 20}
+        if "not_measured" in prof:
+            row["card_busy_ms"] = "not measured: " + prof["not_measured"]
+        else:
+            row.update({"card_busy_ms": prof["busy_us"] / 1e3,
+                        "device_span_ms": prof["device_span_us"] / 1e3,
+                        "traced_wall_ms": prof["wall_us"] / 1e3,
+                        "kernels": sum(v["count"]
+                                       for v in prof["kernels"].values())})
+        out["resnet18"].append(row)
+        busy = (f"card busy {row['card_busy_ms']:.1f} ms of a "
+                f"{row['device_span_ms']:.1f} ms device span and "
+                f"{row['traced_wall_ms']:.1f} ms wall, {row['kernels']} "
+                f"kernels (one traced step)" if "kernels" in row
+                else f"card busy {row['card_busy_ms']}")
+        log(f"train: resnet18 {mode} batch {TRAIN_BATCH} at {IMAGE}x{IMAGE}: "
+            f"losses {', '.join(f'{v:.4f}' for v in rep.losses)}; step "
+            f"{row['step_ms_median']:.1f} ms wall (median of steps 2-"
+            f"{TRAIN_STEPS}; first {row['first_step_ms']:.0f} ms); {busy}; "
+            f"peak {row['peak_mib']:.0f} MiB; no kernel of the port launched")
+        log(f"train: resnet18 {mode}: TransientError at step {FAULT_STEP} "
+            f"rolled back to step {TRAIN_CKPT_EVERY}; resumed losses within "
+            f"{resume_rel:.2e} relative (bound {RESUME_REL}), bit for bit "
+            f"{row['resume_bitwise']}")
+
+    # gradients on the card against CPU copies of the same parameters and
+    # batch, with the guards, then with the backward's guard taken out
+    params = cnn.init_resnet(torch.Generator(device=dev).manual_seed(
+        TRAIN_SEED), r18, device=dev)
+    params_cpu = tree_to(params, "cpu")
+    b = pipe.batch(0)
+    gb = {k: v[:GRAD_BATCH] for k, v in b.items()}
+    gb_card, gb_cpu = on_card(gb), {k: torch.from_numpy(v)
+                                    for k, v in gb.items()}
+    for mode, kw in (("direct", {"conv_algo": "direct"}),
+                     ("sfc6_6", {"conv_algo": ALGO}),
+                     ("sfc6_6 int8", {"conv_algo": ALGO, "quant": "int8"})):
+        cfg = dataclasses.replace(r18, **kw)
+        loss, g = counted("training", f"{mode} gradients",
+                          lambda: loss_and_grads(params, cfg, gb_card),
+                          want=only())
+        loss_cpu, g_cpu = loss_and_grads(params_cpu, cfg, gb_cpu)
+        scale = max(v.abs().max().item() for v in g_cpu.values())
+        err = max((g[n].cpu() - v).abs().max().item()
+                  for n, v in g_cpu.items())
+        leaf_rel = {n: rel_l2(g[n].cpu(), v) for n, v in g_cpu.items()
+                    if not dead_bias(n)}
+        row = {"mode": mode, "loss": loss, "loss_cpu": loss_cpu,
+               "loss_rel": abs(loss - loss_cpu) / abs(loss_cpu),
+               "max_err_over_max_g": err / scale,
+               "worst_leaf_rel_l2": max(leaf_rel.values())}
+        # the dead biases' gradients are noise on both sides: held to
+        # GRAD_TOL of max |g| in every mode, not by their rel L2
+        row["dead_bias_max_err_over_max_g"] = max(
+            (g[n].cpu() - v).abs().max().item()
+            for n, v in g_cpu.items() if dead_bias(n)) / scale
+        if "int8" in mode:
+            # dynamic int8 is a chaotic function of its input: the CPU's own
+            # spread when the images move by NUDGE sets what two
+            # implementations can agree on
+            _, g_nudged = loss_and_grads(params_cpu, cfg, nudged(gb_cpu))
+            row["cpu_spread_worst_leaf_rel_l2"] = max(
+                rel_l2(g_nudged[n], v) for n, v in g_cpu.items()
+                if not dead_bias(n))
+            leaf_bound = max(INT8_GRAD_REL,
+                             CHAOS_FACTOR * row["cpu_spread_worst_leaf_rel_l2"])
+            if not (row["worst_leaf_rel_l2"] <= leaf_bound
+                    and row["loss_rel"] <= GRAD_TOL
+                    and row["dead_bias_max_err_over_max_g"] <= GRAD_TOL):
+                raise AssertionError(f"grads {mode}: card against CPU {row}")
+        elif not (err <= GRAD_TOL * scale and row["loss_rel"] <= GRAD_TOL):
+            raise AssertionError(f"grads {mode}: card against CPU {row}")
+        if "int8" not in mode:
+            _, g_open = loss_and_grads(params, cfg, gb_card,
+                                       backward=backward_unguarded)
+            row["unguarded_max_err_over_max_g"] = max(
+                (g_open[n].cpu() - v).abs().max().item()
+                for n, v in g_cpu.items()) / scale
+            row["unguarded_worst_leaf_rel_l2"] = max(
+                rel_l2(g_open[n].cpu(), v) for n, v in g_cpu.items()
+                if not dead_bias(n))
+        out["grads"].append(row)
+        log(f"grads: resnet18 {mode} batch {GRAD_BATCH}, card against CPU: "
+            f"loss rel {row['loss_rel']:.2e}, max |dg| / max |g| "
+            f"{row['max_err_over_max_g']:.2e} (bound {GRAD_TOL}), worst "
+            f"leaf rel L2 {row['worst_leaf_rel_l2']:.2e}"
+            + (f" (bound {INT8_GRAD_REL}, or {CHAOS_FACTOR}x the CPU's own "
+               f"spread for a {NUDGE} nudge of the images, "
+               f"{row['cpu_spread_worst_leaf_rel_l2']:.2e})"
+               if "int8" in mode else "")
+            + ("" if "int8" in mode else
+               f"; with the backward's guard taken out (what it prevents, "
+               f"PyTorch's default TF32 flags): max |dg| / max |g| "
+               f"{row['unguarded_max_err_over_max_g']:.2e}, worst leaf rel "
+               f"L2 {row['unguarded_worst_leaf_rel_l2']:.2e}"))
+
+    # one int8 conv at a time, on the fp32 activations of the model's own
+    # forward: the gradients of input and weights through the hook's
+    # straight-through estimator, card against CPU (no chaos in one layer)
+    int8 = cnn.quant_config(dataclasses.replace(r18, quant="int8")).hook()
+    native = native_convs(r18)
+    with torch.no_grad(), conv_inputs(params) as seen:
+        cnn.resnet_forward(params, r18, gb_card["images"])
+    layer_rel = []
+    for name, x, w, bias, stride in seen:
+        if name not in native:
+            continue
+        cot = np.random.RandomState(7).randn(*x.shape[:3], w.shape[3])
+        grads = []
+        for where in (dev, torch.device("cpu")):
+            xs, ws, bs = (t.detach().to(where) for t in (x, w, bias))
+            xs.requires_grad_()
+            ws.requires_grad_()
+            p = plan(ConvSpec.for_conv2d(tuple(xs.shape), tuple(ws.shape)),
+                     backend="reference", algo=ALGO)
+
+            def layer_grads():
+                y = p.apply(xs, ws, bias=bs, elementwise_hook=int8)
+                return torch.autograd.grad((y * torch.tensor(
+                    cot, dtype=y.dtype, device=where)).sum(), (xs, ws))
+            grads.append([g.cpu() for g in counted(
+                "training", f"int8 {name} gradients", layer_grads,
+                want=only())])
+        rel = max(rel_l2(a, b) for a, b in zip(*grads))
+        if not rel <= INT8_GRAD_REL:
+            raise AssertionError(f"grads: int8 {name}: card against CPU rel "
+                                 f"L2 {rel} (bound {INT8_GRAD_REL})")
+        layer_rel.append({"layer": name, "rel_l2": rel})
+    if len(layer_rel) != len(native):
+        raise AssertionError(f"grads: {len(layer_rel)} of {len(native)} "
+                             f"int8 convs checked")
+    out["int8_layer_grads"] = layer_rel
+    log(f"grads: resnet18's {len(native)} native 3x3/1 convs one at a time, "
+        f"dynamic int8 sfc6_6, batch {GRAD_BATCH}: input and weight "
+        f"gradients card against CPU rel L2 "
+        f"{min(r['rel_l2'] for r in layer_rel):.2e} to "
+        f"{max(r['rel_l2'] for r in layer_rel):.2e} (bound {INT8_GRAD_REL})")
+
+    # -- 9b. the paper's §6.1 experiment on trained weights ---------------
+    cfg = dataclasses.replace(CIFAR_RESNET18, conv_algo="direct")
+    cpipe = SyntheticImagePipeline(ImagePipelineConfig(
+        cfg.image_size, cfg.n_classes, global_batch=CIFAR_BATCH, seed=3))
+    t0 = time.perf_counter()
+    trainer, rep = trained("cifar", cfg, AdamW(
+        lr=cosine_schedule(3e-3, 10, CIFAR_STEPS), weight_decay=1e-4),
+        lambda i: on_card(cpipe.batch(i)), CIFAR_STEPS, CIFAR_STEPS)
+    train_s = time.perf_counter() - t0
+    first, last = (statistics.mean(rep.losses[:5]),
+                   statistics.mean(rep.losses[-5:]))
+    if not last <= first - MIN_LOSS_DROP:
+        raise AssertionError(f"cifar: mean loss of the last 5 steps {last} "
+                             f"against the first 5 {first}")
+    params = trainer.init_or_restore(TRAIN_SEED)[0].params
+    held = [on_card(cpipe.batch(i))
+            for i in range(HELD_INDEX, HELD_INDEX + HELD_BATCHES)]
+
+    def logits_of(fn):
+        with torch.no_grad():
+            return [fn(h["images"]) for h in held]
+
+    def accuracy(logits):
+        right = sum(int((y.argmax(-1) == h["labels"].long()).sum())
+                    for y, h in zip(logits, held))
+        return right / sum(len(h["labels"]) for h in held)
+
+    table = []
+    for row_name, kw in ACCURACY_ROWS:
+        c = dataclasses.replace(cfg, **kw)
+        acc = accuracy(counted("training", f"cifar {row_name}",
+                               lambda: logits_of(lambda x: cnn.resnet_forward(
+                                   params, c, x)), want=only()))
+        table.append({"variant": row_name, "accuracy": acc})
+    fp_acc = table[0]["accuracy"]
+    if not fp_acc >= MIN_HELD_ACC:
+        raise AssertionError(f"cifar: held-out fp32 accuracy {fp_acc} "
+                             f"(bound {MIN_HELD_ACC})")
+    log(f"cifar: CIFAR_RESNET18 trained {CIFAR_STEPS} steps at batch "
+        f"{CIFAR_BATCH} on the card in {train_s:.1f} s (step "
+        f"{statistics.median(rep.step_times[1:]) * 1e3:.1f} ms wall, "
+        f"median): mean loss {first:.4f} over the first 5 steps, {last:.3e} "
+        f"over the last 5 (bound: {MIN_LOSS_DROP} lower); held-out "
+        f"accuracy ({HELD_BATCHES} batches from {HELD_INDEX}): "
+        + "; ".join(f"{r['variant']} {r['accuracy']:.3f}" for r in table))
+
+    # PTQ: calibrate each native conv's PTQLayer on batches that are neither
+    # training nor held-out, on the sfc6_6 config (a direct plan drops the
+    # hook), then simulate
+    sfc = dataclasses.replace(cfg, conv_algo=ALGO)
+    names = native_convs(sfc)
+    layers = {n: PTQLayer(INT8_FREQ) for n in names}
+    calib = [on_card(cpipe.batch(i))
+             for i in range(CALIB_INDEX, CALIB_INDEX + CALIB_BATCHES)]
+    with torch.no_grad():
+        for c in calib:
+            cnn.resnet_forward(params, sfc, c["images"], qhooks={
+                n: layer.calibration_hook() for n, layer in layers.items()})
+    sim_hooks = {n: layer.quantized_hook() for n, layer in layers.items()}
+    sim = counted("training", "cifar PTQ simulation",
+                  lambda: logits_of(lambda x: cnn.resnet_forward(
+                      params, sfc, x, qhooks=sim_hooks)), want=only())
+    fp = logits_of(lambda x: cnn.resnet_forward(params, cfg, x))
+    n = len(names)
+    deploys = {}
+    for path, config, want in (
+            ("train_ptq_fused", tuning.DEFAULT_FUSED,
+             only(sfc_fused_conv2d=n)),
+            ("train_ptq_staged", tuning.DEFAULT_STAGED,
+             only(sfc_transform_quantize=n, tdmm_int8=n, sfc_inverse=n))):
+        with deployed(params, layers, config), torch.no_grad():
+            deploys[path] = [counted(path, f"cifar deployed held {i}",
+                                     lambda: cnn.resnet_forward(
+                                         params, sfc, h["images"],
+                                         qhooks=sim_hooks), want=want)
+                             for i, h in enumerate(held)]
+    # per layer, on the fp32 activations of the trained model's own
+    # forward: the deployed int8 output against the fp32 direct conv, and
+    # Fig. 5's MSE ratio of dynamic int8 sfc6_6 and wino4 to direct int8
+    dyn = QuantConfig(8, 8, "frequency", "channel+frequency").hook()
+    per_layer = []
+    with torch.no_grad(), conv_inputs(params) as seen:
+        cnn.resnet_forward(params, cfg, held[0]["images"])
+    for name, x, w, bias, stride in seen:
+        if name not in layers:
+            continue
+        fp_spec = ConvSpec.for_conv2d(tuple(x.shape), tuple(w.shape))
+        p = plan(ConvSpec.for_conv2d(tuple(x.shape), tuple(w.shape),
+                                     quant=INT8_FREQ), backend="cuda",
+                 algo=ALGO).with_config(tuning.DEFAULT_FUSED)
+        prep = layers[name].prepare(p, w)
+        y = counted("train_ptq_fused", f"cifar {name}",
+                    lambda: p.apply(x, prep, bias=bias),
+                    want=only(sfc_fused_conv2d=1))
+        with torch.no_grad():
+            direct = plan(fp_spec, backend="reference", algo="direct")
+            y_fp = direct.apply(x, w, bias=bias)
+            y_sim = plan(fp_spec, backend="reference", algo=ALGO).apply(
+                x, w, bias=bias, elementwise_hook=sim_hooks[name])
+        sim_rel = rel_l2(y, y_sim)
+        if not sim_rel <= LAYER_SIM_REL:
+            raise AssertionError(f"cifar: {name} deployed against the "
+                                 f"simulation on the same input: rel L2 "
+                                 f"{sim_rel} (bound {LAYER_SIM_REL})")
+        with torch.no_grad():
+
+            def mse(y_q):
+                return torch.mean((y_q - y_fp) ** 2).item()
+            base = mse(direct.apply(fq.fake_quant_activation(x, 8, "tensor"),
+                                    fq.fake_quant_weight(w, 8, "channel"),
+                                    bias=bias))
+            ratios = {a: mse(plan(fp_spec, backend="reference", algo=a).apply(
+                x, w, bias=bias, elementwise_hook=dyn)) / max(base, 1e-30)
+                for a in ("sfc6_6", "wino4")}
+        per_layer.append({"layer": name, "hw": x.shape[1],
+                          "cin": w.shape[2], "cout": w.shape[3],
+                          "deployed_vs_fp32_rel_l2": rel_l2(y, y_fp),
+                          "deployed_vs_simulation_rel_l2": sim_rel,
+                          "mse_direct_int8": base,
+                          "mse_ratio_sfc6_6": ratios["sfc6_6"],
+                          "mse_ratio_wino4": ratios["wino4"]})
+    if len(per_layer) != n:
+        raise AssertionError(f"cifar: {len(per_layer)} of {n} native convs "
+                             f"recorded")
+    log(f"cifar: per native conv (trained weights, held-out activations), "
+        f"deployed on B4 against the simulation on the same input rel L2 "
+        f"{min(r['deployed_vs_simulation_rel_l2'] for r in per_layer):.2e} "
+        f"to {max(r['deployed_vs_simulation_rel_l2'] for r in per_layer):.2e}"
+        f" (bound {LAYER_SIM_REL}); deployed int8 against fp32 direct rel "
+        f"L2 / Fig. 5 MSE ratio to direct int8 of sfc6_6, wino4: "
+        + "; ".join(
+            f"{r['layer']} {r['deployed_vs_fp32_rel_l2']:.3e} / "
+            f"{r['mse_ratio_sfc6_6']:.2f}, {r['mse_ratio_wino4']:.2f}"
+            for r in per_layer))
+    fused, staged = deploys["train_ptq_fused"], deploys["train_ptq_staged"]
+    if not all(torch.equal(a, b) for a, b in zip(fused, staged)):
+        raise AssertionError("cifar: the fused and the staged deployment "
+                             "differ")
+    dep_rel = max(rel_l2(a, b) for a, b in zip(fused, sim))
+    sim_vs_fp = max(rel_l2(a, b) for a, b in zip(sim, fp))
+    # the simulation's own spread when the images move by NUDGE: a network
+    # of int8 convs amplifies the last-bit differences of two
+    # implementations as it does that nudge (.5 ties flip, C4)
+    with torch.no_grad():
+        sim_spread = max(rel_l2(cnn.resnet_forward(
+            params, sfc, nudged(h)["images"], qhooks=sim_hooks), y)
+            for h, y in zip(held, sim))
+    dep_bound = max(DEPLOY_REL, CHAOS_FACTOR * sim_spread)
+    agree = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
+                for a, b in zip(fused, sim)) / sum(len(h["labels"])
+                                                   for h in held)
+    accs = {"fp32": accuracy(fp), "simulation": accuracy(sim),
+            "deployed": accuracy(fused)}
+    log(f"cifar: {n} native 3x3/1 convs calibrated on {CALIB_BATCHES} "
+        f"batches of {CIFAR_BATCH} and deployed ({n} B4 launches a forward "
+        f"fused, {n} each of B1, B2, B3 staged, bit for bit): logits "
+        f"against the quantized_hook simulation rel L2 {dep_rel:.2e} "
+        f"(bound {DEPLOY_REL}, or {CHAOS_FACTOR}x the simulation's own "
+        f"spread for a {NUDGE} nudge of the images, {sim_spread:.2e}; the "
+        f"simulation against fp32 {sim_vs_fp:.2e}), argmax agreement "
+        f"{agree:.4f}; held-out "
+        f"accuracy fp32 {accs['fp32']:.4f}, simulation "
+        f"{accs['simulation']:.4f}, kernel deployment "
+        f"{accs['deployed']:.4f}")
+
+    out["cifar"] = {"losses": rep.losses, "train_s": train_s,
+                    "step_ms_median":
+                        statistics.median(rep.step_times[1:]) * 1e3,
+                    "first5": first, "last5": last, "table": table,
+                    "deploy_vs_simulation_rel_l2": dep_rel,
+                    "simulation_vs_fp32_rel_l2": sim_vs_fp,
+                    "simulation_spread_rel_l2": sim_spread,
+                    "argmax_agreement": agree, "accuracy": accs,
+                    "per_layer": per_layer}
+    if not (dep_rel <= dep_bound and agree >= MIN_ARGMAX_AGREE):
+        raise AssertionError(f"cifar: deployed logits against the "
+                             f"simulation rel L2 {dep_rel} (bound "
+                             f"{dep_bound}), argmax agreement {agree} "
+                             f"(bound {MIN_ARGMAX_AGREE})")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
     return out
 
 
@@ -3284,6 +3891,35 @@ def main() -> None:
     log(f"cnn: phase 8 launched {json.dumps(cnn_report['launches'])} in "
         f"{cnn_report['seconds']:.1f} s")
     report["phases"]["paper_cnns"] = cnn_report
+
+    # ---- 9. training on the card ------------------------------------------
+    # the chain off again: a kernel of the deployment that fails raises
+    resilience.configure(dataclasses.replace(chain_policy, enabled=False))
+    # a resumed run replays the first bit for bit only where every kernel
+    # is deterministic: cuDNN picks deterministic algorithms in this phase
+    t_train = time.perf_counter()
+    cudnn_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        train_report = training(dev, counted)
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_deterministic
+    if resilience.stats():
+        raise AssertionError(f"resilience events in phase 9: "
+                             f"{resilience.stats()}")
+    resilience.configure(chain_policy)
+    train_paths = ("train_ptq_fused", "train_ptq_staged")
+    for path in train_paths:
+        if any(path_launches[path][k] <= 0 for k in path_kernels[path]):
+            raise AssertionError(f"a kernel of {path} never launched: "
+                                 f"{path_launches[path]}")
+    train_report["launches"] = {path: {k: v for k, v in
+                                       path_launches[path].items() if v}
+                                for path in train_paths + ("training",)}
+    train_report["seconds"] = time.perf_counter() - t_train
+    log(f"train: phase 9 launched {json.dumps(train_report['launches'])} "
+        f"in {train_report['seconds']:.1f} s")
+    report["phases"]["training"] = train_report
 
     out = ROOT / "build"
     out.mkdir(exist_ok=True)

@@ -129,6 +129,9 @@ class CudaBackend:
                 "the rank-1 depthwise causal conv is a later slice of the "
                 "port (queue item A12)")
         from repro_torch.kernels import ops, sfc_fused
+        # the kernels read NHWC rows densely: a strided view (a crop, a
+        # slice of a padded output) is copied once here
+        x = x.contiguous()
         algo = plan.algorithm
         depthwise = plan.spec.depthwise
         padding = plan.spec.padding

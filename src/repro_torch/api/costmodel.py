@@ -424,7 +424,7 @@ def _fit_nonneg(X: np.ndarray, y: np.ndarray) -> List[float]:
 
 
 def fit_coefficients(probe_specs: Optional[Sequence[ConvSpec]] = None,
-                     backend: str = "cuda", *, device=None, reps: int = 3,
+                     backend: str = "cuda", *, device="cuda", reps: int = 3,
                      persist: bool = True, log=None) -> Dict:
     """Calibrate the model from a handful of probe runs and install the
     per-datapath coefficients.
@@ -432,16 +432,14 @@ def fit_coefficients(probe_specs: Optional[Sequence[ConvSpec]] = None,
     For each probe spec: measures the direct plan plus every launchable
     ``DEFAULT_CANDIDATES`` config of the BOPs-best fast algorithm
     (through the same ``tuning._measure_plan`` protocol the autotuner
-    uses) on ``device`` (None: the card where there is one, else the
-    CPU), then least-squares fits (k0, k1, k2) per datapath.  Returns the
-    fit report that also lands in the coefficient store's ``meta``.
+    uses) on ``device`` (the card unless the caller passes ``"cpu"``;
+    raises where the card is missing), then least-squares fits (k0, k1,
+    k2) per datapath.  Returns the fit report that also lands in the
+    coefficient store's ``meta``.
     """
-    import torch
-
     from repro_torch.analysis import kernel_checks, ranges
     from repro_torch.api import planner, registry, tuning
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    tuning.require_device(device)
     if probe_specs is None:
         probe_specs = default_probe_specs()
     samples: Dict[str, List[Tuple[Tuple[float, ...], float]]] = {

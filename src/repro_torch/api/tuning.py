@@ -318,6 +318,16 @@ def calibrate_act_scale(x: torch.Tensor, algo, quant,
         / qmax_for_bits(quant.bits_act) + 1e-9
 
 
+def require_device(device) -> None:
+    """Raise where ``device`` is a CUDA device and this host has no card: a
+    measurement runs where it was asked to, never on the CPU in its
+    place."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA card to measure on (device={device!r}); pass "
+            f"device='cpu' to time the plain versions on the CPU")
+
+
 def _synthetic_operands(spec: ConvSpec, seed: int = 0, device="cpu"):
     if spec.rank != 2 or spec.in_channels is None \
             or spec.out_channels is None or spec.spatial is None:
@@ -372,7 +382,7 @@ def _cfg_label(cfg: KernelConfig) -> str:
     return f"{cfg.datapath}(k={cfg.k_block},co={cfg.cout_block})"
 
 
-def autotune(spec: ConvSpec, backend: str = "cuda", *, device=None,
+def autotune(spec: ConvSpec, backend: str = "cuda", *, device="cuda",
              algos: Optional[Sequence[str]] = None,
              candidates: Sequence[KernelConfig] = DEFAULT_CANDIDATES,
              include_direct: bool = True, reps: int = 3,
@@ -381,9 +391,10 @@ def autotune(spec: ConvSpec, backend: str = "cuda", *, device=None,
     """Measure candidate configs for ``spec`` and persist the winners.
 
     Times candidate (algorithm, config) pairs on synthetic operands (one
-    image, from a numpy seed) on ``device`` (None: the card where there is
-    one, else the CPU), records the fastest config per algorithm (plus
-    the direct path) under that device's key, and returns them.  Later
+    image, from a numpy seed) on ``device`` (the card unless the caller
+    passes ``"cpu"``; raises where the card is missing), records the
+    fastest config per algorithm (plus the direct path) under that
+    device's key, and returns them.  Later
     ``plan(spec, backend=...)`` calls rank by these times instead of BOPs
     and carry the winning config.  The cache file is written once at the
     end (an interrupted run persists nothing), with the direct baseline
@@ -404,8 +415,7 @@ def autotune(spec: ConvSpec, backend: str = "cuda", *, device=None,
     """
     from repro_torch.analysis import ranges
     from repro_torch.api import planner, registry
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    require_device(device)
     x, w = _synthetic_operands(spec, device=device)
     if algos is None:
         algos = [e.name for e in registry.entries(taps=spec.kernel_size)]

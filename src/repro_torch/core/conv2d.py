@@ -8,6 +8,13 @@ Implements the three-stage bilinear flow (paper Eq. 1) for any
 vectorized over batch x tiles x channels.  This module is the portable
 path of the port and the oracle for its CUDA kernels; computation follows
 the device of the input tensors.
+
+Its float32 library calls (the transforms' and the transform-domain
+products' einsums on cuBLAS, the direct convolution on cuDNN) run in IEEE
+float32 in both directions, whatever TF32 the caller allowed: autograd
+enqueues a backward after the forward's guard has closed, so each call is
+an autograd ``Function`` whose backward takes the guard again
+(``precision``).
 """
 from __future__ import annotations
 
@@ -26,6 +33,79 @@ from repro_torch.core.precision import (full_fp32_conv,
 def _matrices(algo: BilinearAlgorithm, dtype: torch.dtype, device: str):
     return tuple(torch.tensor(m, dtype=dtype, device=device)
                  for m in (algo.bt(), algo.g(), algo.at()))
+
+
+class _GuardedEinsum(torch.autograd.Function):
+    """``torch.einsum(equation, *operands)`` inside ``full_fp32_matmul`` in
+    both directions.  An operand's gradient is the einsum of the other
+    operands with the output's gradient, which holds where no operand
+    repeats an index and each of an operand's indices appears in another
+    operand or in the output, as in every product of this module."""
+
+    @staticmethod
+    def forward(ctx, equation, *operands):
+        needs = ctx.needs_input_grad[1:]
+        ctx.equation = equation
+        # an operand is kept only for the other operands' gradients
+        ctx.save_for_backward(*(
+            o if any(n for i, n in enumerate(needs) if i != j) else None
+            for j, o in enumerate(operands)))
+        with full_fp32_matmul():
+            return torch.einsum(equation, *operands)
+
+    @staticmethod
+    def backward(ctx, gy):
+        operands = ctx.saved_tensors
+        inputs, out = ctx.equation.split("->")
+        subs = inputs.split(",")
+        grads = []
+        for i, needed in enumerate(ctx.needs_input_grad[1:]):
+            if not needed:
+                grads.append(None)
+                continue
+            rest = [j for j in range(len(subs)) if j != i]
+            eq = ",".join([subs[j] for j in rest] + [out]) + "->" + subs[i]
+            with full_fp32_matmul():
+                grads.append(torch.einsum(eq, *[operands[j] for j in rest],
+                                          gy))
+        return (None, *grads)
+
+
+def guarded_einsum(equation: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` whose forward and backward products run in IEEE
+    float32 on cuBLAS (``precision.full_fp32_matmul``)."""
+    return _GuardedEinsum.apply(equation, *operands)
+
+
+class _DirectConv(torch.autograd.Function):
+    """``F.conv2d`` (NCHW, OIHW, no padding) inside ``full_fp32_conv`` in
+    both directions: the backward's data and weight gradients come from
+    one ``aten.convolution_backward`` (the op autograd itself calls for
+    ``F.conv2d``) on cuDNN in IEEE float32, not the TF32 that PyTorch's
+    default allows there.  On the CPU the operands go in as contiguous
+    NCHW: PyTorch 2.13's CPU weight gradient of a channels-last 1x1
+    stride-2 conv at batch 4 corrupts the heap (the NHWC input's permuted
+    view is channels-last), which ``torch.nn.grad.conv2d_weight`` and
+    autograd's own backward of ``F.conv2d`` both reach."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, groups):
+        ctx.save_for_backward(x, w)
+        ctx.stride, ctx.groups = stride, groups
+        with full_fp32_conv():
+            return F.conv2d(x, w, stride=stride, groups=groups)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        if gy.device.type == "cpu":
+            x, w, gy = x.contiguous(), w.contiguous(), gy.contiguous()
+        with full_fp32_conv():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                gy, x, w, None, (ctx.stride, ctx.stride), (0, 0), (1, 1),
+                False, (0, 0), ctx.groups,
+                (ctx.needs_input_grad[0], ctx.needs_input_grad[1], False))
+        return gx, gw, None, None
 
 
 def transform_matrices(algo: BilinearAlgorithm,
@@ -97,14 +177,14 @@ def transform_input_2d(x: torch.Tensor, algo: BilinearAlgorithm,
     """(B,H,W,C) -> transform-domain tiles (B, nH, nW, t, t, C)."""
     tiles, grid = overlapping_tiles(x, algo.M, algo.R, padding)
     bt = transform_matrices(algo, x.dtype, x.device)[0]
-    tx = torch.einsum("ti,bnwijc,uj->bnwtuc", bt, tiles, bt)
+    tx = guarded_einsum("ti,bnwijc,uj->bnwtuc", bt, tiles, bt)
     return tx, (grid.out_h, grid.out_w, grid.nH, grid.nW)
 
 
 def transform_weights_2d(w: torch.Tensor, algo: BilinearAlgorithm) -> torch.Tensor:
     """(R,R,Cin,Cout) -> (t,t,Cin,Cout)."""
     g = transform_matrices(algo, w.dtype, w.device)[1]
-    return torch.einsum("ti,ijco,uj->tuco", g, w, g)
+    return guarded_einsum("ti,ijco,uj->tuco", g, w, g)
 
 
 def transform_domain_matmul(tx: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
@@ -112,10 +192,9 @@ def transform_domain_matmul(tx: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
 
     t^2 independent GEMMs of shape (B*nH*nW, Cin) x (Cin, Cout), one per
     transform-domain position, in full float32 whatever the caller allowed
-    cuBLAS (``precision.full_fp32_matmul``).
+    cuBLAS, its gradients too (``precision.full_fp32_matmul``).
     """
-    with full_fp32_matmul():
-        return torch.einsum("bnwtuc,tuco->bnwtuo", tx, tw)
+    return guarded_einsum("bnwtuc,tuco->bnwtuo", tx, tw)
 
 
 def inverse_transform_2d(ty: torch.Tensor, algo: BilinearAlgorithm,
@@ -123,7 +202,7 @@ def inverse_transform_2d(ty: torch.Tensor, algo: BilinearAlgorithm,
     """(B,nH,nW,t,t,Cout) -> (B,H_out,W_out,Cout)."""
     out_h, out_w = geom[:2]
     at = transform_matrices(algo, ty.dtype, ty.device)[2]
-    y = torch.einsum("mt,bnwtuo,pu->bnwmpo", at, ty, at)  # (B,nH,nW,M,M,O)
+    y = guarded_einsum("mt,bnwtuo,pu->bnwmpo", at, ty, at)  # (B,nH,nW,M,M,O)
     return untile_2d(y, out_h, out_w)
 
 
@@ -170,8 +249,9 @@ def conv2d_direct(x: torch.Tensor, w: torch.Tensor,
     """Reference direct convolution via ``F.conv2d`` (NHWC, HWIO).
 
     On the card ``F.conv2d`` runs through cuDNN, in full float32 whatever
-    the caller allowed cuDNN (``precision.full_fp32_conv``; PyTorch's
-    default would let it use TF32).
+    the caller allowed cuDNN, its data and weight gradients too
+    (``precision.full_fp32_conv``; PyTorch's default would let it use
+    TF32).
     """
     if padding == "SAME":
         lo_h, hi_h = same_pads(x.shape[1], w.shape[0], stride)
@@ -179,10 +259,8 @@ def conv2d_direct(x: torch.Tensor, w: torch.Tensor,
         x = F.pad(x, (0, 0, lo_w, hi_w, lo_h, hi_h))
     elif padding != "VALID":
         raise ValueError(f"padding must be SAME or VALID, got {padding}")
-    with full_fp32_conv():
-        y = F.conv2d(x.permute(0, 3, 1, 2),
-                     w.to(x.dtype).permute(3, 2, 0, 1), stride=stride,
-                     groups=groups)
+    y = _DirectConv.apply(x.permute(0, 3, 1, 2),
+                          w.to(x.dtype).permute(3, 2, 0, 1), stride, groups)
     y = y.permute(0, 2, 3, 1).contiguous()
     if bias is not None:
         y = y + bias

@@ -1,4 +1,5 @@
-"""Carry weights and prepared weights across from the JAX package.
+"""Carry weights, prepared weights and optimizer state across from the JAX
+package.
 
 The port never imports jax: callers hand over numpy arrays, or objects
 whose fields ``np.asarray`` can read (a JAX array converts itself).
@@ -11,6 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.api.plan import PreparedWeights
+from repro_torch.optim.optimizers import AdamWState
 
 PREPARED_FIELDS = ("w", "tw", "wq", "w_scale", "act_scale")
 
@@ -35,3 +37,17 @@ def prepared_from_jax(prep, device="cuda") -> PreparedWeights:
             else getattr(prep, name, None)
         return None if value is None else _tensor(value, device)
     return PreparedWeights(**{name: field(name) for name in PREPARED_FIELDS})
+
+
+def adamw_state_from_numpy(state, device="cuda") -> AdamWState:
+    """A JAX ``AdamWState`` (or any object with the fields ``step``, ``mu``
+    and ``nu``, each readable by ``np.asarray``: ``step`` a scalar, ``mu``
+    and ``nu`` nested dicts of arrays, ``nu`` empty for SGD) -> the port's
+    ``AdamWState`` on ``device``, so a run resumes mid-training from JAX's
+    optimizer state and not only its weights."""
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                        device=device)
+    nu = params_from_numpy(state.nu, device) \
+        if isinstance(state.nu, Mapping) else ()
+    return AdamWState(step=step, mu=params_from_numpy(state.mu, device),
+                      nu=nu)

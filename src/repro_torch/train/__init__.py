@@ -1,0 +1,8 @@
+"""Training loop + train steps."""
+from repro_torch.train.steps import (TrainState, init_train_state,
+                                     make_train_step)
+from repro_torch.train.trainer import (Trainer, TrainerConfig, TrainerReport,
+                                       TransientError)
+
+__all__ = ["TrainState", "init_train_state", "make_train_step",
+           "Trainer", "TrainerConfig", "TrainerReport", "TransientError"]

@@ -1,0 +1,100 @@
+"""The train step: gradients by autograd, optional int8 gradient
+compression, then the optimizer.
+
+``make_train_step`` builds the JAX package's canonical step:
+  value and gradient of the model loss (``torch.autograd.grad`` over the
+  parameter leaves)
+  -> optional int8 gradient round trip
+  -> the optimizer's update (float32 moments)
+  -> a new ``TrainState``.
+
+The model is duck-typed as in the JAX package: ``model.init(generator)``
+returns a parameter tree (on the generator's device) and
+``model.loss(params, batch)`` returns ``(loss, metrics)``.  Training runs
+where its tensors are: the caller's batches and the generator's device
+decide, and nothing moves to the CPU.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.optim import grad_compression as gc
+from repro_torch.optim.optimizers import AdamW, AdamWState
+from repro_torch.tree import leaves, tree_map, unflatten
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt: AdamWState
+    rng: torch.Tensor           # int64: the seed the run started from
+
+
+def init_train_state(model, optimizer: AdamW, seed: int,
+                     device="cuda") -> TrainState:
+    """Parameters drawn by ``model.init`` from a ``torch.Generator`` on
+    ``device`` seeded with ``seed`` (the JAX package's key), and the
+    optimizer's state for them."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = model.init(gen)
+    return TrainState(params=params, opt=optimizer.init(params),
+                      rng=torch.tensor(seed, dtype=torch.int64))
+
+
+def _value_and_grad(model, params, batch):
+    """(loss, metrics, gradient tree) of ``model.loss`` at ``params``; a
+    parameter the loss does not reach gets a zero gradient, as in JAX."""
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, metrics = model.loss(live, batch)
+    flat = leaves(live)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(flat, grads)]
+    metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
+               for k, v in metrics.items()}
+    return loss.detach(), metrics, unflatten(params, grads)
+
+
+def make_train_step(model, optimizer: AdamW, grad_compression: bool = False,
+                    microbatches: int = 1) -> Callable:
+    """Returns train_step(state, batch) -> (state, metrics)."""
+
+    def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        if microbatches > 1:
+            # gradient accumulation: the batch is split along dim 0 into
+            # equal chunks, gradients summed in float32 and averaged
+            def chunk(i):
+                return tree_map(lambda a: a.reshape(
+                    (microbatches, a.shape[0] // microbatches)
+                    + tuple(a.shape[1:]))[i], batch)
+
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), state.params)
+            loss_sum = None
+            for i in range(microbatches):
+                loss, _, g = _value_and_grad(model, state.params, chunk(i))
+                grads = tree_map(torch.add, grads, g)
+                loss_sum = loss if loss_sum is None else loss_sum + loss
+            grads = tree_map(lambda g: g / microbatches, grads)
+            metrics = {"loss": loss_sum / microbatches}
+        else:
+            _, metrics, grads = _value_and_grad(model, state.params, batch)
+
+        if grad_compression:
+            # the int8 bottleneck before the gradient reduction, with a
+            # fixed seed per leaf as the JAX step's fixed key
+            def roundtrip(g):
+                gen = torch.Generator(device=g.device).manual_seed(0)
+                return gc.dequantize_int8(*gc.quantize_int8(
+                    g.to(torch.float32), gen)).to(g.dtype)
+            with torch.no_grad():
+                grads = tree_map(roundtrip, grads)
+
+        new_params, new_opt, opt_metrics = optimizer.apply(
+            state.params, grads, state.opt)
+        metrics = dict(metrics)
+        metrics.update(opt_metrics)
+        return TrainState(new_params, new_opt, state.rng), metrics
+
+    return train_step

@@ -340,6 +340,46 @@ def test_cpu_plans_launch_no_kernel():
     assert set(kernels.launch_counts().values()) == {0}
 
 
+@pytest.mark.parametrize("path", ["fused", "staged", "fp", "depthwise"])
+def test_cuda_backend_hands_the_kernels_contiguous_inputs(path, monkeypatch):
+    """A strided view (here a crop, as a padded output's slice) reaches the
+    kernels' entry points contiguous, whose CUDA wrappers refuse anything
+    else, and gives the output of its contiguous copy."""
+    from repro_torch.kernels import ops, sfc_fused
+    seen = []
+    for module, name in ((sfc_fused, "sfc_fused_conv2d"),
+                         (ops, "quantized_fastconv2d"),
+                         (ops, "quantized_fastconv2d_depthwise"),
+                         (ops, "fastconv2d_fp_transformed")):
+        entry = getattr(module, name)
+
+        def observed(x, *args, _entry=entry, **kwargs):
+            seen.append(x.is_contiguous())
+            return _entry(x, *args, **kwargs)
+        monkeypatch.setattr(module, name, observed)
+    rng = np.random.RandomState(8)
+    big = torch.from_numpy(_snapped(rng, (2, 13, 12, 6)))
+    x = big[:, :11, :9]
+    assert not x.is_contiguous()
+    depthwise = path == "depthwise"
+    w = torch.from_numpy(rng.randn(3, 3, 1 if depthwise else 6, 6).astype(
+        np.float32))
+    make = ConvSpec.for_conv2d_depthwise if depthwise \
+        else ConvSpec.for_conv2d
+    spec = make(x.shape, w.shape, quant=FP32 if path == "fp" else INT8_FREQ)
+    p = plan(spec, backend="cuda", algo="sfc6_6")
+    if path == "fp":
+        prep = p.prepare_weights(w)
+    else:
+        p = p.with_config(CONFIGS["staged" if path == "staged" else "fused"])
+        prep = p.prepare_weights(w, act_scale=tuning.calibrate_act_scale(
+            x.contiguous(), p.algorithm, INT8_FREQ))
+    y = p.apply(x, prep)
+    assert seen == [True]
+    torch.testing.assert_close(y, p.apply(x.contiguous(), prep), rtol=0,
+                               atol=0)
+
+
 def test_kernel_config_validates_datapath():
     with pytest.raises(ValueError, match="datapath"):
         KernelConfig(datapath="pipelined")

@@ -209,9 +209,9 @@ def test_fit_nonneg_matches_jax(seed):
 def test_fit_determinism(monkeypatch):
     monkeypatch.setattr(tuning, "_measure_plan",
                         _fake_latency(costmodel.features_for))
-    r1 = costmodel.fit_coefficients(persist=False)
+    r1 = costmodel.fit_coefficients(device="cpu", persist=False)
     costmodel.clear()
-    r2 = costmodel.fit_coefficients(persist=False)
+    r2 = costmodel.fit_coefficients(device="cpu", persist=False)
     assert r1["coefficients"] == r2["coefficients"]
     assert set(r1["coefficients"]) == {"fused", "staged", "direct"}
 
@@ -226,7 +226,7 @@ def test_fit_recovers_the_jax_coefficients(monkeypatch,
     monkeypatch.setattr(jtuning, "_measure_plan",
                         _fake_latency(jcostmodel.features_for))
     probes = costmodel.default_probe_specs()
-    got = costmodel.fit_coefficients(probes, persist=False)
+    got = costmodel.fit_coefficients(probes, device="cpu", persist=False)
     want = jcostmodel.fit_coefficients([_jspec(s) for s in probes],
                                        persist=False)
     assert set(got["coefficients"]) == set(want["coefficients"])
@@ -238,10 +238,20 @@ def test_fit_recovers_the_jax_coefficients(monkeypatch,
     assert got["device"] == "cpu"
 
 
+def test_fit_without_a_card_raises_instead_of_timing_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    timed = []
+    monkeypatch.setattr(tuning, "_measure_plan",
+                        lambda *a, **k: timed.append(a) or 1e-3)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        costmodel.fit_coefficients(persist=False)
+    assert timed == [] and not costmodel.is_fitted("cuda")
+
+
 def test_fit_recovers_linear_pseudo_latency(monkeypatch):
     fake = _fake_latency(costmodel.features_for)
     monkeypatch.setattr(tuning, "_measure_plan", fake)
-    costmodel.fit_coefficients(persist=False)
+    costmodel.fit_coefficients(device="cpu", persist=False)
     spec = _spec(cin=128, cout=128, hw=10)
     x, w = tuning._synthetic_operands(spec)
     p = plan(spec, backend="cuda", algo=select_algorithm(spec))
@@ -330,7 +340,7 @@ def test_autotune_topk_measures_exactly_k(monkeypatch):
     costmodel.set_coefficients(_full_coefs())
     counted = _count_measures(monkeypatch)
     name = "sfc6_6"
-    results = tuning.autotune(spec, "cuda", algos=[name],
+    results = tuning.autotune(spec, "cuda", device="cpu", algos=[name],
                               include_direct=False, top_k=2)
     assert len(counted) == 2
     # predicted-vs-measured self-validation rides the cache entry
@@ -345,7 +355,8 @@ def test_autotune_unfitted_measures_every_launchable(monkeypatch):
         spec, algo, tuning.DEFAULT_CANDIDATES, batch=1)
     assert not costmodel.is_fitted("cuda")
     counted = _count_measures(monkeypatch)
-    tuning.autotune(spec, "cuda", algos=[select_algorithm(spec)],
+    tuning.autotune(spec, "cuda", device="cpu",
+                    algos=[select_algorithm(spec)],
                     include_direct=False, top_k=3)
     assert len(counted) == len(launchable)
 

@@ -602,6 +602,112 @@ def test_library_calls_run_inside_their_guards(call, monkeypatch):
         setattr(obj, name, before)
 
 
+@pytest.mark.parametrize("call", ["conv2d_direct", "fastconv2d"])
+def test_backward_library_calls_run_inside_their_guards(call, monkeypatch):
+    # autograd enqueues the backward after the forward's guard has closed:
+    # the direct conv's data and weight gradients still see cuDNN in IEEE
+    # float32, and every einsum of the sfc path's backward (the inverse,
+    # the product's two operands, the weight and input transforms) cuBLAS
+    if call == "conv2d_direct":
+        obj, name, tf32, ieee = _cudnn_fp32_setting()
+        target, attr = torch.ops.aten, "convolution_backward"
+    else:
+        obj = torch.backends.cuda.matmul
+        name, tf32, ieee = _cublas_fp32_setting()
+        target, attr = torch, "einsum"
+    library = getattr(target, attr)
+    seen = []
+
+    def observed(*args, **kwargs):
+        seen.append(getattr(obj, name))
+        return library(*args, **kwargs)
+
+    monkeypatch.setattr(target, attr, observed)
+    rng = np.random.RandomState(29)
+    x = torch.from_numpy(rng.randn(2, 9, 9, 4).astype(np.float32))
+    w = torch.from_numpy(rng.randn(3, 3, 4, 5).astype(np.float32))
+    x.requires_grad_()
+    w.requires_grad_()
+    before = getattr(obj, name)
+    try:
+        setattr(obj, name, tf32)
+        if call == "conv2d_direct":
+            y = c2d.conv2d_direct(x, w, "SAME", stride=2)
+        else:
+            y = c2d.fastconv2d(x, w, registry.get_algorithm("sfc6_6"))
+        seen.clear()
+        y.square().sum().backward()
+        assert seen == [ieee] * (1 if call == "conv2d_direct" else 5)
+        assert getattr(obj, name) == tf32
+        assert x.grad is not None and w.grad is not None
+    finally:
+        setattr(obj, name, before)
+
+
+@pytest.mark.parametrize("r,stride,groups", [(1, 1, 1), (3, 1, 1),
+                                             (3, 2, 1), (1, 2, 1),
+                                             (3, 1, 2)],
+                         ids=["1x1", "3x3", "3x3/2", "1x1/2", "groups2"])
+def test_conv2d_direct_gradients_match_jax_grad(r, stride, groups):
+    """The direct conv's data and weight gradients (its guarded backward)
+    within DEFAULT_TOL of the largest of jax.grad's, at batch 4 (where
+    PyTorch's CPU weight gradient of a channels-last 1x1/2 conv fails)."""
+    import jax
+    from repro_torch.testing import DEFAULT_TOL
+    rng = np.random.RandomState(31)
+    x = rng.randn(4, 16, 16, 8).astype(np.float32)
+    w = rng.randn(r, r, 8 // groups, 6).astype(np.float32)
+    out = -(-16 // stride)
+    gy = rng.randn(4, out, out, 6).astype(np.float32)
+
+    def jloss(xj, wj):
+        y = jax.lax.conv_general_dilated(
+            xj, wj, (stride, stride), "SAME",
+            dimension_numbers=("NHWC", "HWIO", "NHWC"),
+            feature_group_count=groups)
+        return jnp.sum(y * gy)
+
+    jgx, jgw = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x),
+                                               jnp.asarray(w))
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    y = c2d.conv2d_direct(xt, wt, "SAME", stride=stride, groups=groups)
+    assert y.shape == gy.shape
+    (y * torch.from_numpy(gy)).sum().backward()
+    for got, want in ((xt.grad, jgx), (wt.grad, jgw)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=DEFAULT_TOL * np.abs(want).max())
+
+
+def test_sfc_reference_plan_gradients_match_jax_grad():
+    """A sfc6_6 reference plan's gradients of input, weights and bias (the
+    guarded transforms and product) against jax.grad of the JAX plan."""
+    import jax
+
+    from repro_torch.api import ConvSpec, plan
+    from repro_torch.testing import DEFAULT_TOL
+    rng = np.random.RandomState(37)
+    x = rng.randn(2, 13, 11, 6).astype(np.float32)
+    w = rng.randn(3, 3, 6, 7).astype(np.float32)
+    b = rng.randn(7).astype(np.float32)
+    gy = rng.randn(2, 13, 11, 7).astype(np.float32)
+    jp = jplan(JConvSpec.for_conv2d(x.shape, w.shape), algo="sfc6_6")
+    want = jax.grad(lambda xj, wj, bj: jnp.sum(jp.apply(xj, wj, bias=bj)
+                                               * gy), argnums=(0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    p = plan(ConvSpec.for_conv2d(x.shape, w.shape), backend="reference",
+             algo="sfc6_6")
+    assert p.path == "fast"
+    ts = [torch.from_numpy(a).requires_grad_() for a in (x, w, b)]
+    (p.apply(ts[0], ts[1], bias=ts[2]) * torch.from_numpy(gy)).sum(
+        ).backward()
+    for t, jg in zip(ts, want):
+        jg = np.asarray(jg)
+        np.testing.assert_allclose(t.grad.numpy(), jg, rtol=0,
+                                   atol=DEFAULT_TOL * np.abs(jg).max())
+
+
 def test_full_fp32_matmul_serialises_threads():
     # a second thread waits at the guard until the first has left it, so
     # neither can restore the caller's TF32 setting inside the other's block

@@ -158,7 +158,7 @@ def test_narrow_depthwise_stack_layer_by_layer(path):
 
 def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-        [ROOT / "chip_smoke.py"]
+        [ROOT / "chip_smoke.py", ROOT / "examples" / "train_cnn_sfc_torch.py"]
 
 
 def _imported_roots(path):

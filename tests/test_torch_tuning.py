@@ -255,7 +255,8 @@ def test_measured_config_rides_native_and_lowered_plans():
 def test_autotune_records_a_winner_that_plan_carries():
     spec = _spec(spatial=(9, 11), in_channels=4, out_channels=8)
     lines = []
-    got = tuning.autotune(spec, "cuda", algos=["sfc6_6", "sfc4_4"], reps=1,
+    got = tuning.autotune(spec, "cuda", device="cpu",
+                          algos=["sfc6_6", "sfc4_4"], reps=1,
                           log=lines.append)
     assert set(got) == {"direct", "sfc6_6", "sfc4_4"}
     for name in ("sfc6_6", "sfc4_4"):
@@ -273,7 +274,8 @@ def test_autotune_records_a_winner_that_plan_carries():
 def test_autotune_times_each_composite_once():
     spec = _spec(stride=2, in_channels=8, out_channels=8, spatial=(12, 12))
     lines = []
-    got = tuning.autotune(spec, "cuda", reps=1, log=lines.append)
+    got = tuning.autotune(spec, "cuda", device="cpu", reps=1,
+                          log=lines.append)
     names = [e.name for e in registry.entries(taps=3)]
     timed = [n for n in names if n in got]
     assert len(timed) == 1 and "direct" in got
@@ -288,10 +290,27 @@ def test_autotune_times_each_composite_once():
     assert (plan(spec, backend="cuda").path == "lowered") == lowered
 
 
+def test_autotune_without_a_card_raises_instead_of_timing_the_cpu(
+        monkeypatch):
+    # with no device given autotune measures on the card; on a host
+    # without one it raises before timing anything, and a CPU timing
+    # needs device="cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    timed = []
+    monkeypatch.setattr(tuning, "_measure_plan",
+                        lambda *a, **k: timed.append(a) or 1e-3)
+    spec = _spec(spatial=(9, 11), in_channels=4, out_channels=8)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        tuning.autotune(spec, "cuda", algos=["sfc6_6"], reps=1)
+    assert timed == [] and tuning.lookup(spec, "cuda") == {}
+    assert set(tuning.autotune(spec, "cuda", device="cpu", algos=["sfc6_6"],
+                               reps=1)) == {"direct", "sfc6_6"}
+
+
 def test_autotune_skips_what_the_overflow_preflight_rejects():
     spec = _spec(in_channels=140000, out_channels=1, spatial=(3, 3))
     lines = []
-    assert tuning.autotune(spec, "cuda", algos=["sfc6_6"],
+    assert tuning.autotune(spec, "cuda", device="cpu", algos=["sfc6_6"],
                            include_direct=False, log=lines.append) == {}
     assert "skipped" in lines[0]
 
