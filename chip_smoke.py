@@ -151,6 +151,29 @@ csrc`` at first use.  Phases, each of which raises on failure:
         the simulation on the same input, against the fp32 direct conv,
         and Fig. 5's MSE ratio of sfc6_6 and wino4 to direct int8.
 
+  10. the sharded conv backend (``cuda_spmd``,
+     ``repro_torch.distributed.conv_spmd``), the chain off: VGG-16's 13
+     convs, ResNet-18's 20 (the stem and transitions lowered) and
+     MobileNetV2's 13 stride-1 depthwise convs at batch 4, 224x224 and
+     published widths, on the int8 fused, staged and tuned (each conv
+     carrying the single-device plan's measured config) datapaths, fp and
+     direct, over the (data, model) meshes (1, 1), (2, 1), (1, 2), (2, 2),
+     (4, 1) and (1, 4) from ``make_forced_host_mesh`` (the visible GPUs
+     where there are enough, else ``cuda:0`` repeated); every conv on the
+     single-device conv's input against its output: int8 bit for bit, fp
+     and direct bit for bit or within 1e-4 (a finding); the placed weight
+     blocks' devices and shapes; launches mesh size times the
+     single-device count; VGG-16 and ResNet-18 at batch 1 on (2, 1) and
+     (2, 2) (the data axis dropped); each stack's card and wall ms beside
+     the single-device stack's, findings with no bound;
+     b. ``python -m repro_torch.analysis --check`` on this host (exit 0)
+     and ``compressed_psum`` over a one-rank NCCL group, bit for bit the
+     int8 round trip.
+
+``--sharded`` runs phases 10 and 10b alone (after the build), over the
+visible GPUs where a mesh has enough (on four cards, every mesh of up to
+four shards has a card a shard; the tuned path then carries no measured
+config, as nothing was tuned), and writes ``chiprun_out/sharded.json``.
 ``--sweep-b4``, ``--sweep-b7``, ``--sweep-b1`` and ``--sweep-b2`` time
 B4's, B7's, B1's and B5's, and B2's and B6's geometries per layer instead
 (each held bit for bit to the default) and write
@@ -389,6 +412,25 @@ NUDGE = 1e-7
 CHAOS_FACTOR = 3.0
 LAYER_SIM_REL = 1e-4           # one conv, deployed against the simulation
 MIN_ARGMAX_AGREE = 0.99
+# phase 10, the sharded conv backend (repro_torch.distributed.conv_spmd,
+# backend "cuda_spmd"): VGG-16's 13 convs, ResNet-18's 20 (stem and
+# transitions lowered) and MobileNetV2's 13 stride-1 depthwise convs at
+# SHARD_BATCH, IMAGE and published widths, over each (data, model) mesh of
+# SHARD_MESHES (the visible GPUs where there are enough, else cuda:0
+# repeated), on SHARD_PATHS; every output against the single-device cuda
+# backend on the same input: int8 bit for bit, fp and direct bit for bit or
+# within SHARD_FP_TOL (rel L2 and max |diff| / max |ref|, a finding);
+# SHARD_SANITIZED meshes also at batch 1 (the data axis dropped); stack
+# card and wall ms, medians of SHARD_RUNS
+SHARD_MESHES = ((1, 1), (2, 1), (1, 2), (2, 2), (4, 1), (1, 4))
+SHARD_BATCH = 4
+SHARD_PATHS = ("fused", "staged", "tuned", "fp", "direct")
+SHARD_SANITIZED = ((2, 1), (2, 2))
+SHARD_RUNS = 5
+SHARD_FP_TOL = 1e-4
+SHARD_SEED = 1100
+# per conv, card ms sharded against one device: (net, path, mesh)
+SHARD_PER_LAYER = ("vgg16", "fused", (2, 2))
 # examples/train_cnn_sfc_torch.py's accuracy table: (row, config changes)
 ACCURACY_ROWS = (
     ("direct fp32", {}),
@@ -1111,19 +1153,29 @@ def training(dev, counted) -> dict:
                 rel_l2(g_open[n].cpu(), v) for n, v in g_cpu.items()
                 if not dead_bias(n))
         out["grads"].append(row)
-        log(f"grads: resnet18 {mode} batch {GRAD_BATCH}, card against CPU: "
-            f"loss rel {row['loss_rel']:.2e}, max |dg| / max |g| "
-            f"{row['max_err_over_max_g']:.2e} (bound {GRAD_TOL}), worst "
-            f"leaf rel L2 {row['worst_leaf_rel_l2']:.2e}"
-            + (f" (bound {INT8_GRAD_REL}, or {CHAOS_FACTOR}x the CPU's own "
-               f"spread for a {NUDGE} nudge of the images, "
-               f"{row['cpu_spread_worst_leaf_rel_l2']:.2e})"
-               if "int8" in mode else "")
-            + ("" if "int8" in mode else
-               f"; with the backward's guard taken out (what it prevents, "
-               f"PyTorch's default TF32 flags): max |dg| / max |g| "
-               f"{row['unguarded_max_err_over_max_g']:.2e}, worst leaf rel "
-               f"L2 {row['unguarded_worst_leaf_rel_l2']:.2e}"))
+        if "int8" in mode:
+            # the bounds the int8 row is held to: the worst leaf, the loss
+            # and the dead biases (max |dg| / max |g| is printed unbounded)
+            log(f"grads: resnet18 {mode} batch {GRAD_BATCH}, card against "
+                f"CPU: worst leaf rel L2 {row['worst_leaf_rel_l2']:.2e} "
+                f"(bound {leaf_bound:.2e}: {INT8_GRAD_REL}, or "
+                f"{CHAOS_FACTOR}x the CPU's own spread for a {NUDGE} nudge "
+                f"of the images, {row['cpu_spread_worst_leaf_rel_l2']:.2e}), "
+                f"loss rel {row['loss_rel']:.2e} (bound {GRAD_TOL}), dead "
+                f"biases max |dg| / max |g| "
+                f"{row['dead_bias_max_err_over_max_g']:.2e} (bound "
+                f"{GRAD_TOL}); max |dg| / max |g| over all leaves "
+                f"{row['max_err_over_max_g']:.2e} (no bound: dynamic int8 "
+                f"is chaotic)")
+        else:
+            log(f"grads: resnet18 {mode} batch {GRAD_BATCH}, card against "
+                f"CPU: loss rel {row['loss_rel']:.2e}, max |dg| / max |g| "
+                f"{row['max_err_over_max_g']:.2e} (bound {GRAD_TOL} each), "
+                f"worst leaf rel L2 {row['worst_leaf_rel_l2']:.2e}; with the "
+                f"backward's guard taken out (what it prevents, PyTorch's "
+                f"default TF32 flags): max |dg| / max |g| "
+                f"{row['unguarded_max_err_over_max_g']:.2e}, worst leaf rel "
+                f"L2 {row['unguarded_worst_leaf_rel_l2']:.2e}")
 
     # one int8 conv at a time, on the fp32 activations of the model's own
     # forward: the gradients of input and weights through the hook's
@@ -1348,6 +1400,388 @@ def training(dev, counted) -> dict:
                              f"(bound {MIN_ARGMAX_AGREE})")
     shutil.rmtree(ckpt_root, ignore_errors=True)
     return out
+
+
+def shard_nets():
+    """(name, convs, forward, depthwise) of phase 10's three stacks: each
+    conv (name, R, stride, H = W of its input, C_in, C_out); ``forward(x,
+    conv)`` runs the stack with ``conv(name, h)``, ``x`` the images or, for
+    the depthwise convs (each on its own input), a dict of inputs."""
+    vgg, ends = vgg_layers()
+    vgg = [(n, 3, 1, hw, cin, cout) for n, hw, cin, cout in vgg]
+
+    def vgg_forward(x, conv):
+        from repro_torch.models.cnn import max_pool_same
+        h = x
+        for li, (lname, *_) in enumerate(vgg):
+            h = conv(lname, h).relu()
+            if li in ends:
+                h = max_pool_same(h, 2, 2)
+        return h
+
+    dw = [(n, 3, 1, hw, c, c) for n, hw, c in DW_LAYERS
+          if n.startswith("mbv2")]
+
+    def dw_forward(xs, conv):
+        return [conv(n, xs[n]) for n, *_ in dw]
+
+    return (("vgg16", vgg, vgg_forward, False),
+            ("resnet18", resnet_convs(), resnet_forward, False),
+            ("mbv2_dw", dw, dw_forward, True))
+
+
+def sharded_convs(dev, counted, plan_launches, smi) -> dict:
+    """Phase 10: the ``cuda_spmd`` backend over device meshes against the
+    single-device ``cuda`` backend.  Raises on any miss; returns the
+    phase's report."""
+    import torch
+
+    from repro_torch.api import ConvSpec, costmodel, get_backend, plan, tuning
+    from repro_torch.api.plan import PrepCache
+    from repro_torch.distributed.sharding import Sharded
+    from repro_torch.launch.mesh import make_forced_host_mesh
+    from repro_torch.quant import FP32, INT8_FREQ
+    spmd = get_backend("cuda_spmd")
+    n_gpus = torch.cuda.device_count()
+    out = {"meshes": [], "stacks": [], "findings": [], "sanitized": [],
+           "cuda_plans_differ": 0}
+
+    def mesh_of(shape):
+        n = math.prod(shape)
+        return make_forced_host_mesh(shape) if n_gpus >= n \
+            else make_forced_host_mesh(shape, device=dev)
+
+    def calibration(p, x):
+        if not p.spec.quant.enabled or p.path == "direct":
+            return None
+        if p.path == "lowered":
+            return p.calibrate(x)
+        return tuning.calibrate_act_scale(x, p.algorithm, p.spec.quant,
+                                          p.spec.padding)
+
+    def tuned(p):
+        """Each native (sub-)plan with the config the cuda backend's
+        planner gives it: the measured winner, else the cost model's."""
+        if p.path == "lowered":
+            return dataclasses.replace(p, sub_plans=tuple(
+                tuned(q) for q in p.sub_plans))
+        if p.algorithm is None:
+            return p
+        return p.with_config(
+            tuning.get_config(p.spec, "cuda", p.algo_name)
+            or costmodel.best_config(p.spec, "cuda", p.algo_name))
+
+    def on_backend(p, backend):
+        """The same plan (algorithms, sub-plans, configs) on ``backend``,
+        with prepared-weight caches of its own."""
+        subs = {"sub_plans": tuple(on_backend(q, backend)
+                                   for q in p.sub_plans)} \
+            if p.path == "lowered" else {}
+        return dataclasses.replace(p, backend=backend, _prep=PrepCache(),
+                                   **subs)
+
+    def structure(p, configs=True):
+        if p.path == "lowered":
+            return (p.algo_name, tuple(structure(q, configs)
+                                       for q in p.sub_plans))
+        return (p.algo_name, p.config if configs else None)
+
+    def spec_of(conv, batch, quant, depthwise):
+        _, R, stride, hw, cin, cout = conv
+        if depthwise:
+            return ConvSpec.for_conv2d_depthwise(
+                (batch, hw, hw, cin), (R, R, 1, cin), quant=quant)
+        return ConvSpec.for_conv2d((batch, hw, hw, cin), (R, R, cin, cout),
+                                   stride=stride, quant=quant)
+
+    def plans_for(convs, batch, path, depthwise):
+        """cuda_spmd plans of one path, through ``plan``."""
+        quant = FP32 if path in ("fp", "direct") else INT8_FREQ
+        algo = "direct" if path == "direct" else ALGO
+        cfg = {"fused": tuning.DEFAULT_FUSED,
+               "staged": tuning.DEFAULT_STAGED}.get(path)
+        plans = {}
+        for conv in convs:
+            p = plan(spec_of(conv, batch, quant, depthwise),
+                     backend="cuda_spmd", algo=algo)
+            plans[conv[0]] = tuned(p) if path == "tuned" else \
+                p if cfg is None else p.with_config(cfg)
+        return plans
+
+    def card_ms(fn):
+        """Median device ms of one ``fn`` call over SHARD_RUNS, each call
+        queued alone behind a spin kernel that outlasts its enqueue (a
+        sharded forward launches hundreds of kernels: several calls behind
+        one spin would fill the card's launch queue and block the host).
+        The spin doubles until it holds and stays doubled; None where it
+        never held (the time would include the host's gaps)."""
+        fn()
+        torch.cuda.synchronize()
+        cycles, times = SPIN_CYCLES, []
+        while len(times) < SHARD_RUNS:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            torch.cuda._sleep(cycles)
+            ev[1].record()
+            t0 = time.perf_counter()
+            fn()
+            ev[2].record()
+            enqueue_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            if enqueue_ms < ev[0].elapsed_time(ev[1]):
+                times.append(ev[1].elapsed_time(ev[2]))
+            elif cycles >= SPIN_CYCLES << 8:
+                log(f"shard: the host outran every spin ({enqueue_ms:.1f} "
+                    f"ms to enqueue one forward); card time not measured")
+                return None
+            else:
+                cycles *= 2
+        return statistics.median(times)
+
+    def fmt_ms(v):
+        return "not measured" if v is None else f"{v:.3f}"
+
+    def wall_ms(fn):
+        runs = []
+        for _ in range(SHARD_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(runs)
+
+    def placed_blocks(p, prep, mesh, where):
+        """Every placed block on its coordinate's device, C_out / model
+        wide where the model axis divides C_out."""
+        m = mesh.shape["model"]
+        for coord in mesh.coords():
+            for name in ("wq", "w_scale", "tw", "act_scale"):
+                a = getattr(prep, name)
+                if a is None:
+                    continue
+                if not isinstance(a, Sharded):
+                    raise AssertionError(f"{where}: {name} was not placed")
+                blk = a.shard(coord)
+                if blk.device != mesh.device(coord):
+                    raise AssertionError(f"{where}: {name} block {coord} on "
+                                         f"{blk.device}")
+                full = a.shape[-1]
+                want = full if name == "act_scale" or full % m else full // m
+                if blk.shape[-1] != want or blk.shape[:-1] != a.shape[:-1]:
+                    raise AssertionError(f"{where}: {name} block {coord} "
+                                         f"{tuple(blk.shape)} of {a.shape}")
+
+    def held_shard(where, kind, y_s, y_1):
+        """int8 bit for bit; fp and direct bit for bit or a finding within
+        SHARD_FP_TOL."""
+        if torch.equal(y_s, y_1):
+            return True
+        if kind == "int8":
+            raise AssertionError(f"{where}: the sharded int8 output differs "
+                                 f"from the single-device one")
+        rel = rel_l2(y_s, y_1)
+        scaled = ((y_s - y_1).abs().max()
+                  / y_1.abs().max().clamp_min(1e-30)).item()
+        out["findings"].append({"where": where, "shape": list(y_1.shape),
+                                "rel_l2": rel, "scaled_max": scaled})
+        if not (rel <= SHARD_FP_TOL and scaled <= SHARD_FP_TOL):
+            raise AssertionError(f"{where}: rel L2 {rel}, max |diff| / max "
+                                 f"|ref| {scaled} against one device (bound "
+                                 f"{SHARD_FP_TOL})")
+        return False
+
+    def run_net(net, batch, paths, meshes, tag):
+        name, convs, forward, dw = net
+        rng = np.random.RandomState(SHARD_SEED + len(convs))
+        ws = {c[0]: torch.tensor(
+            rng.randn(c[1], c[1], 1 if dw else c[4], c[5])
+            * math.sqrt(2.0 / (c[1] * c[1] * (1 if dw else c[4]))),
+            dtype=torch.float32, device=dev) for c in convs}
+        bs = {c[0]: torch.tensor(rng.randn(c[5]) * 0.1, dtype=torch.float32,
+                                 device=dev) for c in convs}
+        if dw:
+            x = {c[0]: torch.tensor(rng.randn(batch, c[3], c[3], c[4]),
+                                    dtype=torch.float32, device=dev)
+                 for c in convs}
+        else:
+            x = torch.tensor(rng.randn(batch, IMAGE, IMAGE, 3),
+                             dtype=torch.float32, device=dev)
+        for path in paths:
+            kind = "int8" if path in ("fused", "staged", "tuned") else "fp"
+            # the single-device reference: the cuda_spmd plans' algorithms,
+            # sub-plans and configs on the cuda backend (the measured tiers
+            # are per backend: plan(spec, backend="cuda") may lower onto
+            # other sub-algorithms)
+            p1 = {n: on_backend(p, "cuda")
+                  for n, p in plans_for(convs, batch, path, dw).items()}
+            out["cuda_plans_differ"] += sum(
+                structure(p, False) != structure(plan(
+                    p.spec, backend="cuda",
+                    algo="direct" if path == "direct" else ALGO), False)
+                for p in p1.values())
+            want1 = {k: sum(plan_launches(p, kind == "fp")[k]
+                            for p in p1.values()) for k in REPLACES}
+            one = {}                      # conv -> (input, act, output)
+
+            def record(lname, h):
+                p = p1[lname]
+                act = calibration(p, h)
+                y = p.apply(h, p.prepare_weights(ws[lname], act_scale=act),
+                            bias=bs[lname])
+                one[lname] = (h, act, y)
+                return y
+
+            counted(f"shard_{name}_{path}_1", f"{name} {path} batch {batch} "
+                    f"on one device", lambda: forward(x, record), want=want1)
+            prep1 = {n: p1[n].prepare_weights(ws[n], act_scale=one[n][1])
+                     for n in p1}
+
+            def single(lname, h):
+                return p1[lname].apply(h, prep1[lname], bias=bs[lname])
+
+            base = {"card_ms": card_ms(lambda: forward(x, single)),
+                    "wall_ms": wall_ms(lambda: forward(x, single))}
+            for shape in meshes:
+                mesh = mesh_of(shape)
+                spmd.set_mesh(mesh)
+                ps = plans_for(convs, batch, path, dw)
+                if any(structure(ps[n]) != structure(p1[n]) for n in ps):
+                    raise AssertionError(f"{name} {path} mesh {shape}: the "
+                                         f"plans changed with the mesh")
+                preps = {n: ps[n].prepare_weights(ws[n],
+                                                  act_scale=one[n][1])
+                         for n in ps}
+                first = next(n for n in ps if ps[n].path == "fast") \
+                    if any(p.path == "fast" for p in ps.values()) else None
+                if first is not None:
+                    placed_blocks(ps[first], preps[first], mesh,
+                                  f"{name} {path} {shape} {first}")
+                exact = []
+
+                def check(lname, h):
+                    # every conv on the single-device input of that conv
+                    h1, _, y1 = one[lname]
+                    y = ps[lname].apply(h1, preps[lname], bias=bs[lname])
+                    exact.append(held_shard(
+                        f"{name} {path} batch {batch} mesh {shape} {lname}",
+                        kind, y, y1))
+                    return y
+
+                want = {k: v * mesh.size for k, v in want1.items()}
+                counted(f"shard_{name}_{path}", f"{name} {path} batch "
+                        f"{batch} mesh {shape}", lambda: forward(x, check),
+                        want=want)
+
+                def sharded(lname, h):
+                    return ps[lname].apply(h, preps[lname], bias=bs[lname])
+
+                row = {"net": name, "path": path, "batch": batch,
+                       "mesh": list(shape), "tag": tag,
+                       "devices": sorted({str(d) for d in
+                                          mesh.devices.flat}),
+                       "bit_exact_convs": sum(exact), "convs": len(exact),
+                       "launches": {k: v for k, v in want.items() if v},
+                       "card_ms": card_ms(lambda: forward(x, sharded)),
+                       "wall_ms": wall_ms(lambda: forward(x, sharded)),
+                       "one_device_card_ms": base["card_ms"],
+                       "one_device_wall_ms": base["wall_ms"]}
+                if (name, path, shape) == SHARD_PER_LAYER and tag == "stack":
+                    row["per_layer"] = [{
+                        "layer": n, "shape": list(one[n][0].shape),
+                        "card_ms": card_ms(lambda: sharded(n, one[n][0])),
+                        "one_device_card_ms": card_ms(
+                            lambda: single(n, one[n][0]))} for n in ps]
+                    log("shard: per conv, card ms sharded / one device: "
+                        + ", ".join(f"{r['layer']} {fmt_ms(r['card_ms'])} / "
+                                    f"{fmt_ms(r['one_device_card_ms'])}"
+                                    for r in row["per_layer"]))
+                out["stacks" if tag == "stack" else "sanitized"].append(row)
+                log(f"shard: {name} {path} batch {batch} mesh {shape} "
+                    f"({mesh.size} shards on {row['devices']}): "
+                    f"{row['bit_exact_convs']}/{len(exact)} convs bit for "
+                    f"bit one device; card {fmt_ms(row['card_ms'])} ms, wall "
+                    f"{row['wall_ms']:.3f} ms, against one device "
+                    f"{fmt_ms(base['card_ms'])} / {base['wall_ms']:.3f} ms; "
+                    f"launches {json.dumps(row['launches'])}")
+                del ps, preps
+            del one, prep1
+
+    t0 = time.perf_counter()
+    try:
+        for net in shard_nets():
+            paths = [p for p in SHARD_PATHS if not (net[3] and p == "tuned")]
+            run_net(net, SHARD_BATCH, paths, SHARD_MESHES, "stack")
+            if not net[3]:
+                # batch 1 on a 2-way data axis: the axis drops, replicated
+                run_net(net, 1, ("fused",), SHARD_SANITIZED, "sanitized")
+    finally:
+        spmd.set_mesh(None)
+    torch.cuda.synchronize()
+    out["meshes"] = [list(m) for m in SHARD_MESHES]
+    out["gpus"] = n_gpus
+    out["seconds"] = time.perf_counter() - t0
+    if out["findings"]:
+        worst = max(out["findings"], key=lambda f: f["rel_l2"])
+        log(f"shard: {len(out['findings'])} fp or direct convs not bit for "
+            f"bit one device, all within {SHARD_FP_TOL}; worst rel L2 "
+            f"{worst['rel_l2']:.3e} at {worst['where']} {worst['shape']}")
+    else:
+        log("shard: every sharded output bit for bit the single-device one, "
+            "fp and direct included")
+    log(f"shard: {out['cuda_plans_differ']} conv plans (over all paths and "
+        f"batches) lower onto other sub-algorithms on the cuda backend (its "
+        f"measured tiers); each is held to its own plan on one device")
+    log(f"shard: phase 10 took {out['seconds']:.1f} s on {smi}")
+    return out
+
+
+def gate_and_psum(dev) -> dict:
+    """Phase 10b: ``python -m repro_torch.analysis --check`` on this host
+    (exit 0), and ``compressed_psum`` on a one-rank NCCL group, bit for bit
+    ``dequantize_int8(*quantize_int8(x))``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.optim import grad_compression as gc
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    gate = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                           "--check"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    tail = gate.stdout.strip().splitlines()[-1:] or [gate.stderr[-300:]]
+    log(f"gate: python -m repro_torch.analysis --check exited "
+        f"{gate.returncode}: {tail[0]}")
+    if gate.returncode != 0:
+        raise AssertionError(f"the analysis gate failed:\n{gate.stdout}"
+                             f"\n{gate.stderr}")
+    store = ROOT / "build" / "chip_smoke_nccl_store"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        x = torch.tensor(np.random.RandomState(1200).randn(1 << 20),
+                         dtype=torch.float32, device=dev)
+        y = gc.compressed_psum(x, torch.Generator(device=dev).manual_seed(7))
+        want = gc.dequantize_int8(*gc.quantize_int8(
+            x, torch.Generator(device=dev).manual_seed(7)))
+        torch.cuda.synchronize()
+        same = torch.equal(y, want)
+        err = (y - x).abs().max().item()
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    log(f"psum: compressed_psum over a one-rank NCCL group on {dev}: bit for "
+        f"bit the int8 round trip {same}; max |y - x| {err:.3e} (one int8 "
+        f"step {x.abs().max().item() / 127:.3e})")
+    if not same:
+        raise AssertionError("compressed_psum on one NCCL rank differs from "
+                             "the int8 round trip")
+    return {"gate_exit": gate.returncode, "gate_tail": tail[0],
+            "psum_bit_exact": same, "psum_max_abs_err": err}
 
 
 def tf32_flags() -> dict:
@@ -1808,6 +2242,68 @@ def main() -> None:
         log(f"timing: the host outran every spin; {enqueue_ms:.1f} ms to "
             f"enqueue, times include host gaps")
         return statistics.median(times)
+
+    launches = {k: 0 for k in REPLACES}   # summed over the paths' forwards
+    path_launches = {}                    # path -> launches of its forwards
+    path_kernels = {}                     # path -> the kernels it launches
+    n_forwards = {}
+
+    def counted(path, what, fn, times=1, want=None):
+        """Run one forward of ``path`` (``times`` layers of a depthwise
+        stack) with every launch count set to 0 just before it, and check
+        just after it what it launched: ``want``, or ``EXPECTED[path]``."""
+        if want is None:
+            want = {k: n * times for k, n in EXPECTED[path].items()}
+        kernels.reset_launch_counts()
+        out = fn()
+        got = kernels.launch_counts()
+        if got != want:
+            raise AssertionError(f"{what}: the {path} forward launched "
+                                 f"{got}, not {want}")
+        tally = path_launches.setdefault(path, {k: 0 for k in REPLACES})
+        for k in launches:
+            launches[k] += got[k]
+            tally[k] += got[k]
+        path_kernels.setdefault(path, set()).update(
+            k for k, v in want.items() if v)
+        n_forwards[path] = n_forwards.get(path, 0) + 1
+        return out
+
+    def plan_launches(p, fp=False):
+        """What one forward of plan ``p`` launches: per fast (sub-)plan B4
+        or B7 (the fused datapath), B1, B2 or B6, B3 (staged), B5, B3
+        (``fp``: no calibrated int8 weights); a direct one none."""
+        want, stack = only(), [p]
+        while stack:
+            q = stack.pop()
+            if q.path == "lowered":
+                stack.extend(q.sub_plans)
+                continue
+            if q.path != "fast":
+                continue
+            dw = q.spec.depthwise
+            if fp:
+                names = ("sfc_transform", "sfc_inverse")
+            elif (q.config or tuning.DEFAULT_FUSED).datapath == "fused":
+                names = ("sfc_fused_conv2d_depthwise" if dw
+                         else "sfc_fused_conv2d",)
+            else:
+                names = ("sfc_transform_quantize", "sfc_inverse",
+                         "tdmm_int8_depthwise" if dw else "tdmm_int8")
+            for k in names:
+                want[k] += 1
+        return want
+
+    if "--sharded" in sys.argv[1:]:
+        # phases 10 and 10b alone, over the visible GPUs
+        report = {"device": {"name": name, "nvidia_smi": smi,
+                             "count": torch.cuda.device_count()},
+                  "sharded": sharded_convs(dev, counted, plan_launches, smi),
+                  "gate_and_psum": gate_and_psum(dev)}
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "sharded.json").write_text(json.dumps(report, indent=1))
+        return
 
     if "--sweep-b4" in sys.argv[1:]:
         sweep_b4(dev, timed, smi)
@@ -2333,57 +2829,6 @@ def main() -> None:
     report["phases"]["direct_default_flags"] = direct_rows
 
     # ---- 5. the paths ----------------------------------------------------
-    launches = {k: 0 for k in REPLACES}   # summed over the paths' forwards
-    path_launches = {}                    # path -> launches of its forwards
-    path_kernels = {}                     # path -> the kernels it launches
-    n_forwards = {}
-
-    def counted(path, what, fn, times=1, want=None):
-        """Run one forward of ``path`` (``times`` layers of a depthwise
-        stack) with every launch count set to 0 just before it, and check
-        just after it what it launched: ``want``, or ``EXPECTED[path]``."""
-        if want is None:
-            want = {k: n * times for k, n in EXPECTED[path].items()}
-        kernels.reset_launch_counts()
-        out = fn()
-        got = kernels.launch_counts()
-        if got != want:
-            raise AssertionError(f"{what}: the {path} forward launched "
-                                 f"{got}, not {want}")
-        tally = path_launches.setdefault(path, {k: 0 for k in REPLACES})
-        for k in launches:
-            launches[k] += got[k]
-            tally[k] += got[k]
-        path_kernels.setdefault(path, set()).update(
-            k for k, v in want.items() if v)
-        n_forwards[path] = n_forwards.get(path, 0) + 1
-        return out
-
-    def plan_launches(p, fp=False):
-        """What one forward of plan ``p`` launches: per fast (sub-)plan B4
-        or B7 (the fused datapath), B1, B2 or B6, B3 (staged), B5, B3
-        (``fp``: no calibrated int8 weights); a direct one none."""
-        want, stack = only(), [p]
-        while stack:
-            q = stack.pop()
-            if q.path == "lowered":
-                stack.extend(q.sub_plans)
-                continue
-            if q.path != "fast":
-                continue
-            dw = q.spec.depthwise
-            if fp:
-                names = ("sfc_transform", "sfc_inverse")
-            elif (q.config or tuning.DEFAULT_FUSED).datapath == "fused":
-                names = ("sfc_fused_conv2d_depthwise" if dw
-                         else "sfc_fused_conv2d",)
-            else:
-                names = ("sfc_transform_quantize", "sfc_inverse",
-                         "tdmm_int8_depthwise" if dw else "tdmm_int8")
-            for k in names:
-                want[k] += 1
-        return want
-
     def add_launches(*wants):
         return {k: sum(w[k] for w in wants) for k in REPLACES}
 
@@ -3920,6 +4365,24 @@ def main() -> None:
     log(f"train: phase 9 launched {json.dumps(train_report['launches'])} "
         f"in {train_report['seconds']:.1f} s")
     report["phases"]["training"] = train_report
+
+    # ---- 10. the sharded conv backend ----------------------------------
+    # the chain off, as in phases 3-6: cuda_spmd runs the cuda backend's
+    # apply per shard, which no chain wraps; a kernel that fails raises
+    resilience.configure(dataclasses.replace(chain_policy, enabled=False))
+    shard_report = sharded_convs(dev, counted, plan_launches, smi)
+    resilience.configure(chain_policy)
+    shard_paths = sorted(p for p in path_launches if p.startswith("shard_"))
+    for path in shard_paths:
+        if any(path_launches[path][k] <= 0 for k in path_kernels[path]):
+            raise AssertionError(f"a kernel of {path} never launched: "
+                                 f"{path_launches[path]}")
+    shard_report["launches"] = {path: {k: v for k, v in
+                                       path_launches[path].items() if v}
+                                for path in shard_paths}
+    report["phases"]["sharded"] = shard_report
+    # ---- 10b. the analysis gate and the NCCL all-reduce ------------------
+    report["phases"]["gate_and_psum"] = gate_and_psum(dev)
 
     out = ROOT / "build"
     out.mkdir(exist_ok=True)

@@ -53,6 +53,7 @@ from repro_torch.kernels.sfc_transform import (TRANSFORM_MAX_THREADS,
                                                transform_geometry)
 
 ERROR = "ERROR"
+WARNING = "WARNING"
 
 GRID_X_MAX = 2 ** 31 - 1
 GRID_YZ_MAX = 65535
@@ -66,7 +67,7 @@ class Finding:
     """One static-analysis finding (the JAX package's shape)."""
 
     code: str          # e.g. 'KC001'
-    severity: str      # ERROR (the JAX package also has WARNING)
+    severity: str      # ERROR | WARNING
     message: str
     where: str = ""    # the geometry or config
 
@@ -243,3 +244,68 @@ def fold_fits(algo, config, imgs: int, H: int, W: int, C: int, Cout: int,
     return not [f for f in check_config(algo, config, imgs, H, W, C, Cout,
                                         padding=padding)
                 if f.severity == ERROR]
+
+
+def tile_refuses(algo, config) -> bool:
+    """Whether B4 cannot take ``config``'s knobs at ``algo``'s tile on any
+    workload: the geometry is refused already at one tile, C_in = the
+    stage width and C_out = the channel block, and no larger workload
+    needs less shared memory (the ring, xq and scales scale with t^2, the
+    stage width and the channel block, not with the shape)."""
+    if config.datapath != "fused":
+        return False
+    kb = config.k_block or sfc_fused.K_BLOCK
+    try:
+        geometries_for(algo, config, 1, algo.M, algo.M, kb,
+                       config.cout_block or 8, padding="VALID")
+    except ValueError:
+        return True
+    return False
+
+
+def default_candidate_report(*, bits_act: int = 8, bits_weight: int = 8
+                             ) -> List[Finding]:
+    """Check every ``DEFAULT_CANDIDATES`` config against a representative
+    workload sweep (the kernel gate of ``python -m repro_torch.analysis``):
+    four shapes, every non-Winograd 3-tap algorithm of the registry.
+
+    A candidate whose B4 knobs the algorithm's tile cannot take at any
+    workload (:func:`tile_refuses`: sfc6_7's t = 12 with ``k_block`` 64 or
+    ``cout_block`` 16 needs more shared memory than an H100 block has) is
+    one WARNING per (algorithm, candidate): ``check_candidates`` drops it
+    for that algorithm before anything is timed or launched, as it drops
+    every ERROR.  The TPU's VMEM takes every candidate at every tile, so
+    the JAX package's report has no such finding.  Every other refusal,
+    a limit that a shape breaks, is an ERROR."""
+    from repro_torch.api import registry
+    from repro_torch.api.spec import ConvSpec
+    from repro_torch.api.tuning import DEFAULT_CANDIDATES
+    from repro_torch.quant.fake_quant import QuantConfig
+    quant = QuantConfig(enabled=True, bits_act=bits_act,
+                        bits_weight=bits_weight)
+    findings: List[Finding] = []
+    shapes = [(1, 14, 14, 128, 128), (4, 28, 28, 64, 128),
+              (1, 224, 224, 64, 64), (8, 7, 7, 512, 512)]
+    for entry in registry.entries(taps=3):
+        if entry.kind == "winograd":
+            continue               # excluded from the int8 fast path
+        algo = registry.get_algorithm(entry.name)
+        for cfg in DEFAULT_CANDIDATES:
+            if tile_refuses(algo, cfg):
+                findings.append(Finding(
+                    "KC004", WARNING,
+                    f"B4 cannot take k_block={cfg.k_block}, cout_block="
+                    f"{cfg.cout_block} at t={algo.t} on any workload (shared "
+                    f"memory); the pre-flight drops this candidate for "
+                    f"{entry.name}", f"{entry.name} | {cfg}"))
+                continue
+            for B, H, W, C, Cout in shapes:
+                spec = ConvSpec(kernel_size=3, in_channels=C,
+                                out_channels=Cout, spatial=(H, W),
+                                quant=quant)
+                got = check_spec_config(spec, algo, cfg, batch=B)
+                for f in got or []:
+                    findings.append(dataclasses.replace(
+                        f, where=f"{entry.name} B{B} {H}x{W} "
+                                 f"{C}->{Cout} | {f.where}"))
+    return findings

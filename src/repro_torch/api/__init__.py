@@ -13,7 +13,9 @@ auto-selection), lowers strided and grouped specs onto SFC sub-problems
 activation scales), degrades to direct convolution where fast algorithms
 do not apply, and dispatches execution to the ``reference`` (plain torch)
 or ``cuda`` (hand-written kernels) backend behind one signature; on
-``cuda`` through the degradation chain of ``resilience``.
+``cuda`` through the degradation chain of ``resilience``.  ``cuda_spmd``
+(``repro_torch.distributed.conv_spmd``) runs the ``cuda`` datapath per
+shard over a device mesh, batch over 'data' and C_out over 'model'.
 ``serving_cache`` holds one (plan, prepared weights) per served spec.
 """
 from repro_torch.api import (costmodel, lowering, resilience, serving_cache,

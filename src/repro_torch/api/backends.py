@@ -29,6 +29,10 @@ them: ``APPLY_REFERENCE`` on entry to the reference backend,
 
 On CPU tensors the ``cuda`` backend's kernel wrappers run their plain
 versions, which is how the CPU tests drive this dispatch.
+
+A third backend, ``cuda_spmd`` (``repro_torch.distributed.conv_spmd``),
+runs the ``cuda`` datapath per shard over a device mesh; it registers
+here at its first lookup.
 """
 from __future__ import annotations
 
@@ -170,6 +174,15 @@ _BACKENDS: Dict[str, object] = {
 }
 
 
+def _register_spmd() -> None:
+    # at the first lookup of cuda_spmd, not at import: importing
+    # repro_torch.api imports no distributed code and touches no device
+    # (the backend's mesh resolves on first use too)
+    if "cuda_spmd" not in _BACKENDS:
+        from repro_torch.distributed.conv_spmd import CudaSpmdBackend
+        _BACKENDS.setdefault("cuda_spmd", CudaSpmdBackend())
+
+
 def register_backend(name: str, backend, overwrite: bool = False) -> None:
     """Add (or with ``overwrite``, replace) an execution backend."""
     if name in _BACKENDS and not overwrite:
@@ -180,6 +193,8 @@ def register_backend(name: str, backend, overwrite: bool = False) -> None:
 
 
 def get_backend(name: str):
+    if name == "cuda_spmd":
+        _register_spmd()
     try:
         return _BACKENDS[name]
     except KeyError:
@@ -188,4 +203,5 @@ def get_backend(name: str):
 
 
 def list_backends():
+    _register_spmd()
     return tuple(sorted(_BACKENDS))

@@ -197,8 +197,15 @@ class ConvPlan:
         Results are cached per weight tensor and version; the scales are
         copied, so a PreparedWeights stays as it was prepared when the
         caller updates its operands in place.
+
+        Backends that define ``place_prepared(plan, prep)`` (the sharded
+        ``cuda_spmd`` backend: C_out-sharded ``wq``/``w_scale`` placement)
+        get the prepared tensors routed through it before caching, so the
+        offline half also covers device layout and a re-prepare hands back
+        the placed copy.
         """
         from repro_torch import faults
+        from repro_torch.api import backends     # late: avoids import cycle
         faults.maybe_fault(faults.PREPARE, detail=self)
         operands = (w, act_scale, w_scale)
         key = PrepCache.key_for(operands)
@@ -206,6 +213,10 @@ class ConvPlan:
         if cached is not None:
             return cached
         prep = self._prepare_uncached(w, act_scale, w_scale)
+        place = getattr(backends.get_backend(self.backend), "place_prepared",
+                        None)
+        if place is not None:
+            prep = place(self, prep)
         self._prep.put(key, operands, prep)
         return prep
 

@@ -7,15 +7,16 @@ fed back into the next step so the *accumulated* update is unbiased
 
 The rounding noise comes from an explicit ``torch.Generator``, so a run is
 reproducible from its seed; it cannot match ``jax.random``'s draws, so the
-port is held to the JAX package statistically.  ``compressed_psum`` (the
-all-reduce itself) needs a process group and comes with the distributed
-slice.
+port is held to the JAX package statistically.  ``compressed_psum`` is the
+all-reduce itself, over a ``torch.distributed`` process group (NCCL on the
+card, gloo on the CPU).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.tree import leaves, tree_map, unflatten
 
@@ -57,3 +58,23 @@ def compress_with_feedback(grads, residuals, generator: torch.Generator):
 def init_residuals(params):
     return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                           device=p.device), params)
+
+
+def compressed_psum(x: torch.Tensor, generator: torch.Generator,
+                    group: Optional[dist.ProcessGroup] = None
+                    ) -> torch.Tensor:
+    """int8 quantize -> all-reduce -> dequant, across ``group`` (default:
+    the world).
+
+    Each rank quantizes its ``x`` stochastically (``quantize_int8``); the
+    int32 codes are summed and the scales maxed across the ranks, and the
+    sum is dequantized by the largest scale, as the JAX package's
+    ``psum``/``pmax`` pair does inside ``shard_map``.  Every rank gets the
+    same result.
+    """
+    q, s = quantize_int8(x, generator)
+    total = q.to(torch.int32)
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    smax = s.reshape(1).clone()
+    dist.all_reduce(smax, op=dist.ReduceOp.MAX, group=group)
+    return total.to(torch.float32) * smax[0]
