@@ -170,10 +170,38 @@ csrc`` at first use.  Phases, each of which raises on failure:
      and ``compressed_psum`` over a one-rank NCCL group, bit for bit the
      int8 round trip.
 
+  11. the LM serving path (``repro_torch.models``, ``launch.serve``), the
+     chain off; no forward may launch any of B1-B7 (the JAX pallas backend
+     sends rank-1 plans to its reference path, and the models reach no
+     other conv):
+     a. the rank-1 depthwise causal conv at mamba2-1.3b's conv shapes (B 2,
+        T 512 and a ragged 37, C 4352, R 4), ``sfc6_6_r4`` and ``direct``
+        on the ``reference``, ``cuda`` and ``cuda_spmd`` ((2, 1) mesh)
+        backends: bit for bit each other, within 1e-4 rel L2 of CPU
+        copies, SFC within 1e-4 of direct; card ms of each;
+     b. mamba2-1.3b, zamba2-1.2b and phi4-mini-3.8b at their published
+        widths and depths, weights from a seeded ``torch.Generator`` on
+        the card: a bf16 prefill of 2 x 512 tokens (card ms spin-queued
+        where the host can enqueue it within the spin, busy ms and kernels
+        from a ``torch.profiler`` trace, wall ms); at full width with 2
+        layers in fp32, the card within 1e-4 rel L2 of CPU copies,
+        teacher-forced decode within 1e-3 of the forward, ``use_sfc_conv``
+        on within 1e-4 of off (max |diff| / (1 + |ref|)); the same three
+        figures at full depth in bf16, as findings;
+     c. ``launch.serve.main`` for each of the three (``--no-smoke``, batch
+        4, gen 32, max-len 128, 12 requests): 12 served, 48, 38 and 0 conv
+        layers warmed; tok/s, request p50 and p99, steps, wall ms a decode
+        step, the card's ms and busy ms a step, the host-bound share, peak
+        memory;
+     d. the smoke configs of qwen3-14b, qwen2.5-32b and stablelm-3b on the
+        card within 1e-4 rel L2 of CPU copies in fp32.
+
 ``--sharded`` runs phases 10 and 10b alone (after the build), over the
 visible GPUs where a mesh has enough (on four cards, every mesh of up to
 four shards has a card a shard; the tuned path then carries no measured
 config, as nothing was tuned), and writes ``chiprun_out/sharded.json``.
+``--lm`` runs phase 11 alone (after the build) and writes
+``chiprun_out/lm.json``.
 ``--sweep-b4``, ``--sweep-b7``, ``--sweep-b1`` and ``--sweep-b2`` time
 B4's, B7's, B1's and B5's, and B2's and B6's geometries per layer instead
 (each held bit for bit to the default) and write
@@ -186,7 +214,7 @@ float32 library calls (``repro_torch.core.precision``).
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  A longer report goes to
 ``build/chip_smoke_report.json``.  Weights and images are random, from
-numpy seeds.
+numpy seeds (the LMs' weights from seeded ``torch.Generator``s).
 """
 from __future__ import annotations
 
@@ -431,6 +459,36 @@ SHARD_FP_TOL = 1e-4
 SHARD_SEED = 1100
 # per conv, card ms sharded against one device: (net, path, mesh)
 SHARD_PER_LAYER = ("vgg16", "fused", (2, 2))
+# phase 11, the LM serving path (repro_torch.models, launch.serve), the
+# chain off: the rank-1 conv at mamba2-1.3b's conv shapes (CONV1D_SHAPES:
+# (B, T, C, R)); LM_ARCHS at their published widths and depths, weights
+# from a torch.Generator seeded LM_SEED on the card, a prefill of
+# LM_PREFILL (batch, tokens) in the configured compute dtype (bf16), then
+# fp32 checks at full width with n_layers cut to LM_CHECK_LAYERS on
+# LM_CHECK_T tokens (card against CPU copies LM_REL rel L2, teacher-forced
+# decode against the forward LM_DECODE_ABS, use_sfc_conv True against False
+# LM_SFC: max |diff| / (1 + |ref|)); at full depth the same three figures
+# in bf16 (LM_BF16_T tokens for the CPU copy, LM_DECODE_T decode steps) as
+# findings; launch.serve.main for each of LM_ARCHS with LM_SERVE_ARGS
+# (LM_WARMED conv layers warmed); LM_SMOKE_ARCHS' smoke configs on the card
+# against CPU copies in fp32
+CONV1D_SHAPES = ((2, 512, 4352, 4), (2, 37, 4352, 4))
+LM_ARCHS = ("mamba2-1.3b", "zamba2-1.2b", "phi4-mini-3.8b")
+LM_SEED = 2200
+LM_PREFILL = (2, 512)
+LM_CHECK_LAYERS = 2
+LM_CHECK_T = {"ssm": 272, "hybrid": 272, "dense": 96}
+LM_BF16_T = 8
+LM_DECODE_T = 16
+LM_REL = 1e-4
+LM_DECODE_ABS = 1e-3
+LM_SFC = 1e-4
+LM_RUNS = 5
+LM_SPIN = SPIN_CYCLES << 5     # ~0.3 s: one LM call a spin
+LM_SERVE_ARGS = ("--no-smoke", "--batch", "4", "--gen", "32", "--max-len",
+                 "128", "--requests", "12")
+LM_WARMED = {"mamba2-1.3b": 48, "zamba2-1.2b": 38, "phi4-mini-3.8b": 0}
+LM_SMOKE_ARCHS = ("qwen3-14b", "qwen2.5-32b", "stablelm-3b")
 # examples/train_cnn_sfc_torch.py's accuracy table: (row, config changes)
 ACCURACY_ROWS = (
     ("direct fp32", {}),
@@ -1784,6 +1842,320 @@ def gate_and_psum(dev) -> dict:
             "psum_bit_exact": same, "psum_max_abs_err": err}
 
 
+def close_err(y, ref) -> float:
+    """max |y - ref| / (1 + |ref|): within b means allclose at rtol = atol
+    = b."""
+    return ((y - ref).abs() / (1 + ref.abs())).max().item()
+
+
+def lm_serving(dev, counted, timed, smi) -> dict:
+    """Phase 11: the rank-1 SFC conv and the LM serving path (11a-11d), each
+    forward launching none of B1-B7 (the JAX pallas backend sends rank-1
+    plans to its reference path; the models reach no other conv)."""
+    import torch
+
+    import repro_torch.configs as configs
+    import repro_torch.launch.serve as serve
+    from repro_torch import tree as tree_util
+    from repro_torch.api import ConvSpec, get_backend, plan, serving_cache
+    from repro_torch.launch.mesh import make_forced_host_mesh
+    from repro_torch.models import build, transformer
+
+    t_phase = time.perf_counter()
+    none = only()
+    out = {"conv1d": [], "models": {}, "serving": {}, "smoke": {}}
+
+    def free():
+        serving_cache.clear()
+        transformer.clear_compute_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def tokens(cfg, shape, seed):
+        return torch.from_numpy(np.random.RandomState(seed).randint(
+            0, cfg.vocab_size, shape)).to(dev)
+
+    def generator(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def decoded(model, params, toks):
+        """Teacher-forced decode of ``toks``: the logits of every step."""
+        B, T = toks.shape
+        cache = model.init_cache(params, B, T)
+        outs = []
+        for t in range(T):
+            lg, cache = model.decode_step(
+                params, cache, toks[:, t:t + 1],
+                torch.full((B,), t, dtype=torch.int32, device=dev))
+            outs.append(lg[:, 0])
+        return torch.stack(outs, dim=1)
+
+    def wall_ms(fn, runs=LM_RUNS):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / runs
+
+    def queued_ms(fn, runs=3):
+        """Median card ms of one ``fn`` call queued alone behind a spin of
+        ``LM_SPIN`` cycles; None where the host could not enqueue the call
+        before the spin ended (a call of more launches than the card's
+        launch queue holds blocks the host behind the spin)."""
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(runs):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            torch.cuda._sleep(LM_SPIN)
+            ev[1].record()
+            t0 = time.perf_counter()
+            fn()
+            ev[2].record()
+            enqueue_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            if enqueue_ms >= ev[0].elapsed_time(ev[1]):
+                return None
+            times.append(ev[1].elapsed_time(ev[2]))
+        return statistics.median(times)
+
+    def traced(fn):
+        """The card's busy ms and kernels of one ``fn`` call, from a
+        ``torch.profiler`` trace (``profile_forward``)."""
+        prof = profile_forward(fn)
+        if "not_measured" in prof:
+            return {"busy_ms": None, "kernels": None, **prof}
+        top = sorted(prof["kernels"].items(), key=lambda kv: -kv[1]["us"])
+        return {"busy_ms": prof["busy_us"] / 1e3,
+                "kernels": sum(v["count"] for v in prof["kernels"].values()),
+                "span_ms": prof["device_span_us"] / 1e3,
+                "traced_wall_ms": prof["wall_us"] / 1e3,
+                "top": [(k[:60], v["count"], v["us"] / 1e3)
+                        for k, v in top[:4]]}
+
+    def fmt_ms(v):
+        return "not measured" if v is None else f"{v:.3f}"
+
+    # ---- 11a. the rank-1 conv -------------------------------------------
+    spmd = get_backend("cuda_spmd")
+    spmd.set_mesh(make_forced_host_mesh((2, 1), device=dev))
+    try:
+        for B, T, C, R in CONV1D_SHAPES:
+            rng = np.random.RandomState(LM_SEED + T)
+            x, w, b = (torch.tensor(a, dtype=torch.float32, device=dev) for a
+                       in (rng.randn(B, T, C), rng.randn(R, C) * 0.3,
+                           rng.randn(C) * 0.1))
+            spec = ConvSpec.for_conv1d_depthwise(x.shape, w.shape)
+            row = {"shape": [B, T, C, R]}
+            ys = {}
+            for algo in ("sfc6_6_r4", "direct"):
+                for backend in ("reference", "cuda", "cuda_spmd"):
+                    p = plan(spec, backend=backend, algo=algo)
+                    if p.algo_name != algo:
+                        raise AssertionError(f"{spec} planned {p.algo_name}")
+                    prep = p.prepare_weights(w)
+                    ys[algo, backend] = counted(
+                        "lm_conv1d", f"conv1d {algo} on {backend}",
+                        lambda: p.apply(x, prep, bias=b), want=none)
+                    if backend == "cuda":
+                        row[f"{algo}_ms"] = timed(
+                            lambda: p.apply(x, prep, bias=b), runs=LM_RUNS)
+                for backend in ("reference", "cuda_spmd"):
+                    if not torch.equal(ys[algo, backend], ys[algo, "cuda"]):
+                        raise AssertionError(f"conv1d {algo}: {backend} is "
+                                             f"not bit for bit cuda's")
+                p_cpu = plan(spec, backend="reference", algo=algo)
+                y_cpu = p_cpu.apply(x.cpu(), p_cpu.prepare_weights(w.cpu()),
+                                    bias=b.cpu())
+                row[f"{algo}_card_vs_cpu"] = rel_l2(ys[algo, "cuda"].cpu(),
+                                                    y_cpu)
+                if not row[f"{algo}_card_vs_cpu"] <= LM_REL:
+                    raise AssertionError(f"conv1d {algo} {row}: the card "
+                                         f"against CPU copies")
+            sfc, direct = ys["sfc6_6_r4", "cuda"], ys["direct", "cuda"]
+            row["sfc_vs_direct_rel_l2"] = rel_l2(sfc, direct)
+            row["sfc_vs_direct_close"] = close_err(sfc, direct)
+            if not (row["sfc_vs_direct_rel_l2"] <= LM_SFC
+                    and row["sfc_vs_direct_close"] <= LM_SFC):
+                raise AssertionError(f"conv1d SFC against direct: {row}")
+            out["conv1d"].append(row)
+            log(f"lm conv1d: (B, T, C, R) {row['shape']} sfc6_6_r4 "
+                f"{row['sfc6_6_r4_ms']:.4f} ms, direct "
+                f"{row['direct_ms']:.4f} ms on the card (reference path, "
+                f"no kernel of the port); card against CPU "
+                f"{row['sfc6_6_r4_card_vs_cpu']:.2e} / "
+                f"{row['direct_card_vs_cpu']:.2e} rel L2; SFC against "
+                f"direct {row['sfc_vs_direct_rel_l2']:.2e} rel L2, "
+                f"{row['sfc_vs_direct_close']:.2e} close; reference and "
+                f"cuda_spmd (2, 1) bit for bit cuda")
+    finally:
+        spmd.set_mesh(None)
+
+    # ---- 11b. the models at published widths and depths ----------------
+    for arch in LM_ARCHS:
+        cfg = configs.get_config(arch)
+        model = build(cfg)
+        row = {"family": cfg.family, "n_layers": cfg.n_layers,
+               "compute_dtype": cfg.compute_dtype}
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            params = model.init(generator(LM_SEED), device=dev)
+            torch.cuda.synchronize()
+            row["init_s"] = time.perf_counter() - t0
+            row["params"] = sum(a.numel() for a in tree_util.leaves(params))
+            toks = tokens(cfg, LM_PREFILL, LM_SEED + 1)
+            logits = counted("lm_prefill", f"{arch} prefill",
+                             lambda: model.forward(params, toks), want=none)
+            if tuple(logits.shape) != LM_PREFILL + (cfg.padded_vocab,) \
+                    or not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{arch} prefill: {logits.shape}")
+            row["prefill_ms"] = queued_ms(lambda: model.forward(params, toks))
+            row["prefill_trace"] = traced(lambda: model.forward(params, toks))
+            row["prefill_wall_ms"] = wall_ms(
+                lambda: model.forward(params, toks))
+            # the same three figures at full depth in bf16: findings
+            short = toks[:, :LM_BF16_T]
+            t0 = time.perf_counter()
+            cpu_params = tree_to(transformer.cast_compute(params, cfg),
+                                 "cpu")
+            row["bf16_card_vs_cpu"] = rel_l2(
+                model.forward(params, short).cpu(),
+                model.forward(cpu_params, short.cpu()))
+            del cpu_params
+            row["bf16_cpu_s"] = time.perf_counter() - t0
+            dec = toks[:, :LM_DECODE_T]
+            row["bf16_decode_vs_forward"] = (
+                decoded(model, params, dec)
+                - model.forward(params, dec)).abs().max().item()
+            if cfg.family in ("ssm", "hybrid"):
+                off = build(dataclasses.replace(cfg, use_sfc_conv=False))
+                row["bf16_sfc_vs_direct_close"] = close_err(
+                    logits, off.forward(params, toks))
+            del params, logits
+            free()
+            # fp32 at full width, n_layers cut
+            cfg2 = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS,
+                                       compute_dtype="float32")
+            m2 = build(cfg2)
+            p2 = m2.init(generator(LM_SEED + 2), device=dev)
+            toks2 = tokens(cfg, (2, LM_CHECK_T[cfg.family]), LM_SEED + 3)
+            y = counted("lm_prefill", f"{arch} fp32 check",
+                        lambda: m2.forward(p2, toks2), want=none)
+            row["fp32_card_vs_cpu"] = rel_l2(
+                y.cpu(), m2.forward(tree_to(p2, "cpu"), toks2.cpu()))
+            row["fp32_decode_vs_forward"] = (
+                decoded(m2, p2, toks2) - y).abs().max().item()
+            if cfg.family in ("ssm", "hybrid"):
+                off = build(dataclasses.replace(cfg2, use_sfc_conv=False))
+                row["fp32_sfc_vs_direct_close"] = close_err(
+                    y, off.forward(p2, toks2))
+            del p2, y
+            free()
+        if not (row["fp32_card_vs_cpu"] <= LM_REL
+                and row["fp32_decode_vs_forward"] <= LM_DECODE_ABS
+                and row.get("fp32_sfc_vs_direct_close", 0.0) <= LM_SFC):
+            raise AssertionError(f"{arch}: the fp32 checks {row}")
+        out["models"][arch] = row
+        log(f"lm model: {arch} ({row['params'] / 1e9:.3f} B parameters, "
+            f"{cfg.n_layers} layers, init {row['init_s']:.1f} s): prefill "
+            f"of {LM_PREFILL} tokens in {cfg.compute_dtype} "
+            f"{fmt_ms(row['prefill_ms'])} ms on the card (spin-queued), busy "
+            f"{fmt_ms(row['prefill_trace']['busy_ms'])} ms in "
+            f"{row['prefill_trace']['kernels']} kernels (traced), "
+            f"{row['prefill_wall_ms']:.2f} ms wall; fp32 at "
+            f"{LM_CHECK_LAYERS} layers: card against CPU "
+            f"{row['fp32_card_vs_cpu']:.2e} rel L2, decode against forward "
+            f"{row['fp32_decode_vs_forward']:.2e} max abs"
+            + (f", SFC against direct {row['fp32_sfc_vs_direct_close']:.2e}"
+               if "fp32_sfc_vs_direct_close" in row else "")
+            + f"; full depth bf16 (findings): card against CPU "
+            f"{row['bf16_card_vs_cpu']:.2e} rel L2 ({LM_BF16_T} tokens, "
+            f"{row['bf16_cpu_s']:.1f} s), decode against forward "
+            f"{row['bf16_decode_vs_forward']:.2e} max abs"
+            + (f", SFC against direct {row['bf16_sfc_vs_direct_close']:.2e}"
+               if "bf16_sfc_vs_direct_close" in row else ""))
+
+    # ---- 11c. serving through launch.serve ------------------------------
+    class Captured(serve.SlotLoop):
+        """The launcher's loop, keeping its step for the card's timing."""
+        step = None
+
+        def run(self, step_fn, max_steps=None):
+            Captured.step = step_fn
+            return super().run(step_fn, max_steps)
+
+    loop_class = serve.SlotLoop
+    serve.SlotLoop = Captured
+    try:
+        for arch in LM_ARCHS:
+            free()
+            torch.cuda.reset_peak_memory_stats(dev)
+            resident = torch.cuda.memory_allocated(dev)
+            argv = ["--arch", arch, *LM_SERVE_ARGS]
+            stats = counted("lm_serve", f"{arch} serving",
+                            lambda: serve.main(argv), want=none)
+            warmed = serving_cache.stats()["size"]
+            if stats.served != 12 or warmed != LM_WARMED[arch]:
+                raise AssertionError(f"{arch} served {stats.served}, warmed "
+                                     f"{warmed} conv layers")
+            step = Captured.step
+            batch = int(argv[argv.index("--batch") + 1])
+            tok = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+            pos = torch.full((batch,), 64, dtype=torch.int32, device=dev)
+            # the serving's own peak, above what earlier phases left
+            peak = (torch.cuda.max_memory_allocated(dev) - resident) / 1e9
+            with torch.no_grad():
+                card = queued_ms(lambda: step.logits(tok, pos))
+                trace = traced(lambda: step.logits(tok, pos))
+            lat = stats.latency_ms
+            row = {"summary": stats.summary(), "warmed": warmed,
+                   "wall_ms_per_step": stats.elapsed_s * 1e3 / stats.steps,
+                   "card_ms_per_step": card, "step_trace": trace,
+                   "peak_gb": peak}
+            busy = trace["busy_ms"]
+            row["host_share"] = None if busy is None \
+                else 1 - busy / row["wall_ms_per_step"]
+            out["serving"][arch] = row
+            log(f"lm serve: {arch} served {stats.served} requests in "
+                f"{stats.elapsed_s:.2f} s, {stats.steps} steps, "
+                f"{stats.tok_per_s:.1f} tok/s, request p50 "
+                f"{lat.percentile(50):.1f} ms p99 {lat.percentile(99):.1f} "
+                f"ms; {row['wall_ms_per_step']:.2f} ms wall a decode step, "
+                f"{fmt_ms(card)} ms on the card (spin-queued), busy "
+                f"{fmt_ms(busy)} ms in {trace['kernels']} kernels (traced; "
+                f"host-bound share {fmt_ms(row['host_share'])}); peak "
+                f"{peak:.1f} GB; {warmed} conv layers warmed")
+            Captured.step = step = None
+    finally:
+        serve.SlotLoop = loop_class
+    free()
+
+    # ---- 11d. smoke configs on the card against CPU copies ---------------
+    for arch in LM_SMOKE_ARCHS:
+        cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                                  compute_dtype="float32")
+        m = build(cfg)
+        with torch.no_grad():
+            p = m.init(generator(LM_SEED + 4), device=dev)
+            toks = tokens(cfg, (2, 16), LM_SEED + 5)
+            y = counted("lm_prefill", f"{arch} smoke",
+                        lambda: m.forward(p, toks), want=none)
+            err = rel_l2(y.cpu(), m.forward(tree_to(p, "cpu"), toks.cpu()))
+        if not err <= LM_REL:
+            raise AssertionError(f"{arch} smoke: card against CPU {err}")
+        out["smoke"][arch] = err
+    log("lm smoke: card against CPU copies in fp32, rel L2 " + ", ".join(
+        f"{a} {e:.2e}" for a, e in out["smoke"].items()))
+    free()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"lm: phase 11 took {out['seconds']:.1f} s on {smi}; no kernel of "
+        f"the port launched")
+    return out
+
+
 def tf32_flags() -> dict:
     """cuBLAS's and cuDNN's float32 settings, by the API this PyTorch has."""
     import torch
@@ -2303,6 +2675,17 @@ def main() -> None:
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
         (out / "sharded.json").write_text(json.dumps(report, indent=1))
+        return
+
+    if "--lm" in sys.argv[1:]:
+        # phase 11 alone
+        resilience.configure(dataclasses.replace(resilience.policy(),
+                                                 enabled=False))
+        report = {"device": {"name": name, "nvidia_smi": smi},
+                  "lm_serving": lm_serving(dev, counted, timed, smi)}
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "lm.json").write_text(json.dumps(report, indent=1))
         return
 
     if "--sweep-b4" in sys.argv[1:]:
@@ -4383,6 +4766,14 @@ def main() -> None:
     report["phases"]["sharded"] = shard_report
     # ---- 10b. the analysis gate and the NCCL all-reduce ------------------
     report["phases"]["gate_and_psum"] = gate_and_psum(dev)
+    # ---- 11. the LM serving path ------------------------------------------
+    # the chain off, as in phases 3-6: a failure raises
+    resilience.configure(dataclasses.replace(chain_policy, enabled=False))
+    report["phases"]["lm_serving"] = lm_serving(dev, counted, timed, smi)
+    if resilience.stats():
+        raise AssertionError(f"resilience events in phase 11: "
+                             f"{resilience.stats()}")
+    resilience.configure(chain_policy)
 
     out = ROOT / "build"
     out.mkdir(exist_ok=True)

@@ -18,10 +18,12 @@ Two backends, both consuming the same ``PreparedWeights``:
     product in full float32 (a ``torch.bmm`` over the t^2 positions;
     depthwise the broadcast product), then B3.  Direct plans run the
     reference direct path, as the JAX package's pallas backend runs XLA's
-    convolution.  The rank-1 conv has no kernel yet and raises
-    ``NotImplementedError``.  The backend itself never falls back: the
-    degradation chain around it (``repro_torch.api.resilience``, engaged
-    by ``ConvPlan.apply``) does, and counts every fallback.
+    convolution, and rank-1 plans (the Mamba2 depthwise causal conv1d) the
+    reference fast path, as the pallas backend does (no kernel: the
+    element-wise stage is bandwidth-bound).  The backend itself never
+    falls back: the degradation chain around it
+    (``repro_torch.api.resilience``, engaged by ``ConvPlan.apply``) does,
+    and counts every fallback.
 
 The fault sites of ``repro_torch.faults`` sit where the JAX package puts
 them: ``APPLY_REFERENCE`` on entry to the reference backend,
@@ -64,9 +66,7 @@ def _check_hook_supported(plan, elementwise_hook, prep) -> None:
 def _direct(plan, x, prep, bias) -> torch.Tensor:
     spec = plan.spec
     if spec.rank == 1:
-        raise NotImplementedError(
-            "the rank-1 depthwise causal conv is a later slice of the port "
-            "(queue item A12)")
+        return _add_bias(c2d.conv1d_depthwise_causal_direct(x, prep.w), bias)
     groups = prep.w.shape[-1] if spec.depthwise else spec.groups
     return c2d.conv2d_direct(x, prep.w, spec.padding, bias,
                              stride=spec.stride, groups=groups)
@@ -82,11 +82,14 @@ class ReferenceBackend:
         _check_hook_supported(plan, elementwise_hook, prep)
         if plan.algorithm is None:
             return _direct(plan, x, prep, bias)
-        if plan.spec.rank == 1:
-            raise NotImplementedError(
-                "the rank-1 depthwise causal conv is a later slice of the "
-                "port (queue item A12)")
         algo = plan.algorithm
+        if plan.spec.rank == 1:
+            if elementwise_hook is not None:
+                raise NotImplementedError(
+                    "elementwise_hook is not supported on the rank-1 "
+                    "depthwise fast path")
+            return _add_bias(c2d.fastconv1d_depthwise_causal_pretransformed(
+                x, prep.tw, algo), bias)
         tx, geom = c2d.transform_input_2d(x, algo, plan.spec.padding)
         tw = prep.tw
         if prep.quantized:
@@ -123,15 +126,12 @@ class CudaBackend:
                 "the cuda backend takes no elementwise_hook; bake "
                 "quantization into the plan (spec.quant + calibrated "
                 "prepare_weights) or use backend='reference'")
-        if plan.algorithm is None:
-            # the reference backend's direct path, its fault site included,
-            # as the JAX package's pallas backend delegates to its reference
-            faults.maybe_fault(faults.APPLY_REFERENCE, detail=plan)
-            return _direct(plan, x, prep, bias)
-        if plan.spec.rank == 1:
-            raise NotImplementedError(
-                "the rank-1 depthwise causal conv is a later slice of the "
-                "port (queue item A12)")
+        if plan.algorithm is None or plan.spec.rank == 1:
+            # no kernel for these, as the JAX package's pallas backend has
+            # none: the direct path is the library's convolution and the
+            # rank-1 depthwise conv is bandwidth-bound; the reference
+            # backend runs them, its fault site included
+            return _REFERENCE.apply(plan, x, prep, bias=bias)
         from repro_torch.kernels import ops, sfc_fused
         # the kernels read NHWC rows densely: a strided view (a crop, a
         # slice of a padded output) is copied once here
@@ -168,8 +168,9 @@ class CudaBackend:
         return _add_bias(y, bias)
 
 
+_REFERENCE = ReferenceBackend()
 _BACKENDS: Dict[str, object] = {
-    "reference": ReferenceBackend(),
+    "reference": _REFERENCE,
     "cuda": CudaBackend(),
 }
 

@@ -26,7 +26,8 @@ import torch
 
 import repro_torch.quant.fake_quant as fq
 from repro_torch.api.spec import ConvSpec
-from repro_torch.core.conv2d import transform_weights_2d
+from repro_torch.core.conv2d import (transform_weights_1d,
+                                     transform_weights_2d)
 from repro_torch.core.generator import BilinearAlgorithm
 
 # FIFO bound on prepared weights retained per plan.  Entries pin the raw
@@ -223,11 +224,13 @@ class ConvPlan:
     def _prepare_uncached(self, w, act_scale, w_scale) -> PreparedWeights:
         if self.algorithm is None:
             return PreparedWeights(w=w)
-        if self.spec.rank == 1:
-            raise NotImplementedError(
-                "the rank-1 depthwise causal conv is a later slice of the "
-                "port (queue item A12)")
         algo = self.algorithm
+        if self.spec.rank == 1:
+            if self.spec.quant.enabled:
+                raise NotImplementedError(
+                    "quantized rank-1 depthwise convolution is not "
+                    "implemented; use quant=FP32")
+            return PreparedWeights(w=w, tw=transform_weights_1d(w, algo))
         # contiguous: the cuda backend's fp product reads tw as (t^2, Cin,
         # Cout) in place (the einsum leaves a permuted view, which that
         # reshape copied on every forward)

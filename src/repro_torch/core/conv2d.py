@@ -1,4 +1,5 @@
-"""Tiled fast 2-D convolution in torch (NHWC activations, HWIO weights).
+"""Tiled fast convolution in torch: 2-D (NHWC activations, HWIO weights)
+and the 1-D depthwise causal conv of the Mamba2 blocks ((B, T, C), (R, C)).
 
 Implements the three-stage bilinear flow (paper Eq. 1) for any
 ``BilinearAlgorithm`` (SFC, Winograd, direct):
@@ -265,3 +266,68 @@ def conv2d_direct(x: torch.Tensor, w: torch.Tensor,
     if bias is not None:
         y = y + bias
     return y
+
+
+# --------------------------------------------------------------------------
+# 1-D depthwise causal convolution (Mamba2 / Zamba2 short conv)
+# --------------------------------------------------------------------------
+def _overlap_tiles_1d(n_tiles: int, M: int, L: int, device) -> torch.Tensor:
+    """Row indices (n_tiles, L) of overlapping tiles with stride M."""
+    return (torch.arange(n_tiles, device=device)[:, None] * M
+            + torch.arange(L, device=device)[None, :])
+
+
+def fastconv1d_depthwise_causal(x: torch.Tensor, w: torch.Tensor,
+                                algo: BilinearAlgorithm) -> torch.Tensor:
+    """Causal depthwise conv1d: x (B, T, C), w (R, C) -> (B, T, C).
+
+    y[b, t, c] = sum_r x[b, t - (R-1) + r, c] * w[r, c]   (left-padded)
+
+    Depthwise has no channel contraction, so the element-wise stage is a
+    true element-wise product: t/M multiplications per output against R
+    direct.
+    """
+    if tuple(w.shape) != (algo.R, x.shape[-1]):
+        raise ValueError(f"weights {tuple(w.shape)} do not match R={algo.R} "
+                         f"and input {tuple(x.shape)}")
+    return fastconv1d_depthwise_causal_pretransformed(
+        x, transform_weights_1d(w, algo), algo)
+
+
+def transform_weights_1d(w: torch.Tensor, algo: BilinearAlgorithm
+                         ) -> torch.Tensor:
+    """(R, C) -> (t, C)."""
+    g = transform_matrices(algo, w.dtype, w.device)[1]
+    return guarded_einsum("tr,rc->tc", g, w)
+
+
+def fastconv1d_depthwise_causal_pretransformed(
+        x: torch.Tensor, tw: torch.Tensor, algo: BilinearAlgorithm
+        ) -> torch.Tensor:
+    """The same flow with offline-transformed weights tw (t, C), the form
+    the prepared weights of ``repro_torch.api`` feed."""
+    B, T, C = x.shape
+    if tuple(tw.shape) != (algo.t, C):
+        raise ValueError(f"transformed weights {tuple(tw.shape)} do not "
+                         f"match t={algo.t} and input {tuple(x.shape)}")
+    R, M, L = algo.R, algo.M, algo.L
+    n_tiles = -(-T // M)
+    xp = F.pad(x, (0, 0, R - 1, n_tiles * M - T))
+    tiles = xp[:, _overlap_tiles_1d(n_tiles, M, L, x.device), :]  # (B,nT,L,C)
+    bt, _, at = transform_matrices(algo, x.dtype, x.device)
+    tx = guarded_einsum("ti,bnic->bntc", bt, tiles)
+    ty = tx * tw[None, None, :, :]
+    y = guarded_einsum("mt,bntc->bnmc", at, ty)              # (B,nT,M,C)
+    return y.reshape(B, n_tiles * M, C)[:, :T, :]
+
+
+def conv1d_depthwise_causal_direct(x: torch.Tensor, w: torch.Tensor
+                                   ) -> torch.Tensor:
+    """Oracle for the depthwise causal conv1d."""
+    B, T, C = x.shape
+    R = w.shape[0]
+    xp = F.pad(x, (0, 0, R - 1, 0))
+    out = torch.zeros((B, T, C), dtype=x.dtype, device=x.device)
+    for r in range(R):
+        out = out + xp[:, r:r + T, :] * w[r][None, None, :]
+    return out

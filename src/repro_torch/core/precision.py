@@ -14,9 +14,12 @@ raise), else ``allow_tf32``.  PyTorch reads the setting on the host when a
 call is enqueued, so the call keeps IEEE float32 whenever the card runs
 it.  The settings are process-wide: a lock per guard serialises its
 blocks, so two threads inside one guard cannot restore each other's
-setting before the other's call is enqueued.  A thread outside the guard
-that changes the setting during a block defeats it, and float32 calls
-that other threads enqueue during a block run in IEEE float32 too.
+setting before the other's call is enqueued.  The lock is re-entrant: a
+block may hold a block of the same guard (a language model's forward
+holds one around its products, and its convolutions take theirs
+inside).  A thread outside the guard that changes the setting during a
+block defeats it, and float32 calls that other threads enqueue during a
+block run in IEEE float32 too.
 """
 from __future__ import annotations
 
@@ -25,8 +28,8 @@ import threading
 
 import torch
 
-_MATMUL_LOCK = threading.Lock()
-_CONV_LOCK = threading.Lock()
+_MATMUL_LOCK = threading.RLock()
+_CONV_LOCK = threading.RLock()
 
 
 @contextlib.contextmanager

@@ -18,12 +18,21 @@ PREPARED_FIELDS = ("w", "tw", "wq", "w_scale", "act_scale")
 
 
 def _tensor(value, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(value, copy=True)).to(device)
+    a = np.array(value, copy=True)
+    if a.dtype.name == "bfloat16":
+        # numpy holds bf16 as a dtype torch cannot wrap: cross as f32,
+        # which holds every bf16 value, and cast back
+        return torch.from_numpy(a.astype(np.float32)).to(device).to(
+            torch.bfloat16)
+    return torch.from_numpy(a).to(device)
 
 
 def params_from_numpy(tree: Mapping[str, Any], device="cuda") -> dict:
-    """Nested dict of arrays (the ``init_vgg`` layout ``{"s0c0": {"w", "b"},
-    ...}``) -> the same nesting of tensors on ``device``."""
+    """Nested dict of arrays -> the same nesting of tensors on ``device``,
+    each leaf's shape and dtype kept: the CNNs' layout (``init_vgg``'s
+    ``{"s0c0": {"w", "b"}, ...}``) and the LMs' (``init_lm``'s stacked
+    blocks, padded heads and padded vocab), which the port's models read
+    as they are."""
     return {k: params_from_numpy(v, device) if isinstance(v, Mapping)
             else _tensor(v, device) for k, v in tree.items()}
 

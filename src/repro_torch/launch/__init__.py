@@ -1,4 +1,5 @@
-"""Launch layer: the device meshes the sharded backend runs over."""
+"""Launch layer: the device meshes the sharded backend runs over, and the
+LM serving launcher (``python -m repro_torch.launch.serve``)."""
 from repro_torch.launch.mesh import (Mesh, make_forced_host_mesh,
                                      make_host_mesh)
 

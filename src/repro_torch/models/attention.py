@@ -1,0 +1,264 @@
+"""Attention: GQA with an online-softmax loop over KV chunks, sliding
+window, KV cache.
+
+The counterpart of the JAX package's ``repro.models.attention``, forward
+only.  Prefill runs the online softmax over KV chunks (the JAX package's
+``lax.scan``, here a Python loop with the same chunking, masks and
+``NEG_INF``), so the (S x S) score matrix is never formed.  Decode attends
+one query against the cache, a ring buffer for sliding-window archs.
+
+Products whose JAX form asks for f32 results from bf16 operands
+(``preferred_element_type``) upcast the operands first: the products of
+two bf16 numbers are exact in f32, so this is the same arithmetic.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models import layers
+from repro_torch.models.layers import Params
+
+NEG_INF = -1e30
+
+
+def padded_heads(cfg, n: int, pad_to: int = 16) -> int:
+    """Head count padded up to a multiple of 16 (a 16-way model axis): dead
+    heads start at zero, receive zero signal through the zero ``wo`` rows,
+    and cost Hq_pad/Hq extra attention flops.  The port keeps the padded
+    layout so weights carry across from the JAX package unchanged."""
+    if n % pad_to == 0 or n < pad_to:
+        return n
+    return -(-n // pad_to) * pad_to
+
+
+def init_attention(generator, cfg, dtype) -> Params:
+    """Per-head QKV layout: wq (d, Hq_pad, hd), wk/wv (d, Hkv, hd), wo
+    (Hq_pad, hd, d)."""
+    d = cfg.d_model
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hq_p = padded_heads(cfg, hq)
+    device = generator.device
+
+    def heads(n, n_pad):
+        w = layers.dense_init(generator, d, n * hd, dtype).reshape(d, n, hd)
+        if n_pad > n:
+            w = torch.cat([w, torch.zeros((d, n_pad - n, hd), dtype=dtype,
+                                          device=device)], dim=1)
+        return w
+
+    p = {"wq": heads(hq, hq_p), "wk": heads(hkv, hkv),
+         "wv": heads(hkv, hkv)}
+    wo = layers.dense_init(generator, hq * hd, d, dtype).reshape(hq, hd, d)
+    if hq_p > hq:
+        wo = torch.cat([wo, torch.zeros((hq_p - hq, hd, d), dtype=dtype,
+                                        device=device)], dim=0)
+    p["wo"] = wo
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((hq_p, hd), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((hkv, hd), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((hkv, hd), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = layers.init_rmsnorm(hd, dtype, device)
+        p["k_norm"] = layers.init_rmsnorm(hd, dtype, device)
+    return p
+
+
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) @ w (d, n, hd) -> (B, S, n, hd)."""
+    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+
+
+def _project_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
+                 rope: bool = True):
+    """Returns q (B,S,Hq_pad,hd), k (B,S,Hkv,hd), v (B,S,Hkv,hd)."""
+    q, k, v = _heads(x, p["wq"]), _heads(x, p["wk"]), _heads(x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if cfg.qk_norm:
+        q = layers.rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = layers.rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    if rope:
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def expand_kv_padded(k: torch.Tensor, cfg) -> torch.Tensor:
+    """(B,S,Hkv,hd) -> (B,S,Hq_pad,hd): per-q-head KV copies.  Padded head
+    slots reuse kv head 0 (their outputs meet zero ``wo`` rows)."""
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    hq_p = padded_heads(cfg, hq)
+    g = hq // hkv
+    out = torch.repeat_interleave(k, g, dim=2) if g > 1 else k
+    if hq_p > hq:
+        pad = out[:, :, :1, :].expand(*out.shape[:2], hq_p - hq,
+                                      out.shape[-1])
+        out = torch.cat([out, pad], dim=2)
+    return out
+
+
+def attention_output(p: Params, cfg, o: torch.Tensor) -> torch.Tensor:
+    """o (B,S,n,1,hd) or (B,S,n,hd) -> (B,S,d); n may be Hq or Hq_pad
+    (``wo`` rows are sliced to match; padded rows are zero anyway)."""
+    B, S = o.shape[:2]
+    o = o.reshape(B, S, -1, cfg.head_dim)
+    wo = p["wo"][:o.shape[2]]
+    return o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def _chunk_mask(Sq, Sk, chunk, cidx, causal, window, q_offset, device):
+    q_pos = q_offset + torch.arange(Sq, device=device)
+    k_pos = cidx * chunk + torch.arange(chunk, device=device)
+    mask = (k_pos[None, :] <= q_pos[:, None]) if causal else \
+        torch.ones((Sq, chunk), dtype=torch.bool, device=device)
+    if window:
+        mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+    return mask & (k_pos < Sk)[None, :]
+
+
+def _flash_prep(k, v, chunk):
+    """Chunk length and count, and k, v zero-padded to whole chunks."""
+    Sk = k.shape[1]
+    chunk = min(chunk, Sk)
+    n_chunks = -(-Sk // chunk)
+    pad = n_chunks * chunk - Sk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    return k, v, chunk, n_chunks
+
+
+def _flash_fwd_scan(qg, kp, vp, Sq, Sk, chunk, n_chunks, causal, window,
+                    q_offset, scale):
+    """The online softmax over the KV chunks: (m, l, acc) in f32."""
+    B, _, Hkv, groups, _ = qg.shape
+    Dv = vp.shape[-1]
+    q32 = qg.float()
+    m = torch.full((B, Sq, Hkv, groups), NEG_INF, dtype=torch.float32,
+                   device=qg.device)
+    l = torch.zeros((B, Sq, Hkv, groups), dtype=torch.float32,
+                    device=qg.device)
+    acc = torch.zeros((B, Sq, Hkv, groups, Dv), dtype=torch.float32,
+                      device=qg.device)
+    for c in range(n_chunks):
+        kb = kp[:, c * chunk:(c + 1) * chunk]
+        vb = vp[:, c * chunk:(c + 1) * chunk]
+        s = torch.einsum("bqhgd,bkhd->bqhgk", q32, kb.float()) * scale
+        mask = _chunk_mask(Sq, Sk, chunk, c, causal, window, q_offset,
+                           qg.device)
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bqhgk,bkhd->bqhgd", p.to(vb.dtype).float(), vb.float())
+        m = m_new
+    return m, l, acc
+
+
+def flash_attention(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    q_offset: int = 0, chunk: int = 512) -> torch.Tensor:
+    """Online-softmax attention, forward.
+
+    qg: (B, Sq, Hkv, g, D) grouped queries; k/v: (B, Sk, Hkv, Dv).
+    ``window > 0`` restricts attention to the last ``window`` keys
+    (sliding window).  ``q_offset`` is the absolute position of q[0]
+    relative to k[0].  Returns (B, Sq, Hkv, g, Dv) in q's dtype.
+    """
+    Sq, D = qg.shape[1], qg.shape[-1]
+    Sk = k.shape[1]
+    kp, vp, chunk, n_chunks = _flash_prep(k, v, chunk)
+    _, l, acc = _flash_fwd_scan(qg, kp, vp, Sq, Sk, chunk, n_chunks, causal,
+                                window, q_offset, 1.0 / np.sqrt(D))
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.to(qg.dtype)
+
+
+def attention_block(p: Params, cfg, x: torch.Tensor,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """Prefill self-attention (causal)."""
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    o = flash_attention(q[:, :, :, None, :], expand_kv_padded(k, cfg),
+                        expand_kv_padded(v, cfg), causal=True,
+                        window=cfg.sliding_window)
+    return attention_output(p, cfg, o)
+
+
+# --------------------------------------------------------------------------
+# KV cache (decode)
+# --------------------------------------------------------------------------
+def init_kv_cache(cfg, batch: int, max_len: int, dtype,
+                  device="cuda") -> Params:
+    """Ring buffer when sliding-window, else full-length cache."""
+    length = min(max_len, cfg.sliding_window) if cfg.sliding_window \
+        else max_len
+    shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_attention(p: Params, cfg, x: torch.Tensor, cache: Params,
+                     pos: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+    """One-token decode: x (B, 1, d), pos (B,) absolute positions.
+
+    Writes this step's K and V into ``cache`` in place (the JAX launcher
+    donates its cache to the step) and returns it.
+    """
+    B = x.shape[0]
+    q, k, v = _project_qkv(p, cfg, x, pos[:, None])
+    length = cache["k"].shape[1]
+    slot = (pos % length) if cfg.sliding_window else pos
+    # a start past the end clamps, as lax.dynamic_update_slice's does
+    slot = torch.clamp(slot, max=length - 1).long()
+    rows = torch.arange(B, device=x.device)
+    cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+    k_cache, v_cache = cache["k"], cache["v"]
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    groups = hq // hkv
+    qg = q[:, :, :hq, :].reshape(B, 1, hkv, groups, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgk", qg.float(),
+                     k_cache.float()) / np.sqrt(hd)
+    idx = torch.arange(length, device=x.device)[None, :]
+    if cfg.sliding_window:
+        # ring buffer: once pos >= length every slot holds a key from the
+        # window; before that only slots [0, pos] have been written
+        valid = (idx <= (pos % length)[:, None]) | (pos[:, None] >= length)
+    else:
+        valid = idx <= pos[:, None]
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    pattn = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", pattn.to(v_cache.dtype), v_cache)
+    return attention_output(p, cfg, o[:, None]), cache
+
+
+# --------------------------------------------------------------------------
+# Cross-attention (whisper decoder, llama-vision gated layers)
+# --------------------------------------------------------------------------
+def init_cross_attention(generator, cfg, dtype) -> Params:
+    p = init_attention(generator, cfg, dtype)
+    p["gate"] = torch.zeros((), dtype=dtype, device=generator.device)
+    return p
+
+
+def cross_attention_block(p: Params, cfg, x: torch.Tensor,
+                          memory: torch.Tensor, gated: bool = False
+                          ) -> torch.Tensor:
+    """x (B,S,d) attends to memory (B,Sm,d); no RoPE, not causal."""
+    q = _heads(x, p["wq"])
+    k = _heads(memory, p["wk"])
+    v = _heads(memory, p["wv"])
+    if cfg.qk_norm:
+        q = layers.rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = layers.rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    o = flash_attention(q[:, :, :, None, :], expand_kv_padded(k, cfg),
+                        expand_kv_padded(v, cfg), causal=False)
+    out = attention_output(p, cfg, o)
+    if gated:
+        out = torch.tanh(p["gate"]) * out
+    return out

@@ -228,17 +228,19 @@ def cnn_loss(p: Params, cfg: CNNConfig, batch) -> Tuple[torch.Tensor, Dict]:
 # --------------------------------------------------------------------------
 # nn.Module wrappers: the same parameter tree, PyTorch's idiom
 # --------------------------------------------------------------------------
-class _Tree(nn.Module):
+class TreeModule(nn.Module):
     """A nested parameter dict as modules and parameters of the same names
-    (``state_dict`` keys read ``s0b0.conv1.w``)."""
+    (``state_dict`` keys read ``s0b0.conv1.w``); ``requires_grad=False``
+    freezes them (a served model's)."""
 
-    def __init__(self, tree: Mapping[str, Any]):
+    def __init__(self, tree: Mapping[str, Any], requires_grad: bool = True):
         super().__init__()
         for k, v in tree.items():
             if isinstance(v, Mapping):
-                self.add_module(k, _Tree(v))
+                self.add_module(k, TreeModule(v, requires_grad))
             else:
-                self.register_parameter(k, nn.Parameter(v))
+                self.register_parameter(
+                    k, nn.Parameter(v, requires_grad=requires_grad))
 
     def tree(self) -> Params:
         out: Params = dict(self.named_parameters(recurse=False))
@@ -246,7 +248,7 @@ class _Tree(nn.Module):
         return out
 
 
-class ResNet(_Tree):
+class ResNet(TreeModule):
     """ResNet-18 family over a parameter tree (``init_resnet``'s, or the
     JAX package's through ``params_from_numpy``): ``forward(x,
     qhooks=None)`` is :func:`resnet_forward` over this module's
@@ -260,7 +262,7 @@ class ResNet(_Tree):
         return resnet_forward(self.tree(), self.cfg, x, qhooks)
 
 
-class VGG(_Tree):
+class VGG(TreeModule):
     """VGG-16 family over a parameter tree (``init_vgg``'s, or the JAX
     package's): ``forward(x)`` is :func:`vgg_forward` over this module's
     parameters."""

@@ -6,8 +6,8 @@ request shapes map onto a small set of warm ``ConvSpec`` buckets
 into one launch of the fused kernel (``batcher``, ``engine``), every
 latency lands in streaming histograms with per-class SLO attainment
 (``metrics``), and an open-loop synthetic traffic generator drives it
-(``traffic``).  The JAX package's LM decode loop (``slots``) and its
-launcher are a later slice of the port.
+(``traffic``).  The LM path's continuous-batching decode loop is
+``slots.SlotLoop``, which ``repro_torch.launch.serve`` drives.
 
     table = BucketTable.for_workload([(28, 28), (56, 56)], kernel_size=3,
                                      in_channels=256, out_channels=256,
@@ -24,6 +24,7 @@ from repro_torch.serve.batcher import (EDF, FCFS, AdmissionPolicy, Batch,
 from repro_torch.serve.bucketing import Bucket, BucketTable
 from repro_torch.serve.engine import Engine, results
 from repro_torch.serve.metrics import LatencyHistogram, MetricsRegistry
+from repro_torch.serve.slots import SlotLoop, SlotLoopStats
 from repro_torch.serve.traffic import (PromptStream, ShapeMix, TrafficEvent,
                                        bursty_arrivals, default_shape_mix,
                                        poisson_arrivals, synthesize)
@@ -38,6 +39,7 @@ __all__ = [
     "FCFS", "EDF", "fold_rows_per_step",
     "Bucket", "BucketTable",
     "LatencyHistogram", "MetricsRegistry",
+    "SlotLoop", "SlotLoopStats",
     "PromptStream", "ShapeMix", "TrafficEvent", "poisson_arrivals",
     "bursty_arrivals", "default_shape_mix", "synthesize",
     "Request", "Result", "RejectedError", "ShedError", "QuarantinedError",

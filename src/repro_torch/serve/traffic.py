@@ -12,8 +12,8 @@ reproduces the same arrival times, shapes, SLO classes, and prompt
 streams, so benchmark rows are comparable across PRs and engine tests
 are deterministic.
 
-``PromptStream`` is the LM serving launcher's prompt source, kept with
-the module (the launcher itself is a later slice of the port).
+``PromptStream`` is the prompt source of the LM serving launcher
+(``repro_torch.launch.serve``).
 """
 from __future__ import annotations
 

@@ -321,17 +321,22 @@ def test_set_mesh_drops_plans_of_the_old_mesh(spmd):
 
 
 def test_rank1_depthwise_delegates(spmd):
-    """rank-1 depthwise goes to the cuda backend whole, which raises until
-    the rank-1 conv is ported, as on one device."""
+    """rank-1 depthwise goes to the cuda backend whole, which runs the
+    reference fast path (as the JAX pallas backend does): bit for bit the
+    one-device result, within DEFAULT_TOL of the JAX reference backend."""
     spmd((2, 2))
     rng = np.random.RandomState(6)
-    x = torch.tensor(rng.randn(2, 24, 8), dtype=torch.float32)
-    w = torch.tensor(rng.randn(4, 8) * 0.3, dtype=torch.float32)
+    x = rng.randn(2, 24, 8).astype(np.float32)
+    w = (rng.randn(4, 8) * 0.3).astype(np.float32)
     spec = ConvSpec.for_conv1d_depthwise(x.shape, w.shape)
-    for backend in ("cuda", "cuda_spmd"):
-        p = plan(spec, backend=backend, algo="auto")
-        with pytest.raises(NotImplementedError, match="rank-1"):
-            p.apply(x, w)
+    ys = {backend: plan(spec, backend=backend, algo="auto").apply(
+        torch.from_numpy(x), torch.from_numpy(w))
+        for backend in ("cuda", "cuda_spmd")}
+    assert torch.equal(ys["cuda_spmd"], ys["cuda"])
+    want = japi.plan(japi.ConvSpec.for_conv1d_depthwise(x.shape, w.shape),
+                     algo="auto").apply(jnp.asarray(x), jnp.asarray(w))
+    np.testing.assert_allclose(ys["cuda"].numpy(), np.asarray(want),
+                               rtol=DEFAULT_TOL, atol=DEFAULT_TOL)
 
 
 @pytest.mark.parametrize("config", [
