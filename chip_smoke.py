@@ -27,6 +27,11 @@ csrc`` at first use.  Phases, each of which raises on failure:
      bits (``INT4_FREQ``), B4 and B7 bit for bit the staged paths;
      phases 3-6 run with the degradation chain off, so a kernel that
      fails raises;
+     c. B4 at sfc6_7 (t = 12) with every ``tuning.DEFAULT_CANDIDATES``
+        config over VGG-16's 13 convs at batch 1 (one weight stage at
+        ``cout_block`` 16, one stage of 8 tiles at ``k_block`` 64), each
+        bit for bit the staged trio and within the int8 bounds of the
+        reference path, timed per layer;
   4. the direct path on the card under PyTorch's default TF32 flags (the
      run sets none): a 1x1, a 3x3, a 3x3/2 and a lowered 3x3/2's 1x1 phase
      as ``"direct"`` plans against the same plan on CPU copies of the
@@ -196,12 +201,33 @@ csrc`` at first use.  Phases, each of which raises on failure:
      d. the smoke configs of qwen3-14b, qwen2.5-32b and stablelm-3b on the
         card within 1e-4 rel L2 of CPU copies in fp32.
 
+  12. the moe, vlm and encdec families, the chain off, no forward, decode
+     step or serving run launching any of B1-B7: deepseek-v3-671b (cut to
+     4 layers: its 3 dense layers, 1 MoE layer, the MTP head), mixtral-8x7b
+     (cut to 4 of 32 layers), llama-3.2-vision-11b and whisper-tiny (full
+     depth) at published widths, weights from a generator seeded 0 on the
+     card:
+     a. 12 requests each through ``launch.serve`` (``main`` at full depth,
+        ``serve`` on the cut config; batch 4, gen 32, max-len 128): tok/s,
+        request p50 and p99, wall and busy ms a decode step, kernels a
+        step, the host-bound share, peak memory;
+     b. a bf16 prefill of 2 x 512 tokens (1,601 seeded vision embeddings
+        for the vlm, 512 seeded frames for whisper): busy and wall ms;
+     c. fp32 at full width and a cut depth (deepseek 2 layers, 1 dense and
+        1 MoE, no MTP; mixtral 2; llama 4, one group, its gates 0.5 and
+        -0.7; whisper full): the card within 1e-4 rel L2 of CPU copies, the
+        lossless decode within 1e-3 of the lossless forward;
+     d. the same two figures at the served depth in bf16, as findings;
+     e. the four smoke configs on the card within 1e-4 of CPU copies in
+        fp32, the logits and each term of the loss (deepseek's MTP too).
+
 ``--sharded`` runs phases 10 and 10b alone (after the build), over the
 visible GPUs where a mesh has enough (on four cards, every mesh of up to
 four shards has a card a shard; the tuned path then carries no measured
 config, as nothing was tuned), and writes ``chiprun_out/sharded.json``.
-``--lm`` runs phase 11 alone (after the build) and writes
-``chiprun_out/lm.json``.
+``--lm`` runs phases 11 and 12 alone (after the build) and writes
+``chiprun_out/lm.json``; ``--b4-candidates`` runs phase 3c alone and
+writes ``chiprun_out/b4_candidates.json``.
 ``--sweep-b4``, ``--sweep-b7``, ``--sweep-b1`` and ``--sweep-b2`` time
 B4's, B7's, B1's and B5's, and B2's and B6's geometries per layer instead
 (each held bit for bit to the default) and write
@@ -489,6 +515,34 @@ LM_SERVE_ARGS = ("--no-smoke", "--batch", "4", "--gen", "32", "--max-len",
                  "128", "--requests", "12")
 LM_WARMED = {"mamba2-1.3b": 48, "zamba2-1.2b": 38, "phi4-mini-3.8b": 0}
 LM_SMOKE_ARCHS = ("qwen3-14b", "qwen2.5-32b", "stablelm-3b")
+# phase 3c (C12): B4 at sfc6_7's t = 12 with every default candidate over
+# VGG-16's convs, inputs and weights seeded C12_SEED + layer
+C12_ALGO = "sfc6_7"
+C12_SEED = 2300
+# phase 12, the moe, vlm and encdec families (A14), the chain off: each of
+# LM12_ARCHS at its published width, at the depth LM12_DEPTH cuts it to
+# (none: full depth) where one 80 GB card forces a cut, weights from a
+# torch.Generator seeded 0 on the card: LM_SERVE_ARGS' requests through
+# launch.serve (main at full depth; serve() on the cut config); a bf16
+# prefill of LM_PREFILL with seeded vision embeddings (vlm) or frames
+# (encdec, as many as tokens); fp32 checks at full width and LM12_CHECK's
+# depth on LM12_CHECK_T tokens (card against CPU copies LM_REL rel L2, the
+# lossless MoE decode against the lossless forward LM_DECODE_ABS), the vlm's
+# gates set to LM12_GATES; the same two figures at the served depth in bf16
+# (findings); the smoke configs card against CPU, the loss's terms too
+LM12_ARCHS = ("deepseek-v3-671b", "mixtral-8x7b", "llama-3.2-vision-11b",
+              "whisper-tiny")
+LM12_DEPTH = {"deepseek-v3-671b": {"n_layers": 4},  # 3 dense + 1 MoE, MTP
+              "mixtral-8x7b": {"n_layers": 4}}
+LM12_CHECK = {"deepseek-v3-671b": {"n_layers": 2, "first_dense_layers": 1,
+                                   "mtp_depth": 0},
+              "mixtral-8x7b": {"n_layers": 2},
+              "llama-3.2-vision-11b": {"n_layers": 4},
+              "whisper-tiny": {}}
+LM12_CHECK_T = {"deepseek-v3-671b": 16, "mixtral-8x7b": 64,
+                "llama-3.2-vision-11b": 64, "whisper-tiny": 64}
+LM12_GATES = {"gate": 0.5, "ffn_gate": -0.7}
+LM12_SEED = 2400
 # examples/train_cnn_sfc_torch.py's accuracy table: (row, config changes)
 ACCURACY_ROWS = (
     ("direct fp32", {}),
@@ -1848,6 +1902,114 @@ def close_err(y, ref) -> float:
     return ((y - ref).abs() / (1 + ref.abs())).max().item()
 
 
+def lm_free():
+    """Drop what a served model leaves: the serving cache's entries, the
+    compute copies, the allocator's cached blocks."""
+    import torch
+
+    from repro_torch.api import serving_cache
+    from repro_torch.models import transformer
+    serving_cache.clear()
+    transformer.clear_compute_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_tokens(cfg, shape, seed, dev):
+    import torch
+    return torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, shape)).to(dev)
+
+
+def lm_decoded(model, params, toks, memory=None):
+    """Teacher-forced decode of ``toks``: the logits of every step."""
+    import torch
+    B, T = toks.shape
+    cache = model.init_cache(params, B, T, memory)
+    outs = []
+    for t in range(T):
+        lg, cache = model.decode_step(
+            params, cache, toks[:, t:t + 1],
+            torch.full((B,), t, dtype=torch.int32, device=toks.device))
+        outs.append(lg[:, 0])
+    return torch.stack(outs, dim=1)
+
+
+def lm_wall_ms(fn, runs=LM_RUNS):
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / runs
+
+
+def lm_queued_ms(fn, runs=3):
+    """Median card ms of one ``fn`` call queued alone behind a spin of
+    ``LM_SPIN`` cycles; None where the host could not enqueue the call
+    before the spin ended (a call of more launches than the card's launch
+    queue holds blocks the host behind the spin)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(LM_SPIN)
+        ev[1].record()
+        t0 = time.perf_counter()
+        fn()
+        ev[2].record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if enqueue_ms >= ev[0].elapsed_time(ev[1]):
+            return None
+        times.append(ev[1].elapsed_time(ev[2]))
+    return statistics.median(times)
+
+
+def lm_traced(fn):
+    """The card's busy ms and kernels of one ``fn`` call, from a
+    ``torch.profiler`` trace (``profile_forward``)."""
+    prof = profile_forward(fn)
+    if "not_measured" in prof:
+        return {"busy_ms": None, "kernels": None, **prof}
+    top = sorted(prof["kernels"].items(), key=lambda kv: -kv[1]["us"])
+    return {"busy_ms": prof["busy_us"] / 1e3,
+            "kernels": sum(v["count"] for v in prof["kernels"].values()),
+            "span_ms": prof["device_span_us"] / 1e3,
+            "traced_wall_ms": prof["wall_us"] / 1e3,
+            "top": [(k[:60], v["count"], v["us"] / 1e3)
+                    for k, v in top[:4]]}
+
+
+def lm_fmt_ms(v):
+    return "not measured" if v is None else f"{v:.3f}"
+
+
+@contextlib.contextmanager
+def captured_steps():
+    """``launch.serve``'s loop swapped for one that keeps the step of each
+    run (the served model, its tree and cache) for the card's timing;
+    yields the list the steps go to."""
+    import repro_torch.launch.serve as serve
+    steps = []
+
+    class Captured(serve.SlotLoop):
+        def run(self, step_fn, max_steps=None):
+            steps.append(step_fn)
+            return super().run(step_fn, max_steps)
+
+    loop_class, serve.SlotLoop = serve.SlotLoop, Captured
+    try:
+        yield steps
+    finally:
+        serve.SlotLoop = loop_class
+
+
 def lm_serving(dev, counted, timed, smi) -> dict:
     """Phase 11: the rank-1 SFC conv and the LM serving path (11a-11d), each
     forward launching none of B1-B7 (the JAX pallas backend sends rank-1
@@ -1865,79 +2027,11 @@ def lm_serving(dev, counted, timed, smi) -> dict:
     none = only()
     out = {"conv1d": [], "models": {}, "serving": {}, "smoke": {}}
 
-    def free():
-        serving_cache.clear()
-        transformer.clear_compute_cache()
-        gc.collect()
-        torch.cuda.empty_cache()
-
     def tokens(cfg, shape, seed):
-        return torch.from_numpy(np.random.RandomState(seed).randint(
-            0, cfg.vocab_size, shape)).to(dev)
+        return lm_tokens(cfg, shape, seed, dev)
 
     def generator(seed):
         return torch.Generator(device=dev).manual_seed(seed)
-
-    def decoded(model, params, toks):
-        """Teacher-forced decode of ``toks``: the logits of every step."""
-        B, T = toks.shape
-        cache = model.init_cache(params, B, T)
-        outs = []
-        for t in range(T):
-            lg, cache = model.decode_step(
-                params, cache, toks[:, t:t + 1],
-                torch.full((B,), t, dtype=torch.int32, device=dev))
-            outs.append(lg[:, 0])
-        return torch.stack(outs, dim=1)
-
-    def wall_ms(fn, runs=LM_RUNS):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / runs
-
-    def queued_ms(fn, runs=3):
-        """Median card ms of one ``fn`` call queued alone behind a spin of
-        ``LM_SPIN`` cycles; None where the host could not enqueue the call
-        before the spin ended (a call of more launches than the card's
-        launch queue holds blocks the host behind the spin)."""
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(runs):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-            ev[0].record()
-            torch.cuda._sleep(LM_SPIN)
-            ev[1].record()
-            t0 = time.perf_counter()
-            fn()
-            ev[2].record()
-            enqueue_ms = (time.perf_counter() - t0) * 1e3
-            torch.cuda.synchronize()
-            if enqueue_ms >= ev[0].elapsed_time(ev[1]):
-                return None
-            times.append(ev[1].elapsed_time(ev[2]))
-        return statistics.median(times)
-
-    def traced(fn):
-        """The card's busy ms and kernels of one ``fn`` call, from a
-        ``torch.profiler`` trace (``profile_forward``)."""
-        prof = profile_forward(fn)
-        if "not_measured" in prof:
-            return {"busy_ms": None, "kernels": None, **prof}
-        top = sorted(prof["kernels"].items(), key=lambda kv: -kv[1]["us"])
-        return {"busy_ms": prof["busy_us"] / 1e3,
-                "kernels": sum(v["count"] for v in prof["kernels"].values()),
-                "span_ms": prof["device_span_us"] / 1e3,
-                "traced_wall_ms": prof["wall_us"] / 1e3,
-                "top": [(k[:60], v["count"], v["us"] / 1e3)
-                        for k, v in top[:4]]}
-
-    def fmt_ms(v):
-        return "not measured" if v is None else f"{v:.3f}"
 
     # ---- 11a. the rank-1 conv -------------------------------------------
     spmd = get_backend("cuda_spmd")
@@ -2012,9 +2106,11 @@ def lm_serving(dev, counted, timed, smi) -> dict:
             if tuple(logits.shape) != LM_PREFILL + (cfg.padded_vocab,) \
                     or not bool(torch.isfinite(logits).all()):
                 raise AssertionError(f"{arch} prefill: {logits.shape}")
-            row["prefill_ms"] = queued_ms(lambda: model.forward(params, toks))
-            row["prefill_trace"] = traced(lambda: model.forward(params, toks))
-            row["prefill_wall_ms"] = wall_ms(
+            row["prefill_ms"] = lm_queued_ms(
+                lambda: model.forward(params, toks))
+            row["prefill_trace"] = lm_traced(
+                lambda: model.forward(params, toks))
+            row["prefill_wall_ms"] = lm_wall_ms(
                 lambda: model.forward(params, toks))
             # the same three figures at full depth in bf16: findings
             short = toks[:, :LM_BF16_T]
@@ -2028,14 +2124,14 @@ def lm_serving(dev, counted, timed, smi) -> dict:
             row["bf16_cpu_s"] = time.perf_counter() - t0
             dec = toks[:, :LM_DECODE_T]
             row["bf16_decode_vs_forward"] = (
-                decoded(model, params, dec)
+                lm_decoded(model, params, dec)
                 - model.forward(params, dec)).abs().max().item()
             if cfg.family in ("ssm", "hybrid"):
                 off = build(dataclasses.replace(cfg, use_sfc_conv=False))
                 row["bf16_sfc_vs_direct_close"] = close_err(
                     logits, off.forward(params, toks))
             del params, logits
-            free()
+            lm_free()
             # fp32 at full width, n_layers cut
             cfg2 = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS,
                                        compute_dtype="float32")
@@ -2047,13 +2143,13 @@ def lm_serving(dev, counted, timed, smi) -> dict:
             row["fp32_card_vs_cpu"] = rel_l2(
                 y.cpu(), m2.forward(tree_to(p2, "cpu"), toks2.cpu()))
             row["fp32_decode_vs_forward"] = (
-                decoded(m2, p2, toks2) - y).abs().max().item()
+                lm_decoded(m2, p2, toks2) - y).abs().max().item()
             if cfg.family in ("ssm", "hybrid"):
                 off = build(dataclasses.replace(cfg2, use_sfc_conv=False))
                 row["fp32_sfc_vs_direct_close"] = close_err(
                     y, off.forward(p2, toks2))
             del p2, y
-            free()
+            lm_free()
         if not (row["fp32_card_vs_cpu"] <= LM_REL
                 and row["fp32_decode_vs_forward"] <= LM_DECODE_ABS
                 and row.get("fp32_sfc_vs_direct_close", 0.0) <= LM_SFC):
@@ -2062,8 +2158,8 @@ def lm_serving(dev, counted, timed, smi) -> dict:
         log(f"lm model: {arch} ({row['params'] / 1e9:.3f} B parameters, "
             f"{cfg.n_layers} layers, init {row['init_s']:.1f} s): prefill "
             f"of {LM_PREFILL} tokens in {cfg.compute_dtype} "
-            f"{fmt_ms(row['prefill_ms'])} ms on the card (spin-queued), busy "
-            f"{fmt_ms(row['prefill_trace']['busy_ms'])} ms in "
+            f"{lm_fmt_ms(row['prefill_ms'])} ms on the card (spin-queued), "
+            f"busy {lm_fmt_ms(row['prefill_trace']['busy_ms'])} ms in "
             f"{row['prefill_trace']['kernels']} kernels (traced), "
             f"{row['prefill_wall_ms']:.2f} ms wall; fp32 at "
             f"{LM_CHECK_LAYERS} layers: card against CPU "
@@ -2079,19 +2175,9 @@ def lm_serving(dev, counted, timed, smi) -> dict:
                if "bf16_sfc_vs_direct_close" in row else ""))
 
     # ---- 11c. serving through launch.serve ------------------------------
-    class Captured(serve.SlotLoop):
-        """The launcher's loop, keeping its step for the card's timing."""
-        step = None
-
-        def run(self, step_fn, max_steps=None):
-            Captured.step = step_fn
-            return super().run(step_fn, max_steps)
-
-    loop_class = serve.SlotLoop
-    serve.SlotLoop = Captured
-    try:
+    with captured_steps() as steps:
         for arch in LM_ARCHS:
-            free()
+            lm_free()
             torch.cuda.reset_peak_memory_stats(dev)
             resident = torch.cuda.memory_allocated(dev)
             argv = ["--arch", arch, *LM_SERVE_ARGS]
@@ -2101,15 +2187,15 @@ def lm_serving(dev, counted, timed, smi) -> dict:
             if stats.served != 12 or warmed != LM_WARMED[arch]:
                 raise AssertionError(f"{arch} served {stats.served}, warmed "
                                      f"{warmed} conv layers")
-            step = Captured.step
+            step = steps.pop()
             batch = int(argv[argv.index("--batch") + 1])
             tok = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
             pos = torch.full((batch,), 64, dtype=torch.int32, device=dev)
             # the serving's own peak, above what earlier phases left
             peak = (torch.cuda.max_memory_allocated(dev) - resident) / 1e9
             with torch.no_grad():
-                card = queued_ms(lambda: step.logits(tok, pos))
-                trace = traced(lambda: step.logits(tok, pos))
+                card = lm_queued_ms(lambda: step.logits(tok, pos))
+                trace = lm_traced(lambda: step.logits(tok, pos))
             lat = stats.latency_ms
             row = {"summary": stats.summary(), "warmed": warmed,
                    "wall_ms_per_step": stats.elapsed_s * 1e3 / stats.steps,
@@ -2124,14 +2210,13 @@ def lm_serving(dev, counted, timed, smi) -> dict:
                 f"{stats.tok_per_s:.1f} tok/s, request p50 "
                 f"{lat.percentile(50):.1f} ms p99 {lat.percentile(99):.1f} "
                 f"ms; {row['wall_ms_per_step']:.2f} ms wall a decode step, "
-                f"{fmt_ms(card)} ms on the card (spin-queued), busy "
-                f"{fmt_ms(busy)} ms in {trace['kernels']} kernels (traced; "
-                f"host-bound share {fmt_ms(row['host_share'])}); peak "
+                f"{lm_fmt_ms(card)} ms on the card (spin-queued), busy "
+                f"{lm_fmt_ms(busy)} ms in {trace['kernels']} kernels "
+                f"(traced; host-bound share "
+                f"{lm_fmt_ms(row['host_share'])}); peak "
                 f"{peak:.1f} GB; {warmed} conv layers warmed")
-            Captured.step = step = None
-    finally:
-        serve.SlotLoop = loop_class
-    free()
+            step = None
+    lm_free()
 
     # ---- 11d. smoke configs on the card against CPU copies ---------------
     for arch in LM_SMOKE_ARCHS:
@@ -2149,9 +2234,341 @@ def lm_serving(dev, counted, timed, smi) -> dict:
         out["smoke"][arch] = err
     log("lm smoke: card against CPU copies in fp32, rel L2 " + ", ".join(
         f"{a} {e:.2e}" for a, e in out["smoke"].items()))
-    free()
+    lm_free()
     out["seconds"] = time.perf_counter() - t_phase
     log(f"lm: phase 11 took {out['seconds']:.1f} s on {smi}; no kernel of "
+        f"the port launched")
+    return out
+
+
+def b4_candidates(dev, counted, timed, smi) -> dict:
+    """Phase 3c (C12): B4 at sfc6_7 (t = 12) with every
+    ``tuning.DEFAULT_CANDIDATES`` config over VGG-16's 13 convs at batch 1,
+    each layer's input and weights from seeds: every fused config bit for
+    bit the staged trio and within the int8 bounds of the reference path;
+    its geometry (two weight stages of 16 tiles, one stage, or one stage of
+    8 tiles) and its card time per layer, summed over the stack."""
+    import torch
+
+    from repro_torch.api import ConvSpec, plan, tuning
+    from repro_torch.core import conv2d as c2d
+    from repro_torch.kernels import sfc_fused
+    from repro_torch.quant import INT8_FREQ
+
+    staged_want = only(sfc_transform_quantize=1, tdmm_int8=1, sfc_inverse=1)
+    rows, totals = [], {str(c): 0.0 for c in tuning.DEFAULT_CANDIDATES}
+    layers, _ = vgg_layers()
+    for li, (lname, hw, cin, cout) in enumerate(layers):
+        rng = np.random.RandomState(C12_SEED + li)
+        x = torch.tensor(rng.randn(1, hw, hw, cin), dtype=torch.float32,
+                         device=dev)
+        w = torch.tensor(rng.randn(3, 3, cin, cout)
+                         * math.sqrt(2.0 / (9 * cin)), dtype=torch.float32,
+                         device=dev)
+        spec = ConvSpec.for_conv2d(x.shape, w.shape, quant=INT8_FREQ)
+        p = plan(spec, backend="cuda", algo=C12_ALGO)
+        if p.algo_name != C12_ALGO:
+            raise AssertionError(f"{lname}: planned {p.algo_name}")
+        act = tuning.calibrate_act_scale(x, p.algorithm, INT8_FREQ, "SAME")
+        prep = p.prepare_weights(w, act_scale=act)
+        y_ref = plan(spec, backend="reference", algo=C12_ALGO).apply(x, prep)
+        staged = p.with_config(tuning.DEFAULT_STAGED)
+        y_staged = counted("b4_candidates", f"{lname} staged",
+                           lambda: staged.apply(x, prep), want=staged_want)
+        grid = c2d.tile_grid(hw, hw, p.algorithm.M, p.algorithm.R, "SAME")
+        for cfg in tuning.DEFAULT_CANDIDATES:
+            pc = p.with_config(cfg)
+            fused = cfg.datapath == "fused"
+            y = counted("b4_candidates", f"{lname} {cfg}",
+                        lambda: pc.apply(x, prep),
+                        want=only(sfc_fused_conv2d=1) if fused
+                        else staged_want)
+            row = {"layer": lname, "hw": hw, "cin": cin, "cout": cout,
+                   "config": str(cfg), "equal_staged": bool(
+                       torch.equal(y, y_staged)),
+                   "rel_l2": rel_l2(y, y_ref),
+                   "scaled_max": ((y - y_ref).abs().max()
+                                  / y_ref.abs().max()).item()}
+            if fused:
+                g = sfc_fused.fused_geometry(
+                    p.algorithm, grid.nH * grid.nW, cin, cout,
+                    k_block=cfg.k_block, cout_block=cfg.cout_block)
+                row["geometry"] = {"tiles": g.tiles, "stages": g.stages,
+                                   "cb": g.cb, "kb": g.kb,
+                                   "n_share": g.n_share,
+                                   "k_split": g.k_split,
+                                   "smem": g.smem_bytes}
+            max_rel, max_scaled = BOUNDS["int8"]
+            if not (row["equal_staged"] and row["rel_l2"] <= max_rel
+                    and row["scaled_max"] <= max_scaled):
+                raise AssertionError(f"B4 at {C12_ALGO}: {row}")
+            row["ms"] = timed(lambda: pc.apply(x, prep))
+            totals[str(cfg)] += row["ms"]
+            rows.append(row)
+    log(f"c12: B4 at {C12_ALGO} (t = 12) over VGG-16's {len(layers)} convs, "
+        f"batch 1, every default candidate bit for bit the staged trio and "
+        f"within the int8 bounds of the reference (worst rel L2 "
+        f"{max(r['rel_l2'] for r in rows):.3e}); card ms over the stack on "
+        f"{smi}: " + "; ".join(f"{c} {t:.4f}" for c, t in totals.items()))
+    for cfg in tuning.DEFAULT_CANDIDATES:
+        geoms = sorted({json.dumps(r["geometry"], sort_keys=True)
+                        for r in rows
+                        if r["config"] == str(cfg) and "geometry" in r})
+        if geoms:
+            log(f"c12: {cfg} geometries: {', '.join(geoms)}")
+    return {"rows": rows, "stack_ms": totals}
+
+
+@contextlib.contextmanager
+def lossless_moe():
+    """The MoE FFN at capacity E / k (no token dropped) in the forward too,
+    as the decode step runs it (tests/test_models.py patches the JAX
+    package the same way)."""
+    from repro_torch.models import moe
+    orig = moe.moe_block
+    moe.moe_block = lambda p, c, x, capacity_factor=None: orig(
+        p, c, x, capacity_factor=c.n_experts / c.n_experts_active)
+    try:
+        yield
+    finally:
+        moe.moe_block = orig
+
+
+def set_gates(params):
+    """The vlm's gates (zero at init, where a wrong cross path would pass)
+    set to LM12_GATES, in place."""
+    import torch
+    with torch.no_grad():
+        params["cross_blocks"]["xattn"]["gate"].fill_(LM12_GATES["gate"])
+        params["cross_blocks"]["ffn_gate"].fill_(LM12_GATES["ffn_gate"])
+
+
+def lm_families(dev, counted, smi) -> dict:
+    """Phase 12: the moe, vlm and encdec families (A14) at published
+    widths, each forward, decode step and serving run launching none of
+    B1-B7."""
+    import torch
+
+    import repro_torch.configs as configs
+    import repro_torch.launch.serve as serve
+    from repro_torch import tree as tree_util
+    from repro_torch.models import build, transformer
+
+    t_phase = time.perf_counter()
+    none = only()
+    out = {"models": {}, "smoke": {}}
+
+    def memory_of(cfg, B, S, seed):
+        """Seeded vision embeddings (vlm) or frames (encdec), else None."""
+        rng = np.random.RandomState(seed)
+        if cfg.family == "vlm":
+            return torch.tensor(rng.randn(B, cfg.n_vision_tokens,
+                                          cfg.d_model),
+                                dtype=torch.float32, device=dev)
+        if cfg.family == "encdec":
+            return torch.tensor(rng.randn(B, S, cfg.d_model),
+                                dtype=torch.float32, device=dev)
+        return None
+
+    def on_cpu(t):
+        return None if t is None else t.cpu()
+
+    for arch in LM12_ARCHS:
+        t_arch = time.perf_counter()
+        cut = LM12_DEPTH.get(arch)
+        cfg = configs.get_config(arch)
+        if cut:
+            cfg = dataclasses.replace(cfg, **cut)
+        row = {"family": cfg.family, "n_layers": cfg.n_layers,
+               "first_dense_layers": cfg.first_dense_layers,
+               "mtp_depth": cfg.mtp_depth, "depth_cut": cut or None,
+               "compute_dtype": cfg.compute_dtype}
+        # ---- 12a. serving ----------------------------------------------
+        lm_free()
+        torch.cuda.reset_peak_memory_stats(dev)
+        resident = torch.cuda.memory_allocated(dev)
+        argv = ["--arch", arch, *LM_SERVE_ARGS]
+        with captured_steps() as steps:
+            t0 = time.perf_counter()
+            stats = counted(
+                "lm_families", f"{arch} serving",
+                (lambda: serve.serve(cfg, serve.parse_args(argv))) if cut
+                else (lambda: serve.main(argv)), want=none)
+            row["serve_s"] = time.perf_counter() - t0
+            step = steps.pop()
+        if stats.served != 12:
+            raise AssertionError(f"{arch} served {stats.served}")
+        model, params = step.model, step.params
+        row["params"] = sum(a.numel() for a in tree_util.leaves(params))
+        row["param_gb"] = sum(a.numel() * a.element_size()
+                              for a in tree_util.leaves(params)) / 1e9
+        batch = int(argv[argv.index("--batch") + 1])
+        tok = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+        pos = torch.full((batch,), 64, dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            card = lm_queued_ms(lambda: step.logits(tok, pos))
+            trace = lm_traced(lambda: step.logits(tok, pos))
+        lat = stats.latency_ms
+        row["serving"] = {
+            "summary": stats.summary(), "steps": stats.steps,
+            "tok_per_s": stats.tok_per_s, "p50_ms": lat.percentile(50),
+            "p99_ms": lat.percentile(99),
+            "wall_ms_per_step": stats.elapsed_s * 1e3 / stats.steps,
+            "card_ms_per_step": card, "step_trace": trace,
+            "peak_gb": (torch.cuda.max_memory_allocated(dev) - resident)
+            / 1e9}
+        busy = trace["busy_ms"]
+        sv = row["serving"]
+        sv["host_share"] = None if busy is None \
+            else 1 - busy / sv["wall_ms_per_step"]
+        log(f"lm12 serve: {arch} ({row['params'] / 1e9:.3f} B parameters, "
+            f"{row['param_gb']:.1f} GB, {cfg.n_layers} layers"
+            + (f", cut from {configs.get_config(arch).n_layers}" if cut
+               else "")
+            + f") served {stats.served} requests in {stats.elapsed_s:.2f} "
+            f"s, {stats.steps} steps, {stats.tok_per_s:.1f} tok/s, request "
+            f"p50 {sv['p50_ms']:.1f} ms p99 {sv['p99_ms']:.1f} ms; "
+            f"{sv['wall_ms_per_step']:.2f} ms wall a decode step, "
+            f"{lm_fmt_ms(card)} ms on the card (spin-queued), busy "
+            f"{lm_fmt_ms(busy)} ms in {trace['kernels']} kernels (traced; "
+            f"host-bound share {lm_fmt_ms(sv['host_share'])}); peak "
+            f"{sv['peak_gb']:.1f} GB above the resident")
+        del step
+        # ---- 12b. a bf16 prefill; 12d. bf16 findings at the served depth -
+        if cfg.family == "vlm":
+            transformer.clear_compute_cache()   # one compute copy at a time
+            set_gates(params)
+        with torch.no_grad():
+            toks = lm_tokens(cfg, LM_PREFILL, LM12_SEED + 1, dev)
+            mem = memory_of(cfg, LM_PREFILL[0], LM_PREFILL[1], LM12_SEED + 2)
+            logits = counted("lm_families", f"{arch} prefill",
+                             lambda: model.forward(params, toks, mem),
+                             want=none)
+            if tuple(logits.shape) != LM_PREFILL + (cfg.padded_vocab,) \
+                    or not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{arch} prefill: {logits.shape}")
+            del logits
+            row["prefill_trace"] = lm_traced(
+                lambda: model.forward(params, toks, mem))
+            row["prefill_wall_ms"] = lm_wall_ms(
+                lambda: model.forward(params, toks, mem))
+            short, smem = toks[:, :LM_BF16_T], memory_of(
+                cfg, 2, LM_BF16_T, LM12_SEED + 3)
+            t0 = time.perf_counter()
+            cpu_params = tree_to(transformer.cast_compute(params, cfg),
+                                 "cpu")
+            row["bf16_card_vs_cpu"] = rel_l2(
+                counted("lm_families", f"{arch} bf16 short",
+                        lambda: model.forward(params, short, smem),
+                        want=none).cpu(),
+                model.forward(cpu_params, short.cpu(), on_cpu(smem)))
+            del cpu_params
+            row["bf16_cpu_s"] = time.perf_counter() - t0
+            dec = toks[:, :LM_DECODE_T]
+            dmem = memory_of(cfg, 2, LM_DECODE_T, LM12_SEED + 4)
+            with lossless_moe():
+                row["bf16_decode_vs_forward"] = (
+                    counted("lm_families", f"{arch} bf16 decode",
+                            lambda: lm_decoded(model, params, dec, dmem),
+                            want=none)
+                    - model.forward(params, dec, dmem)).abs().max().item()
+        del model, params, stats
+        lm_free()
+        # ---- 12c. fp32 at full width, the check depth --------------------
+        cfg2 = dataclasses.replace(configs.get_config(arch),
+                                   compute_dtype="float32",
+                                   param_dtype="float32", **LM12_CHECK[arch])
+        m2 = build(cfg2)
+        with torch.no_grad():
+            p2 = m2.init(torch.Generator(device=dev).manual_seed(
+                LM12_SEED + 5), device=dev)
+            if cfg2.family == "vlm":
+                set_gates(p2)
+            T = LM12_CHECK_T[arch]
+            toks2 = lm_tokens(cfg2, (2, T), LM12_SEED + 6, dev)
+            mem2 = memory_of(cfg2, 2, T, LM12_SEED + 7)
+            y = counted("lm_families", f"{arch} fp32 check",
+                        lambda: m2.forward(p2, toks2, mem2), want=none)
+            t0 = time.perf_counter()
+            cpu2 = tree_to(p2, "cpu")
+            row["fp32_card_vs_cpu"] = rel_l2(
+                y.cpu(), m2.forward(cpu2, toks2.cpu(), on_cpu(mem2)))
+            del cpu2
+            row["fp32_cpu_s"] = time.perf_counter() - t0
+            with lossless_moe():
+                y = m2.forward(p2, toks2, mem2)
+                row["fp32_decode_vs_forward"] = (
+                    counted("lm_families", f"{arch} fp32 decode",
+                            lambda: lm_decoded(m2, p2, toks2, mem2),
+                            want=none) - y).abs().max().item()
+            row["fp32_check"] = {"n_layers": cfg2.n_layers,
+                                 "first_dense_layers":
+                                 cfg2.first_dense_layers,
+                                 "mtp_depth": cfg2.mtp_depth, "tokens": T,
+                                 "params": sum(a.numel() for a in
+                                               tree_util.leaves(p2))}
+            del p2, y
+        lm_free()
+        if not (row["fp32_card_vs_cpu"] <= LM_REL
+                and row["fp32_decode_vs_forward"] <= LM_DECODE_ABS):
+            raise AssertionError(f"{arch}: the fp32 checks {row}")
+        row["seconds"] = time.perf_counter() - t_arch
+        out["models"][arch] = row
+        tr = row["prefill_trace"]
+        log(f"lm12 model: {arch}: bf16 prefill of {LM_PREFILL} tokens busy "
+            f"{lm_fmt_ms(tr['busy_ms'])} ms in {tr['kernels']} kernels "
+            f"(traced), {row['prefill_wall_ms']:.2f} ms wall; fp32 at "
+            f"{row['fp32_check']['n_layers']} layers "
+            f"({row['fp32_check']['params'] / 1e9:.3f} B parameters, "
+            f"{T} tokens): card against CPU {row['fp32_card_vs_cpu']:.2e} "
+            f"rel L2, lossless decode against forward "
+            f"{row['fp32_decode_vs_forward']:.2e} max abs (CPU "
+            f"{row['fp32_cpu_s']:.1f} s); served depth bf16 (findings): "
+            f"card against CPU {row['bf16_card_vs_cpu']:.2e} rel L2 "
+            f"({LM_BF16_T} tokens, {row['bf16_cpu_s']:.1f} s), decode "
+            f"against forward {row['bf16_decode_vs_forward']:.2e} max abs; "
+            f"{row['seconds']:.1f} s")
+
+    # ---- 12e. the smoke configs on the card against CPU copies -----------
+    for arch in LM12_ARCHS:
+        cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                                  compute_dtype="float32")
+        m = build(cfg)
+        with torch.no_grad():
+            p = m.init(torch.Generator(device=dev).manual_seed(
+                LM12_SEED + 8), device=dev)
+            if cfg.family == "vlm":
+                set_gates(p)
+            toks = lm_tokens(cfg, (2, 16), LM12_SEED + 9, dev)
+            labels = lm_tokens(cfg, (2, 16), LM12_SEED + 10, dev)
+            mem = memory_of(cfg, 2, 16, LM12_SEED + 11)
+            batch = {"tokens": toks, "labels": labels}
+            if mem is not None:
+                batch["vision" if cfg.family == "vlm" else "frames"] = mem
+            y = counted("lm_families", f"{arch} smoke",
+                        lambda: m.forward(p, toks, mem), want=none)
+            _, metrics = counted("lm_families", f"{arch} smoke loss",
+                                 lambda: m.loss(p, batch), want=none)
+            cp = tree_to(p, "cpu")
+            errs = {"logits": rel_l2(y.cpu(), m.forward(
+                cp, toks.cpu(), on_cpu(mem)))}
+            _, cpu_metrics = m.loss(cp, {k: v.cpu() for k, v in
+                                         batch.items()})
+            for k, v in cpu_metrics.items():
+                errs[k] = abs(metrics[k].item() - v.item()) \
+                    / max(abs(v.item()), 1e-30)
+        if cfg.mtp_depth and "mtp" not in errs:
+            raise AssertionError(f"{arch} smoke: no MTP term")
+        if not all(e <= LM_REL for e in errs.values()):
+            raise AssertionError(f"{arch} smoke: card against CPU {errs}")
+        out["smoke"][arch] = errs
+    log("lm12 smoke: card against CPU copies in fp32 (logits rel L2; loss "
+        "terms relative): " + "; ".join(
+            f"{a} " + ", ".join(f"{k} {v:.2e}" for k, v in e.items())
+            for a, e in out["smoke"].items()))
+    lm_free()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"lm12: phase 12 took {out['seconds']:.1f} s on {smi}; no kernel of "
         f"the port launched")
     return out
 
@@ -2682,12 +3099,24 @@ def main() -> None:
         resilience.configure(dataclasses.replace(resilience.policy(),
                                                  enabled=False))
         report = {"device": {"name": name, "nvidia_smi": smi},
-                  "lm_serving": lm_serving(dev, counted, timed, smi)}
+                  "lm_serving": lm_serving(dev, counted, timed, smi),
+                  "lm_families": lm_families(dev, counted, smi)}
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
         (out / "lm.json").write_text(json.dumps(report, indent=1))
         return
 
+    if "--b4-candidates" in sys.argv[1:]:
+        # phase 3c alone
+        resilience.configure(dataclasses.replace(resilience.policy(),
+                                                 enabled=False))
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "b4_candidates.json").write_text(json.dumps(
+            {"device": {"name": name, "nvidia_smi": smi},
+             "b4_candidates": b4_candidates(dev, counted, timed, smi)},
+            indent=1))
+        return
     if "--sweep-b4" in sys.argv[1:]:
         sweep_b4(dev, timed, smi)
         return
@@ -3171,6 +3600,10 @@ def main() -> None:
         f"shapes, each at two geometries: "
         + json.dumps([[r["T"], r["C"], r["geometry"]] for r in b6_rows]))
     report["phases"]["b2_b6_checks"] = {"b2": b2_rows, "b6": b6_rows}
+
+    # ---- 3c. B4 at sfc6_7 with every default candidate (C12) -------------
+    report["phases"]["b4_candidates"] = b4_candidates(dev, counted, timed,
+                                                      smi)
 
     # ---- 4. the direct path under PyTorch's default TF32 flags -----------
     # the same "direct" plan on the card and on CPU copies of its inputs
@@ -4770,6 +5203,9 @@ def main() -> None:
     # the chain off, as in phases 3-6: a failure raises
     resilience.configure(dataclasses.replace(chain_policy, enabled=False))
     report["phases"]["lm_serving"] = lm_serving(dev, counted, timed, smi)
+
+    # ---- 12. the moe, vlm and encdec families ----------------------------
+    report["phases"]["lm_families"] = lm_families(dev, counted, smi)
     if resilience.stats():
         raise AssertionError(f"resilience events in phase 11: "
                              f"{resilience.stats()}")

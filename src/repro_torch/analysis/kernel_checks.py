@@ -270,13 +270,14 @@ def default_candidate_report(*, bits_act: int = 8, bits_weight: int = 8
     four shapes, every non-Winograd 3-tap algorithm of the registry.
 
     A candidate whose B4 knobs the algorithm's tile cannot take at any
-    workload (:func:`tile_refuses`: sfc6_7's t = 12 with ``k_block`` 64 or
-    ``cout_block`` 16 needs more shared memory than an H100 block has) is
-    one WARNING per (algorithm, candidate): ``check_candidates`` drops it
-    for that algorithm before anything is timed or launched, as it drops
-    every ERROR.  The TPU's VMEM takes every candidate at every tile, so
-    the JAX package's report has no such finding.  Every other refusal,
-    a limit that a shape breaks, is an ERROR."""
+    workload (:func:`tile_refuses`) would be one WARNING per (algorithm,
+    candidate), dropped by ``check_candidates`` before anything is timed
+    or launched, as it drops every ERROR.  None is: where two weight
+    stages of 16 tiles need more shared memory than an H100 block has
+    (sfc6_7's t = 12 at ``k_block`` 64 or ``cout_block`` 16), B4 takes one
+    stage, and then 8 tiles a block, so it takes every candidate at every
+    tile, as the TPU's VMEM does.  Every other refusal, a limit that a
+    shape breaks, is an ERROR."""
     from repro_torch.api import registry
     from repro_torch.api.spec import ConvSpec
     from repro_torch.api.tuning import DEFAULT_CANDIDATES

@@ -22,13 +22,16 @@
 // FusedGeometry), which picks it per layer; this file only checks it.  A
 // block owns one group of 16 tiles (one mma M tile; tiles are numbered
 // over (image, tile row, tile column), so a group may span rows and
-// images), cb = 8 or 16 output channels, all t^2 positions and a
-// k_slice-wide slice of C_in.  A thread block cluster joins n_share C_out
-// blocks of one tile group, which share its transform, times k_split C_in
-// slices.  Per kb-wide C_in stage each block
+// images), or of 8 where 16 do not fit (the mma's rows 8-15 then repeat
+// rows 0-7 and are dropped), cb = 8 or 16 output channels, all t^2
+// positions and a k_slice-wide slice of C_in.  A thread block cluster
+// joins n_share C_out blocks of one tile group, which share its
+// transform, times k_split C_in slices.  Per kb-wide C_in stage each block
 //   1. has its tiles' L x L input patches (tiles col = rank mod n_share)
 //      and the stage's weights wq[:, k0:k0+kb, n0:n0+cb] brought into
-//      shared memory, a ring of two weight stages, issued a stage ahead:
+//      shared memory, a ring of two weight stages, issued a stage ahead
+//      (where two do not fit, one stage, issued once the products of the
+//      stage before are done, landing while the block transforms):
 //      by TMA (cp.async.bulk.tensor: one box per patch, one for the
 //      weights, zero-filled outside the image and past C_in and C_out,
 //      completing on mbarriers) where the shape allows it (C_in a
@@ -66,7 +69,11 @@
 // The kernel is compiled for each count of pairs with (t, L, M) at run
 // time, and with the (t, L, M) of sfc6_6, sfc6_7 and sfc4_4 at compile time
 // for the counts of pairs FusedGeometry gives them, which unrolls the
-// transform and inverse loops (1.4x faster over VGG-16, PERF.md).
+// transform and inverse loops (1.4x faster over VGG-16, PERF.md).  Two
+// stages of 16 tiles are compile-time constants too (one stage or 8 tiles
+// read at run time cost the two-stage geometries 2%, PERF.md); sfc6_7's
+// one-stage geometries (cout_block 16; k_block 64 at 8 tiles) have
+// instances of their own.
 #include <cooperative_groups.h>
 #include <cuda.h>
 
@@ -77,7 +84,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kTiles = 16;      // tiles per block: the mma M dimension
+constexpr int kMaxTiles = 16;   // tiles per block: the mma M dimension
 constexpr int kThreads = 512;   // 16 warps, up to 128 registers each
 constexpr int kWarps = kThreads / 32;
 // dynamic shared memory a block may have: the H100's 232448 bytes less
@@ -110,14 +117,13 @@ struct Args {
   float* out;
   int H, W, Cin, Cout, M, L, t, lo_h, lo_w, nH, nW, out_h, out_w;
   long long n_tiles;
-  int cb, kb, strip_bufs, n_share, k_split, k_slice;
+  int tiles, stages, cb, kb, strip_bufs, n_share, k_split, k_slice;
   int vec_w;  // weights by TMA (kTma), by 8-byte cp.async (8), or bytes
   int vec_x;  // input by TMA (kTma) or by 4-byte cp.async (0)
   float qmax;
 };
 
 constexpr int kTma = 17;
-constexpr int kStages = 2;  // the weight ring
 
 using sfc::align128;
 using sfc::cp_async16;
@@ -179,27 +185,28 @@ __device__ __forceinline__ void cluster_wait() {
 // Dynamic shared memory of one block (the same layout as FusedGeometry;
 // each region starts on 128 bytes):
 //   sw    f32  [P][cb]                  weight scales of its channels
-//   ring  int8 [2][P][kb][cb]           weight stages
-//   xq    int8 [n_share][P][16 / n_share][kb] + pads: the stage's
-//                                       quantized tiles, all 16 (each C_out
+//   ring  int8 [stages][P][kb][cb]      weight stages
+//   xq    int8 [n_share][P][tiles / n_share][kb] + pads: the stage's
+//                                       quantized tiles, all (each C_out
 //                                       rank copies its own into every
 //                                       rank's xq)
 //   strip f32  [tiles / n_share][L][L][kb]      its tiles' input patches
-// After the C_in loop the f32 Y [P][16][cb / k_split] (k_split == 1) or
-// the int32 partial sums [P][16][cb] followed by Y take the place of the
+// After the C_in loop the f32 Y [P][tiles][cb / k_split] (k_split == 1) or
+// the int32 partial sums [P][tiles][cb] followed by Y take the place of the
 // ring and what follows.
-// kT, kL, kM: the algorithm's t, L, M at compile time (0: at run time).
-template <int kPairs, int kT, int kL, int kM>
+// kT, kL, kM: the algorithm's t, L, M at compile time (0: at run time);
+// kTl, kSt: the tiles a block and the weight stages (0: at run time).
+template <int kPairs, int kT, int kL, int kM, int kTl, int kSt>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __shared__ float bt[sfc::kMaxT * sfc::kMaxL];
   __shared__ float at[sfc::kMaxM * sfc::kMaxT];
   __shared__ float sx[sfc::kMaxT * sfc::kMaxT];
-  __shared__ long long tile_img[kTiles];   // image of each tile
-  __shared__ int tile_h[kTiles], tile_w[kTiles];  // tile row, column
+  __shared__ long long tile_img[kMaxTiles];   // image of each tile
+  __shared__ int tile_h[kMaxTiles], tile_w[kMaxTiles];  // tile row, column
   // completions: TMA strips and weights, the peers' xq rows
-  __shared__ __align__(8) uint64_t bar_x[2], bar_w[kStages], bar_q;
+  __shared__ __align__(8) uint64_t bar_x[2], bar_w[2], bar_q;
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -207,11 +214,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int Cin = a.Cin, Cout = a.Cout;
   const int P = t * t;
   const int cb = a.cb, kb = a.kb, S_n = a.n_share, S_k = a.k_split;
+  const int tiles = kTl ? kTl : a.tiles, stages = kSt ? kSt : a.stages;
   const int nr = rank % S_n, kr = rank / S_n;  // C_out and C_in rank
-  const int TL = kTiles / S_n;               // tiles this block transforms
+  const int TL = tiles / S_n;                // tiles this block transforms
   const int n0 = ((blockIdx.x / (S_n * S_k)) * S_n + nr) * cb;
-  const long long tile0 = (long long)blockIdx.y * kTiles;
-  const int real_tiles = (int)min((long long)kTiles, a.n_tiles - tile0);
+  const long long tile0 = (long long)blockIdx.y * tiles;
+  const int real_tiles = (int)min((long long)tiles, a.n_tiles - tile0);
   const int own_tiles = max(0, (real_tiles - nr + S_n - 1) / S_n);
   const int NT = cb / 8;                     // mma n-tiles per block
   // kb, cb and n_share are powers of two (the wrapper checks): shifts
@@ -224,7 +232,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* swl = reinterpret_cast<float*>(smem);
   int8_t* ws = reinterpret_cast<int8_t*>(smem + align128(4LL * P * cb));
   const int w_stage = (int)align128((long long)P * kb * cb);
-  int8_t* xq = ws + kStages * w_stage;
+  int8_t* xq = ws + stages * w_stage;
   const int xq_own = P * TL * kb;            // one rank's rows
   const int xq_region = xq_own + xq_pad(S_n);
   float* strip0 = reinterpret_cast<float*>(
@@ -232,9 +240,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int strip_floats = TL * L * L * kb;  // one buffer of the strip
   const int bufs = a.strip_bufs;
   const int cbk = cb / S_k;                  // channels this block finishes
-  int* partial = reinterpret_cast<int*>(ws);                  // [P][16][cb]
+  int* partial = reinterpret_cast<int*>(ws);             // [P][tiles][cb]
   float* Y = S_k == 1 ? reinterpret_cast<float*>(ws)
-                      : reinterpret_cast<float*>(partial + P * kTiles * cb);
+                      : reinterpret_cast<float*>(partial + P * tiles * cb);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, c4 = lane & 3;
@@ -270,7 +278,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   if (tid == 0) {
     for (int i = 0; i < 2; ++i) mbar_init(&bar_x[i], 1);
-    for (int i = 0; i < kStages; ++i) mbar_init(&bar_w[i], 1);
+    for (int i = 0; i < 2; ++i) mbar_init(&bar_w[i], 1);
     mbar_init(&bar_q, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -313,15 +321,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       cp_async4(strip + q * kb + ch, src, in ? 4 : 0);
     }
   };
-  // weights of stage s into ring slot s % kStages, zero past C_in and
+  // weights of stage s into ring slot s % stages, zero past C_in and
   // C_out: one TMA box, or cp.async copies
   auto stage_weights = [&](int s) {
     const int k0 = kbase + s * kb;
     if (k0 >= Cin) return;   // the ring slot is not read (no channels)
-    int8_t* dst0 = ws + (s % kStages) * w_stage;
+    int8_t* dst0 = ws + (s % stages) * w_stage;
     if (a.vec_w == kTma) {
       if (tid == 0) {
-        uint64_t* bar = &bar_w[s % kStages];
+        uint64_t* bar = &bar_w[s % stages];
         mbar_expect(bar, (unsigned)(P * kb * cb));
         tma_load_3d(dst0, &a.tmap_w, bar, n0, k0, 0);
       }
@@ -354,32 +362,41 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // the cp.async copies (the scales, the weights of stage 0 and the strips
   // of stages 0 .. strip_bufs-1, then per stage s the strip of
-  // s + strip_bufs and the weights of s + 1) are waited for all at once;
-  // the TMA copies complete on bar_x[buffer] and bar_w[slot]
+  // s + strip_bufs and the weights of s + 1, or of s with one stage) are
+  // waited for all at once; the TMA copies complete on bar_x[buffer] and
+  // bar_w[slot]
   if (n_stages > 0) stage_weights(0);
   for (int s = 0; s < bufs && s < n_stages; ++s) stage_strip(s);
   cp_async_commit();
   const bool pair_ldsm = NT == 2;  // B fragments of two n-tiles a load
 
-  // the A rows of lane group g: tiles g and g + 8 of the group
+  // the A rows of lane group g: tiles g and g + 8 of the group (tile g
+  // again where the group has 8)
+  const int g8 = tiles == kMaxTiles ? g + 8 : g;
   const int8_t* xq_g =
       xq + (g & (S_n - 1)) * xq_region + (g / S_n) * kb;
   const int8_t* xq_g8 =
-      xq + ((g + 8) & (S_n - 1)) * xq_region + ((g + 8) / S_n) * kb;
+      xq + (g8 & (S_n - 1)) * xq_region + (g8 / S_n) * kb;
   const int swap_g = xq_swap(S_n, g / S_n);
   for (int s = 0; s < n_stages; ++s) {
     const int k0 = kbase + s * kb, kreal = min(kb, Cin - k0);
-    // the strip of s and the weights of s have landed, and every warp of
-    // the block is done with the products of s - 1
+    // the strip of s and (two stages) the weights of s have landed, and
+    // every warp of the block is done with the products of s - 1
     cp_async_wait_all();
     if (kreal > 0) {
       if (a.vec_x == kTma) mbar_wait(&bar_x[s % bufs], (s / bufs) & 1);
-      if (a.vec_w == kTma)
-        mbar_wait(&bar_w[s % kStages], (s / kStages) & 1);
+      if (a.vec_w == kTma && stages == 2)
+        mbar_wait(&bar_w[s % 2], (s / 2) & 1);
     }
     __syncthreads();
-    // ring slot (s + 1) % 2 is free: its products (stage s - 1) are done
-    if (s + 1 < n_stages) stage_weights(s + 1);
+    // two stages: ring slot (s + 1) % 2 is free, its products (stage
+    // s - 1) are done.  One: the slot is free now, and the weights of s
+    // land while the block transforms (stage 0's were issued before)
+    if (stages == 2) {
+      if (s + 1 < n_stages) stage_weights(s + 1);
+    } else if (s > 0) {
+      stage_weights(s);
+    }
     cp_async_commit();
     // 1. transform + quantize this stage's channels of the block's tiles
     //    into its xq, channels fastest: a warp reads 32 neighbouring
@@ -399,8 +416,12 @@ __global__ void __launch_bounds__(kThreads, 1)
           [&](int v, int8_t q) { dst[v * TL * kb] = q; });
     }
     // its xq rows are complete (and visible to the copy engine); the
-    // strip buffer of s is free
+    // strip buffer of s is free; with one stage, the weights of s are in
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    if (stages == 1) {
+      cp_async_wait_all();
+      if (kreal > 0 && a.vec_w == kTma) mbar_wait(&bar_w[0], s & 1);
+    }
     __syncthreads();
     if (s + bufs < n_stages) stage_strip(s + bufs);
     cp_async_commit();
@@ -425,7 +446,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     //    At cb = 16 the pairs 2i, 2i + 1 are one position's even and odd
     //    channels, and one ldmatrix gives both their B fragments.
     if (kreal > 0) {
-      const int8_t* wst = ws + (s % kStages) * w_stage;
+      const int8_t* wst = ws + (s % stages) * w_stage;
       // a position's rows in xq, opaque to the compiler, so it computes
       // the A addresses here and does not keep them across the C_in loop
       // (kept, they spill: 4 local loads per mma)
@@ -511,8 +532,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int r = 0; r < 4; ++r) {
         const int col = g + (r >= 2 ? 8 : 0);
         const int nn = (c4 * 2 + (r & 1)) * NT + nt;  // see the products
-        Y[(p * kTiles + col) * cb + nn] =
-            sfc::dequant(acc[q][r], sx[p], swl[p * cb + nn]);
+        if (col < tiles)
+          Y[(p * tiles + col) * cb + nn] =
+              sfc::dequant(acc[q][r], sx[p], swl[p * cb + nn]);
       }
     }
     __syncthreads();
@@ -526,15 +548,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int r = 0; r < 4; ++r) {
         const int col = g + (r >= 2 ? 8 : 0);
         const int nn = (c4 * 2 + (r & 1)) * NT + nt;
-        partial[(p * kTiles + col) * cb + nn] = acc[q][r];
+        if (col < tiles) partial[(p * tiles + col) * cb + nn] = acc[q][r];
       }
     }
     cluster.sync();  // every C_in rank's partial sums are in place
     // every rank's loads are issued before the first is added: their
     // latencies overlap
     if (cbk % 2 || S_k > 8) {
-      for (int e = tid; e < P * kTiles * cbk; e += kThreads) {
-        const int j = e % cbk, pc = e / cbk, p = pc / kTiles;
+      for (int e = tid; e < P * tiles * cbk; e += kThreads) {
+        const int j = e % cbk, pc = e / cbk, p = pc / tiles;
         int v[16];
 #pragma unroll
         for (int k = 0; k < 16; ++k)
@@ -549,8 +571,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     } else if (cbk % 4) {  // 2 channels per step, one 8-byte load a rank
       const int duos = cbk / 2;
-      for (int e = tid; e < P * kTiles * duos; e += kThreads) {
-        const int j2 = e % duos, pc = e / duos, p = pc / kTiles;
+      for (int e = tid; e < P * tiles * duos; e += kThreads) {
+        const int j2 = e % duos, pc = e / duos, p = pc / tiles;
         int2 v[8];
 #pragma unroll
         for (int k = 0; k < 8; ++k)
@@ -568,8 +590,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     } else {  // 4 channels per step as one 16-byte load from each rank
       const int quads = cbk / 4;
-      for (int e = tid; e < P * kTiles * quads; e += kThreads) {
-        const int j4 = e % quads, pc = e / quads, p = pc / kTiles;
+      for (int e = tid; e < P * tiles * quads; e += kThreads) {
+        const int j4 = e % quads, pc = e / quads, p = pc / tiles;
         int4 v[8];
 #pragma unroll
         for (int k = 0; k < 8; ++k)
@@ -601,7 +623,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int m = rest % M, col = rest / M;
     const float* yc = Y + col * cbk + j;
     auto load = [&](int u, int v) -> float {
-      return yc[(u * t + v) * kTiles * cbk];
+      return yc[(u * t + v) * tiles * cbk];
     };
     const int tw = tile_w[col], hh = tile_h[col] * M + m;
     float* ob = a.out +
@@ -617,9 +639,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (S_k > 1) cluster_wait();  // the other ranks are done with ours
 }
 
-template <int kPairs, int kT, int kL, int kM>
+template <int kPairs, int kT, int kL, int kM, int kTl, int kSt>
 cudaError_t launch(const Args& a, dim3 grid, int smem, cudaStream_t stream) {
-  auto kernel = fused_kernel<kPairs, kT, kL, kM>;
+  auto kernel = fused_kernel<kPairs, kT, kL, kM, kTl, kSt>;
   // once per instantiation and device: all the dynamic shared memory a
   // block may have, and clusters of up to 16 blocks
   static std::atomic<bool> ready[sfc::kMaxDevices];
@@ -649,21 +671,33 @@ cudaError_t launch(const Args& a, dim3 grid, int smem, cudaStream_t stream) {
   return cudaLaunchKernelEx(&config, kernel, a);
 }
 
-// (t, L, M) at compile time for sfc6_6, sfc6_7 and sfc4_4 at the counts of
-// pairs FusedGeometry gives them (cb = 16 and 8; sfc6_7 fits only cb = 8)
+// Two stages of 16 tiles: (t, L, M) at compile time for sfc6_6, sfc6_7
+// and sfc4_4 at the counts of pairs FusedGeometry gives them (cb = 16 and
+// 8; sfc6_7 at cb = 8).  One stage or 8 tiles: sfc6_7's at cout_block 16
+// and k_block 64 at compile time, every other at run time.
 template <int kPairs>
 cudaError_t launch_tile(const Args& a, dim3 grid, int smem,
                         cudaStream_t s) {
-  if constexpr (kPairs == 16 || kPairs == 8)
-    if (a.t == 10 && a.L == 8 && a.M == 6)
-      return launch<kPairs, 10, 8, 6>(a, grid, smem, s);   // sfc6_6
-  if constexpr (kPairs == 12)
-    if (a.t == 12 && a.L == 9 && a.M == 7)
-      return launch<kPairs, 12, 9, 7>(a, grid, smem, s);   // sfc6_7
-  if constexpr (kPairs == 8 || kPairs == 4)
-    if (a.t == 7 && a.L == 6 && a.M == 4)
-      return launch<kPairs, 7, 6, 4>(a, grid, smem, s);    // sfc4_4
-  return launch<kPairs, 0, 0, 0>(a, grid, smem, s);
+  const bool sfc6_7 = a.t == 12 && a.L == 9 && a.M == 7;
+  if (a.tiles == kMaxTiles && a.stages == 2) {
+    if constexpr (kPairs == 16 || kPairs == 8)
+      if (a.t == 10 && a.L == 8 && a.M == 6)
+        return launch<kPairs, 10, 8, 6, kMaxTiles, 2>(a, grid, smem, s);
+    if constexpr (kPairs == 12)
+      if (sfc6_7)
+        return launch<kPairs, 12, 9, 7, kMaxTiles, 2>(a, grid, smem, s);
+    if constexpr (kPairs == 8 || kPairs == 4)
+      if (a.t == 7 && a.L == 6 && a.M == 4)
+        return launch<kPairs, 7, 6, 4, kMaxTiles, 2>(a, grid, smem, s);
+    return launch<kPairs, 0, 0, 0, kMaxTiles, 2>(a, grid, smem, s);
+  }
+  if constexpr (kPairs == 20)   // sfc6_7, cout_block 16: one stage
+    if (sfc6_7 && a.tiles == kMaxTiles && a.stages == 1)
+      return launch<kPairs, 12, 9, 7, kMaxTiles, 1>(a, grid, smem, s);
+  if constexpr (kPairs == 12)   // sfc6_7, k_block 64: one stage of 8 tiles
+    if (sfc6_7 && a.tiles == kMaxTiles / 2 && a.stages == 1)
+      return launch<kPairs, 12, 9, 7, kMaxTiles / 2, 1>(a, grid, smem, s);
+  return launch<kPairs, 0, 0, 0, 0, 0>(a, grid, smem, s);
 }
 
 }  // namespace
@@ -692,28 +726,29 @@ extern "C" int sfc_fused_conv2d_launch(
   a.H = H; a.W = W; a.Cin = Cin; a.Cout = Cout; a.M = M; a.L = L; a.t = t;
   a.lo_h = lo_h; a.lo_w = lo_w; a.nH = nH; a.nW = nW;
   a.out_h = out_h; a.out_w = out_w; a.n_tiles = n_tiles;
+  a.tiles = tiles; a.stages = stages;
   a.cb = cb; a.kb = kb; a.strip_bufs = strip_bufs;
   a.n_share = n_share;
   a.k_split = k_split; a.k_slice = k_slice;
   a.qmax = qmax;
   // the checks: the same geometry as FusedGeometry, or refuse the launch
   const long long P = (long long)t * t;
-  const int TL = kTiles / (n_share > 0 ? n_share : 1);
-  const long long reused = kStages * align128(P * kb * cb) +
+  const int TL = tiles / (n_share > 0 ? n_share : 1);
+  const long long reused = stages * align128(P * kb * cb) +
                            align128((long long)n_share *
-                                    (P * kTiles / n_share * kb +
-                                     xq_pad(n_share))) +
+                                    (P * TL * kb + xq_pad(n_share))) +
                            strip_bufs * align128(4LL * TL * L * L * kb);
   const long long ep = k_split > 1
-                           ? 4 * P * kTiles * cb + 4 * P * kTiles * cb / k_split
-                           : 4 * P * kTiles * cb;
+                           ? 4 * P * tiles * cb + 4 * P * tiles * cb / k_split
+                           : 4 * P * tiles * cb;
   const long long need = 128 + align128(4 * P * cb) + reused;
   const int n_blocks = (Cout + cb - 1) / cb;
   const bool pow2 =
       (n_share & (n_share - 1)) == 0 && (k_split & (k_split - 1)) == 0;
   const bool ok =
-      tiles == kTiles && threads == kThreads && pow2 &&
-      (cb == 8 || cb == 16) && (kb == 32 || kb == 64) && stages == kStages &&
+      (tiles == kMaxTiles || tiles == kMaxTiles / 2) && threads == kThreads &&
+      pow2 && (cb == 8 || cb == 16) && (kb == 32 || kb == 64) &&
+      (stages == 1 || stages == 2) && n_share <= tiles &&
       (strip_bufs == 1 || strip_bufs == 2) &&
       n_share >= 1 && n_share <= 16 && k_split >= 1 &&
       n_share * k_split <= 16 && cb / k_split >= 1 &&
@@ -721,8 +756,8 @@ extern "C" int sfc_fused_conv2d_launch(
       ep <= reused && smem == need && pairs % 2 == 0 &&
       pairs * kWarps >= P * (cb / 8) &&
       grid_x == (n_blocks + n_share - 1) / n_share * n_share * k_split &&
-      (long long)grid_y * kTiles >= n_tiles &&
-      (long long)(grid_y - 1) * kTiles < n_tiles && t <= sfc::kMaxT &&
+      (long long)grid_y * tiles >= n_tiles &&
+      (long long)(grid_y - 1) * tiles < n_tiles && t <= sfc::kMaxT &&
       L <= sfc::kMaxL && M <= sfc::kMaxM;
   if (!ok) return (int)cudaErrorInvalidValue;
   // the copies, by the shape alone: TMA where the tensor allows its boxes

@@ -9,15 +9,16 @@ B4's geometry is :class:`FusedGeometry`, the counterpart of the JAX
 package's (whose TPU numbers, ``VMEM_LIMIT_BYTES`` and the strip grouping,
 do not carry over), computed per layer by :func:`fused_geometry` and
 passed to the kernel, which only checks it.  A block owns 16 tiles (one
-mma M tile), ``cb`` (8 or 16) output channels, all t^2 positions and a
-slice of C_in, which it walks in ``k_block``-wide stages: TMA (cp.async
-where the shape rules TMA out) brings each stage's input patches and
-weights into shared memory a stage ahead of use, the block transforms and
-quantizes its share of the tiles, the ``n_share`` C_out blocks of a
-thread block cluster copy their shares into each other's shared memory
-(the counterpart of the TPU kernel's xq cache), and each adds its
-products into int32 mma fragments in registers, its B fragments from
-ldmatrix.trans at cb = 16.  ``k_split`` C_in slices of a cluster add
+mma M tile; 8 where 16 do not fit), ``cb`` (8 or 16) output channels, all
+t^2 positions and a slice of C_in, which it walks in ``k_block``-wide
+stages: TMA (cp.async where the shape rules TMA out) brings each stage's
+input patches and weights into shared memory a stage ahead of use (the
+weights while the stage transforms where one stage fits, not two), the
+block transforms and quantizes its share of the tiles, the ``n_share``
+C_out blocks of a thread block cluster copy their shares into each
+other's shared memory (the counterpart of the TPU kernel's xq cache), and
+each adds its products into int32 mma fragments in registers, its B
+fragments from ldmatrix.trans at cb = 16.  ``k_split`` C_in slices of a cluster add
 their partial sums over distributed shared memory before the epilogue.
 The transform-domain tensor never goes to device memory.
 
@@ -50,10 +51,16 @@ from repro_torch.core.generator import BilinearAlgorithm
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.sfc_tdmm import resident_blocks, waves
 
-TILES = 16          # tiles per B4 block: the mma M dimension (kTiles)
+TILES = 16          # tiles per B4 block: the mma M dimension (kMaxTiles)
 THREADS = 512       # threads per B4 block (kThreads in csrc/sfc_fused.cu)
 K_BLOCK = 32        # C_in channels per pipeline stage (mma k = 32)
-STAGES = 2          # B4's ring of weight stages (kStages)
+STAGES = 2          # B4's ring of weight stages
+# (tiles, stages) in the order the geometry tries them: a two-stage ring
+# of 16 tiles wherever some geometry fits; where none does (sfc6_7's 144
+# positions at cout_block 16 or k_block 64), one weight stage, whose copy
+# waits for the products of the stage before; then also 8 tiles a block
+# (half the mma's M rows idle, half the xq)
+LEVELS = ((TILES, STAGES), (TILES, 1), (TILES // 2, 1))
 PAIRS = (4, 8, 12, 16, 20)   # the pairs per warp B4 is compiled for
 # B4's output channels per block, in the order the auto geometry tries
 # them: one or two mma n-tiles (the int32 fragments of all t^2 positions
@@ -97,8 +104,8 @@ class FusedGeometry:
     package's ``FusedGeometry``: computed here once and passed to
     ``csrc/sfc_fused.cu``, which only checks it.
 
-    A block owns ``tiles`` consecutive tiles (one mma M tile), ``cb``
-    output channels, all t^2 positions and a ``k_slice``-wide slice of
+    A block owns ``tiles`` consecutive tiles (16, one mma M tile, or 8),
+    ``cb`` output channels, all t^2 positions and a ``k_slice``-wide slice of
     C_in, which it walks in ``kb``-wide stages through a ring of
     ``stages`` weight stages in shared memory, with ``strip_bufs`` input
     strips in flight; each of its 16 warps holds
@@ -272,12 +279,12 @@ def _align128(n: int) -> int:
 
 
 def _geometry(algo, n_tiles, cin, cout, kb, cb, n_share, k_split,
-              stages, strip_bufs) -> FusedGeometry:
+              tiles, stages, strip_bufs) -> FusedGeometry:
     P = algo.t * algo.t
     need = -(-P * (cb // 8) // (THREADS // 32))
     pairs = next((p for p in PAIRS if p >= need), -1)
     k_slice = -(-(-(-cin // kb)) // k_split) * kb
-    return FusedGeometry(t=algo.t, M=algo.M, L=algo.L, tiles=TILES, cb=cb,
+    return FusedGeometry(t=algo.t, M=algo.M, L=algo.L, tiles=tiles, cb=cb,
                          kb=kb, stages=stages, strip_bufs=strip_bufs,
                          n_share=n_share,
                          k_split=k_split, k_slice=k_slice, pairs=pairs,
@@ -287,7 +294,7 @@ def _geometry(algo, n_tiles, cin, cout, kb, cb, n_share, k_split,
 
 def _fits(g: FusedGeometry) -> bool:
     return (g.pairs > 0 and g.n_share * g.k_split <= MAX_CLUSTER
-            and g.cb >= g.k_split
+            and g.cb >= g.k_split and g.n_share <= g.tiles
             and g.epilogue_bytes <= g._reused_bytes
             and g.smem_bytes <= B4_SMEM_LIMIT_BYTES
             and g.grid[0] <= 2 ** 31 - 1 and g.grid[1] <= 65535)
@@ -337,24 +344,28 @@ def _fused_geometry(tml, n_tiles, cin, cout, k_block, cout_block, n_share,
     cbs = (cout_block,) if cout_block is not None else COUT_BLOCKS
     k_max = -(-cin // kb)           # more C_in slices than stages is idle
     cands = []
-    for cb in cbs:
-        n_blocks = -(-cout // cb)
-        for ks in ((k_split,) if k_split is not None
-                   else [k for k in (1, 2, 4, 8, 16) if k <= k_max] or [1]):
-            # sharing C_out blocks up to the layer's count, then (where
-            # nothing else fits) C_out blocks with no channels that only
-            # share the transform
-            for ns in ((n_share,) if n_share is not None
-                       else [n for n in (16, 8, 4, 2, 1) if n <= n_blocks]
-                       + [n for n in (2, 4, 8, 16) if n > n_blocks]):
-                # the input strip double-buffered where it fits (and the
-                # input is copied by TMA: C_in a multiple of 4)
-                for bufs in ((2, 1) if cin % 4 == 0 else (1,)):
-                    g = _geometry(algo, n_tiles, cin, cout, kb, cb, ns, ks,
-                                  STAGES, bufs)
-                    if _fits(g):
-                        cands.append(g)
-                        break
+    for tiles, stages in LEVELS:    # the next level only where none fits
+        for cb in cbs:
+            n_blocks = -(-cout // cb)
+            for ks in ((k_split,) if k_split is not None
+                       else [k for k in (1, 2, 4, 8, 16) if k <= k_max]
+                       or [1]):
+                # sharing C_out blocks up to the layer's count, then (where
+                # nothing else fits) C_out blocks with no channels that
+                # only share the transform
+                for ns in ((n_share,) if n_share is not None
+                           else [n for n in (16, 8, 4, 2, 1) if n <= n_blocks]
+                           + [n for n in (2, 4, 8, 16) if n > n_blocks]):
+                    # the input strip double-buffered where it fits (and
+                    # the input is copied by TMA: C_in a multiple of 4)
+                    for bufs in ((2, 1) if cin % 4 == 0 else (1,)):
+                        g = _geometry(algo, n_tiles, cin, cout, kb, cb, ns,
+                                      ks, tiles, stages, bufs)
+                        if _fits(g):
+                            cands.append(g)
+                            break
+        if cands:
+            break
     if not cands:
         raise ValueError(
             f"sfc_fused_conv2d: k_block={kb}, cout_block={cout_block}, "

@@ -11,8 +11,11 @@ arguments, builds the model (weights from a ``torch.Generator`` seeded 0
 on the device), and feeds a greedy ``decode_step`` to the loop.
 ``--smoke`` (the default) runs the reduced config, ``--no-smoke`` the full
 architecture; ``--device`` is ``cuda`` unless the caller says ``cpu``.
-The families of this slice are ``dense``, ``ssm`` and ``hybrid``; the
-others raise ``NotImplementedError``.
+Every family of the zoo serves.  The vision and audio front ends are
+stubs, as in the JAX launcher: a vlm attends to zero vision embeddings
+(batch, ``n_vision_tokens``, d_model), an encdec encodes zero frames
+(batch, ``max_len``, d_model).  ``serve`` runs the loop for a config the
+caller has made (``main`` for the one the arguments name).
 
 Conv-bearing architectures (the ssm and hybrid families) warm the
 ConvSpec-keyed serving cache (``repro_torch.api.serving_cache``) before
@@ -105,9 +108,27 @@ class GreedyStep:
         return logits[:, -1].argmax(-1).to(torch.int32).cpu().numpy()
 
 
+def stub_memory(cfg, batch: int, max_len: int,
+                device) -> Optional[torch.Tensor]:
+    """The stub front end's output: zero vision embeddings (vlm), zero
+    encoder frames (encdec), else None."""
+    if cfg.family == "vlm":
+        return torch.zeros((batch, cfg.n_vision_tokens, cfg.d_model),
+                           dtype=torch.float32, device=device)
+    if cfg.family == "encdec":
+        return torch.zeros((batch, max_len, cfg.d_model),
+                           dtype=torch.float32, device=device)
+    return None
+
+
 def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
-    cfg = resolve_config(args)
+    return serve(resolve_config(args), args)
+
+
+def serve(cfg, args: argparse.Namespace):
+    """Serve ``args.requests`` requests of ``cfg`` (weights from a
+    generator seeded 0 on ``args.device``) and print the summary."""
     model = build(cfg)
     device = torch.device(args.device)
     with torch.no_grad():
@@ -119,8 +140,10 @@ def main(argv: Optional[Sequence[str]] = None):
         cache_stats = warm_conv_plans(cfg, params, args.batch, args.max_len)
         if cache_stats["size"]:
             print(f"conv serving cache warmed: {cache_stats}")
+        memory = stub_memory(cfg, args.batch, args.max_len, device)
         step = GreedyStep(model, params,
-                          model.init_cache(params, args.batch, args.max_len),
+                          model.init_cache(params, args.batch, args.max_len,
+                                           memory),
                           device)
         loop = SlotLoop(batch=args.batch, gen=args.gen, max_len=args.max_len,
                         requests=args.requests, prompts=prompts)

@@ -44,6 +44,10 @@ class Model:
 
     def forward(self, params: Params, tokens: torch.Tensor,
                 memory: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Logits (B, S, V) f32; ``memory`` is the vlm's vision embeddings
+        or the encdec's encoder frames (run through the encoder here)."""
+        if self.cfg.family == "encdec":
+            memory = tfm.encoder_forward(params, self.cfg, memory)
         hidden, _ = tfm.lm_hidden(params, self.cfg, tokens, memory)
         return tfm.lm_logits(params, self.cfg, hidden)
 
@@ -76,8 +80,8 @@ class LM(TreeModule):
     def forward(self, tokens, memory=None):
         return self.model.forward(self.tree(), tokens, memory)
 
-    def init_cache(self, batch: int, max_len: int) -> Params:
-        return self.model.init_cache(self.tree(), batch, max_len)
+    def init_cache(self, batch: int, max_len: int, memory=None) -> Params:
+        return self.model.init_cache(self.tree(), batch, max_len, memory)
 
     def decode_step(self, cache: Params, tokens, pos):
         return self.model.decode_step(self.tree(), cache, tokens, pos)

@@ -114,14 +114,18 @@ def test_memory_feature_invariant_in_k_blocking(T, cin, cout):
                 try:
                     got.append(sfc_fused.fused_geometry(
                         algo, T, cin, cout, k_block=kb, cout_block=cb,
-                        n_share=ns, k_split=1).hbm_bytes())
+                        n_share=ns, k_split=1))
                 except ValueError:
                     continue
+            # one cluster shape: the same tiles a block (where two stages
+            # of 64 channels do not fit, B4 falls to 8 tiles a block, which
+            # reads each weight once per 8 tiles)
+            got = [g for g in got if g.tiles == sfc_fused.TILES]
             if len(got) == 2:
-                assert got[0] == got[1], (cb, ns)
+                assert got[0].hbm_bytes() == got[1].hbm_bytes(), (cb, ns)
                 compared += 1
             if got and cb == 8:
-                x_by_share[ns] = got[0]["x"]
+                x_by_share[ns] = got[0].hbm_bytes()["x"]
     assert compared >= 1
     xs = [x_by_share[n] for n in sorted(x_by_share)]
     assert xs == sorted(xs, reverse=True)

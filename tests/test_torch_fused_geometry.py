@@ -128,8 +128,62 @@ def test_geometry_rejects_what_cannot_run():
         fused_geometry(SFC6_6, 9, 512, 512, k_split=32)
     with pytest.raises(ValueError, match="cout_block 8 or 16"):
         fused_geometry(SFC6_6, 9, 512, 512, cout_block=64)
-    # sfc6_7's 144 positions fit two 16-channel weight stages and xq only
-    # at 8 channels a block
+    # no geometry at any level: clusters of 32 blocks
     with pytest.raises(ValueError, match="shared memory"):
-        fused_geometry(registry.get_algorithm("sfc6_7"), 9, 512, 512,
-                       cout_block=16)
+        fused_geometry(SFC6_6, 9, 512, 512, n_share=16, k_split=2)
+
+
+# sfc6_7's 144 positions: two 16-channel weight stages of 16 tiles (or 64
+# channels a stage) need more than a block's shared memory, so B4 takes one
+# stage at cout_block 16, and one stage of 8 tiles at k_block 64
+SFC6_7_REPAIRED = [({"cout_block": 16}, 16, 1, 16),
+                   ({"k_block": 64}, 8, 1, 8),
+                   ({"k_block": 64, "cout_block": 8}, 8, 1, 8)]
+
+
+@pytest.mark.parametrize("knobs,tiles,stages,cb", SFC6_7_REPAIRED,
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("shape", [(1, 28, 64, 128), (1, 14, 512, 512),
+                                   (4, 56, 256, 256), (1, 7, 3, 7),
+                                   (1, 224, 3, 64)],
+                         ids=lambda s: "-".join(map(str, s)))
+def test_sfc6_7_takes_k_block_64_and_cout_block_16(shape, knobs, tiles,
+                                                   stages, cb):
+    _, g = _geometry("sfc6_7", *shape, **knobs)
+    assert (g.tiles, g.stages, g.cb) == (tiles, stages, cb)
+    assert g.smem_bytes <= sfc_fused.B4_SMEM_LIMIT_BYTES
+    assert g.smem_bytes + _static_smem(g) <= SMEM_PER_BLOCK
+    assert g.epilogue_bytes <= g._reused_bytes
+    assert g.n_share <= g.tiles and g.pairs in sfc_fused.PAIRS
+    assert g.kb == knobs.get("k_block", 32)
+    # its blocks cover the conv: 8-tile groups where the geometry has 8
+    assert g.grid[1] == -(-g.n_tiles // tiles)
+    assert sorted(c for r in range(g.n_share) for c in g.tiles_of(r)) == \
+        list(range(tiles))
+
+
+# sfc6_6's and sfc4_4's geometries, and sfc6_7's at its defaults, as they
+# were before B4 took one stage or 8 tiles: (algo, tiles of the launch,
+# C_in, C_out, knobs) -> (cb, n_share, k_split, strip_bufs, smem bytes)
+PINNED = [
+    ("sfc6_6", 1, 32, 8, {}, (16, 16, 1, 2, 176768)),
+    ("sfc6_6", 9, 512, 512, {}, (16, 8, 2, 2, 193024)),
+    ("sfc6_6", 1444, 64, 64, {}, (16, 4, 1, 2, 225792)),
+    ("sfc6_6", 64, 64, 128, {"k_block": 64}, (8, 16, 1, 1, 224768)),
+    ("sfc6_6", 1444, 64, 64, {"cout_block": 8}, (8, 8, 1, 2, 138624)),
+    ("sfc4_4", 9, 512, 512, {}, (16, 8, 2, 2, 97152)),
+    ("sfc4_4", 1444, 64, 64, {"k_block": 64}, (16, 4, 1, 2, 227712)),
+    ("sfc4_4", 64, 64, 128, {"cout_block": 8}, (8, 16, 1, 2, 61440)),
+    ("sfc6_7", 9, 512, 512, {}, (8, 16, 1, 2, 173184)),
+    ("sfc6_7", 1444, 64, 64, {"cout_block": 8}, (8, 8, 1, 2, 193792)),
+]
+
+
+@pytest.mark.parametrize("name,n_tiles,cin,cout,knobs,want", PINNED,
+                         ids=lambda v: str(v))
+def test_two_stage_geometries_are_unchanged(name, n_tiles, cin, cout, knobs,
+                                            want):
+    g = fused_geometry(registry.get_algorithm(name), n_tiles, cin, cout,
+                       **knobs)
+    assert (g.tiles, g.stages) == (16, 2)
+    assert (g.cb, g.n_share, g.k_split, g.strip_bufs, g.smem_bytes) == want

@@ -363,8 +363,10 @@ def test_fused_rejects_unported_options_and_bad_blocks():
         sfc_fused_conv2d(x, wq, act, ws, algo, cout_block=12)
     with pytest.raises(ValueError, match="k_block must be 32 or 64"):
         sfc_fused_conv2d(x, wq, act, ws, algo, k_block=128, cout_block=128)
+    # k_block 64 at cout_block 16 fits one weight stage of 8 tiles; a
+    # cluster of 32 blocks fits no geometry
     with pytest.raises(ValueError, match="shared memory"):
-        sfc_fused_conv2d(x, wq, act, ws, algo, k_block=64, cout_block=16)
+        sfc_fused_conv2d(x, wq, act, ws, algo, n_share=16, k_split=2)
     # B4's geometry: C_out blocks sharing a transform and C_in slices are
     # powers of two, and a block holds one or two mma n-tiles of channels
     with pytest.raises(ValueError, match="n_share and k_split must be"):

@@ -10,16 +10,18 @@ The same numpy inputs, and the JAX package's parameters carried across by
     1e-4 as stated per test;
   * ``ssd_chunked`` (ragged S, ``init_state``), ``mamba2_block`` and
     ``mamba2_decode``: within 1e-4;
-  * the smoke configs of mamba2, zamba2, qwen3, qwen2.5, phi4-mini and
-    stablelm: ``init_lm``'s tree (paths, shapes, dtypes) equal to JAX's;
-    forward logits and loss within 1e-4; teacher-forced decode within 1e-3
-    of the forward (JAX's own bound); bf16 logits within twice JAX's own
-    bf16-against-fp32 rel L2 of JAX's fp32 logits;
+  * the smoke configs of every architecture (mamba2, zamba2, qwen3,
+    qwen2.5, phi4-mini, stablelm, deepseek-v3, mixtral, llama-3.2-vision,
+    whisper): ``init_lm``'s tree (paths, shapes, dtypes) equal to JAX's;
+    forward logits, loss and the router's aux loss within 1e-4;
+    teacher-forced decode within 1e-3 of the forward (JAX's own bound; the
+    MoE forward lossless, as decode is); bf16 logits within twice JAX's own
+    bf16-against-fp32 rel L2 of JAX's fp32 logits.  The vlm's gates start
+    at zero, so its cross path is reached with gates 0.5 and -0.7 in both
+    trees; the vlm and encdec take seeded vision embeddings and frames;
   * the serving cache: after ``warm_conv_plans`` a forward prepares
     nothing, and a forward on other weights (another tree, or the same
-    tree updated in place) gives those weights' answer;
-  * the ``moe``, MLA, ``vlm`` and ``encdec`` paths raise
-    ``NotImplementedError``.
+    tree updated in place) gives those weights' answer.
 """
 import dataclasses
 
@@ -32,9 +34,11 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import repro.configs as jconfigs  # noqa: E402
+import repro.models.transformer as jtfm  # noqa: E402
 from repro.configs.base import ModelConfig as JModelConfig  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
+from repro.models import moe as jmoe  # noqa: E402
 from repro.models import ssm as jssm  # noqa: E402
 from repro.models.registry import build as jbuild  # noqa: E402
 
@@ -46,12 +50,13 @@ from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.launch.serve import warm_conv_plans  # noqa: E402
 from repro_torch.models import LM, build  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
-from repro_torch.models import layers, ssm, transformer  # noqa: E402
+from repro_torch.models import layers, moe, ssm, transformer  # noqa: E402
 
 SERVED = ["mamba2-1.3b", "zamba2-1.2b", "qwen3-14b", "qwen2.5-32b",
-          "phi4-mini-3.8b", "stablelm-3b"]
-UNPORTED = ["deepseek-v3-671b", "mixtral-8x7b", "llama-3.2-vision-11b",
-            "whisper-tiny"]
+          "phi4-mini-3.8b", "stablelm-3b", "deepseek-v3-671b",
+          "mixtral-8x7b", "llama-3.2-vision-11b", "whisper-tiny"]
+# the vlm's gates, set in both trees (both start at zero)
+GATES = {"gate": 0.5, "ffn_gate": -0.7}
 # a tiny dense config whose 24 query heads pad to 32 (phi4-mini's layout)
 PADDED = dict(name="padded-smoke", family="dense", n_layers=2, d_model=32,
               n_heads=24, n_kv_heads=8, d_ff=64, vocab_size=256, head_dim=8)
@@ -106,6 +111,61 @@ def _carried(jparams):
 def _tokens(cfg, B=2, S=16, seed=0):
     return np.random.RandomState(seed).randint(0, cfg.vocab_size, (B, S)
                                                ).astype(np.int32)
+
+
+def _memory(cfg, B=2, S=16, seed=3):
+    """The stub front end's output as tests/test_models.py draws it: vision
+    embeddings (B, n_vision_tokens, d) for a vlm, frames (B, S, d) for an
+    encdec, else None."""
+    rng = np.random.RandomState(seed)
+    if cfg.family == "vlm":
+        return rng.randn(B, cfg.n_vision_tokens, cfg.d_model).astype(
+            np.float32)
+    if cfg.family == "encdec":
+        return rng.randn(B, S, cfg.d_model).astype(np.float32)
+    return None
+
+
+def _jmem(mem):
+    return None if mem is None else jnp.asarray(mem)
+
+
+def _tmem(mem):
+    return None if mem is None else _t(mem)
+
+
+def _batch_of(cfg, toks, labels, mem):
+    key = {"vlm": "vision", "encdec": "frames"}.get(cfg.family)
+    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+    b = {"tokens": _t(toks), "labels": _t(labels)}
+    if key:
+        jb[key], b[key] = jnp.asarray(mem), _t(mem)
+    return jb, b
+
+
+def _set_gates(jp):
+    """The vlm's cross-attention and FFN gates, nonzero."""
+    cross = jp["cross_blocks"]
+    cross["xattn"]["gate"] = jnp.full_like(cross["xattn"]["gate"],
+                                           GATES["gate"])
+    cross["ffn_gate"] = jnp.full_like(cross["ffn_gate"], GATES["ffn_gate"])
+    return jp
+
+
+@pytest.fixture
+def lossless():
+    """Both packages' MoE FFN at capacity E / k: no token dropped, as the
+    decode step runs it (tests/test_models.py's test_decode_matches_forward
+    patches the JAX module the same way)."""
+    jorig, orig = jmoe.moe_block, moe.moe_block
+    jmoe.moe_block = lambda p, c, x, capacity_factor=None: jorig(
+        p, c, x, capacity_factor=c.n_experts / max(c.n_experts_active, 1))
+    jtfm.moe.moe_block = jmoe.moe_block
+    moe.moe_block = lambda p, c, x, capacity_factor=None: orig(
+        p, c, x, capacity_factor=c.n_experts / max(c.n_experts_active, 1))
+    yield
+    jmoe.moe_block = jtfm.moe.moe_block = jorig
+    moe.moe_block = orig
 
 
 # --------------------------------------------------------------------------
@@ -326,6 +386,8 @@ def _models(arch, **kw):
     jcfg, cfg = _cfgs(arch, **kw)
     jm, m = jbuild(jcfg), build(cfg)
     jp = jm.init(jax.random.PRNGKey(0))
+    if cfg.family == "vlm":
+        jp = _set_gates(jp)
     return jcfg, cfg, jm, m, jp, _carried(jp)
 
 
@@ -351,28 +413,35 @@ def test_forward_and_loss_match_jax(arch):
     jcfg, cfg, jm, m, jp, p = _models(arch)
     toks = _tokens(cfg)
     labels = _tokens(cfg, seed=1)
-    logits = m.forward(p, _t(toks))
-    jlogits = jax.jit(jm.forward)(jp, jnp.asarray(toks))
+    mem = _memory(cfg)
+    logits = m.forward(p, _t(toks), _tmem(mem))
+    jlogits = jax.jit(jm.forward)(jp, jnp.asarray(toks), _jmem(mem))
     assert logits.shape == (2, 16, cfg.padded_vocab)
     assert logits.dtype == torch.float32
     _close(logits, jlogits, 1e-4)
-    loss, metrics = m.loss(p, {"tokens": _t(toks), "labels": _t(labels)})
-    jloss, _ = jm.loss(jp, {"tokens": jnp.asarray(toks),
-                            "labels": jnp.asarray(labels)})
+    jbatch, batch = _batch_of(cfg, toks, labels, mem)
+    loss, metrics = m.loss(p, batch)
+    jloss, jmetrics = jm.loss(jp, jbatch)
     _close(loss, jloss, 1e-4)
-    assert float(metrics["aux"]) == 0.0
+    assert sorted(metrics) == sorted(jmetrics)
+    for k in jmetrics:
+        _close(metrics[k], jmetrics[k], 1e-4)
+    # the router's aux loss is the JAX package's, nonzero for moe
+    assert (float(metrics["aux"]) > 0) == (cfg.family == "moe")
 
 
 @pytest.mark.parametrize("arch", SERVED)
-def test_decode_matches_forward(arch):
+def test_decode_matches_forward(arch, lossless):
     """Teacher-forced decode against the forward, within 1e-3 (the bound of
-    tests/test_models.py's test_decode_matches_forward)."""
+    tests/test_models.py's test_decode_matches_forward; its MoE forward is
+    lossless, as decode is)."""
     jcfg, cfg, jm, m, jp, p = _models(arch)
     B, S = 2, 12
     toks = _tokens(cfg, B, S)
-    full = m.forward(p, _t(toks))
-    cache = m.init_cache(p, B, S)
-    jcache = jm.init_cache(jp, B, S)
+    mem = _memory(cfg, B, S)
+    full = m.forward(p, _t(toks), _tmem(mem))
+    cache = m.init_cache(p, B, S, _tmem(mem))
+    jcache = jm.init_cache(jp, B, S, _jmem(mem))
     assert [tuple(a.shape) for a in tree_util.leaves(cache)] == \
         [a.shape for a in jax.tree_util.tree_leaves(jcache)]
     outs = []
@@ -382,7 +451,7 @@ def test_decode_matches_forward(arch):
         outs.append(lg[:, 0])
     dec = torch.stack(outs, dim=1)
     assert float((full - dec).abs().max()) < 1e-3
-    _close(dec, jax.jit(jm.forward)(jp, jnp.asarray(toks)), 1e-3)
+    _close(dec, jm.forward(jp, jnp.asarray(toks), _jmem(mem)), 1e-3)
 
 
 @pytest.mark.parametrize("arch", SERVED)
@@ -392,10 +461,13 @@ def test_bf16_within_jax_spread(arch):
     its bf16 and fp32 logits."""
     jcfg, cfg, jm, m, jp, p = _models(arch, compute_dtype="bfloat16")
     toks = _tokens(cfg)
+    mem = _memory(cfg)
     j32 = np.asarray(jax.jit(jbuild(dataclasses.replace(
-        jcfg, compute_dtype="float32")).forward)(jp, jnp.asarray(toks)))
-    spread = _rel_l2(jax.jit(jm.forward)(jp, jnp.asarray(toks)), j32)
-    got = _rel_l2(m.forward(p, _t(toks)), j32)
+        jcfg, compute_dtype="float32")).forward)(jp, jnp.asarray(toks),
+                                                 _jmem(mem)))
+    spread = _rel_l2(jax.jit(jm.forward)(jp, jnp.asarray(toks), _jmem(mem)),
+                     j32)
+    got = _rel_l2(m.forward(p, _t(toks), _tmem(mem)), j32)
     assert 0 < spread and got <= 2 * spread, (got, spread)
 
 
@@ -471,15 +543,6 @@ def test_compute_copy_is_made_once_per_tree_version():
     assert transformer.cast_compute(p, cfg32) is p
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    cfg = configs.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="A14"):
-        build(cfg).init(torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        build(cfg).forward({}, torch.zeros((1, 4), dtype=torch.int64))
-
-
 def test_params_from_numpy_keeps_bf16():
     jcfg, _ = _cfgs("mamba2-1.3b", param_dtype="bfloat16")
     jp = jbuild(jcfg).init(jax.random.PRNGKey(0))
@@ -490,6 +553,30 @@ def test_params_from_numpy_keeps_bf16():
         assert str(b.dtype).replace("torch.", "") == str(a.dtype), path
         np.testing.assert_array_equal(b.float().numpy(),
                                       np.asarray(a, np.float32))
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b",
+                                  "llama-3.2-vision-11b"])
+def test_params_from_numpy_carries_gates_and_bf16_experts(arch):
+    """deepseek-v3's bf16 trees (its experts, MLA, MTP head) and the vlm's
+    0-d gates cross unchanged, leaf for leaf."""
+    jcfg, _ = _cfgs(arch, param_dtype="bfloat16")
+    jp = jbuild(jcfg).init(jax.random.PRNGKey(0))
+    if jcfg.family == "vlm":
+        jp = _set_gates(jp)
+    p = params_from_numpy(jp, "cpu")
+    jleaves = jax.tree_util.tree_leaves_with_path(jp)
+    leaves = tree_util.flatten_with_path(p)
+    for (jpath, a), (path, b) in zip(jleaves, leaves):
+        assert tuple(k.key for k in jpath) == path
+        assert tuple(b.shape) == a.shape, path
+        assert str(b.dtype).replace("torch.", "") == str(a.dtype), path
+        np.testing.assert_array_equal(b.float().numpy(),
+                                      np.asarray(a, np.float32))
+    assert len(jleaves) == len(tree_util.leaves(p))
+    if jcfg.family == "vlm":
+        assert p["cross_blocks"]["ffn_gate"].shape == (2,)
+        assert float(p["cross_blocks"]["xattn"]["gate"][0]) == GATES["gate"]
 
 
 def test_lm_module_holds_the_tree():

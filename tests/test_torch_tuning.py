@@ -340,18 +340,19 @@ def _fast_plans(spec, algo):
     return out
 
 
-# what B4's shared memory cannot hold at t = 12 (the stem's 4-tap
-# sub-convs, sfc6_6_r4): 16 output channels a block, or 64-channel stages
-T12_REJECTED = [KernelConfig(datapath="fused", k_block=64),
-                KernelConfig(datapath="fused", k_block=32, cout_block=16)]
+# the candidates two weight stages of 16 tiles cannot hold at t = 12 (the
+# stem's 4-tap sub-convs, sfc6_6_r4): 16 output channels a block, or
+# 64-channel stages.  B4 takes them with one stage (and 8 tiles a block)
+T12_ONE_STAGE = [KernelConfig(datapath="fused", k_block=64),
+                 KernelConfig(datapath="fused", k_block=32, cout_block=16)]
 
 
 @pytest.mark.parametrize("batch", [1, 4])
 def test_default_candidates_launch_on_vgg_resnet_and_mobilenet(batch):
     """Every default candidate launches at every fast (sub-)conv of
-    VGG-16, ResNet-18 and MobileNetV2's depthwise convs, but for two B4
-    geometries at the stem's t = 12 sub-convs, which the pre-flight
-    rejects (KC004) and ``autotune`` then never times."""
+    VGG-16, ResNet-18 and MobileNetV2's depthwise convs, the stem's t = 12
+    sub-convs included (there B4 takes k_block 64 and cout_block 16 with
+    one weight stage): the pre-flight rejects none."""
     specs = [(_spec(in_channels=ci, out_channels=co, spatial=(hw, hw)),
               "sfc6_6") for hw, ci, co in VGG16]
     specs += [(_spec(kernel_size=r, stride=s, in_channels=ci,
@@ -361,25 +362,29 @@ def test_default_candidates_launch_on_vgg_resnet_and_mobilenet(batch):
                      out_channels=c, spatial=(hw, hw)),
                "sfc6_6" if s == 1 else "sfc4_4_r2")
               for hw, c, s in MOBILENET_DW]
-    checked = 0
+    checked = t12 = 0
     for spec, algo in specs:
         for p in _fast_plans(spec, algo):
             ok, rejected = kernel_checks.check_candidates(
                 p.spec, p.algorithm, tuning.DEFAULT_CANDIDATES, batch=batch)
-            want = T12_REJECTED if p.algorithm.t == 12 else []
-            assert [cfg for cfg, _ in rejected] == want, p.spec
-            assert all(f.code == "KC004" for _, fs in rejected for f in fs)
-            assert ok == [c for c in tuning.DEFAULT_CANDIDATES
-                          if c not in want]
+            assert rejected == [], p.spec
+            assert ok == list(tuning.DEFAULT_CANDIDATES)
+            if p.algorithm.t == 12 and not p.spec.depthwise:
+                H, W = p.spec.spatial
+                for cfg in T12_ONE_STAGE:
+                    g, = kernel_checks.geometries_for(
+                        p.algorithm, cfg, batch, H, W, p.spec.in_channels,
+                        p.spec.out_channels, padding=p.spec.padding)
+                    assert g.stages == 1
+                    assert g.tiles == (8 if cfg.k_block == 64 else 16)
+                t12 += 1
             checked += 1
-    assert checked >= len(specs)
+    assert checked >= len(specs) and t12 > 0
     stem = plan(_spec(kernel_size=7, stride=2, in_channels=3,
                       out_channels=64, spatial=(224, 224)),
                 backend="cuda", algo="sfc6_6")
     ok, rejected = tuning._launchable(stem, tuning.DEFAULT_CANDIDATES, batch)
-    assert ok == [c for c in tuning.DEFAULT_CANDIDATES
-                  if c not in T12_REJECTED]
-    assert {cfg for cfg, _ in rejected} == set(T12_REJECTED)
+    assert ok == list(tuning.DEFAULT_CANDIDATES) and rejected == []
 
 
 def test_a_config_no_geometry_runs_is_rejected():
