@@ -221,12 +221,41 @@ csrc`` at first use.  Phases, each of which raises on failure:
      e. the four smoke configs on the card within 1e-4 of CPU copies in
         fp32, the logits and each term of the loss (deepseek's MTP too).
 
+  13. LM training, the chain off, deterministic algorithms on, no step,
+     forward or gradient launching any of B1-B7 (the rank-1 conv runs the
+     reference path, as in phases 11 and 12):
+     a. mamba2-1.3b and zamba2-1.2b (full depth, batch 2 x 2048),
+        whisper-tiny (full, 8 x 448) and mixtral-8x7b (1 of 32 layers, 1 x
+        5120, past its 4096-token window) at published widths trained 5
+        steps (bf16 compute, fp32 parameters, AdamW) by the Trainer's
+        step loop: finite losses, the median step ms of steps 2-5, one
+        traced step's busy ms, kernels and top kernels, peak memory
+        beside the reckoned state (16 bytes a parameter) and update (28);
+        then by the ``Trainer`` with a TransientError at step 3 and a
+        checkpoint at step 5: it restarts from the seed and replays the
+        losses bit for bit;
+     b. fp32 gradients at full width (mamba2 and zamba2 at 2 layers,
+        zamba2's shared block at layer 0; whisper whole; mixtral 1 layer)
+        on 512 tokens against a CPU copy: each leaf within 1e-4 rel L2 (a
+        leaf zero in exact arithmetic within 1e-6 of the largest max |g|),
+        the loss within 1e-5, as the caller leaves TF32 and with TF32
+        allowed by the caller;
+     c. mamba2-1.3b at 8 layers, batch 2 x 2048, bf16: gradients with
+        remat off, ``full`` and ``dots`` bit for bit, peak memory of each;
+     d. the flash attention backward at zamba2's (2 x 2048, 32 x 64,
+        causal) and mixtral's (1 x 5120, GQA 32/8 x 128, window 4096)
+        shapes against autograd through the plain forward loop, within
+        1e-5 rel L2, peak memory of both;
+     e. (with b, mamba2 and zamba2) after a no_grad forward warms the
+        conv serving cache, the gradients bit for bit a fresh run's.
+
 ``--sharded`` runs phases 10 and 10b alone (after the build), over the
 visible GPUs where a mesh has enough (on four cards, every mesh of up to
 four shards has a card a shard; the tuned path then carries no measured
 config, as nothing was tuned), and writes ``chiprun_out/sharded.json``.
 ``--lm`` runs phases 11 and 12 alone (after the build) and writes
-``chiprun_out/lm.json``; ``--b4-candidates`` runs phase 3c alone and
+``chiprun_out/lm.json``; ``--lm-train`` runs phase 13 alone and writes
+``chiprun_out/lm_train.json``; ``--b4-candidates`` runs phase 3c alone and
 writes ``chiprun_out/b4_candidates.json``.
 ``--sweep-b4``, ``--sweep-b7``, ``--sweep-b1`` and ``--sweep-b2`` time
 B4's, B7's, B1's and B5's, and B2's and B6's geometries per layer instead
@@ -250,6 +279,7 @@ import functools
 import gc
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -543,6 +573,37 @@ LM12_CHECK_T = {"deepseek-v3-671b": 16, "mixtral-8x7b": 64,
                 "llama-3.2-vision-11b": 64, "whisper-tiny": 64}
 LM12_GATES = {"gate": 0.5, "ffn_gate": -0.7}
 LM12_SEED = 2400
+# phase 13, LM training (A15), the chain off, deterministic algorithms on:
+# 13a each of LM13_TRAIN (arch, depth cut, batch, sequence) at its published
+# width trained LM13_STEPS steps (AdamW on a cosine schedule, bf16 compute)
+# by make_train_step, then by the Trainer with a TransientError at step
+# LM13_FAULT and a checkpoint at the last step, whose losses must replay
+# the first run's bit for bit; 13b fp32 gradients at full width and LM13_GRAD's
+# depth on LM13_GRAD_T tokens, card against a CPU copy: each leaf within
+# LM13_REL rel L2, or, zero in exact arithmetic, within LM13_DEAD of the
+# largest max |g|; the loss within LM13_LOSS; as the caller leaves TF32 and
+# with it allowed; 13c LM13_REMAT's gradients with remat off, full and dots,
+# bit for bit; 13d the flash attention backward at LM13_FLASH's shapes
+# against autograd through the plain forward loop, LM13_FLASH_REL rel L2;
+# 13e after a no_grad forward, the gradients bit for bit a fresh run's
+LM13_TRAIN = (("mamba2-1.3b", {}, 2, 2048), ("zamba2-1.2b", {}, 2, 2048),
+              ("whisper-tiny", {}, 8, 448),
+              ("mixtral-8x7b", {"n_layers": 1}, 1, 5120))
+LM13_STEPS = 5
+LM13_FAULT = 3
+LM13_LR = 3e-4
+LM13_GRAD = {"mamba2-1.3b": {"n_layers": 2}, "zamba2-1.2b": {"n_layers": 2},
+             "whisper-tiny": {}, "mixtral-8x7b": {"n_layers": 1}}
+LM13_GRAD_T = 512
+LM13_REL = 1e-4
+LM13_DEAD = 1e-6
+LM13_LOSS = 1e-5
+LM13_REMAT = ("mamba2-1.3b", {"n_layers": 8}, 2, 2048)
+# (name, batch, sequence, kv heads, groups, head dim, window)
+LM13_FLASH = (("zamba2-1.2b", 2, 2048, 32, 1, 64, 0),
+              ("mixtral-8x7b", 1, 5120, 8, 4, 128, 4096))
+LM13_FLASH_REL = 1e-5
+LM13_SEED = 2500
 # examples/train_cnn_sfc_torch.py's accuracy table: (row, config changes)
 ACCURACY_ROWS = (
     ("direct fp32", {}),
@@ -2573,6 +2634,411 @@ def lm_families(dev, counted, smi) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def caller_tf32():
+    """TF32 allowed by the caller for cuBLAS's and cuDNN's float32 calls,
+    by the API this PyTorch has; the caller's settings restored after."""
+    import torch
+    matmul = torch.backends.cuda.matmul
+    conv = getattr(torch.backends.cudnn, "conv", None)
+    if hasattr(matmul, "fp32_precision") and hasattr(conv, "fp32_precision"):
+        where = ((matmul, "fp32_precision", "tf32"),
+                 (conv, "fp32_precision", "tf32"))
+    else:
+        where = ((matmul, "allow_tf32", True),
+                 (torch.backends.cudnn, "allow_tf32", True))
+    saved = [getattr(obj, name) for obj, name, _ in where]
+    try:
+        for obj, name, on in where:
+            setattr(obj, name, on)
+        yield
+    finally:
+        for (obj, name, _), was in zip(where, saved):
+            setattr(obj, name, was)
+
+
+@contextlib.contextmanager
+def remat_off():
+    """The LM's layers not rematerialised (``lm_hidden``'s ``remat``)."""
+    from repro_torch.models import transformer
+    orig = transformer.lm_hidden
+    transformer.lm_hidden = functools.partial(orig, remat=False)
+    try:
+        yield
+    finally:
+        transformer.lm_hidden = orig
+
+
+@contextlib.contextmanager
+def remat_policy(policy):
+    """``REPRO_TORCH_REMAT_POLICY`` set to ``policy`` in the block."""
+    from repro_torch.models import transformer
+    name = transformer.REMAT_POLICY_ENV
+    was = os.environ.get(name)
+    os.environ[name] = policy
+    try:
+        yield
+    finally:
+        if was is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = was
+
+
+def named_grads(grads):
+    from repro_torch.tree import flatten_with_path
+    return {"/".join(path): g for path, g in flatten_with_path(grads)}
+
+
+def grads_close(got, ref) -> dict:
+    """Each leaf of ``got`` against ``ref``'s (CPU tensors): rel L2, or,
+    for a leaf zero in exact arithmetic (its reference's max |g| within
+    LM13_DEAD of the largest), max |diff| over the largest max |g|."""
+    gmax = max(g.abs().max().item() for g in ref.values())
+    worst = {"rel_l2": 0.0, "leaf": None, "dead": [], "dead_max": 0.0}
+    for k, r in ref.items():
+        g = got[k].cpu()
+        if r.abs().max().item() <= LM13_DEAD * gmax:
+            worst["dead"].append(k)
+            worst["dead_max"] = max(worst["dead_max"],
+                                    (g - r).abs().max().item() / gmax)
+            continue
+        e = rel_l2(g.double(), r.double())
+        if e >= worst["rel_l2"]:
+            worst["rel_l2"], worst["leaf"] = e, k
+    worst["ok"] = worst["rel_l2"] <= LM13_REL \
+        and worst["dead_max"] <= LM13_DEAD
+    return worst
+
+
+def plain_flash(qg, k, v, causal, window):
+    """The flash forward loop under autograd (no custom backward)."""
+    from repro_torch.models import attention
+    kp, vp, chunk, n = attention._flash_prep(k, v, 512)
+    _, l, acc = attention._flash_fwd_scan(
+        qg, kp, vp, qg.shape[1], k.shape[1], chunk, n, causal, window, 0,
+        1.0 / np.sqrt(qg.shape[-1]))
+    return (acc / l.clamp_min(1e-30)[..., None]).to(qg.dtype)
+
+
+def lm_training(dev, counted, smi) -> dict:
+    """Phase 13: LM training (A15) at published widths on the card; every
+    step, forward and gradient launching none of B1-B7."""
+    import shutil
+
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch import tree as tree_util
+    from repro_torch.api import serving_cache
+    from repro_torch.core.precision import full_fp32_backward
+    from repro_torch.launch.train import token_batches
+    from repro_torch.models import attention, build
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.train import (Trainer, TrainerConfig, TransientError,
+                                   init_train_state, make_train_step)
+    from repro_torch.train.steps import _value_and_grad
+
+    t_phase = time.perf_counter()
+    none = only()
+    out = {"train": {}, "grads": {}, "remat": {}, "flash": {}}
+    ckpt_root = ROOT / "build" / "chip_smoke_lm_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    deterministic = (torch.are_deterministic_algorithms_enabled(),
+                     torch.is_deterministic_algorithms_warn_only_enabled())
+    # a resumed run, and a rematerialised one, replay the first bit for bit
+    # only where every backward is deterministic (the embedding's and the
+    # MoE dispatch's index_put accumulate)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def n_params(tree):
+        return sum(a.numel() for a in tree_util.leaves(tree))
+
+    def seeded_batch(cfg, B, T, seed):
+        """Seeded tokens and labels, and seeded vision embeddings or frames
+        (zero ones would leave the encoder's gradients zero)."""
+        rng = np.random.RandomState(seed)
+        b = {"tokens": lm_tokens(cfg, (B, T), seed, dev),
+             "labels": lm_tokens(cfg, (B, T), seed + 1, dev)}
+        if cfg.family == "encdec":
+            b["frames"] = torch.tensor(rng.randn(B, T, cfg.d_model),
+                                       dtype=torch.float32, device=dev)
+        return b
+
+    try:
+        # ---- 13a. training runs at published width -----------------------
+        for arch, cut, B, S in LM13_TRAIN:
+            t_arch = time.perf_counter()
+            cfg = dataclasses.replace(configs.get_config(arch), **cut)
+            model = build(cfg)
+            batches = token_batches(cfg, B, S, dev)
+
+            def optimizer():
+                return AdamW(lr=cosine_schedule(LM13_LR, 1, LM13_STEPS))
+
+            # the clean run: the Trainer's step loop, without its
+            # checkpoints (a 17-21 GB state takes about a minute to save)
+            lm_free()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            resident = torch.cuda.memory_allocated(dev)   # earlier phases'
+            state = init_train_state(model, optimizer(), LM13_SEED, dev)
+            n = n_params(state.params)
+            step_fn = make_train_step(model, optimizer())
+            losses, times = [], []
+            for i in range(LM13_STEPS):
+                t0 = time.perf_counter()
+                state, metrics = counted(
+                    "lm_training", f"{arch} step {i}",
+                    lambda: step_fn(state, batches(i)), want=none)
+                losses.append(float(metrics["loss"]))
+                times.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated(dev) - resident
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"{arch}: losses {losses}")
+            batch = batches(LM13_STEPS)
+            trace = counted("lm_training", f"{arch} traced step",
+                            lambda: lm_traced(lambda: step_fn(state, batch)),
+                            want=none)
+            del state, metrics, batch
+            lm_free()
+            # the Trainer with a TransientError at step LM13_FAULT and a
+            # checkpoint at the last step: no checkpoint exists at the
+            # fault, so it restarts from the seed and must replay the clean
+            # run's losses bit for bit
+            pending = {LM13_FAULT}
+
+            def fault(step):
+                if step in pending:
+                    pending.discard(step)
+                    raise TransientError(f"injected at step {step}")
+            ckpt_dir = ckpt_root / arch
+            trainer = Trainer(model, optimizer(), TrainerConfig(
+                total_steps=LM13_STEPS, checkpoint_every=LM13_STEPS,
+                checkpoint_dir=str(ckpt_dir), keep_checkpoints=1,
+                log_every=10 ** 9), fault_hook=fault, device=dev)
+            t0 = time.perf_counter()
+            rep = counted("lm_training", f"{arch} Trainer with a fault",
+                          lambda: trainer.run(batches, LM13_SEED), want=none)
+            trainer_s = time.perf_counter() - t0
+            trainer.ckpt.close()
+            saved = trainer.ckpt.latest_step()
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+            if rep.restarts != 1 or rep.steps_run != LM13_FAULT + LM13_STEPS \
+                    or saved != LM13_STEPS:
+                raise AssertionError(f"{arch}: the Trainer restarted "
+                                     f"{rep.restarts} times, ran "
+                                     f"{rep.steps_run} steps, saved {saved}")
+            if rep.losses != losses[:LM13_FAULT] + losses:
+                raise AssertionError(f"{arch}: the Trainer's losses "
+                                     f"{rep.losses} against {losses}")
+            row = {"family": cfg.family, "n_layers": cfg.n_layers,
+                   "depth_cut": cut or None, "batch": B, "seq": S,
+                   "params": n, "losses": losses,
+                   "trainer_losses": rep.losses, "resume_bitwise": True,
+                   "step_ms_median": statistics.median(times[1:]) * 1e3,
+                   "first_step_ms": times[0] * 1e3,
+                   "trainer_step_ms_median": statistics.median(
+                       rep.step_times[1:]) * 1e3,
+                   "trainer_s": trainer_s,
+                   "step_trace": trace, "peak_gb": peak / 1e9,
+                   "resident_gb": resident / 1e9,
+                   "reckoned_state_gb": 16 * n / 1e9,
+                   "reckoned_update_gb": 28 * n / 1e9}
+            lm_free()
+            row["seconds"] = time.perf_counter() - t_arch
+            out["train"][arch] = row
+            log(f"lm13 train: {arch} ({n / 1e9:.3f} B parameters, "
+                f"{cfg.n_layers} layers"
+                + (f", cut from {configs.get_config(arch).n_layers}" if cut
+                   else "")
+                + f") batch {B} x {S}, bf16 compute, AdamW: losses "
+                f"{', '.join(f'{v:.4f}' for v in losses)}; step "
+                f"{row['step_ms_median']:.1f} ms wall (median of steps 2-"
+                f"{LM13_STEPS}; first {row['first_step_ms']:.0f} ms); one "
+                f"traced step busy {lm_fmt_ms(trace['busy_ms'])} ms in "
+                f"{trace['kernels']} kernels, top {trace.get('top')}; peak "
+                f"{row['peak_gb']:.1f} GB above the {row['resident_gb']:.1f} "
+                f"GB resident before it (reckoned: state "
+                f"{row['reckoned_state_gb']:.1f}, update "
+                f"{row['reckoned_update_gb']:.1f}); the Trainer with a "
+                f"TransientError at step {LM13_FAULT} restarted from the "
+                f"seed, replayed the losses bit for bit and saved step "
+                f"{saved} ({trainer_s:.1f} s); {row['seconds']:.1f} s")
+
+        # ---- 13b. fp32 gradients, card against a CPU copy; 13e. C13 ------
+        for arch, cut in LM13_GRAD.items():
+            t_arch = time.perf_counter()
+            cfg = dataclasses.replace(configs.get_config(arch),
+                                      compute_dtype="float32",
+                                      param_dtype="float32", **cut)
+            model = build(cfg)
+            with torch.no_grad():
+                params = model.init(torch.Generator(device=dev).manual_seed(
+                    LM13_SEED + 1), device=dev)
+            batch = seeded_batch(cfg, 1, LM13_GRAD_T, LM13_SEED + 2)
+            cpu = tree_to(params, "cpu")
+            loss_c, _, g_c = _value_and_grad(
+                model, cpu, {k: v.cpu() for k, v in batch.items()})
+            g_c = named_grads(g_c)
+            del cpu
+            row = {"n_layers": cfg.n_layers, "params": n_params(params),
+                   "tokens": LM13_GRAD_T}
+            for setting, ctx in (("caller_default", contextlib.nullcontext),
+                                 ("caller_tf32", caller_tf32)):
+                with ctx():
+                    loss, _, g = counted(
+                        "lm_training", f"{arch} fp32 gradients {setting}",
+                        lambda: _value_and_grad(model, params, batch),
+                        want=none)
+                err = grads_close(named_grads(g), g_c)
+                err["loss_rel"] = abs(loss.item() - loss_c.item()) \
+                    / abs(loss_c.item())
+                del g
+                row[setting] = err
+                if not (err["ok"] and err["loss_rel"] <= LM13_LOSS):
+                    raise AssertionError(f"{arch} {setting}: {err}")
+            if cfg.family in ("ssm", "hybrid"):
+                # 13e: a no_grad forward warms the serving cache; the
+                # gradients after it are a fresh run's, bit for bit
+                lm_free()
+                _, _, fresh = _value_and_grad(model, params, batch)
+                bypassed = serving_cache.stats()["size"] == 0
+                with torch.no_grad():
+                    counted("lm_training", f"{arch} no_grad forward",
+                            lambda: model.loss(params, batch), want=none)
+                warmed = serving_cache.stats()["size"]
+                _, _, after = counted(
+                    "lm_training", f"{arch} gradients after no_grad",
+                    lambda: _value_and_grad(model, params, batch),
+                    want=none)
+                same = all(torch.equal(a, b) for a, b in zip(
+                    tree_util.leaves(fresh), tree_util.leaves(after)))
+                conv_g = after["blocks"]["mixer"]["conv_w"]
+                row["c13"] = {"bypassed": bypassed, "warmed": warmed,
+                              "bitwise": same,
+                              "conv_w_grad_max": conv_g.abs().max().item()}
+                if not (same and bypassed and warmed == cfg.n_layers
+                        and row["c13"]["conv_w_grad_max"] > 0):
+                    raise AssertionError(f"{arch} C13: {row['c13']}")
+                del fresh, after
+            del params, g_c
+            lm_free()
+            row["seconds"] = time.perf_counter() - t_arch
+            out["grads"][arch] = row
+            log(f"lm13 grads: {arch} fp32 at {cfg.n_layers} layers "
+                f"({row['params'] / 1e9:.3f} B parameters, 1 x "
+                f"{LM13_GRAD_T} tokens), card against a CPU copy: "
+                + "; ".join(
+                    f"{s} worst leaf {row[s]['leaf']} {row[s]['rel_l2']:.2e}"
+                    f" rel L2, {len(row[s]['dead'])} dead leaves within "
+                    f"{row[s]['dead_max']:.1e} of max |g|, loss "
+                    f"{row[s]['loss_rel']:.1e}"
+                    for s in ("caller_default", "caller_tf32"))
+                + (f"; C13: after a no_grad forward ({row['c13']['warmed']}"
+                   f" entries warmed; none under grad) the gradients bit "
+                   f"for bit a fresh run's" if "c13" in row else "")
+                + f"; {row['seconds']:.1f} s")
+
+        # ---- 13c. remat off, full and dots -------------------------------
+        arch, cut, B, S = LM13_REMAT
+        cfg = dataclasses.replace(configs.get_config(arch), **cut)
+        model = build(cfg)
+        with torch.no_grad():
+            params = model.init(torch.Generator(device=dev).manual_seed(
+                LM13_SEED + 3), device=dev)
+        batch = token_batches(cfg, B, S, dev)(0)
+        runs = {}
+        for policy, ctx in (("off", remat_off),
+                            ("full", lambda: remat_policy("full")),
+                            ("dots", lambda: remat_policy("dots"))):
+            lm_free()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            with ctx():
+                loss, _, g = counted("lm_training", f"remat {policy}",
+                                     lambda: _value_and_grad(model, params,
+                                                             batch),
+                                     want=none)
+            torch.cuda.synchronize()
+            runs[policy] = (loss, tree_util.leaves(g),
+                            (torch.cuda.max_memory_allocated(dev) - base)
+                            / 1e9)
+            del g
+        ref_loss, ref_g, _ = runs["off"]
+        for policy, (loss, g, peak) in runs.items():
+            out["remat"][policy] = {
+                "peak_gb_above_params": peak,
+                "loss_diff": abs(loss.item() - ref_loss.item()),
+                "grad_max_abs_diff": max((a - b).abs().max().item()
+                                         for a, b in zip(g, ref_g))}
+        del runs, ref_g, params
+        lm_free()
+        if any(r["loss_diff"] or r["grad_max_abs_diff"]
+               for r in out["remat"].values()):
+            raise AssertionError(f"remat: {out['remat']}")
+        log(f"lm13 remat: {arch} at {cfg.n_layers} layers, batch {B} x {S}, "
+            f"bf16 compute: " + "; ".join(
+                f"{p} peak {r['peak_gb_above_params']:.2f} GB above the "
+                f"parameters, loss and gradients max |diff| "
+                f"{r['loss_diff']:.1e}, {r['grad_max_abs_diff']:.1e} from off"
+                for p, r in out["remat"].items()))
+
+        # ---- 13d. the flash backward against the plain loop --------------
+        for name, B, S, hkv, g, hd, window in LM13_FLASH:
+            gen = torch.Generator(device=dev).manual_seed(LM13_SEED + 4)
+            qg, k, v, dout = (torch.randn(shape, generator=gen, device=dev)
+                              for shape in ((B, S, hkv, g, hd),
+                                            (B, S, hkv, hd), (B, S, hkv, hd),
+                                            (B, S, hkv, g, hd)))
+            row = {"shape": [B, S, hkv, g, hd], "window": window}
+            grads = {}
+            for how, fn in (("function", lambda q, kk, vv: (
+                    attention.flash_attention(q, kk, vv, causal=True,
+                                              window=window))),
+                            ("plain", lambda q, kk, vv: plain_flash(
+                                q, kk, vv, True, window))):
+                lm_free()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev)
+                live = [t.detach().requires_grad_() for t in (qg, k, v)]
+
+                def run():
+                    from repro_torch.core.precision import full_fp32_matmul
+                    with full_fp32_matmul():
+                        o = fn(*live)
+                    with full_fp32_backward():
+                        return torch.autograd.grad(o, live, dout)
+                grads[how] = counted("lm_training", f"flash {name} {how}",
+                                     run, want=none)
+                torch.cuda.synchronize()
+                row[f"{how}_peak_gb"] = (torch.cuda.max_memory_allocated(dev)
+                                         - base) / 1e9
+            row["rel_l2"] = {n: rel_l2(a, b) for n, a, b in zip(
+                ("dq", "dk", "dv"), grads["function"], grads["plain"])}
+            del grads, qg, k, v, dout
+            lm_free()
+            out["flash"][name] = row
+            if not all(e <= LM13_FLASH_REL for e in row["rel_l2"].values()):
+                raise AssertionError(f"flash {name}: {row}")
+            log(f"lm13 flash: {name}'s shape {row['shape']} window {window}:"
+                f" the Function's gradients against autograd through the "
+                f"plain loop " + ", ".join(f"{n} {e:.2e}" for n, e in
+                                           row["rel_l2"].items())
+                + f" rel L2; peak {row['function_peak_gb']:.2f} GB against "
+                f"{row['plain_peak_gb']:.2f}")
+    finally:
+        torch.use_deterministic_algorithms(deterministic[0],
+                                           warn_only=deterministic[1])
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"lm13: phase 13 took {out['seconds']:.1f} s on {smi}; no kernel of "
+        f"the port launched")
+    return out
+
+
 def tf32_flags() -> dict:
     """cuBLAS's and cuDNN's float32 settings, by the API this PyTorch has."""
     import torch
@@ -3104,6 +3570,17 @@ def main() -> None:
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
         (out / "lm.json").write_text(json.dumps(report, indent=1))
+        return
+
+    if "--lm-train" in sys.argv[1:]:
+        # phase 13 alone
+        resilience.configure(dataclasses.replace(resilience.policy(),
+                                                 enabled=False))
+        report = {"device": {"name": name, "nvidia_smi": smi},
+                  "lm_training": lm_training(dev, counted, smi)}
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "lm_train.json").write_text(json.dumps(report, indent=1))
         return
 
     if "--b4-candidates" in sys.argv[1:]:
@@ -5206,8 +5683,10 @@ def main() -> None:
 
     # ---- 12. the moe, vlm and encdec families ----------------------------
     report["phases"]["lm_families"] = lm_families(dev, counted, smi)
+    # ---- 13. LM training ----------------------------------------------
+    report["phases"]["lm_training"] = lm_training(dev, counted, smi)
     if resilience.stats():
-        raise AssertionError(f"resilience events in phase 11: "
+        raise AssertionError(f"resilience events in phases 11-13: "
                              f"{resilience.stats()}")
     resilience.configure(chain_policy)
 

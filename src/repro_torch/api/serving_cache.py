@@ -22,7 +22,10 @@ it:
 Without ``key`` an entry is found by its operands' identity and, for
 tensors, their in-place version (``plan.PrepCache.key_for``): torch
 tensors can change in place where JAX arrays cannot, and an updated
-weight must be prepared anew.
+weight must be prepared anew.  Operands that autograd records through
+(``torch.is_grad_enabled()`` and a leaf that requires grad, the test of
+``plan.PrepCache``) bypass the cache: they are prepared on every call and
+counted nowhere, as the JAX package bypasses it for tracers.
 
 The module-level :func:`get` / :func:`stats` / :func:`clear` operate on
 one process-wide default cache.
@@ -34,7 +37,8 @@ import threading
 from collections import OrderedDict
 from typing import Any, Dict, Optional, Tuple
 
-from repro_torch.api.plan import ConvPlan, PrepCache, PreparedWeights
+from repro_torch.api.plan import (ConvPlan, PrepCache, PreparedWeights,
+                                  _leaves)
 from repro_torch.api.spec import ConvSpec
 
 _ENV_MAXSIZE = "REPRO_TORCH_SERVING_CACHE_SIZE"
@@ -91,6 +95,13 @@ class ServingCache:
         faults.maybe_fault(faults.CACHE, detail=spec)
         p = planner.plan(spec, backend=backend, algo=algo)
         operands = (w, act_scale, w_scale)
+        if PrepCache._recorded(_leaves(operands)):
+            # autograd records through the weights (a train step): the
+            # prepared weights must carry this graph, so prepare them
+            # inline and cache nothing, counting nothing, as the JAX
+            # package does for tracers
+            return p, p.prepare_weights(w, act_scale=act_scale,
+                                        w_scale=w_scale)
         ck = (spec, backend, algo,
               key if key is not None else PrepCache.key_for(operands))
         with self._lock:

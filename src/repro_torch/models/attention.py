@@ -1,11 +1,13 @@
 """Attention: GQA with an online-softmax loop over KV chunks, sliding
 window, KV cache.
 
-The counterpart of the JAX package's ``repro.models.attention``, forward
-only.  Prefill runs the online softmax over KV chunks (the JAX package's
+The counterpart of the JAX package's ``repro.models.attention``.  Prefill
+and training run the online softmax over KV chunks (the JAX package's
 ``lax.scan``, here a Python loop with the same chunking, masks and
-``NEG_INF``), so the (S x S) score matrix is never formed.  Decode attends
-one query against the cache, a ring buffer for sliding-window archs.
+``NEG_INF``), so the (S x S) score matrix is never formed, and its
+backward recomputes the scores chunk by chunk, as the JAX package's
+custom VJP does.  Decode attends one query against the cache, a ring
+buffer for sliding-window archs.
 
 Products whose JAX form asks for f32 results from bf16 operands
 (``preferred_element_type``) upcast the operands first: the products of
@@ -18,6 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.precision import full_fp32_matmul
 from repro_torch.models import layers
 from repro_torch.models.layers import Params
 
@@ -160,23 +163,76 @@ def _flash_fwd_scan(qg, kp, vp, Sq, Sk, chunk, n_chunks, causal, window,
     return m, l, acc
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The JAX package's ``_flash_core`` and its memory-lean VJP.
+
+    The forward saves q, k, v, the softmax's running max ``m`` and sum
+    ``l`` and the f32 output before its cast (JAX's residuals: ``delta``
+    reads the uncast output); the backward recomputes each chunk's scores
+    from them, so no (Sq x Sk) probability tensor is ever saved.  Its
+    products run in IEEE float32 on cuBLAS (``full_fp32_matmul``)."""
+
+    @staticmethod
+    def forward(ctx, qg, k, v, causal, window, q_offset, chunk):
+        Sq, D = qg.shape[1], qg.shape[-1]
+        Sk = k.shape[1]
+        kp, vp, chunk_, n_chunks = _flash_prep(k, v, chunk)
+        m, l, acc = _flash_fwd_scan(qg, kp, vp, Sq, Sk, chunk_, n_chunks,
+                                    causal, window, q_offset,
+                                    1.0 / np.sqrt(D))
+        out = acc / torch.clamp_min(l[..., None], 1e-30)
+        ctx.save_for_backward(qg, k, v, m, l, out)
+        ctx.opts = (causal, window, q_offset, chunk)
+        return out.to(qg.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qg, k, v, m, l, out = ctx.saved_tensors
+        causal, window, q_offset, chunk = ctx.opts
+        B, Sq, Hkv, groups, D = qg.shape
+        Sk = k.shape[1]
+        scale = 1.0 / np.sqrt(D)
+        kp, vp, chunk_, n_chunks = _flash_prep(k, v, chunk)
+        dout_g = dout.float()
+        # D_i = sum_d dout_i * out_i (the softmax normalization's term)
+        delta = torch.sum(dout_g * out, dim=-1)           # (B,Sq,Hkv,g)
+        l_safe = torch.clamp_min(l, 1e-30)
+        q32 = qg.float()
+        dq = torch.zeros(qg.shape, dtype=torch.float32, device=qg.device)
+        dk, dv = [], []
+        with full_fp32_matmul():
+            for c in range(n_chunks):
+                kb = kp[:, c * chunk_:(c + 1) * chunk_].float()
+                vb = vp[:, c * chunk_:(c + 1) * chunk_].float()
+                s = torch.einsum("bqhgd,bkhd->bqhgk", q32, kb) * scale
+                mask = _chunk_mask(Sq, Sk, chunk_, c, causal, window,
+                                   q_offset, qg.device)
+                s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+                p = torch.exp(s - m[..., None]) / l_safe[..., None]
+                dv.append(torch.einsum("bqhgk,bqhgd->bkhd", p, dout_g))
+                dp = torch.einsum("bqhgd,bkhd->bqhgk", dout_g, vb)
+                ds = p * (dp - delta[..., None]) * scale
+                dq = dq + torch.einsum("bqhgk,bkhd->bqhgd", ds, kb)
+                dk.append(torch.einsum("bqhgk,bqhgd->bkhd", ds, q32))
+        dk = torch.cat(dk, dim=1)[:, :Sk]
+        dv = torch.cat(dv, dim=1)[:, :Sk]
+        return (dq.to(qg.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None)
+
+
 def flash_attention(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     q_offset: int = 0, chunk: int = 512) -> torch.Tensor:
-    """Online-softmax attention, forward.
+    """Online-softmax attention with a memory-lean backward
+    (``_FlashAttention``).
 
-    qg: (B, Sq, Hkv, g, D) grouped queries; k/v: (B, Sk, Hkv, Dv).
-    ``window > 0`` restricts attention to the last ``window`` keys
-    (sliding window).  ``q_offset`` is the absolute position of q[0]
-    relative to k[0].  Returns (B, Sq, Hkv, g, Dv) in q's dtype.
+    qg: (B, Sq, Hkv, g, D) grouped queries; k/v: (B, Sk, Hkv, Dv); MLA
+    passes Dv != D (g = 1).  ``window > 0`` restricts attention to the
+    last ``window`` keys (sliding window).  ``q_offset`` is the absolute
+    position of q[0] relative to k[0].  Returns (B, Sq, Hkv, g, Dv) in q's
+    dtype.
     """
-    Sq, D = qg.shape[1], qg.shape[-1]
-    Sk = k.shape[1]
-    kp, vp, chunk, n_chunks = _flash_prep(k, v, chunk)
-    _, l, acc = _flash_fwd_scan(qg, kp, vp, Sq, Sk, chunk, n_chunks, causal,
-                                window, q_offset, 1.0 / np.sqrt(D))
-    out = acc / torch.clamp_min(l[..., None], 1e-30)
-    return out.to(qg.dtype)
+    return _FlashAttention.apply(qg, k, v, causal, window, q_offset, chunk)
 
 
 def attention_block(p: Params, cfg, x: torch.Tensor,

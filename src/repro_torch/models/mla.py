@@ -1,6 +1,7 @@
 """Multi-head Latent Attention (DeepSeek-V3, arXiv:2412.19437).
 
-The counterpart of the JAX package's ``repro.models.mla``, forward only.
+The counterpart of the JAX package's ``repro.models.mla``; autograd
+gives its gradients (held to ``jax.grad``'s in the tests).
 Queries and keys/values are projected through low-rank latents; the KV
 cache stores only the compressed latent ``c_kv`` (``kv_lora_rank``) and
 the decoupled RoPE key (``qk_rope_head_dim``).

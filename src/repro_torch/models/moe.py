@@ -1,6 +1,7 @@
 """Mixture-of-Experts FFN with sort-based grouped dispatch.
 
-The counterpart of the JAX package's ``repro.models.moe``, forward only.
+The counterpart of the JAX package's ``repro.models.moe``; autograd
+gives its gradients (held to ``jax.grad``'s in the tests).
 Tokens are routed top-k, sorted by expert, packed into a capacity-bounded
 grouped tensor (E, C, d) and processed with grouped products; tokens past
 an expert's capacity are dropped (GShard semantics).  On one device the

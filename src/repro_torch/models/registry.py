@@ -1,7 +1,7 @@
 """Model registry: config -> (init, loss, forward, cache, decode) bundle.
 
 The counterpart of the JAX package's ``repro.models.registry`` for the
-serving path.  :class:`Model` is functional over a parameter tree in the
+serving and training paths.  :class:`Model` is functional over a parameter tree in the
 JAX package's layout, so ``repro_torch.interop.params_from_numpy``
 carries a JAX ``init_lm`` tree across unchanged; :class:`LM` holds the
 same tree as an ``nn.Module``.  The dry-run's abstract shapes
@@ -28,13 +28,15 @@ class Model:
     cfg: ModelConfig
 
     def init(self, generator: Optional[torch.Generator] = None,
-             device="cuda") -> Params:
+             device=None) -> Params:
         """Parameters drawn from ``generator`` (a fresh one seeded 0 on
-        ``device`` when None) on its device, then placed on ``device``."""
+        ``device`` when None) on its device, then placed on ``device``
+        (the generator's device when None, the card when both are)."""
         if generator is None:
-            generator = torch.Generator(device=device).manual_seed(0)
+            generator = torch.Generator(
+                device=device or "cuda").manual_seed(0)
         params = tfm.init_lm(generator, self.cfg)
-        device = torch.device(device)
+        device = torch.device(device or generator.device)
         if params["embed"].device != device:
             params = tree_util.tree_map(lambda a: a.to(device), params)
         return params

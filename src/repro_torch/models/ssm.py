@@ -1,6 +1,6 @@
 """Mamba2 SSD (state-space duality) block, arXiv:2405.21060.
 
-The counterpart of the JAX package's ``repro.models.ssm``, forward only.
+The counterpart of the JAX package's ``repro.models.ssm``.
 Chunked SSD: within chunks of length Q the recurrence is a masked
 attention-like quadratic form; across chunks a linear state recurrence
 (the JAX package's ``lax.scan``, here a loop over the chunks) carries
@@ -99,11 +99,14 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dA = dtc * A[None, None, None, :]                      # (B,nc,Q,H) <= 0
     dA_cum = torch.cumsum(dA, dim=2)
     # intra-chunk: the decay kernel L[q,s] = exp(dAcum_q - dAcum_s), q >= s.
-    # Above the diagonal exp(seg) may overflow: select, never multiply
+    # Above the diagonal seg grows with the chunk and exp(seg) overflows
+    # (at chunk 256): select before the exponential, exp(-inf) = 0, so the
+    # forward keeps its bits and the gradient never meets 0 * inf
     seg = dA_cum[:, :, :, None, :] - dA_cum[:, :, None, :, :]  # (B,nc,Q,Q,H)
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=x.device))
-    L = torch.where(mask[None, None, :, :, None], torch.exp(seg), 0.0)
+    L = torch.exp(torch.where(mask[None, None, :, :, None], seg,
+                              float("-inf")))
     scores = torch.einsum("bcqn,bcsn->bcqs", Cc, Bc)
     # pairwise contraction: the explicit (B,nc,Q,Q,H) kernel contracts
     # straight into (B,nc,Q,H,P), never a 6-D (B,nc,Q,H,Q,P) intermediate

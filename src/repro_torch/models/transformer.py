@@ -1,9 +1,9 @@
 """Decoder-LM assembly for every architecture family of the zoo.
 
-The counterpart of the JAX package's ``repro.models.transformer``,
-forward only.  Families map to block stacks over stacked layer
-parameters (a leading ``n_layers`` axis, the JAX package's layout); the
-JAX package scans them, the port loops over the layer index:
+The counterpart of the JAX package's ``repro.models.transformer``.
+Families map to block stacks over stacked layer parameters (a leading
+``n_layers`` axis, the JAX package's layout); the JAX package scans them,
+the port loops over the layer index:
 
   dense   : [norm->attn->res ; norm->swiglu->res] x L
   moe     : the same with the grouped-dispatch MoE FFN (``models.moe``),
@@ -17,20 +17,33 @@ JAX package scans them, the port loops over the layer index:
 
 The vision and audio front ends are stubs, as in the JAX package: the
 caller passes their embeddings as ``memory``.  On one device the JAX
-package's ``remat`` and batch-sharding constraints have nothing to do, and
-the port has neither.
+package's batch-sharding constraints have nothing to do.  Its ``remat``
+does: where autograd records through the parameters, each layer runs under
+``torch.utils.checkpoint`` exactly where the JAX package has
+``jax.checkpoint`` (each dense or moe block, each mamba layer with the
+hybrid's shared block, each vlm group, each encdec decoder layer; not the
+encoder), so a layer's activations are recomputed in the backward instead
+of saved.  ``REPRO_TORCH_REMAT_POLICY`` (``full``, the default, or
+``dots``: save the products' outputs) mirrors the JAX package's
+``REPRO_REMAT_POLICY``.  A forward that records nothing (serving) is not
+wrapped.
 
 Float32 products run in IEEE float32 on the card whatever TF32 the caller
 allowed cuBLAS (``repro_torch.core.precision``): ``lm_hidden`` and
-``lm_logits`` hold the guard.
+``lm_logits`` hold the guard, a checkpointed layer enters it again inside
+(its recomputation runs in the backward, outside the forward's block),
+and the train step runs its backward under ``full_fp32_backward``.
 """
 from __future__ import annotations
 
+import functools
+import os
 import threading
 from collections import OrderedDict
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import tree as tree_util
 from repro_torch.configs.base import ModelConfig
@@ -172,6 +185,14 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig) -> Params:
 # --------------------------------------------------------------------------
 # the compute copy
 # --------------------------------------------------------------------------
+def _recording(params: Params) -> bool:
+    """Autograd records through the tree: grad mode on and a leaf that
+    requires grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(a, torch.Tensor) and a.requires_grad
+        for a in tree_util.leaves(params))
+
+
 class _CastCache:
     """The compute-dtype copy of a parameter tree, made once per tree
     version.  The JAX package casts the whole tree on every call and XLA
@@ -195,7 +216,7 @@ class _CastCache:
             return params
         cast = lambda a: a.to(dtype) if isinstance(a, torch.Tensor) \
             and a.is_floating_point() else a                  # noqa: E731
-        if torch.is_grad_enabled() and any(a.requires_grad for a in floating):
+        if _recording(params):
             return tree_util.tree_map(cast, params)
         key = (dtype,) + tuple((id(a), layers.version(a)) for a in leaves)
         with self._lock:
@@ -231,6 +252,50 @@ def clear_compute_cache() -> None:
 
 
 # --------------------------------------------------------------------------
+# rematerialization
+# --------------------------------------------------------------------------
+REMAT_POLICY_ENV = "REPRO_TORCH_REMAT_POLICY"
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def remat_policy() -> str:
+    """``full`` recomputes a layer's whole forward in the backward (least
+    memory); ``dots`` saves its products' outputs (``mm``, ``bmm``,
+    ``addmm``) and recomputes the rest, as the JAX package's
+    ``checkpoint_dots``.  Read from ``REPRO_TORCH_REMAT_POLICY`` on every
+    call."""
+    policy = os.environ.get(REMAT_POLICY_ENV, "full")
+    if policy not in ("full", "dots"):
+        raise ValueError(f"{REMAT_POLICY_ENV}={policy!r}: full or dots")
+    return policy
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _layer_fn(fn, remat: bool):
+    """``fn`` as one layer of a stack: as it is, or, with ``remat``,
+    checkpointed with the float32 guard entered inside, where its
+    recomputation in the backward runs too."""
+    if not remat:
+        return fn
+
+    def guarded(*args):
+        with full_fp32_matmul():
+            return fn(*args)
+
+    kwargs = {}
+    if remat_policy() == "dots":
+        kwargs["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return lambda *args: ckpt.checkpoint(guarded, *args, use_reentrant=False,
+                                         **kwargs)
+
+
+# --------------------------------------------------------------------------
 # forward (prefill)
 # --------------------------------------------------------------------------
 def _compute(x, cfg):
@@ -246,12 +311,13 @@ def lm_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
               remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token ids -> final hidden states. Returns (hidden, aux_loss).
     ``memory`` is the vlm's vision embeddings or the encdec's encoder
-    output; ``remat`` is the JAX signature's (rematerialization), with no
-    use in a forward."""
+    output; with ``remat`` each layer is checkpointed where autograd
+    records through ``params`` (the module's docstring)."""
     fam = cfg.family
     if fam in ("vlm", "encdec") and memory is None:
         raise ValueError(f"the {fam} family needs its memory (the vision "
                          f"embeddings or the encoder output)")
+    remat = remat and _recording(params)
     with full_fp32_matmul():
         params = cast_compute(params, cfg)
         B, S = tokens.shape
@@ -260,31 +326,39 @@ def lm_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         blocks = params["blocks"]
         if fam in ("dense", "moe"):
+            block = _layer_fn(lambda x, bp, use_moe: decoder_block(
+                bp, cfg, x, positions, use_moe), remat)
             if cfg.first_dense_layers:
                 for i in range(cfg.first_dense_layers):
-                    x, _ = decoder_block(layer(params["dense_blocks"], i),
-                                         cfg, x, positions, False)
+                    x, _ = block(x, layer(params["dense_blocks"], i), False)
             auxes = []
             for i in range(cfg.n_layers - cfg.first_dense_layers):
-                x, aux = decoder_block(layer(blocks, i), cfg, x, positions,
-                                       fam == "moe")
+                x, aux = block(x, layer(blocks, i), fam == "moe")
                 auxes.append(aux)
             if auxes:
                 aux_total = aux_total + torch.sum(torch.stack(auxes))
         elif fam in ("ssm", "hybrid"):
             shared = params.get("shared_block")
             conv_w = blocks["mixer"]["conv_w"]
-            for i in range(cfg.n_layers):
-                if shared is not None and i % cfg.shared_attn_every == 0:
+
+            def mamba(x, bp, key, with_shared):
+                # the hybrid's shared block runs inside the layer's
+                # checkpoint, as in the JAX package's _scan_mamba
+                if with_shared:
                     x, _ = decoder_block(shared, cfg, x, positions, False)
+                return mamba_layer(bp, cfg, x, key)
+
+            mamba = _layer_fn(mamba, remat)
+            for i in range(cfg.n_layers):
                 key = ssm.conv_cache_key(("blocks", "mixer", "conv_w"), i,
                                          conv_w)
-                x = mamba_layer(layer(blocks, i), cfg, x, key)
+                x = mamba(x, layer(blocks, i), key, shared is not None
+                          and i % cfg.shared_attn_every == 0)
         elif fam == "vlm":
             mem = _compute(memory, cfg)
             k = cfg.cross_attn_every
-            for g in range(cfg.n_layers // k):
-                cross = layer(params["cross_blocks"], g)
+
+            def group(x, cross, g):
                 h = layers.rmsnorm(x, cross["ln"], cfg.norm_eps)
                 x = x + attn.cross_attention_block(cross["xattn"], cfg, h,
                                                    mem, gated=True)
@@ -294,14 +368,23 @@ def lm_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 for i in range(g * k, (g + 1) * k):
                     x, _ = decoder_block(layer(blocks, i), cfg, x,
                                          positions, False)
+                return x
+
+            group = _layer_fn(group, remat)
+            for g in range(cfg.n_layers // k):
+                x = group(x, layer(params["cross_blocks"], g), g)
         elif fam == "encdec":
-            for i in range(cfg.n_layers):
-                xp = layer(params["cross_blocks"], i)
+            def dec(x, xp, bp):
                 h = layers.rmsnorm(x, xp["ln"], cfg.norm_eps)
                 x = x + attn.cross_attention_block(xp["xattn"], cfg, h,
                                                    memory)
-                x, _ = decoder_block(layer(blocks, i), cfg, x, positions,
-                                     False)
+                x, _ = decoder_block(bp, cfg, x, positions, False)
+                return x
+
+            dec = _layer_fn(dec, remat)
+            for i in range(cfg.n_layers):
+                x = dec(x, layer(params["cross_blocks"], i),
+                        layer(blocks, i))
         else:
             raise ValueError(fam)
         x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)

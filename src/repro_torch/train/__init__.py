@@ -1,8 +1,10 @@
-"""Training loop + train steps."""
+"""Training loop; train, prefill and decode steps."""
 from repro_torch.train.steps import (TrainState, init_train_state,
+                                     make_prefill_step, make_serve_step,
                                      make_train_step)
 from repro_torch.train.trainer import (Trainer, TrainerConfig, TrainerReport,
                                        TransientError)
 
 __all__ = ["TrainState", "init_train_state", "make_train_step",
+           "make_serve_step", "make_prefill_step",
            "Trainer", "TrainerConfig", "TrainerReport", "TransientError"]

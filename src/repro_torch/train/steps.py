@@ -1,18 +1,26 @@
-"""The train step: gradients by autograd, optional int8 gradient
-compression, then the optimizer.
+"""Train, prefill and decode steps: gradients by autograd, optional int8
+gradient compression, then the optimizer.
 
 ``make_train_step`` builds the JAX package's canonical step:
   value and gradient of the model loss (``torch.autograd.grad`` over the
-  parameter leaves)
+  parameter leaves, the backward in IEEE float32 on cuBLAS,
+  ``precision.full_fp32_backward``; an LM rematerialises its layers
+  inside it)
   -> optional int8 gradient round trip
   -> the optimizer's update (float32 moments)
   -> a new ``TrainState``.
 
+``make_serve_step`` builds the one-token greedy decode step,
+``make_prefill_step`` the forward over a prompt; both record no graph.
+
 The model is duck-typed as in the JAX package: ``model.init(generator)``
 returns a parameter tree (on the generator's device) and
-``model.loss(params, batch)`` returns ``(loss, metrics)``.  Training runs
-where its tensors are: the caller's batches and the generator's device
-decide, and nothing moves to the CPU.
+``model.loss(params, batch)`` returns ``(loss, metrics)``: a CNN adapter,
+or an LM ``repro_torch.models.Model`` with batches of ``tokens`` and
+``labels`` (and ``vision`` for a vlm, ``frames`` for an encdec).
+Training runs where its tensors are: the caller's batches and the
+generator's device decide, and nothing moves to the CPU.  The dry run's
+``abstract_train_state`` is not ported (``Model.init_abstract`` neither).
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.core.precision import full_fp32_backward
 from repro_torch.optim import grad_compression as gc
 from repro_torch.optim.optimizers import AdamW, AdamWState
 from repro_torch.tree import leaves, tree_map, unflatten
@@ -48,7 +57,8 @@ def _value_and_grad(model, params, batch):
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
     loss, metrics = model.loss(live, batch)
     flat = leaves(live)
-    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    with full_fp32_backward():
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(flat, grads)]
     metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
@@ -98,3 +108,26 @@ def make_train_step(model, optimizer: AdamW, grad_compression: bool = False,
         return TrainState(new_params, new_opt, state.rng), metrics
 
     return train_step
+
+
+def make_serve_step(model) -> Callable:
+    """Returns serve_step(params, cache, tokens, pos) -> (next tokens
+    (B, 1) int32, the argmax of the last position's logits; the logits;
+    the new cache)."""
+
+    @torch.no_grad()
+    def serve_step(params, cache, tokens, pos):
+        logits, new_cache = model.decode_step(params, cache, tokens, pos)
+        next_tokens = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+        return next_tokens.to(torch.int32), logits, new_cache
+    return serve_step
+
+
+def make_prefill_step(model) -> Callable:
+    """Returns prefill_step(params, tokens, memory=None) -> logits
+    (``model.forward``)."""
+
+    @torch.no_grad()
+    def prefill_step(params, tokens, memory=None):
+        return model.forward(params, tokens, memory)
+    return prefill_step
