@@ -231,9 +231,11 @@ csrc`` at first use.  Phases, each of which raises on failure:
         step loop: finite losses, the median step ms of steps 2-5, one
         traced step's busy ms, kernels and top kernels, peak memory
         beside the reckoned state (16 bytes a parameter) and update (28);
-        then by the ``Trainer`` with a TransientError at step 3 and a
-        checkpoint at step 5: it restarts from the seed and replays the
-        losses bit for bit;
+        then mamba2-1.3b at 4 layers (2 x 2048) by that step loop and by
+        the ``Trainer`` with a TransientError at step 3 and a checkpoint
+        at step 5: it restarts from the seed and replays the losses bit
+        for bit (a 3 GB state: the full-depth states' 14-21 GB
+        checkpoints took a minute each);
      b. fp32 gradients at full width (mamba2 and zamba2 at 2 layers,
         zamba2's shared block at layer 0; whisper whole; mixtral 1 layer)
         on 512 tokens against a CPU copy: each leaf within 1e-4 rel L2 (a
@@ -249,13 +251,55 @@ csrc`` at first use.  Phases, each of which raises on failure:
      e. (with b, mamba2 and zamba2) after a no_grad forward warms the
         conv serving cache, the gradients bit for bit a fresh run's.
 
+  14. The sharded LM train step (``repro_torch.distributed.lm_spmd``) and
+     elastic restore, the chain off, deterministic algorithms on, no call
+     launching any of B1-B7; meshes over the visible GPUs where there are
+     enough, else cuda:0 repeated:
+     a. fp32 gradients and one AdamW step (lr 1e-4) at full width on
+        meshes (1, 1), (2, 1), (1, 2) and (2, 2), batch 2 x 512, each
+        against the single-device step on the same card (with the data
+        axis's MoE chunks), compared on the host: mamba2-1.3b and
+        zamba2-1.2b at 2 layers (zamba2's shared block at layer 0),
+        mixtral-8x7b at 1 layer (8 experts), llama-3.2-vision-11b at one
+        cross group of one self layer (the published group of four beside
+        the reference does not fit one card), whisper-tiny whole,
+        phi4-mini-3.8b at 2 layers: the loss within 1e-5, each leaf within
+        1e-4 rel L2 (dead leaves within 1e-6 of the largest max |g|), the
+        new parameters within 1e-5 rel L2 (across data shards, a leaf the
+        step moves by more than 1% of its norm, as a zero-init leaf or
+        mixtral's router, has its step held within 1e-3 rel L2 instead:
+        the first AdamW step is about lr an element whatever |g|, which
+        turns the gradients' rounding into update differences in
+        proportion to the step's share of the leaf);
+        on (1, m) the loss and gradients bit for bit; each block on its
+        device with its spec's shape; the sharded state drawn by the
+        sharded init;
+     b. mixtral-8x7b's MoE block over a (2, 1) mesh's shards bit for bit
+        one device with ``data_shards`` 2 installed;
+     c. a whisper-tiny state saved from (2, 2) restores onto (4, 1) and
+        (1, 1) bit for bit, and a CPU subprocess of numpy alone reads it
+        as the JAX package's reader reads its format (manifest, digest,
+        keys, bf16 bits); a (2, 2) ``Trainer`` with a TransientError at
+        step 3 of 4 restores step 2 onto its mesh and replays the losses
+        bit for bit;
+     d. ``pipeline_apply`` of 8 mamba2-1.3b layers over 4 stages, 4
+        microbatches of 1 x 512: forward and gradients within 1e-5 rel L2
+        of the sequential stack run on the same microbatches, and within
+        1e-4 of it on the whole batch (other product shapes);
+     e. with four cards only: stablelm-3b and phi4-mini-3.8b at full depth,
+        5 bf16 steps at 4 x 2048 on (4, 1) and (2, 2): finite losses, the
+        median step ms, each card's peak against its state blocks, and the
+        single-device reckoning; on one card a line says it did not run.
+
 ``--sharded`` runs phases 10 and 10b alone (after the build), over the
 visible GPUs where a mesh has enough (on four cards, every mesh of up to
 four shards has a card a shard; the tuned path then carries no measured
 config, as nothing was tuned), and writes ``chiprun_out/sharded.json``.
 ``--lm`` runs phases 11 and 12 alone (after the build) and writes
 ``chiprun_out/lm.json``; ``--lm-train`` runs phase 13 alone and writes
-``chiprun_out/lm_train.json``; ``--b4-candidates`` runs phase 3c alone and
+``chiprun_out/lm_train.json``; ``--lm-sharded`` runs phase 14 alone
+(14e only on a host with four cards) and writes
+``chiprun_out/lm_sharded.json``; ``--b4-candidates`` runs phase 3c alone and
 writes ``chiprun_out/b4_candidates.json``.
 ``--sweep-b4``, ``--sweep-b7``, ``--sweep-b1`` and ``--sweep-b2`` time
 B4's, B7's, B1's and B5's, and B2's and B6's geometries per layer instead
@@ -576,9 +620,9 @@ LM12_SEED = 2400
 # phase 13, LM training (A15), the chain off, deterministic algorithms on:
 # 13a each of LM13_TRAIN (arch, depth cut, batch, sequence) at its published
 # width trained LM13_STEPS steps (AdamW on a cosine schedule, bf16 compute)
-# by make_train_step, then by the Trainer with a TransientError at step
-# LM13_FAULT and a checkpoint at the last step, whose losses must replay
-# the first run's bit for bit; 13b fp32 gradients at full width and LM13_GRAD's
+# by make_train_step; LM13_REPLAY the same, then by the Trainer with a
+# TransientError at step LM13_FAULT and a checkpoint at the last step, whose
+# losses must replay the first run's bit for bit; 13b fp32 gradients at full width and LM13_GRAD's
 # depth on LM13_GRAD_T tokens, card against a CPU copy: each leaf within
 # LM13_REL rel L2, or, zero in exact arithmetic, within LM13_DEAD of the
 # largest max |g|; the loss within LM13_LOSS; as the caller leaves TF32 and
@@ -589,6 +633,8 @@ LM12_SEED = 2400
 LM13_TRAIN = (("mamba2-1.3b", {}, 2, 2048), ("zamba2-1.2b", {}, 2, 2048),
               ("whisper-tiny", {}, 8, 448),
               ("mixtral-8x7b", {"n_layers": 1}, 1, 5120))
+# the Trainer's fault replay, on a state small enough to save in seconds
+LM13_REPLAY = ("mamba2-1.3b", {"n_layers": 4}, 2, 2048)
 LM13_STEPS = 5
 LM13_FAULT = 3
 LM13_LR = 3e-4
@@ -604,6 +650,83 @@ LM13_FLASH = (("zamba2-1.2b", 2, 2048, 32, 1, 64, 0),
               ("mixtral-8x7b", 1, 5120, 8, 4, 128, 4096))
 LM13_FLASH_REL = 1e-5
 LM13_SEED = 2500
+# phase 14, the sharded LM train step (A16) and elastic restore (A17), the
+# chain off, deterministic algorithms on; meshes from make_forced_host_mesh
+# (the visible GPUs where there are enough, else cuda:0 repeated).  14a
+# fp32 gradients and one AdamW step (lr LM14_LR) of each LM14_ARCHS at full
+# width and its depth cut, batch LM14_BATCH, on each of LM14_MESHES, against
+# the single-device step on the same card (data_shards = the data axis's
+# size), compared on the host: the loss within LM14_LOSS, each leaf within
+# LM13_REL rel L2 (dead leaves LM13_DEAD), the new parameters within
+# LM14_UPDATE (across data shards, a leaf the step moves by more than
+# LM14_MOVED of its norm has its step held within LM14_STEP_REL instead);
+# on (1, m) the loss and gradients bit for bit; every block on
+# its device with its spec's shape.  14b mixtral's MoE block over a (2, 1)
+# mesh's shards bit for bit one device with data_shards 2.  14c LM14_ELASTIC
+# saved from (2, 2), restored onto (4, 1) and (1, 1) bit for bit, read by a
+# CPU subprocess in the on-disk format the JAX package's reader reads; a
+# sharded Trainer of LM14_TRAINER_STEPS with a fault at LM13_FAULT replays
+# bit for bit.  14d pipeline_apply over LM14_PIPE's stages against the
+# sequential stack on the same microbatches, LM14_PIPE_REL (on the whole
+# batch, LM13_REL).  14e (four cards only) LM14_BIG at full depth, LM14_BIG_STEPS
+# bf16 steps at LM14_BIG_BATCH on LM14_BIG_MESHES.
+LM14_ARCHS = (("mamba2-1.3b", {"n_layers": 2}),
+              ("zamba2-1.2b", {"n_layers": 2}),
+              ("mixtral-8x7b", {"n_layers": 1}),
+              # one cross group of one self layer: the group of the
+              # published 4 beside the reference does not fit one card
+              ("llama-3.2-vision-11b", {"n_layers": 1,
+                                        "cross_attn_every": 1}),
+              ("whisper-tiny", {}),
+              ("phi4-mini-3.8b", {"n_layers": 2}))
+LM14_MESHES = ((1, 1), (2, 1), (1, 2), (2, 2))
+LM14_BATCH = (2, 512)
+LM14_LR = 1e-4
+LM14_LOSS = 1e-5
+LM14_UPDATE = 1e-5
+LM14_MOVED = 1e-2
+LM14_STEP_REL = 1e-3
+LM14_ELASTIC = ("whisper-tiny", {}, 2, 448)      # a 0.7 GB state
+LM14_TRAINER_STEPS = 4
+LM14_PIPE = ("mamba2-1.3b", 8, 4, (4, 512), 4)   # layers, stages, batch, M
+LM14_PIPE_REL = 1e-5
+LM14_BIG = (("stablelm-3b", {}), ("phi4-mini-3.8b", {}))
+LM14_BIG_MESHES = ((4, 1), (2, 2))
+LM14_BIG_BATCH = (4, 2048)
+LM14_BIG_STEPS = 5
+LM14_SEED = 2600
+# phase 14c's reader of a checkpoint as the JAX package's Checkpointer reads
+# it (manifest, digest, keys, bf16 as uint16 bits), in a CPU subprocess of
+# numpy alone: argv[1] the step directory, argv[2] the gathered state's npz
+JAX_FORMAT_READER = """
+import hashlib, json, pathlib, sys
+import numpy as np
+d, ref = pathlib.Path(sys.argv[1]), np.load(sys.argv[2])
+manifest = json.loads((d / "manifest.json").read_text())
+raw = (d / "arrays.npz").read_bytes()
+if hashlib.sha256(raw).hexdigest() != manifest["sha256"]:
+    raise SystemExit("digest mismatch")
+data = np.load(d / "arrays.npz")
+keys = sorted(k.replace("|", "/") for k in data.files)
+if keys != manifest["keys"] or keys != sorted(
+        k.replace("|", "/") for k in ref.files):
+    raise SystemExit("keys differ")
+bf16 = 0
+for k in keys:
+    a, want = data[k.replace("/", "|")], ref[k.replace("/", "|")]
+    if list(a.shape) != manifest["shapes"][k]:
+        raise SystemExit(f"{k}: shape")
+    if manifest["dtypes"][k] == "bfloat16":
+        bf16 += 1
+        if a.dtype != np.uint16:
+            raise SystemExit(f"{k}: bfloat16 not stored as uint16")
+    elif str(a.dtype) != manifest["dtypes"][k]:
+        raise SystemExit(f"{k}: dtype")
+    if a.dtype != want.dtype or a.tobytes() != want.tobytes():
+        raise SystemExit(f"{k}: values")
+print(f"{len(keys)} arrays ({bf16} bf16) by the manifest's keys, shapes, "
+      f"dtypes and digest, bit for bit the gathered state")
+"""
 # examples/train_cnn_sfc_torch.py's accuracy table: (row, config changes)
 ACCURACY_ROWS = (
     ("direct fp32", {}),
@@ -2767,23 +2890,17 @@ def lm_training(dev, counted, smi) -> dict:
 
     try:
         # ---- 13a. training runs at published width -----------------------
-        for arch, cut, B, S in LM13_TRAIN:
-            t_arch = time.perf_counter()
-            cfg = dataclasses.replace(configs.get_config(arch), **cut)
-            model = build(cfg)
-            batches = token_batches(cfg, B, S, dev)
+        def optimizer():
+            return AdamW(lr=cosine_schedule(LM13_LR, 1, LM13_STEPS))
 
-            def optimizer():
-                return AdamW(lr=cosine_schedule(LM13_LR, 1, LM13_STEPS))
-
-            # the clean run: the Trainer's step loop, without its
-            # checkpoints (a 17-21 GB state takes about a minute to save)
+        def clean_run(arch, cfg, model, batches):
+            """The Trainer's step loop, without its checkpoints: losses,
+            step times, peak above what was resident, the state."""
             lm_free()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
             resident = torch.cuda.memory_allocated(dev)   # earlier phases'
             state = init_train_state(model, optimizer(), LM13_SEED, dev)
-            n = n_params(state.params)
             step_fn = make_train_step(model, optimizer())
             losses, times = [], []
             for i in range(LM13_STEPS):
@@ -2796,56 +2913,31 @@ def lm_training(dev, counted, smi) -> dict:
             peak = torch.cuda.max_memory_allocated(dev) - resident
             if not all(math.isfinite(v) for v in losses):
                 raise AssertionError(f"{arch}: losses {losses}")
+            return losses, times, peak, resident, state, step_fn
+
+        for arch, cut, B, S in LM13_TRAIN:
+            t_arch = time.perf_counter()
+            cfg = dataclasses.replace(configs.get_config(arch), **cut)
+            model = build(cfg)
+            batches = token_batches(cfg, B, S, dev)
+            losses, times, peak, resident, state, step_fn = clean_run(
+                arch, cfg, model, batches)
+            n = n_params(state.params)
             batch = batches(LM13_STEPS)
             trace = counted("lm_training", f"{arch} traced step",
                             lambda: lm_traced(lambda: step_fn(state, batch)),
                             want=none)
-            del state, metrics, batch
+            del state, batch
             lm_free()
-            # the Trainer with a TransientError at step LM13_FAULT and a
-            # checkpoint at the last step: no checkpoint exists at the
-            # fault, so it restarts from the seed and must replay the clean
-            # run's losses bit for bit
-            pending = {LM13_FAULT}
-
-            def fault(step):
-                if step in pending:
-                    pending.discard(step)
-                    raise TransientError(f"injected at step {step}")
-            ckpt_dir = ckpt_root / arch
-            trainer = Trainer(model, optimizer(), TrainerConfig(
-                total_steps=LM13_STEPS, checkpoint_every=LM13_STEPS,
-                checkpoint_dir=str(ckpt_dir), keep_checkpoints=1,
-                log_every=10 ** 9), fault_hook=fault, device=dev)
-            t0 = time.perf_counter()
-            rep = counted("lm_training", f"{arch} Trainer with a fault",
-                          lambda: trainer.run(batches, LM13_SEED), want=none)
-            trainer_s = time.perf_counter() - t0
-            trainer.ckpt.close()
-            saved = trainer.ckpt.latest_step()
-            shutil.rmtree(ckpt_dir, ignore_errors=True)
-            if rep.restarts != 1 or rep.steps_run != LM13_FAULT + LM13_STEPS \
-                    or saved != LM13_STEPS:
-                raise AssertionError(f"{arch}: the Trainer restarted "
-                                     f"{rep.restarts} times, ran "
-                                     f"{rep.steps_run} steps, saved {saved}")
-            if rep.losses != losses[:LM13_FAULT] + losses:
-                raise AssertionError(f"{arch}: the Trainer's losses "
-                                     f"{rep.losses} against {losses}")
             row = {"family": cfg.family, "n_layers": cfg.n_layers,
                    "depth_cut": cut or None, "batch": B, "seq": S,
                    "params": n, "losses": losses,
-                   "trainer_losses": rep.losses, "resume_bitwise": True,
                    "step_ms_median": statistics.median(times[1:]) * 1e3,
                    "first_step_ms": times[0] * 1e3,
-                   "trainer_step_ms_median": statistics.median(
-                       rep.step_times[1:]) * 1e3,
-                   "trainer_s": trainer_s,
                    "step_trace": trace, "peak_gb": peak / 1e9,
                    "resident_gb": resident / 1e9,
                    "reckoned_state_gb": 16 * n / 1e9,
                    "reckoned_update_gb": 28 * n / 1e9}
-            lm_free()
             row["seconds"] = time.perf_counter() - t_arch
             out["train"][arch] = row
             log(f"lm13 train: {arch} ({n / 1e9:.3f} B parameters, "
@@ -2861,10 +2953,61 @@ def lm_training(dev, counted, smi) -> dict:
                 f"{row['peak_gb']:.1f} GB above the {row['resident_gb']:.1f} "
                 f"GB resident before it (reckoned: state "
                 f"{row['reckoned_state_gb']:.1f}, update "
-                f"{row['reckoned_update_gb']:.1f}); the Trainer with a "
-                f"TransientError at step {LM13_FAULT} restarted from the "
-                f"seed, replayed the losses bit for bit and saved step "
-                f"{saved} ({trainer_s:.1f} s); {row['seconds']:.1f} s")
+                f"{row['reckoned_update_gb']:.1f}); {row['seconds']:.1f} s")
+
+        # the Trainer with a TransientError at step LM13_FAULT and a
+        # checkpoint at the last step: no checkpoint exists at the fault,
+        # so it restarts from the seed and must replay the clean run's
+        # losses bit for bit
+        t_arch = time.perf_counter()
+        arch, cut, B, S = LM13_REPLAY
+        cfg = dataclasses.replace(configs.get_config(arch), **cut)
+        model = build(cfg)
+        batches = token_batches(cfg, B, S, dev)
+        losses, _, _, _, state, _ = clean_run(arch, cfg, model, batches)
+        n = n_params(state.params)
+        del state
+        lm_free()
+        pending = {LM13_FAULT}
+
+        def fault(step):
+            if step in pending:
+                pending.discard(step)
+                raise TransientError(f"injected at step {step}")
+        ckpt_dir = ckpt_root / arch
+        trainer = Trainer(model, optimizer(), TrainerConfig(
+            total_steps=LM13_STEPS, checkpoint_every=LM13_STEPS,
+            checkpoint_dir=str(ckpt_dir), keep_checkpoints=1,
+            log_every=10 ** 9), fault_hook=fault, device=dev)
+        t0 = time.perf_counter()
+        rep = counted("lm_training", f"{arch} Trainer with a fault",
+                      lambda: trainer.run(batches, LM13_SEED), want=none)
+        trainer_s = time.perf_counter() - t0
+        trainer.ckpt.close()
+        saved = trainer.ckpt.latest_step()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        if rep.restarts != 1 or rep.steps_run != LM13_FAULT + LM13_STEPS \
+                or saved != LM13_STEPS:
+            raise AssertionError(f"{arch}: the Trainer restarted "
+                                 f"{rep.restarts} times, ran "
+                                 f"{rep.steps_run} steps, saved {saved}")
+        if rep.losses != losses[:LM13_FAULT] + losses:
+            raise AssertionError(f"{arch}: the Trainer's losses "
+                                 f"{rep.losses} against {losses}")
+        lm_free()
+        out["replay"] = {
+            "arch": arch, "n_layers": cfg.n_layers, "batch": B, "seq": S,
+            "params": n, "losses": losses, "trainer_losses": rep.losses,
+            "resume_bitwise": True, "trainer_step_ms_median":
+            statistics.median(rep.step_times[1:]) * 1e3,
+            "trainer_s": trainer_s,
+            "seconds": time.perf_counter() - t_arch}
+        log(f"lm13 replay: {arch} at {cfg.n_layers} layers ({n / 1e9:.3f} B "
+            f"parameters), batch {B} x {S}: the Trainer with a "
+            f"TransientError at step {LM13_FAULT} restarted from the seed, "
+            f"replayed the step loop's losses bit for bit and saved step "
+            f"{saved} ({trainer_s:.1f} s; "
+            f"{out['replay']['seconds']:.1f} s)")
 
         # ---- 13b. fp32 gradients, card against a CPU copy; 13e. C13 ------
         for arch, cut in LM13_GRAD.items():
@@ -3035,6 +3178,541 @@ def lm_training(dev, counted, smi) -> dict:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"lm13: phase 13 took {out['seconds']:.1f} s on {smi}; no kernel of "
+        f"the port launched")
+    return out
+
+
+def lm_sharded(dev, counted, smi) -> dict:
+    """Phase 14: the sharded LM train step (A16) and elastic restore (A17)
+    on the card; every step, forward and gradient launching none of
+    B1-B7 (the module's docstring, phase 14)."""
+    import shutil
+
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch import tree as tree_util
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core.precision import (full_fp32_backward,
+                                            full_fp32_matmul)
+    from repro_torch.distributed import act_sharding, lm_spmd, sharding
+    from repro_torch.distributed.pipeline import (pipeline_apply,
+                                                  stack_params_for_stages)
+    from repro_torch.launch.mesh import make_forced_host_mesh
+    from repro_torch.launch.train import token_batches
+    from repro_torch.models import build, moe, transformer
+    from repro_torch.optim import AdamW
+    from repro_torch.train import (Trainer, TrainerConfig, TransientError,
+                                   abstract_train_state, init_train_state,
+                                   make_train_step)
+    from repro_torch.train.steps import _value_and_grad
+
+    t_phase = time.perf_counter()
+    none = only()
+    out = {"grads": {}, "dispatch": {}, "elastic": {}, "pipeline": {},
+           "big": {}}
+    ckpt_root = ROOT / "build" / "chip_smoke_lm14_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    deterministic = (torch.are_deterministic_algorithms_enabled(),
+                     torch.is_deterministic_algorithms_warn_only_enabled())
+    # the sums over data shards replay only where every backward is
+    # deterministic (the embedding's and the MoE dispatch's index_put)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def mesh_of(shape, axes=("data", "model")):
+        """The visible GPUs where there are enough, else ``dev`` repeated,
+        as phase 10 has its meshes."""
+        if cards >= math.prod(shape):
+            return make_forced_host_mesh(shape, axes)
+        return make_forced_host_mesh(shape, axes, device=dev)
+
+    def seeded_batch(cfg, B, T, seed):
+        rng = np.random.RandomState(seed)
+        b = {"tokens": lm_tokens(cfg, (B, T), seed, dev),
+             "labels": lm_tokens(cfg, (B, T), seed + 1, dev)}
+        if cfg.family == "vlm":
+            b["vision"] = torch.tensor(
+                rng.randn(B, cfg.n_vision_tokens, cfg.d_model),
+                dtype=torch.float32, device=dev)
+        if cfg.family == "encdec":
+            b["frames"] = torch.tensor(rng.randn(B, T, cfg.d_model),
+                                       dtype=torch.float32, device=dev)
+        return b
+
+    def on_host(tree):
+        return {k: (v.gather("cpu") if isinstance(v, sharding.Sharded)
+                    else v.detach().cpu())
+                for k, v in named_grads(tree).items()}
+
+    def against(tree, ref):
+        """Each leaf of ``tree`` (``Sharded``, gathered on ``dev``) against
+        its host reference, one leaf at a time on the card: name -> (rel
+        L2, max |diff|, bit for bit, the reference's max |x|, the
+        difference's L2 norm)."""
+        out = {}
+        for k, sh in named_grads(tree).items():
+            g, r = sh.gather(dev), ref[k].to(dev)
+            d = (g - r).double()
+            norm = torch.linalg.vector_norm(d).item()
+            out[k] = (norm / max(torch.linalg.vector_norm(r.double()).item(),
+                                 1e-30),
+                      d.abs().max().item() if d.numel() else 0.0,
+                      bool(torch.equal(g, r)),
+                      r.abs().max().item() if r.numel() else 0.0, norm)
+            del g, r, d
+        return out
+
+    def check_blocks(state, shardings) -> int:
+        """Each block on its coordinate's device with its spec's shape;
+        the number of distinct blocks."""
+        seen = set()
+        for sh, s in zip(tree_util.leaves(state),
+                         tree_util.leaves(shardings)):
+            if tuple(sh.spec) != tuple(s.spec):
+                raise AssertionError(f"spec {sh.spec} placed, {s.spec} "
+                                     f"wanted")
+            for coord in s.mesh.coords():
+                block = sh.shards[coord]
+                want = sharding.block_of(
+                    torch.empty(sh.shape, device="meta"), sh.spec, s.mesh,
+                    sh.block_index(coord))
+                if block.device != s.mesh.device(coord) \
+                        or tuple(block.shape) != tuple(want.shape):
+                    raise AssertionError(
+                        f"block {coord} of a {sh.shape} leaf: "
+                        f"{tuple(block.shape)} on {block.device}, wanted "
+                        f"{tuple(want.shape)} on {s.mesh.device(coord)}")
+                seen.add(id(block))
+        return len(seen)
+
+    def synchronize():
+        if dev.type == "cuda":
+            for i in range(max(cards, 1)):
+                torch.cuda.synchronize(i)
+
+    def big_run(arch, cut):
+        """14e: ``arch`` at full depth trained LM14_BIG_STEPS bf16 steps on
+        each of LM14_BIG_MESHES over four cards."""
+        cfg = dataclasses.replace(configs.get_config(arch), **cut)
+        model, opt = build(cfg), AdamW(lr=LM13_LR)
+        n = sum(a.numel() for a in tree_util.leaves(model.init_abstract()))
+        B, T = LM14_BIG_BATCH
+        batches = token_batches(cfg, B, T, dev)
+        row = {"params": n, "n_layers": cfg.n_layers, "batch": [B, T],
+               "one_device_state_gb": 16 * n / 1e9,
+               "one_device_update_gb": 28 * n / 1e9, "meshes": {}}
+        for shape in LM14_BIG_MESHES:
+            mesh = make_forced_host_mesh(shape)
+            shardings = lm_spmd.state_shardings(model, opt, mesh)
+            lm_free()
+            synchronize()
+            for i in range(cards):
+                torch.cuda.reset_peak_memory_stats(i)
+            base = [torch.cuda.memory_allocated(i) for i in range(cards)]
+            t0 = time.perf_counter()
+            st = init_train_state(model, opt, LM14_SEED + 5, dev,
+                                  shardings=shardings)
+            synchronize()
+            init_s = time.perf_counter() - t0
+            held, seen = [0] * cards, set()
+            for sh in tree_util.leaves(st):
+                for blk in sh.shards.flat:
+                    if id(blk) not in seen:
+                        seen.add(id(blk))
+                        held[blk.device.index or 0] += blk.numel() \
+                            * blk.element_size()
+            step_fn = make_train_step(model, opt)
+            losses, times = [], []
+            for i in range(LM14_BIG_STEPS):
+                t0 = time.perf_counter()
+                st, metrics = counted(
+                    "lm_sharded", f"{arch} {shape} step {i}",
+                    lambda: step_fn(st, batches(i)), want=none)
+                losses.append(float(metrics["loss"]))
+                synchronize()
+                times.append(time.perf_counter() - t0)
+            peaks = [(torch.cuda.max_memory_allocated(i) - base[i]) / 1e9
+                     for i in range(cards)]
+            del st, metrics
+            lm_free()
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"{arch} {shape}: losses {losses}")
+            row["meshes"][str(shape)] = {
+                "losses": losses,
+                "step_ms_median": statistics.median(times[1:]) * 1e3,
+                "first_step_ms": times[0] * 1e3, "init_s": init_s,
+                "peak_gb": peaks,
+                "state_blocks_gb": [h / 1e9 for h in held],
+                # the functional update holds the old and the new state
+                # and the gradients: 28 of the state's 12 bytes a parameter
+                "reckoned_update_gb": [h * 28 / 12 / 1e9 for h in held]}
+            r = row["meshes"][str(shape)]
+            log(f"lm14 full depth: {arch} ({n / 1e9:.3f} B parameters, "
+                f"{cfg.n_layers} layers) on {shape} over {cards} cards, "
+                f"batch {B} x {T}, bf16 compute: losses "
+                f"{', '.join(f'{v:.4f}' for v in losses)}; step "
+                f"{r['step_ms_median']:.1f} ms (median of steps 2-"
+                f"{LM14_BIG_STEPS}; first {r['first_step_ms']:.0f} ms; init "
+                f"{init_s:.1f} s); per card peak "
+                f"{', '.join(f'{v:.1f}' for v in peaks)} GB against state "
+                f"blocks {', '.join(f'{v:.1f}' for v in r['state_blocks_gb'])}"
+                f" GB (update reckoned "
+                f"{', '.join(f'{v:.1f}' for v in r['reckoned_update_gb'])});"
+                f" one device would need {row['one_device_update_gb']:.1f} "
+                f"GB for the update")
+        return row
+
+    try:
+        # ---- 14a. sharded fp32 steps against one device ------------------
+        for arch, cut in LM14_ARCHS:
+            t_arch = time.perf_counter()
+            cfg = dataclasses.replace(configs.get_config(arch),
+                                      compute_dtype="float32",
+                                      param_dtype="float32", **cut)
+            model, opt = build(cfg), AdamW(lr=LM14_LR)
+            batch = seeded_batch(cfg, *LM14_BATCH, LM14_SEED + 1)
+            refs = {}
+            lm_free()
+            state = init_train_state(model, opt, LM14_SEED, dev)
+            n = sum(a.numel() for a in tree_util.leaves(state.params))
+            for nd in sorted({shape[0] for shape in LM14_MESHES}):
+                if refs and cfg.family != "moe":
+                    refs[nd] = next(iter(refs.values()))
+                    continue
+                # the single-device step with the data shards' MoE chunks
+                with act_sharding.local(nd):
+                    loss, _, g = counted(
+                        "lm_sharded", f"{arch} one-device gradients",
+                        lambda: _value_and_grad(model, state.params, batch),
+                        want=none)
+                new_p, _, _ = opt.apply(state.params, g, state.opt)
+                # how far the step moves each leaf, against its norm: the
+                # first AdamW step is lr g / (|g| + eps), about lr an
+                # element whatever |g|, so where it moves a leaf by more
+                # than LM14_MOVED of its norm (a zero-init leaf, mixtral's
+                # router) the update's difference is the gradients'
+                # rounding amplified by the step's share
+                old = named_grads(state.params)
+                steps = {k: (v - old[k]).norm().item()
+                         for k, v in named_grads(new_p).items()}
+                moved = {k: steps[k] / max(old[k].norm().item(), 1e-30)
+                         for k in steps}
+                gmax = max(v.abs().max().item() for v in tree_util.leaves(g))
+                refs[nd] = (loss.item(), on_host(g), on_host(new_p), steps,
+                            moved, gmax)
+                del g, new_p, old
+            del state
+            lm_free()
+            row = {"params": n, "n_layers": cfg.n_layers,
+                   "depth_cut": cut or None, "batch": list(LM14_BATCH)}
+            for shape in LM14_MESHES:
+                mesh = mesh_of(shape)
+                shardings = lm_spmd.state_shardings(model, opt, mesh)
+                lm_free()
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev)
+                st = init_train_state(model, opt, LM14_SEED, dev,
+                                      shardings=shardings)
+                blocks = check_blocks(st, shardings)
+                t0 = time.perf_counter()
+                loss, metrics, leaves = counted(
+                    "lm_sharded", f"{arch} {shape} sharded gradients",
+                    lambda: lm_spmd.value_and_grad(model, st.params, batch),
+                    want=none)
+                new, metrics = lm_spmd.apply_gradients(opt, st, leaves,
+                                                       metrics)
+                synchronize()
+                step_s = time.perf_counter() - t0
+                peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+                check_blocks(new, shardings)
+                del st
+                ref_loss, g_ref, p_ref, steps, moved, gmax = refs[shape[0]]
+                err = {"loss_rel": abs(loss.item() - ref_loss)
+                       / abs(ref_loss), "rel_l2": 0.0, "leaf": None,
+                       "dead": [], "dead_max": 0.0}
+                bitwise = loss.item() == ref_loss
+                for k, (rel, diff, same, ref_max, _) in against(
+                        lm_spmd.gradients(leaves), g_ref).items():
+                    bitwise = bitwise and same
+                    if ref_max <= LM13_DEAD * gmax:
+                        err["dead"].append(k)
+                        err["dead_max"] = max(err["dead_max"], diff / gmax)
+                    elif rel >= err["rel_l2"]:
+                        err["rel_l2"], err["leaf"] = rel, k
+                err["bitwise"] = bitwise
+                err["ok"] = err["rel_l2"] <= LM13_REL \
+                    and err["dead_max"] <= LM13_DEAD
+                del leaves
+                upd = against(new.params, p_ref)
+                del new
+                held = [k for k in upd if shape[0] == 1
+                        or moved[k] <= LM14_MOVED]
+                err["update_leaf"] = max(held, key=lambda k: upd[k][0])
+                err["update_rel"] = upd[err["update_leaf"]][0]
+                # the others: the step itself within LM14_STEP_REL
+                err["step_rel"] = {
+                    k: upd[k][4] / max(steps[k], 1e-30)
+                    for k in sorted(set(upd) - set(held))}
+                err.update({"blocks": blocks, "step_s": step_s,
+                            "peak_gb_above": peak})
+                row[str(shape)] = err
+                if not (err["ok"] and err["loss_rel"] <= LM14_LOSS
+                        and err["update_rel"] <= LM14_UPDATE
+                        and all(v <= LM14_STEP_REL
+                                for v in err["step_rel"].values())) \
+                        or (shape[0] == 1 and not err["bitwise"]):
+                    raise AssertionError(f"{arch} {shape}: {err}")
+            del refs
+            lm_free()
+            row["seconds"] = time.perf_counter() - t_arch
+            out["grads"][arch] = row
+            log(f"lm14 grads: {arch} fp32 at {cfg.n_layers} layers "
+                f"({n / 1e9:.3f} B parameters, {LM14_BATCH[0]} x "
+                f"{LM14_BATCH[1]} tokens), sharded against one device: "
+                + "; ".join(
+                    f"{shape} worst leaf {row[str(shape)]['leaf']} "
+                    f"{row[str(shape)]['rel_l2']:.2e}, loss "
+                    f"{row[str(shape)]['loss_rel']:.1e}, update "
+                    f"{row[str(shape)]['update_rel']:.1e}"
+                    + (", bit for bit" if row[str(shape)]['bitwise'] else "")
+                    + (f", the steps of {len(row[str(shape)]['step_rel'])} "
+                       f"leaves moved over {LM14_MOVED:.0%} within "
+                       f"{max(row[str(shape)]['step_rel'].values()):.1e}"
+                       if row[str(shape)]['step_rel'] else "")
+                    + f", {row[str(shape)]['blocks']} blocks, step "
+                    f"{row[str(shape)]['step_s'] * 1e3:.0f} ms, peak "
+                    f"{row[str(shape)]['peak_gb_above']:.1f} GB"
+                    for shape in LM14_MESHES)
+                + f"; {row['seconds']:.1f} s")
+
+        # ---- 14b. shard-local MoE dispatch, bit for bit ------------------
+        cfg = dataclasses.replace(configs.get_config("mixtral-8x7b"),
+                                  compute_dtype="float32",
+                                  param_dtype="float32", n_layers=1)
+        gen = torch.Generator(device=dev).manual_seed(LM14_SEED + 2)
+        with torch.no_grad():
+            params = build(cfg).init(gen, device=dev)
+            ffn = transformer.layer(params["blocks"], 0)["ffn"]
+            B, T = LM14_BATCH
+            x = torch.randn((B, T, cfg.d_model), generator=gen, device=dev)
+            mesh = mesh_of((2, 1))
+            act_sharding.install(mesh, ("data",))
+            try:
+                with full_fp32_matmul():
+                    whole, stats = counted(
+                        "lm_sharded", "mixtral MoE block, data_shards 2",
+                        lambda: moe.moe_block(ffn, cfg, x,
+                                              router_stats=True), want=none)
+                    with act_sharding.local(1):
+                        parts = [counted(
+                            "lm_sharded", f"mixtral MoE block, shard {s}",
+                            lambda: moe.moe_block(
+                                tree_util.tree_map(
+                                    lambda a: a.to(mesh.device((s, 0))),
+                                    ffn), cfg,
+                                x[s * B // 2:(s + 1) * B // 2].to(
+                                    mesh.device((s, 0))),
+                                router_stats=True), want=none)
+                            for s in range(2)]
+            finally:
+                act_sharding.clear()
+            joined = torch.cat([p[0].to(dev) for p in parts])
+            density = torch.stack([p[1][0].to(dev) for p in parts]).mean(0)
+            out["dispatch"] = {
+                "bitwise": bool(torch.equal(joined, whole)),
+                "density_bitwise": bool(torch.equal(density, stats[0])),
+                "max_abs_diff": (joined - whole).abs().max().item()}
+            del params, ffn, x, whole, stats, parts, joined
+        lm_free()
+        if not (out["dispatch"]["bitwise"]
+                and out["dispatch"]["density_bitwise"]):
+            raise AssertionError(f"shard-local dispatch: {out['dispatch']}")
+        log(f"lm14 dispatch: mixtral-8x7b's MoE block over a (2, 1) mesh's "
+            f"shards bit for bit one device with data_shards 2 (output and "
+            f"top-1 density), {LM14_BATCH[0]} x {LM14_BATCH[1]} tokens")
+
+        # ---- 14c. elastic restore; a sharded Trainer's fault replay -------
+        t_el = time.perf_counter()
+        arch, cut, B, T = LM14_ELASTIC
+        cfg = dataclasses.replace(configs.get_config(arch), **cut)
+        model, opt = build(cfg), AdamW(lr=LM14_LR)
+        batches = token_batches(cfg, B, T, dev)
+        m22 = mesh_of((2, 2))
+        s22 = lm_spmd.state_shardings(model, opt, m22)
+        st = init_train_state(model, opt, LM14_SEED + 3, dev, shardings=s22)
+        st, _ = counted("lm_sharded", f"{arch} (2, 2) step",
+                        lambda: make_train_step(model, opt)(st, batches(0)),
+                        want=none)
+        ck = Checkpointer(str(ckpt_root / "elastic"))
+        t0 = time.perf_counter()
+        ck.save(1, st, blocking=True)
+        save_s = time.perf_counter() - t0
+        want = on_host(st)
+        del st
+        lm_free()
+        el = {"arch": arch, "n_layers": cfg.n_layers, "save_s": save_s,
+              "restored": {}}
+        for shape in ((4, 1), (1, 1)):
+            shardings = lm_spmd.state_shardings(model, opt, mesh_of(shape))
+            t0 = time.perf_counter()
+            got, step = ck.restore(abstract_train_state(model, opt),
+                                   shardings=shardings)
+            restore_s = time.perf_counter() - t0
+            check_blocks(got, shardings)
+            got = on_host(got)
+            same = step == 1 and sorted(got) == sorted(want) and all(
+                torch.equal(got[k], want[k]) for k in want)
+            el["restored"][str(shape)] = {"bitwise": same,
+                                          "restore_s": restore_s}
+            if not same:
+                raise AssertionError(f"elastic restore onto {shape} differs")
+        # the checkpoint read as the JAX package's reader reads its format
+        ref_npz = ckpt_root / "gathered.npz"
+        np.savez(ref_npz, **{
+            k.replace("/", "|"): (v.view(torch.int16).numpy().view(np.uint16)
+                                  if v.dtype == torch.bfloat16
+                                  else v.numpy())
+            for k, v in want.items()})
+        reader = subprocess.run(
+            [sys.executable, "-c", JAX_FORMAT_READER,
+             str(ckpt_root / "elastic" / f"step_{1:012d}"), str(ref_npz)],
+            capture_output=True, text=True, timeout=300)
+        if reader.returncode != 0:
+            raise AssertionError(f"the format reader: {reader.stdout} "
+                                 f"{reader.stderr}")
+        el["format_reader"] = reader.stdout.strip()
+        ck.close()
+        del want
+
+        def trainer(name, fault_hook=None):
+            return Trainer(model, AdamW(lr=LM14_LR), TrainerConfig(
+                total_steps=LM14_TRAINER_STEPS, checkpoint_every=2,
+                checkpoint_dir=str(ckpt_root / name), keep_checkpoints=1,
+                log_every=10 ** 9), mesh=m22, state_shardings=s22,
+                fault_hook=fault_hook, device=dev)
+
+        pending = {LM13_FAULT}
+
+        def fault(step):
+            if step in pending:
+                pending.discard(step)
+                raise TransientError(f"injected at step {step}")
+        clean = counted("lm_sharded", f"{arch} sharded Trainer",
+                        lambda: trainer("clean").run(batches, LM14_SEED),
+                        want=none)
+        faulty = counted("lm_sharded", f"{arch} sharded Trainer, a fault",
+                         lambda: trainer("fault", fault).run(batches,
+                                                             LM14_SEED),
+                         want=none)
+        el["trainer"] = {"losses": clean.losses,
+                         "replayed": faulty.losses,
+                         "restarts": faulty.restarts}
+        if faulty.restarts != 1 or faulty.losses != \
+                clean.losses[:LM13_FAULT] + clean.losses[LM13_FAULT - 1:]:
+            raise AssertionError(f"the sharded Trainer's replay: {el}")
+        el["seconds"] = time.perf_counter() - t_el
+        out["elastic"] = el
+        lm_free()
+        log(f"lm14 elastic: {arch} at {cfg.n_layers} layers, a (2, 2) state "
+            f"saved ({save_s:.1f} s) restored onto (4, 1) and (1, 1) bit "
+            f"for bit; the format reader: {el['format_reader']}; a (2, 2) "
+            f"Trainer with a TransientError at step {LM13_FAULT} restored "
+            f"step 2 onto its mesh and replayed the losses bit for bit "
+            f"({', '.join(f'{v:.4f}' for v in clean.losses)}); "
+            f"{el['seconds']:.1f} s")
+
+        # ---- 14d. the GPipe schedule over 4 stages -----------------------
+        arch, n_layers, stages, (B, T), micro = LM14_PIPE
+        cfg = dataclasses.replace(configs.get_config(arch),
+                                  compute_dtype="float32",
+                                  param_dtype="float32", n_layers=n_layers)
+        gen = torch.Generator(device=dev).manual_seed(LM14_SEED + 4)
+        with torch.no_grad():
+            blocks = build(cfg).init(gen, device=dev)["blocks"]
+        x = torch.randn((B, T, cfg.d_model), generator=gen, device=dev)
+        cot = torch.randn((B, T, cfg.d_model), generator=gen, device=dev)
+        mesh = mesh_of((stages,), ("stage",))
+
+        def stage_fn(sp, h):
+            for i in range(tree_util.leaves(sp)[0].shape[0]):
+                h = transformer.mamba_layer(transformer.layer(sp, i), cfg, h)
+            return h
+
+        def grads_of(fn):
+            live = tree_util.tree_map(lambda a: a.detach().requires_grad_(),
+                                      blocks)
+            xl = x.detach().requires_grad_()
+            with full_fp32_matmul():
+                y = fn(live, xl)
+            with full_fp32_backward():
+                gs = torch.autograd.grad(
+                    y, [xl] + tree_util.leaves(live), cot)
+            return y.detach(), gs
+
+        t0 = time.perf_counter()
+        y_p, g_p = counted(
+            "lm_sharded", "pipeline_apply",
+            lambda: grads_of(lambda live, xl: pipeline_apply(
+                stage_fn, stack_params_for_stages(live, stages), xl, micro,
+                mesh)), want=none)
+        synchronize()
+        pipe_s = time.perf_counter() - t0
+        mb = B // micro
+        t0 = time.perf_counter()
+        # the sequential stack on the same microbatches (the same products)
+        y_m, g_m = counted("lm_sharded", "the sequential stack, by "
+                           "microbatch", lambda: grads_of(
+                               lambda live, xl: torch.cat(
+                                   [stage_fn(live, xl[i * mb:(i + 1) * mb])
+                                    for i in range(micro)])), want=none)
+        synchronize()
+        seq_s = time.perf_counter() - t0
+        # and on the whole batch: other product shapes, other roundings
+        y_s, g_s = counted("lm_sharded", "the sequential stack",
+                           lambda: grads_of(stage_fn), want=none)
+        pipe = {"arch": arch, "layers": n_layers, "stages": stages,
+                "batch": [B, T], "microbatches": micro,
+                "forward_rel": rel_l2(y_p, y_m),
+                "grad_rel": max(rel_l2(a, b) for a, b in zip(g_p, g_m)),
+                "whole_batch_forward_rel": rel_l2(y_p, y_s),
+                "whole_batch_grad_rel": max(rel_l2(a, b)
+                                            for a, b in zip(g_p, g_s)),
+                "pipeline_s": pipe_s, "sequential_s": seq_s}
+        out["pipeline"] = pipe
+        del blocks, x, cot, y_p, g_p, y_m, g_m, y_s, g_s
+        lm_free()
+        if not (pipe["forward_rel"] <= LM14_PIPE_REL
+                and pipe["grad_rel"] <= LM14_PIPE_REL
+                and pipe["whole_batch_forward_rel"] <= LM13_REL
+                and pipe["whole_batch_grad_rel"] <= LM13_REL):
+            raise AssertionError(f"pipeline_apply: {pipe}")
+        log(f"lm14 pipeline: {arch} {n_layers} full-width layers over "
+            f"{stages} stages ({mesh}), {micro} microbatches of {mb} x {T}:"
+            f" forward {pipe['forward_rel']:.1e}, worst gradient "
+            f"{pipe['grad_rel']:.1e} rel L2 from the sequential stack on "
+            f"the same microbatches; {pipe['whole_batch_forward_rel']:.1e} "
+            f"and {pipe['whole_batch_grad_rel']:.1e} from it on the whole "
+            f"batch; {pipe_s:.2f} s against {seq_s:.2f} s")
+
+        # ---- 14e. full depth over four cards -----------------------------
+        if cards < 4:
+            out["big"] = {"ran": False,
+                          "why": f"{cards} card(s) visible; 14e needs 4"}
+            log(f"lm14 full depth: did not run: {cards} card(s) visible, "
+                f"stablelm-3b and phi4-mini-3.8b at full depth need four")
+        else:
+            for arch, cut in LM14_BIG:
+                out["big"][arch] = big_run(arch, cut)
+    finally:
+        act_sharding.clear()
+        torch.use_deterministic_algorithms(deterministic[0],
+                                           warn_only=deterministic[1])
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"lm14: phase 14 took {out['seconds']:.1f} s on {smi}; no kernel of "
         f"the port launched")
     return out
 
@@ -3581,6 +4259,18 @@ def main() -> None:
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
         (out / "lm_train.json").write_text(json.dumps(report, indent=1))
+        return
+
+    if "--lm-sharded" in sys.argv[1:]:
+        # phase 14 alone
+        resilience.configure(dataclasses.replace(resilience.policy(),
+                                                 enabled=False))
+        report = {"device": {"name": name, "nvidia_smi": smi,
+                             "count": torch.cuda.device_count()},
+                  "lm_sharded": lm_sharded(dev, counted, smi)}
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "lm_sharded.json").write_text(json.dumps(report, indent=1))
         return
 
     if "--b4-candidates" in sys.argv[1:]:
@@ -5685,8 +6375,10 @@ def main() -> None:
     report["phases"]["lm_families"] = lm_families(dev, counted, smi)
     # ---- 13. LM training ----------------------------------------------
     report["phases"]["lm_training"] = lm_training(dev, counted, smi)
+    # ---- 14. the sharded LM train step, elastic restore ----------------
+    report["phases"]["lm_sharded"] = lm_sharded(dev, counted, smi)
     if resilience.stats():
-        raise AssertionError(f"resilience events in phases 11-13: "
+        raise AssertionError(f"resilience events in phases 11-14: "
                              f"{resilience.stats()}")
     resilience.configure(chain_policy)
 

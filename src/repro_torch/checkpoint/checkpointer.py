@@ -13,7 +13,10 @@
   * retention: keep the last ``keep`` checkpoints, delete older ones only
     after a newer one is fully committed.
 
-Re-sharding on restore (``shardings``) comes with the distributed slice.
+A state placed on a mesh (``distributed.sharding.Sharded`` leaves) is
+written gathered, in the same format; ``restore(..., shardings=)``
+places each leaf by its ``NamedSharding`` (elastic restore: a checkpoint
+written from one mesh restores onto another, or onto one device).
 """
 from __future__ import annotations
 
@@ -45,7 +48,11 @@ def _flatten(tree) -> Dict[str, Any]:
 
 def _to_host(leaf) -> np.ndarray:
     """A leaf as a numpy array on the host; bf16 as its uint16 bits (npz
-    has no bfloat16), the dtype kept in the manifest."""
+    has no bfloat16), the dtype kept in the manifest; a sharded leaf
+    gathered."""
+    from repro_torch.distributed.sharding import Sharded
+    if isinstance(leaf, Sharded):
+        leaf = leaf.gather("cpu")
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -55,7 +62,7 @@ def _to_host(leaf) -> np.ndarray:
 
 
 def _dtype_name(leaf, host: np.ndarray) -> str:
-    if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
+    if getattr(leaf, "dtype", None) == torch.bfloat16:
         return "bfloat16"
     return str(host.dtype)
 
@@ -129,10 +136,13 @@ class Checkpointer:
         return int(ckpts[-1].name.split("_")[1])
 
     def restore(self, tree_like, step: Optional[int] = None,
-                verify: bool = True):
+                shardings=None, verify: bool = True):
         """Restore into the structure of ``tree_like``; each tensor leaf
-        comes back on its template leaf's device and dtype.  Returns
-        ``(tree, step)``."""
+        comes back in its template leaf's dtype, on its device, or placed
+        by ``shardings`` (a tree of ``NamedSharding`` like
+        ``tree_like``'s: the elastic-restore path, whatever mesh wrote
+        the checkpoint; the template may then be abstract, meta tensors).
+        Returns ``(tree, step)``."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -142,17 +152,25 @@ class Checkpointer:
             got = hashlib.sha256((d / "arrays.npz").read_bytes()).hexdigest()
             if got != manifest["sha256"]:
                 raise IOError(f"checkpoint {d} digest mismatch")
+        from repro_torch.distributed.sharding import Sharded
         flat_like = _flatten(tree_like)
+        placing = None if shardings is None \
+            else list(_flatten(shardings).values())
         out = []
         with np.load(d / "arrays.npz") as data:
-            for key, like in flat_like.items():
+            for i, (key, like) in enumerate(flat_like.items()):
                 arr = data[key.replace("/", "|")]
                 bf16 = manifest["dtypes"].get(key) == "bfloat16"
-                if not isinstance(like, torch.Tensor):
+                if not isinstance(like, (torch.Tensor, Sharded)):
                     out.append(arr)
                     continue
                 t = torch.from_numpy(arr.view(np.int16) if bf16 else arr)
                 if bf16:
                     t = t.view(torch.bfloat16)
-                out.append(t.to(device=like.device, dtype=like.dtype))
+                if placing is not None:
+                    s = placing[i]
+                    out.append(Sharded.place(t.to(like.dtype), s.spec,
+                                             s.mesh, own=True))
+                else:
+                    out.append(t.to(device=like.device, dtype=like.dtype))
         return unflatten(tree_like, out), step

@@ -1,6 +1,7 @@
-"""Distributed runtime: the conv and batch sharding rules and the sharded
+"""Distributed runtime: the sharding rules (``sharding``), the sharded
 conv backend (``conv_spmd``, registered with ``repro_torch.api`` as
-``"cuda_spmd"``)."""
+``"cuda_spmd"``), the activation rules (``act_sharding``), the sharded LM
+train step (``lm_spmd``) and the GPipe schedule (``pipeline``)."""
 from repro_torch.distributed import conv_spmd, sharding
 
 __all__ = ["conv_spmd", "sharding"]

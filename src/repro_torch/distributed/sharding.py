@@ -1,37 +1,56 @@
 """Sharding rules and the single-controller sharded tensor.
 
-The conv and batch half of the JAX package's ``distributed/sharding.py``:
+The JAX package's ``distributed/sharding.py``:
 
+  * TP over ``'model'`` on the head, ffn, vocab and expert dims; FSDP over
+    ``'data'`` on the other big dim of every matrix (``_base_spec``,
+    ``param_pspec``, ``params_pspecs``); a stacked layer leaf (under
+    ``_STACK_KEYS``) gets a leading ``None``; EP over ``'model'`` where the
+    expert count divides it, TP within an expert otherwise;
   * batch over ``('pod', 'data')`` (``batch_axes``, ``batch_pspecs``);
+  * decode caches: batch over the data axes, the sequence of an attention
+    cache and the heads of an SSM state over ``'model'``
+    (``cache_pspec``, ``cache_pspecs``; rules only: no decode cache runs
+    sharded yet);
   * optimizer moments inherit their parameters' specs
     (``opt_state_pspecs``);
   * ``sanitize_pspec`` drops a mesh axis from a dimension it does not
-    divide (batch 1 on a 2-way data axis, a ragged C_out), so that
-    dimension is computed replicated instead of raising.
+    divide (batch 1 on a 2-way data axis, 8 KV heads on a 16-way axis, a
+    ragged C_out), so that dimension is computed replicated instead of
+    raising (``sanitized_shardings``).
+
+The rules read only ``mesh.shape`` and ``mesh.axis_names``, so they run
+over a stand-in mesh, and over leaves that only have a ``shape`` (the
+meta tensors of ``Model.init_abstract``).  Paths are named as the JAX
+package's ``_path_str`` names them: dict keys, sequence indices as
+strings, NamedTuple fields as ``.field``.
 
 ``P`` is the port's PartitionSpec: a tuple with one entry per tensor
 dimension, each an axis name, a tuple of axis names or ``None``
 (replicated); missing trailing entries are ``None``.
+:class:`NamedSharding` pairs a spec with its mesh, as JAX's does.
 
 :class:`Sharded` is what ``jax.Array``'s sharding gives the JAX code: a
 global tensor cut over a :class:`~repro_torch.launch.mesh.Mesh` by a
 spec, one shard per mesh coordinate on that coordinate's device, held by
 one process (no ``torch.distributed`` group: the sharded conv backend
-drives every shard itself).  The rules keyed on ``ModelConfig`` and the
-LM parameter paths (``param_pspec``, ``cache_pspec``, ...) come with the
-LM models.
+and the sharded train step, ``distributed/lm_spmd.py``, drive every
+shard themselves).  :func:`place` is ``jax.device_put(tree,
+shardings)``: each leaf cut into blocks that own their memory, one copy
+of a block per device.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import Mesh
-from repro_torch.tree import tree_map
+from repro_torch.tree import _is_namedtuple, tree_map
 
 
 class P(tuple):
@@ -90,6 +109,188 @@ def opt_state_pspecs(abstract_opt_state, pspecs_params):
     return AdamWState(step=P(), mu=pspecs_params, nu=pspecs_params)
 
 
+def _model_size(mesh) -> int:
+    return mesh.shape["model"]
+
+
+def _base_spec(name: str, core_shape: Tuple[int, ...], cfg: ModelConfig,
+               mesh) -> P:
+    """The spec of leaf ``name`` of core shape ``core_shape`` (without the
+    stacked leading layer axis)."""
+    ndim = len(core_shape)
+    fs = "data"          # FSDP axis
+    tp = "model"         # tensor-parallel axis
+
+    # ---- embeddings / head ----
+    if name == "embed":
+        return P(tp, fs)
+    if name == "lm_head":
+        return P(fs, tp)
+
+    # ---- MoE expert stacks (E, d, f) / (E, f, d) ----
+    if (name in ("w_gate", "w_up", "w_down") and ndim == 3
+            and cfg.n_experts and core_shape[0] == cfg.n_experts):
+        ep_ok = cfg.n_experts % _model_size(mesh) == 0
+        if name == "w_down":
+            return P(tp, None, fs) if ep_ok else P(None, tp, fs)
+        return P(tp, fs, None) if ep_ok else P(None, fs, tp)
+    if name == "router":
+        return P(fs, None)
+
+    # ---- attention (per-head 3-D layout) ----
+    if ndim == 3 and name == "wq":
+        return P(fs, tp, None)        # (d, Hq, hd): q-heads over model
+    if ndim == 3 and name in ("wk", "wv"):
+        return P(fs, None, None)      # K/V replicated over model (small)
+    if ndim == 3 and name == "wo":
+        return P(tp, None, fs)        # (Hq, hd, d)
+
+    # ---- MLA / dense / ssm projections ----
+    if ndim == 2 and name in ("wq", "wk", "wv", "wq_b", "wkv_b", "w_gate",
+                              "w_up", "in_proj", "proj", "wq_a", "wkv_a"):
+        return P(fs, tp)
+    if ndim == 2 and name in ("wo", "w_down", "out_proj"):
+        return P(tp, fs)
+    if ndim == 2 and name == "conv_w":
+        return P(None, tp)
+
+    # everything else (norm scales, biases, gates, A_log, D, dt_bias):
+    return P(*([None] * ndim))
+
+
+_STACK_KEYS = ("blocks", "dense_blocks", "cross_blocks", "enc_blocks")
+
+
+def param_pspec(path: Tuple[str, ...], leaf, cfg: ModelConfig, mesh) -> P:
+    stacked = any(str(k) in _STACK_KEYS for k in path)
+    core_shape = tuple(leaf.shape[1:] if stacked else leaf.shape)
+    base = _base_spec(path[-1], core_shape, cfg, mesh)
+    return P(None, *base) if stacked else base
+
+
+def _with_paths(tree, prefix: Tuple[str, ...] = ()
+                ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    """Every leaf with its path as the JAX package's ``_path_str`` names
+    it: dict keys, sequence indices as strings, NamedTuple fields as
+    ``.field``.  A ``P`` and a ``NamedSharding`` are leaves."""
+    if isinstance(tree, (P, NamedSharding)):
+        yield prefix, tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _with_paths(tree[k], prefix + (str(k),))
+    elif _is_namedtuple(tree):
+        for f, v in zip(tree._fields, tree):
+            yield from _with_paths(v, prefix + (f".{f}",))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _with_paths(v, prefix + (str(i),))
+    elif tree is not None:
+        yield prefix, tree
+
+
+def tree_map_with_path(fn, tree, *rest):
+    """``fn(path, leaf, *other_leaves)`` over ``tree``'s leaves (and those
+    of trees of the same structure), paths as :func:`_with_paths`."""
+    pairs = list(_with_paths(tree))
+    others = [[leaf for _, leaf in _with_paths(r)] for r in rest]
+    if any(len(o) != len(pairs) for o in others):
+        raise ValueError("the trees hold different numbers of leaves")
+    return _rebuild(tree, [fn(path, leaf, *(o[i] for o in others))
+                           for i, (path, leaf) in enumerate(pairs)])
+
+
+def _rebuild(like, new_leaves):
+    """``like``'s structure with its leaves (``P`` and ``NamedSharding``
+    counted as leaves) replaced, in walk order."""
+    it = iter(new_leaves)
+
+    def build(node):
+        if isinstance(node, (P, NamedSharding)):
+            return next(it)
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if _is_namedtuple(node):
+            return type(node)(*(build(v) for v in node))
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        if node is None:
+            return None
+        return next(it)
+    return build(like)
+
+
+def params_pspecs(abstract_params, cfg: ModelConfig, mesh):
+    """A tree of ``P`` matching the parameter tree."""
+    return tree_map_with_path(
+        lambda p, leaf: param_pspec(p, leaf, cfg, mesh), abstract_params)
+
+
+def params_shardings(abstract_params, cfg: ModelConfig, mesh):
+    return to_shardings(params_pspecs(abstract_params, cfg, mesh), mesh)
+
+
+def cache_pspec(path: Tuple[str, ...], leaf, cfg: ModelConfig, mesh) -> P:
+    """KV caches (L?, B, S, H, D), SSM states, cross K/V: the batch over
+    the data axes; the *sequence* dim of attention caches over 'model'
+    (GQA head counts below the axis cannot shard the head dim; context
+    lengths always divide), SSM states over their heads."""
+    name = path[-1]
+    b = batch_axes(mesh)
+    nd = len(leaf.shape)
+    stacked = any(str(k) in ("layers", "dense_layers", "shared")
+                  for k in path) or name in ("cross_k", "cross_v")
+    lead = (None,) if stacked else ()
+    if name in ("k", "v", "cross_k", "cross_v"):     # (B, S, Hkv, D)
+        return P(*lead, b, "model", None, None)
+    if name == "c_kv":                               # (B, S, kr)
+        return P(*lead, b, "model", None)
+    if name == "k_rope":                             # (B, S, dr)
+        return P(*lead, b, "model", None)
+    if name == "state":                              # (B, H, P, N)
+        return P(*lead, b, "model", None, None)
+    if name == "conv":                               # (B, R-1, ch)
+        return P(*lead, b, None, "model")
+    return P(*([None] * nd))
+
+
+def cache_pspecs(abstract_cache, cfg: ModelConfig, mesh):
+    return tree_map_with_path(
+        lambda p, leaf: cache_pspec(p, leaf, cfg, mesh), abstract_cache)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh: ``jax.sharding.NamedSharding``."""
+
+    mesh: Any
+    spec: P
+
+
+def sanitized_shardings(pspecs, abstract_tree, mesh):
+    """``NamedSharding``s with non-divisible axes dropped per leaf."""
+    return tree_map_with_path(
+        lambda _, s, leaf: NamedSharding(
+            mesh, sanitize_pspec(s, tuple(leaf.shape), mesh)),
+        pspecs, abstract_tree)
+
+
+def to_shardings(pspecs, mesh):
+    return tree_map_with_path(lambda _, s: NamedSharding(mesh, s), pspecs)
+
+
+def place(tree, shardings):
+    """``jax.device_put(tree, shardings)``: each tensor leaf a
+    :class:`Sharded` by its ``NamedSharding`` (a ``Sharded`` leaf is
+    gathered and cut anew: elastic re-sharding).  Its blocks own their
+    memory (none is a view that keeps ``tree``'s leaf alive) and one
+    device holds one copy of a block, whatever replicas its mesh
+    coordinates hold."""
+    def put(_, leaf, s):
+        x = leaf.gather() if isinstance(leaf, Sharded) else leaf
+        return Sharded.place(x, s.spec, s.mesh, own=True)
+    return tree_map_with_path(put, tree, shardings)
+
+
 def _blocks(spec, ndim: int, mesh: Mesh) -> Tuple[int, ...]:
     """Blocks per dimension: the product of the sizes of its axes."""
     entries = tuple(spec) + (None,) * (ndim - len(spec))
@@ -111,6 +312,13 @@ def _block_index(spec, ndim: int, mesh: Mesh, coord) -> Tuple[int, ...]:
     return tuple(index)
 
 
+def block_of(x: torch.Tensor, spec, mesh: Mesh, index) -> torch.Tensor:
+    """The block ``index`` of ``x`` cut by ``spec`` (a view)."""
+    blocks = _blocks(spec, x.dim(), mesh)
+    return x[tuple(slice(i * (n // k), (i + 1) * (n // k))
+                   for i, n, k in zip(index, x.shape, blocks))]
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Sharded:
     """A global tensor of ``shape`` cut over ``mesh`` by ``spec``:
@@ -124,18 +332,29 @@ class Sharded:
     shards: np.ndarray            # object array of mesh.devices' shape
 
     @classmethod
-    def place(cls, x: torch.Tensor, spec, mesh: Mesh) -> "Sharded":
+    def place(cls, x: torch.Tensor, spec, mesh: Mesh,
+              own: bool = False) -> "Sharded":
         """Cut ``x`` by ``spec`` (sanitized against ``x``'s shape) and copy
         each block to its coordinate's device, contiguous.  A block that
-        is ``x`` whole on ``x``'s own device is ``x`` itself."""
+        is ``x`` whole on ``x``'s own device is a view of ``x``.  With
+        ``own`` (the state of a sharded model), a block that would be a
+        view of part of ``x`` is a copy, and the coordinates of one
+        device share one copy of a block."""
         spec = sanitize_pspec(spec, tuple(x.shape), mesh)
-        blocks = _blocks(spec, x.dim(), mesh)
         shards = np.empty(mesh.devices.shape, dtype=object)
+        made: Dict[Any, torch.Tensor] = {}
         for coord in mesh.coords():
             index = _block_index(spec, x.dim(), mesh, coord)
-            part = x[tuple(slice(i * (n // k), (i + 1) * (n // k))
-                           for i, n, k in zip(index, x.shape, blocks))]
-            shards[coord] = part.to(mesh.device(coord)).contiguous()
+            device = mesh.device(coord)
+            if own and (index, device) in made:
+                shards[coord] = made[(index, device)]
+                continue
+            part = block_of(x, spec, mesh, index).to(device).contiguous()
+            if own and part.numel() < x.numel() \
+                    and part.untyped_storage().data_ptr() \
+                    == x.untyped_storage().data_ptr():
+                part = part.clone()
+            shards[coord] = made[(index, device)] = part
         return cls(mesh, spec, tuple(x.shape), shards)
 
     @classmethod
@@ -146,6 +365,21 @@ class Sharded:
         blocks = _blocks(spec, first.dim(), mesh)
         shape = tuple(n * k for n, k in zip(first.shape, blocks))
         return cls(mesh, P(*spec), shape, shards)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards.flat[0].dtype
+
+    def block_index(self, coord) -> Tuple[int, ...]:
+        return _block_index(self.spec, len(self.shape), self.mesh, coord)
+
+    def unique(self) -> Dict[Tuple[int, ...], Any]:
+        """Block index -> the mesh coordinates that hold that block, in
+        row-major order: the first holds the block's one update."""
+        out: Dict[Tuple[int, ...], Any] = {}
+        for coord in self.mesh.coords():
+            out.setdefault(self.block_index(coord), []).append(coord)
+        return out
 
     @property
     def is_fully_replicated(self) -> bool:

@@ -39,10 +39,23 @@ def dtype_of(name: str) -> torch.dtype:
 # --------------------------------------------------------------------------
 # initializers
 # --------------------------------------------------------------------------
+class AbstractGenerator:
+    """Stands in for a ``torch.Generator`` where only a tree's shapes and
+    dtypes are wanted (``Model.init_abstract``): every draw is an empty
+    tensor on the meta device, which allocates nothing."""
+
+    device = torch.device("meta")
+
+
+ABSTRACT = AbstractGenerator()
+
+
 def normal(generator: torch.Generator, shape, std: float,
            dtype) -> torch.Tensor:
     """f32 normal draws times ``std`` on the generator's device, cast to
-    ``dtype``."""
+    ``dtype``; an empty meta tensor from :data:`ABSTRACT`."""
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=generator, device=generator.device,
                     dtype=torch.float32)
     return (x * std).to(dtype)

@@ -4,9 +4,18 @@ The counterpart of the JAX package's ``repro.models.moe``; autograd
 gives its gradients (held to ``jax.grad``'s in the tests).
 Tokens are routed top-k, sorted by expert, packed into a capacity-bounded
 grouped tensor (E, C, d) and processed with grouped products; tokens past
-an expert's capacity are dropped (GShard semantics).  On one device the
-JAX package's data shards are one and its sharding constraints have
-nothing to do: the port has neither.
+an expert's capacity are dropped (GShard semantics).
+
+The dispatch is data-shard-local, as in the JAX package: the T tokens are
+cut into ``act_sharding.data_shards()`` chunks (1 where that does not
+divide T), and each chunk is routed, grouped with its own capacity
+``C = max(int(T_local * k / E * cf), 1)`` and combined alone; the aux
+loss is over all T tokens.  The sharded train step runs each data shard's
+tokens as one chunk (``act_sharding.local(1)``), so a shard's dispatch is
+the single-device dispatch of its chunk, bit for bit.  With
+``router_stats`` the block returns the aux loss's factors, the top-1
+density and the mean router probability (2, E), instead of the loss:
+the sharded step combines them over its shards before their product.
 
 What the JAX package gets from its primitives, the port asks for:
 
@@ -37,6 +46,8 @@ def _experts(generator, shape, std: float, dtype) -> torch.Tensor:
     at deepseek-v3's widths)."""
     E = shape[0]
     out = torch.empty(shape, dtype=dtype, device=generator.device)
+    if out.is_meta:
+        return out
     for e in range(E):
         out[e] = layers.normal(generator, shape[1:], std, dtype)
     return out
@@ -102,32 +113,46 @@ def _combine_local(y_grouped, idx, T: int, k: int, d: int, dtype):
 
 
 def moe_block(p: Params, cfg, x: torch.Tensor,
-              capacity_factor: float = 1.25
+              capacity_factor: float = 1.25, router_stats: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> (out (B, S, d), aux_loss scalar f32)."""
+    """x (B, S, d) -> (out (B, S, d), aux_loss scalar f32; with
+    ``router_stats`` the (2, E) density and mean probability instead)."""
+    from repro_torch.distributed import act_sharding as acts
+
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.n_experts_active
     T = B * S
     xt = x.reshape(T, d)
 
-    logits = (xt @ p["router"]).float()
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_ids = _top_k(probs, k)                 # (T, k)
-    gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
+    ds = acts.data_shards()
+    ds = ds if T % ds == 0 else 1
+    Tl = T // ds
+    C = max(int(Tl * k / E * capacity_factor), 1)
 
-    # load-balancing aux loss (Switch/GShard form)
-    density = torch.mean(F.one_hot(expert_ids[:, 0], E).float(), dim=0)
+    outs, all_probs, top1 = [], [], []
+    for s in range(ds):
+        xs = xt[s * Tl:(s + 1) * Tl]
+        logits = (xs @ p["router"]).float()
+        probs = torch.softmax(logits, dim=-1)
+        gate_vals, expert_ids = _top_k(probs, k)             # (Tl, k)
+        gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
+        grouped, idx = _group_local(xs, expert_ids, gate_vals, E, k, C)
+        h_gate = torch.bmm(grouped, p["w_gate"])
+        h_up = torch.bmm(grouped, p["w_up"])
+        h = F.silu(h_gate) * h_up
+        y_grouped = torch.bmm(h, p["w_down"])
+        outs.append(_combine_local(y_grouped, idx, Tl, k, d, xt.dtype))
+        all_probs.append(probs)
+        top1.append(expert_ids[:, 0])
+    out = outs[0] if ds == 1 else torch.cat(outs)
+    probs = all_probs[0] if ds == 1 else torch.cat(all_probs)
+    first = top1[0] if ds == 1 else torch.cat(top1)
+
+    # load-balancing aux loss (Switch/GShard form), over all T tokens
+    density = torch.mean(F.one_hot(first, E).float(), dim=0)
     mean_prob = torch.mean(probs, dim=0)
-    aux = E * torch.sum(density * mean_prob)
-
-    # one data shard: T_local = T, in the JAX package's float order
-    C = max(int(T * k / E * capacity_factor), 1)
-    grouped, idx = _group_local(xt, expert_ids, gate_vals, E, k, C)
-    h_gate = torch.bmm(grouped, p["w_gate"])
-    h_up = torch.bmm(grouped, p["w_up"])
-    h = F.silu(h_gate) * h_up
-    y_grouped = torch.bmm(h, p["w_down"])
-    out = _combine_local(y_grouped, idx, T, k, d, xt.dtype)
+    aux = torch.stack([density, mean_prob]) if router_stats \
+        else E * torch.sum(density * mean_prob)
 
     if cfg.n_shared_experts:
         out = out + layers.swiglu(xt, **p["shared"])

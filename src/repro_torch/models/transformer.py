@@ -70,7 +70,8 @@ def init_decoder_block(generator, cfg: ModelConfig, dtype,
     }
 
 
-def decoder_block(p: Params, cfg: ModelConfig, x, positions, use_moe: bool):
+def decoder_block(p: Params, cfg: ModelConfig, x, positions, use_moe: bool,
+                  router_stats: bool = False):
     h = layers.rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.use_mla:
         a = mla.mla_block(p["attn"], cfg, h, positions)
@@ -79,7 +80,8 @@ def decoder_block(p: Params, cfg: ModelConfig, x, positions, use_moe: bool):
     x = x + a
     h = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
     if use_moe:
-        f, aux = moe.moe_block(p["ffn"], cfg, h)
+        f, aux = moe.moe_block(p["ffn"], cfg, h, router_stats=True) \
+            if router_stats else moe.moe_block(p["ffn"], cfg, h)
     else:
         f = layers.swiglu(h, **p["ffn"])
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -101,12 +103,18 @@ def mamba_layer(p: Params, cfg, x, conv_key: Optional[tuple] = None):
 # --------------------------------------------------------------------------
 # parameter trees
 # --------------------------------------------------------------------------
-def _stack_init(fn, n: int):
+def _stack_init(fn, n: int, sink=None):
     """Initialize n layers and stack their leaves along a leading axis.
     Each layer is drawn and copied into the stacked tensors in turn, so
     only one layer's tree is ever held beside them; one layer is its own
     tree with a leading axis of 1, copied nowhere (deepseek-v3's one MoE
-    layer holds 45 GB in fp32)."""
+    layer holds 45 GB in fp32).  With a ``sink`` (``init_lm``'s placer)
+    each layer goes to ``sink.add(i, layer)`` as it is drawn, and the
+    stack is ``sink.done()``."""
+    if sink is not None:
+        for i in range(n):
+            sink.add(i, fn())
+        return sink.done()
     first = fn()
     if n == 1:
         return tree_util.tree_map(lambda a: a[None], first)
@@ -120,22 +128,41 @@ def _stack_init(fn, n: int):
 
 
 def layer(stacked: Params, i: int) -> Params:
-    """Layer ``i`` of a stacked tree (views of the stacked tensors)."""
+    """Layer ``i`` of a stacked tree (views of the stacked tensors; a
+    sharded leaf of the sharded train step gathers the layer here)."""
     return tree_util.tree_map(lambda a: a[i], stacked)
 
 
-def init_lm(generator: torch.Generator, cfg: ModelConfig) -> Params:
+def init_lm(generator: torch.Generator, cfg: ModelConfig,
+            placer=None) -> Params:
     """The JAX package's ``init_lm`` tree, drawn from ``generator`` on its
-    device."""
+    device (``layers.ABSTRACT``: empty meta tensors).
+
+    With a ``placer`` the draws go where it puts them as they are made, in
+    the same order: a top-level entry that is not a stack through
+    ``placer.put(key, tree)`` when it is drawn, a stack layer by layer
+    through ``placer.stack(key, n)``'s ``add`` and ``done``
+    (``distributed/lm_spmd.py`` places them on a mesh, so the peak is one
+    layer or the largest such entry, not the model)."""
     dtype = dtype_of(cfg.param_dtype)
     V, d = cfg.padded_vocab, cfg.d_model
     device = generator.device
+
+    def put(key, tree):
+        return tree if placer is None else placer.put(key, tree)
+
+    def stack(key, fn, n):
+        return _stack_init(fn, n, None if placer is None
+                           else placer.stack(key, n))
+
     p: Params = {
-        "embed": layers.embed_init(generator, V, d, dtype),
-        "final_norm": layers.init_rmsnorm(d, dtype, device),
+        "embed": put("embed", layers.embed_init(generator, V, d, dtype)),
+        "final_norm": put("final_norm",
+                          layers.init_rmsnorm(d, dtype, device)),
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = layers.dense_init(generator, d, V, dtype)
+        p["lm_head"] = put("lm_head",
+                           layers.dense_init(generator, d, V, dtype))
 
     def block(use_moe):
         return lambda: init_decoder_block(generator, cfg, dtype, use_moe)
@@ -143,25 +170,26 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig) -> Params:
     fam = cfg.family
     if fam in ("dense", "moe"):
         if cfg.first_dense_layers:
-            p["dense_blocks"] = _stack_init(block(False),
-                                            cfg.first_dense_layers)
-        p["blocks"] = _stack_init(block(fam == "moe"),
-                                  cfg.n_layers - cfg.first_dense_layers)
+            p["dense_blocks"] = stack("dense_blocks", block(False),
+                                      cfg.first_dense_layers)
+        p["blocks"] = stack("blocks", block(fam == "moe"),
+                            cfg.n_layers - cfg.first_dense_layers)
         if cfg.mtp_depth:
-            p["mtp"] = {
+            p["mtp"] = put("mtp", {
                 "proj": layers.dense_init(generator, 2 * d, d, dtype),
                 "block": block(fam == "moe")(),
                 "norm": layers.init_rmsnorm(d, dtype, device),
-            }
+            })
     elif fam in ("ssm", "hybrid"):
-        p["blocks"] = _stack_init(
-            lambda: init_mamba_layer(generator, cfg, dtype), cfg.n_layers)
+        p["blocks"] = stack(
+            "blocks", lambda: init_mamba_layer(generator, cfg, dtype),
+            cfg.n_layers)
         if fam == "hybrid":
-            p["shared_block"] = block(False)()
+            p["shared_block"] = put("shared_block", block(False)())
     elif fam == "vlm":
-        p["blocks"] = _stack_init(block(False), cfg.n_layers)
-        p["cross_blocks"] = _stack_init(
-            lambda: {
+        p["blocks"] = stack("blocks", block(False), cfg.n_layers)
+        p["cross_blocks"] = stack(
+            "cross_blocks", lambda: {
                 "ln": layers.init_rmsnorm(d, dtype, device),
                 "xattn": attn.init_cross_attention(generator, cfg, dtype),
                 "ln2": layers.init_rmsnorm(d, dtype, device),
@@ -169,11 +197,13 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig) -> Params:
                 "ffn_gate": torch.zeros((), dtype=dtype, device=device),
             }, cfg.n_layers // cfg.cross_attn_every)
     elif fam == "encdec":
-        p["enc_blocks"] = _stack_init(block(False), cfg.encoder_layers)
-        p["enc_norm"] = layers.init_rmsnorm(d, dtype, device)
-        p["blocks"] = _stack_init(block(False), cfg.n_layers)
-        p["cross_blocks"] = _stack_init(
-            lambda: {
+        p["enc_blocks"] = stack("enc_blocks", block(False),
+                                cfg.encoder_layers)
+        p["enc_norm"] = put("enc_norm", layers.init_rmsnorm(d, dtype,
+                                                            device))
+        p["blocks"] = stack("blocks", block(False), cfg.n_layers)
+        p["cross_blocks"] = stack(
+            "cross_blocks", lambda: {
                 "ln": layers.init_rmsnorm(d, dtype, device),
                 "xattn": attn.init_attention(generator, cfg, dtype),
             }, cfg.n_layers)
@@ -201,7 +231,8 @@ class _CastCache:
     every leaf's identity and in-place version and pins the leaves, so the
     identities stay valid and an updated tree is cast anew; the copy has
     the same bits as a fresh cast.  Trees that autograd records through
-    are cast on every call and never cached."""
+    are cast on every call and never cached, and so are abstract (meta)
+    trees."""
 
     def __init__(self, maxsize: int = 2):
         self._maxsize = maxsize
@@ -216,7 +247,7 @@ class _CastCache:
             return params
         cast = lambda a: a.to(dtype) if isinstance(a, torch.Tensor) \
             and a.is_floating_point() else a                  # noqa: E731
-        if _recording(params):
+        if _recording(params) or floating[0].is_meta:
             return tree_util.tree_map(cast, params)
         key = (dtype,) + tuple((id(a), layers.version(a)) for a in leaves)
         with self._lock:
@@ -308,11 +339,17 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 def lm_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
               memory: Optional[torch.Tensor] = None,
-              remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+              remat: bool = True, router_stats: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token ids -> final hidden states. Returns (hidden, aux_loss).
     ``memory`` is the vlm's vision embeddings or the encdec's encoder
     output; with ``remat`` each layer is checkpointed where autograd
-    records through ``params`` (the module's docstring)."""
+    records through ``params`` (the module's docstring).  A layer's
+    parameters are taken (``layer``) inside its checkpointed function, so
+    a sharded leaf gathers them there and again in the recomputation,
+    and the forward keeps no gathered copy.  With ``router_stats`` a moe
+    model returns its MoE layers' (2, E) router statistics stacked (L, 2,
+    E) in place of the aux loss (``moe.moe_block``)."""
     fam = cfg.family
     if fam in ("vlm", "encdec") and memory is None:
         raise ValueError(f"the {fam} family needs its memory (the vision "
@@ -326,39 +363,45 @@ def lm_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         blocks = params["blocks"]
         if fam in ("dense", "moe"):
-            block = _layer_fn(lambda x, bp, use_moe: decoder_block(
-                bp, cfg, x, positions, use_moe), remat)
+            def block(x, stack, i, use_moe):
+                return decoder_block(layer(stack, i), cfg, x, positions,
+                                     use_moe, router_stats)
+
+            block = _layer_fn(block, remat)
             if cfg.first_dense_layers:
                 for i in range(cfg.first_dense_layers):
-                    x, _ = block(x, layer(params["dense_blocks"], i), False)
+                    x, _ = block(x, params["dense_blocks"], i, False)
             auxes = []
             for i in range(cfg.n_layers - cfg.first_dense_layers):
-                x, aux = block(x, layer(blocks, i), fam == "moe")
+                x, aux = block(x, blocks, i, fam == "moe")
                 auxes.append(aux)
-            if auxes:
+            if router_stats and fam == "moe":
+                aux_total = torch.stack(auxes)
+            elif auxes:
                 aux_total = aux_total + torch.sum(torch.stack(auxes))
         elif fam in ("ssm", "hybrid"):
             shared = params.get("shared_block")
             conv_w = blocks["mixer"]["conv_w"]
 
-            def mamba(x, bp, key, with_shared):
+            def mamba(x, i, key, with_shared):
                 # the hybrid's shared block runs inside the layer's
                 # checkpoint, as in the JAX package's _scan_mamba
                 if with_shared:
                     x, _ = decoder_block(shared, cfg, x, positions, False)
-                return mamba_layer(bp, cfg, x, key)
+                return mamba_layer(layer(blocks, i), cfg, x, key)
 
             mamba = _layer_fn(mamba, remat)
             for i in range(cfg.n_layers):
                 key = ssm.conv_cache_key(("blocks", "mixer", "conv_w"), i,
                                          conv_w)
-                x = mamba(x, layer(blocks, i), key, shared is not None
+                x = mamba(x, i, key, shared is not None
                           and i % cfg.shared_attn_every == 0)
         elif fam == "vlm":
             mem = _compute(memory, cfg)
             k = cfg.cross_attn_every
 
-            def group(x, cross, g):
+            def group(x, g):
+                cross = layer(params["cross_blocks"], g)
                 h = layers.rmsnorm(x, cross["ln"], cfg.norm_eps)
                 x = x + attn.cross_attention_block(cross["xattn"], cfg, h,
                                                    mem, gated=True)
@@ -372,19 +415,20 @@ def lm_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
             group = _layer_fn(group, remat)
             for g in range(cfg.n_layers // k):
-                x = group(x, layer(params["cross_blocks"], g), g)
+                x = group(x, g)
         elif fam == "encdec":
-            def dec(x, xp, bp):
+            def dec(x, i):
+                xp = layer(params["cross_blocks"], i)
                 h = layers.rmsnorm(x, xp["ln"], cfg.norm_eps)
                 x = x + attn.cross_attention_block(xp["xattn"], cfg, h,
                                                    memory)
-                x, _ = decoder_block(bp, cfg, x, positions, False)
+                x, _ = decoder_block(layer(blocks, i), cfg, x, positions,
+                                     False)
                 return x
 
             dec = _layer_fn(dec, remat)
             for i in range(cfg.n_layers):
-                x = dec(x, layer(params["cross_blocks"], i),
-                        layer(blocks, i))
+                x = dec(x, i)
         else:
             raise ValueError(fam)
         x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -422,19 +466,21 @@ def lm_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor
         return (hidden @ head.to(hidden.dtype)).float()
 
 
-def lm_loss(params: Params, cfg: ModelConfig,
-            batch: Dict[str, torch.Tensor]
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The training loss's forward: cross entropy over ``batch["labels"]``,
-    the MTP term (deepseek-v3: token t + 2 from the hidden state at t and
-    the embedding of t + 1, weighted 0.3) and the router's auxiliary loss.
-    ``batch`` carries ``vision`` (vlm) or ``frames`` (encdec) beside the
-    tokens."""
+def loss_terms(params: Params, cfg: ModelConfig,
+               batch: Dict[str, torch.Tensor], router_stats: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor,
+                          Dict[str, torch.Tensor]]:
+    """``lm_loss``'s terms: (the per-token loss, the aux loss, metrics).
+    The per-token loss is the cross entropy plus 0.3 times the MTP term
+    (deepseek-v3: token t + 2 from the hidden state at t and the embedding
+    of t + 1); with ``router_stats`` the aux loss is a moe model's (L, 2,
+    E) router statistics (``lm_hidden``)."""
     params = cast_compute(params, cfg)
     memory = batch.get("vision", batch.get("frames"))
     if cfg.family == "encdec":
         memory = encoder_forward(params, cfg, batch["frames"])
-    hidden, aux = lm_hidden(params, cfg, batch["tokens"], memory)
+    hidden, aux = lm_hidden(params, cfg, batch["tokens"], memory,
+                            router_stats=router_stats)
     logits = lm_logits(params, cfg, hidden)
     loss = layers.cross_entropy_loss(logits, batch["labels"])
     metrics = {"ce": loss, "aux": aux}
@@ -447,7 +493,7 @@ def lm_loss(params: Params, cfg: ModelConfig,
             B, S1, _ = h_mtp.shape
             h_mtp, _ = decoder_block(params["mtp"]["block"], cfg, h_mtp,
                                      _positions(B, S1, h_mtp.device),
-                                     cfg.family == "moe")
+                                     cfg.family == "moe", router_stats)
             h_mtp = layers.rmsnorm(h_mtp, params["mtp"]["norm"],
                                    cfg.norm_eps)
         mtp_logits = lm_logits(params, cfg, h_mtp)
@@ -455,6 +501,17 @@ def lm_loss(params: Params, cfg: ModelConfig,
                                              batch["labels"][:, 2:])
         metrics["mtp"] = mtp_loss
         loss = loss + 0.3 * mtp_loss
+    return loss, aux, metrics
+
+
+def lm_loss(params: Params, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training loss's forward: cross entropy over ``batch["labels"]``,
+    the MTP term (weighted 0.3) and the router's auxiliary loss
+    (``loss_terms``).  ``batch`` carries ``vision`` (vlm) or ``frames``
+    (encdec) beside the tokens."""
+    loss, aux, metrics = loss_terms(params, cfg, batch)
     loss = loss + cfg.router_aux_coef * aux
     metrics["loss"] = loss
     return loss, metrics

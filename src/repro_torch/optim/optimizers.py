@@ -65,15 +65,19 @@ class AdamW:
         lr = self._lr(step)
 
         def upd(p, g, m, v):
-            g = g * scale
+            # a leaf on another device than the step (a sharded state's
+            # block) takes the step's scalars there
+            on = g.device
+            g = g * scale.to(on)
             m_new = self.b1 * m + (1 - self.b1) * g
             v_new = self.b2 * v + (1 - self.b2) * g * g
-            mhat = m_new / b1c
-            vhat = v_new / b2c
+            mhat = m_new / b1c.to(on)
+            vhat = v_new / b2c.to(on)
             delta = mhat / (torch.sqrt(vhat) + self.eps)
             if p.is_floating_point():
                 delta = delta + self.weight_decay * p.to(torch.float32)
-            return (p.to(torch.float32) - lr * delta).to(p.dtype), \
+            rate = lr.to(on) if isinstance(lr, torch.Tensor) else lr
+            return (p.to(torch.float32) - rate * delta).to(p.dtype), \
                 m_new, v_new
 
         out = [upd(*t) for t in zip(leaves(params), leaves(grads),
@@ -87,11 +91,12 @@ class AdamW:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
+    """sqrt of the sum of squares of every leaf, in float32, summed in
+    leaf order on the first leaf's device."""
     total = torch.zeros((), dtype=torch.float32)
     for i, leaf in enumerate(leaves(tree)):
         sq = torch.sum(torch.square(leaf.to(torch.float32)))
-        total = sq if i == 0 else total + sq
+        total = sq if i == 0 else total + sq.to(total.device)
     return torch.sqrt(total)
 
 

@@ -19,8 +19,11 @@ returns a parameter tree (on the generator's device) and
 or an LM ``repro_torch.models.Model`` with batches of ``tokens`` and
 ``labels`` (and ``vision`` for a vlm, ``frames`` for an encdec).
 Training runs where its tensors are: the caller's batches and the
-generator's device decide, and nothing moves to the CPU.  The dry run's
-``abstract_train_state`` is not ported (``Model.init_abstract`` neither).
+generator's device decide, and nothing moves to the CPU.  A state placed
+on a mesh (``init_train_state(..., shardings=...)``, or
+``distributed.sharding.place``) steps through the sharded step of
+``distributed/lm_spmd.py``.  ``abstract_train_state`` gives the state's
+shapes and dtypes on the meta device, without allocating it.
 """
 from __future__ import annotations
 
@@ -40,11 +43,25 @@ class TrainState(NamedTuple):
     rng: torch.Tensor           # int64: the seed the run started from
 
 
+def abstract_train_state(model, optimizer: AdamW) -> TrainState:
+    """The LM train state's shapes and dtypes: meta tensors, no
+    allocation (``Model.init_abstract``)."""
+    params = model.init_abstract()
+    return TrainState(params=params, opt=optimizer.init(params),
+                      rng=torch.empty((), dtype=torch.int64, device="meta"))
+
+
 def init_train_state(model, optimizer: AdamW, seed: int,
-                     device="cuda") -> TrainState:
+                     device="cuda", shardings=None) -> TrainState:
     """Parameters drawn by ``model.init`` from a ``torch.Generator`` on
     ``device`` seeded with ``seed`` (the JAX package's key), and the
-    optimizer's state for them."""
+    optimizer's state for them.  With ``shardings`` (a ``TrainState`` of
+    ``NamedSharding``, ``lm_spmd.state_shardings``) the same draws, each
+    placed on the mesh as it is made."""
+    if shardings is not None:
+        from repro_torch.distributed import lm_spmd
+        return lm_spmd.init_train_state(model, optimizer, seed, shardings,
+                                        device)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = model.init(gen)
     return TrainState(params=params, opt=optimizer.init(params),
@@ -71,6 +88,12 @@ def make_train_step(model, optimizer: AdamW, grad_compression: bool = False,
     """Returns train_step(state, batch) -> (state, metrics)."""
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        from repro_torch.distributed import lm_spmd
+        if lm_spmd.is_sharded(state):
+            if microbatches > 1 or grad_compression:
+                raise ValueError("the sharded step takes no microbatches "
+                                 "and no gradient compression")
+            return lm_spmd.train_step(model, optimizer, state, batch)
         if microbatches > 1:
             # gradient accumulation: the batch is split along dim 0 into
             # equal chunks, gradients summed in float32 and averaged

@@ -12,10 +12,13 @@ Production behaviors, all exercised by tests:
     signal drives hot-spare swaps; here it drives the report so the policy
     is testable).
 
-Elastic re-sharding onto another device count comes with the distributed
-slice.  The step runs where the parameters are: ``device`` (the card
-unless the caller asks for the CPU) and the caller's batches, which
-``batches(step)`` puts there.
+The step runs where the parameters are: ``device`` (the card unless the
+caller asks for the CPU) and the caller's batches, which
+``batches(step)`` puts there.  With ``state_shardings``
+(``distributed.lm_spmd.state_shardings`` over ``mesh``) the state is
+drawn onto the mesh (the generator on ``device``), restored onto it, and
+stepped by the sharded step; ``restore_elastic`` re-shards the latest
+checkpoint onto other shardings, from a template of shapes alone.
 """
 from __future__ import annotations
 
@@ -26,8 +29,8 @@ from typing import Any, Callable, Dict, List, Optional
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.optim.optimizers import AdamW
-from repro_torch.train.steps import (TrainState, init_train_state,
-                                     make_train_step)
+from repro_torch.train.steps import (TrainState, abstract_train_state,
+                                     init_train_state, make_train_step)
 
 
 @dataclasses.dataclass
@@ -59,11 +62,14 @@ class TrainerReport:
 
 class Trainer:
     def __init__(self, model, optimizer: AdamW, cfg: TrainerConfig,
+                 mesh=None, state_shardings=None,
                  fault_hook: Optional[Callable[[int], None]] = None,
                  device="cuda"):
         self.model = model
         self.optimizer = optimizer
         self.cfg = cfg
+        self.mesh = mesh
+        self.state_shardings = state_shardings
         self.device = device
         self.fault_hook = fault_hook          # tests inject failures here
         self.ckpt = Checkpointer(cfg.checkpoint_dir, keep=cfg.keep_checkpoints)
@@ -73,11 +79,25 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def init_or_restore(self, seed: int) -> tuple[TrainState, int]:
+        if self.state_shardings is not None \
+                and self.ckpt.latest_step() is not None:
+            return self.ckpt.restore(
+                abstract_train_state(self.model, self.optimizer),
+                shardings=self.state_shardings)
         state = init_train_state(self.model, self.optimizer, seed,
-                                 self.device)
+                                 self.device, self.state_shardings)
         if self.ckpt.latest_step() is not None:
             return self.ckpt.restore(state)
         return state, 0
+
+    def restore_elastic(self, seed: int, new_shardings
+                        ) -> tuple[TrainState, int]:
+        """Re-shard the latest checkpoint onto other shardings (another
+        mesh); the template is the state's shapes alone, nothing is
+        drawn.  ``seed`` is the JAX package's key, unused here."""
+        return self.ckpt.restore(
+            abstract_train_state(self.model, self.optimizer),
+            shardings=new_shardings)
 
     # ------------------------------------------------------------------
     def run(self, batches: Callable[[int], Dict[str, Any]], seed: int
