@@ -272,7 +272,10 @@ csrc`` at first use.  Phases, each of which raises on failure:
         turns the gradients' rounding into update differences in
         proportion to the step's share of the leaf);
         on (1, m) the loss and gradients bit for bit; each block on its
-        device with its spec's shape; the sharded state drawn by the
+        device with its spec's shape; then stablelm-3b at 4 layers in bf16
+        compute: on (1, 2) the loss and gradients bit for bit the
+        unsharded bf16 step's, on (2, 1) the loss within 1e-3 and each
+        gradient leaf within 5e-2 rel L2; the sharded state drawn by the
         sharded init;
      b. mixtral-8x7b's MoE block over a (2, 1) mesh's shards bit for bit
         one device with ``data_shards`` 2 installed;
@@ -291,6 +294,31 @@ csrc`` at first use.  Phases, each of which raises on failure:
         median step ms, each card's peak against its state blocks, and the
         single-device reckoning; on one card a line says it did not run.
 
+  15. Sharded LM serving (``repro_torch.distributed.serve_spmd``), the
+     chain off, no call launching any of B1-B7:
+     a. over meshes (1, 1), (2, 1), (1, 2), (2, 2) and (1, 4) (the
+        visible GPUs where there are enough, else cuda:0 repeated), fp32:
+        phi4-mini-3.8b, mamba2-1.3b, zamba2-1.2b at 2 layers, mixtral-8x7b
+        at 1 (its ring of 4096), two of deepseek-v3's dense MLA layers,
+        llama-3.2-vision-11b at one cross group of one self layer,
+        whisper-tiny whole; batch 4, the caches filled with seeded entries,
+        each row from its own position, 8 teacher-forced steps against the
+        unsharded step: (1, 1) bit for bit, else logits and final caches
+        within 1e-5 rel L2 and the greedy tokens equal where the top-2
+        margin exceeds 1e-3; every cache block in place, no cache byte
+        copied; phi4-mini's and mixtral's sharded prefill within 1e-5 of
+        the forward; bytes copied and wall ms a step; the same steps in
+        bf16 on (2, 2) and (1, 4) against the unsharded bf16 step (their
+        spread);
+     b. with four cards only: mixtral-8x7b at full depth on (1, 4) and
+        (2, 2), deepseek-v3 at 8 layers on (1, 4), bf16, served through
+        ``SlotLoop`` and ``GreedyStep`` (12 requests of 4-16 prompt tokens,
+        96 generated, batch 4, cache 128): tok/s, request p50 and p99, wall
+        ms and GB copied a step, peak GB a card; logits finite; mixtral's
+        8 fp32 steps from one seeded cache on each mesh within 1e-5 rel L2
+        of each other (bf16's, a finding); on one card a line says it did
+        not run.
+
 ``--sharded`` runs phases 10 and 10b alone (after the build), over the
 visible GPUs where a mesh has enough (on four cards, every mesh of up to
 four shards has a card a shard; the tuned path then carries no measured
@@ -299,7 +327,9 @@ config, as nothing was tuned), and writes ``chiprun_out/sharded.json``.
 ``chiprun_out/lm.json``; ``--lm-train`` runs phase 13 alone and writes
 ``chiprun_out/lm_train.json``; ``--lm-sharded`` runs phase 14 alone
 (14e only on a host with four cards) and writes
-``chiprun_out/lm_sharded.json``; ``--b4-candidates`` runs phase 3c alone and
+``chiprun_out/lm_sharded.json``; ``--lm-serve-sharded`` runs phase 15
+alone (15b only on a host with four cards) and writes
+``chiprun_out/lm_serve_sharded.json``; ``--b4-candidates`` runs phase 3c alone and
 writes ``chiprun_out/b4_candidates.json``.
 ``--sweep-b4``, ``--sweep-b7``, ``--sweep-b1`` and ``--sweep-b2`` time
 B4's, B7's, B1's and B5's, and B2's and B6's geometries per layer instead
@@ -695,6 +725,66 @@ LM14_BIG_MESHES = ((4, 1), (2, 2))
 LM14_BIG_BATCH = (4, 2048)
 LM14_BIG_STEPS = 5
 LM14_SEED = 2600
+# 14a's bf16 step: LM14_BF16 (fp32 parameters, bf16 compute) at batch
+# LM14_BATCH on one card against the unsharded bf16 step: bit for bit on
+# (1, 2); on (2, 1) the loss within LM14_BF16_LOSS and each gradient leaf
+# within LM14_BF16_GRAD rel L2 (the rows' bf16 products round otherwise)
+LM14_BF16 = ("stablelm-3b", {"n_layers": 4})
+LM14_BF16_LOSS = 1e-3
+LM14_BF16_GRAD = 5e-2
+# phase 15, sharded LM serving (A16's serving half), the chain off: 15a each
+# of LM15_ARCHS at its published width and its depth cut, fp32 parameters
+# and compute under the full-fp32 matmul guard, batch LM15_BATCH, its cache
+# of LM15_MAX_LEN filled with seeded N(0, 1) entries (SSM states too; the
+# cross K/V as init_cache computes them from seeded memory), each row from
+# its own position (LM15_STARTS: LM15_STEPS steps cross every 'model' block
+# edge, mixtral's ring of 4096 wraps), LM15_STEPS teacher-forced steps on
+# each of LM15_MESHES (the visible GPUs where there are enough, else cuda:0
+# repeated) against the unsharded decode_step on the card: (1, 1) bit for
+# bit (logits, final cache); elsewhere each step's logits and each final
+# cache entry, gathered, within LM15_REL rel L2, and the greedy tokens equal
+# wherever the unsharded top-2 margin exceeds LM15_MARGIN; LM15_PREFILL's
+# archs' sharded prefill within LM15_REL of model.forward (its MoE dispatch
+# in the mesh's data rows' chunks); bytes copied and wall ms a step; the
+# same steps in bf16 compute on LM15_BF16_MESHES against the unsharded bf16
+# step (findings: the spread).  15b (four cards only) LM15_BIG at full depth
+# (or as cut), bf16, served through SlotLoop + GreedyStep (LM15_SERVE):
+# tok/s, request p50 and p99, wall ms, GB copied a step, peak GB a card;
+# logits finite; where an arch has two meshes, LM15_STEPS teacher-forced
+# steps from one seeded cache on each, in fp32 within LM15_REL rel L2 of
+# each other (in bf16 a finding: at depth bf16 rounding flips MoE routes
+# and the meshes part chaotically, as the unsharded bf16 step does).
+LM15_ARCHS = (("phi4-mini-3.8b", {"n_layers": 2}),
+              ("mamba2-1.3b", {"n_layers": 2}),
+              ("zamba2-1.2b", {"n_layers": 2}),   # one shared invocation
+              ("mixtral-8x7b", {"n_layers": 1}),
+              # two of its dense MLA layers, as the dense family: the 45 GB
+              # fp32 MoE layer of LM12_CHECK, gathered beside its blocks,
+              # does not fit one card (its MoE is served in 15b)
+              ("deepseek-v3-671b", {"family": "dense", "n_layers": 2,
+                                    "first_dense_layers": 0,
+                                    "mtp_depth": 0}),
+              ("llama-3.2-vision-11b", {"n_layers": 1,
+                                        "cross_attn_every": 1}),
+              ("whisper-tiny", {}))
+LM15_MESHES = ((1, 1), (2, 1), (1, 2), (2, 2), (1, 4))
+LM15_BF16_MESHES = ((2, 2), (1, 4))
+LM15_BATCH = 4
+LM15_STEPS = 8
+LM15_MAX_LEN = {"mixtral-8x7b": 4096}          # the ring's length
+LM15_LEN = 256
+LM15_STARTS = {"mixtral-8x7b": (1020, 2044, 3068, 4094)}
+LM15_START = (60, 124, 188, 240)
+LM15_PREFILL = (("phi4-mini-3.8b", 64), ("mixtral-8x7b", 64))
+LM15_REL = 1e-5
+LM15_MARGIN = 1e-3
+LM15_BIG = (("mixtral-8x7b", {}, ((1, 4), (2, 2))),
+            ("deepseek-v3-671b", {"n_layers": 8, "mtp_depth": 0},
+             ((1, 4),)))
+LM15_SERVE = {"batch": 4, "max_len": 128, "requests": 12, "gen": 96,
+              "prompts": (4, 16)}
+LM15_BIG_STARTS = (28, 60, 92, 110)      # 8 steps cross 32, 64 and 96
+LM15_SEED = 2700
 # phase 14c's reader of a checkpoint as the JAX package's Checkpointer reads
 # it (manifest, digest, keys, bf16 as uint16 bits), in a CPU subprocess of
 # numpy alone: argv[1] the step directory, argv[2] the gathered state's npz
@@ -3488,6 +3578,50 @@ def lm_sharded(dev, counted, smi) -> dict:
                     for shape in LM14_MESHES)
                 + f"; {row['seconds']:.1f} s")
 
+        # ---- 14a, bf16: the sharded step against the unsharded one ------
+        arch, cut = LM14_BF16
+        cfg = dataclasses.replace(configs.get_config(arch), **cut)
+        model, opt = build(cfg), AdamW(lr=LM14_LR)
+        batch = seeded_batch(cfg, *LM14_BATCH, LM14_SEED + 6)
+        lm_free()
+        state = init_train_state(model, opt, LM14_SEED, dev)
+        loss, _, g = counted(
+            "lm_sharded", f"{arch} bf16 one-device gradients",
+            lambda: _value_and_grad(model, state.params, batch), want=none)
+        ref_loss, g_ref = loss.item(), on_host(g)
+        del state, g
+        lm_free()
+        row = {"n_layers": cfg.n_layers, "compute_dtype": cfg.compute_dtype,
+               "batch": list(LM14_BATCH), "loss": ref_loss}
+        for shape in ((1, 2), (2, 1)):
+            mesh = mesh_of(shape)
+            st = init_train_state(model, opt, LM14_SEED, dev,
+                                  shardings=lm_spmd.state_shardings(
+                                      model, opt, mesh))
+            loss, _, leaves = counted(
+                "lm_sharded", f"{arch} bf16 {shape} sharded gradients",
+                lambda: lm_spmd.value_and_grad(model, st.params, batch),
+                want=none)
+            grads = against(lm_spmd.gradients(leaves), g_ref)
+            worst = max(grads, key=lambda k: grads[k][0])
+            err = {"loss_rel": abs(loss.item() - ref_loss) / abs(ref_loss),
+                   "bitwise": loss.item() == ref_loss
+                   and all(v[2] for v in grads.values()),
+                   "leaf": worst, "rel_l2": grads[worst][0]}
+            row[str(shape)] = err
+            del st, leaves
+            lm_free()
+            if not (err["bitwise"] if shape[0] == 1
+                    else err["loss_rel"] <= LM14_BF16_LOSS
+                    and err["rel_l2"] <= LM14_BF16_GRAD):
+                raise AssertionError(f"{arch} bf16 {shape}: {err}")
+        out["grads"][f"{arch} bf16"] = row
+        log(f"lm14 grads: {arch} at {cfg.n_layers} layers, bf16 compute, "
+            f"sharded against the unsharded bf16 step: (1, 2) "
+            + ("bit for bit" if row["(1, 2)"]["bitwise"] else "differs")
+            + f"; (2, 1) loss {row['(2, 1)']['loss_rel']:.1e}, worst leaf "
+            f"{row['(2, 1)']['leaf']} {row['(2, 1)']['rel_l2']:.2e} rel L2")
+
         # ---- 14b. shard-local MoE dispatch, bit for bit ------------------
         cfg = dataclasses.replace(configs.get_config("mixtral-8x7b"),
                                   compute_dtype="float32",
@@ -3713,6 +3847,407 @@ def lm_sharded(dev, counted, smi) -> dict:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"lm14: phase 14 took {out['seconds']:.1f} s on {smi}; no kernel of "
+        f"the port launched")
+    return out
+
+
+def lm_serve_sharded(dev, counted, smi) -> dict:
+    """Phase 15: the sharded serve and prefill steps (A16's serving half):
+    decode caches placed by cache_pspecs, attention merged over a
+    sequence-sharded cache, SSM states over their heads; every step and
+    prefill launching none of B1-B7 (the module's docstring, phase 15)."""
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch import tree as tree_util
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import act_sharding, serve_spmd, sharding
+    from repro_torch.launch.mesh import make_forced_host_mesh
+    from repro_torch.launch.serve import GreedyStep
+    from repro_torch.models import build
+    from repro_torch.serve import PromptStream, SlotLoop
+    from repro_torch.train import make_prefill_step
+
+    t_phase = time.perf_counter()
+    none = only()
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    out = {"check": {}, "bf16": {}, "big": {}}
+
+    def mesh_of(shape):
+        """The visible GPUs where there are enough, else ``dev`` repeated,
+        as phase 14 has its meshes."""
+        if cards >= math.prod(shape):
+            return make_forced_host_mesh(shape)
+        return make_forced_host_mesh(shape, device=dev)
+
+    def synchronize():
+        if dev.type == "cuda":
+            for i in range(max(cards, 1)):
+                torch.cuda.synchronize(i)
+
+    def memory_of(cfg, B, seed):
+        """Seeded vision embeddings (vlm) or encoder frames (encdec)."""
+        rng = np.random.RandomState(seed)
+        if cfg.family == "vlm":
+            shape = (B, cfg.n_vision_tokens, cfg.d_model)
+        elif cfg.family == "encdec":
+            shape = (B, 64, cfg.d_model)
+        else:
+            return None
+        return torch.tensor(rng.randn(*shape), dtype=torch.float32,
+                            device=dev)
+
+    def seeded(shapes, seed):
+        """Seeded N(0, 1) entries for every leaf but the cross K/V (what
+        init_cache computes from the memory): (path, shape, dtype) ->
+        tensor on ``dev`` or None."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return [None if path[0] in ("cross_k", "cross_v") else
+                torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for path, shape, dtype in shapes]
+
+    def shapes_of(cache):
+        return [(path, tuple(leaf.shape), leaf.dtype)
+                for path, leaf in tree_util.flatten_with_path(cache)]
+
+    def fill(cache, values):
+        """The seeded entries into a cache: a plain one's leaves, or a
+        placed one's blocks, each from its slice."""
+        for leaf, v in zip(tree_util.leaves(cache), values):
+            if v is None:
+                continue
+            if not isinstance(leaf, sharding.Sharded):
+                leaf.copy_(v)
+                continue
+            for idx, coords in leaf.unique().items():
+                blk = sharding.block_of(v, leaf.spec, leaf.mesh, idx)
+                for c in coords:
+                    leaf.shards[c].copy_(blk)
+
+    def blocks_of(cache):
+        return [(str(b.device), b.data_ptr())
+                for sh in tree_util.leaves(cache) for b in sh.shards.flat]
+
+    def decoded(model, params, cache, toks, pos0, what):
+        """LM15_STEPS teacher-forced steps: (logits, wall ms a step)."""
+        logits = []
+        synchronize()
+        t0 = time.perf_counter()
+        for t in range(LM15_STEPS):
+            lg, cache = counted(
+                "lm_serve_sharded", f"{what} step {t}",
+                lambda: model.decode_step(params, cache, toks[t], pos0 + t),
+                want=none)
+            logits.append(lg)
+        synchronize()
+        return logits, (time.perf_counter() - t0) * 1e3 / LM15_STEPS
+
+
+    class FiniteStep(GreedyStep):
+        """``GreedyStep`` that also counts the non-finite logits it makes
+        (on the card, read once at the end)."""
+        bad = None
+
+        def logits(self, tok, pos):
+            lg = super().logits(tok, pos)
+            bad = (~torch.isfinite(lg)).sum()
+            self.bad = bad if self.bad is None else self.bad + bad
+            return lg
+
+    def big_serve(arch, cut, meshes, failures):
+        """15b: ``arch`` at the depth ``cut`` leaves, bf16, served over
+        four cards on each of ``meshes``; LM15_STEPS teacher-forced steps
+        from one seeded cache on each, in fp32 (the meshes held to each
+        other) and in bf16 (a finding); what fails goes to ``failures``."""
+        cfg = dataclasses.replace(configs.get_config(arch),
+                                  param_dtype="bfloat16",
+                                  compute_dtype="bfloat16", **cut)
+        model = build(cfg)
+        n = sum(a.numel() for a in tree_util.leaves(model.init_abstract()))
+        srv = LM15_SERVE
+        B, L = srv["batch"], srv["max_len"]
+        cache_shape = ShapeConfig("decode", L, B, "decode")
+        toks = lm_tokens(cfg, (LM15_STEPS, B, 1), LM15_SEED + 8, dev)
+        pos0 = torch.tensor(LM15_BIG_STARTS, dtype=torch.int32, device=dev)
+        row = {"params": n, "n_layers": cfg.n_layers,
+               "weights_gb": 2 * n / 1e9, "meshes": {}}
+        check, check32 = {}, {}
+        m32 = build(dataclasses.replace(cfg, param_dtype="float32",
+                                        compute_dtype="float32"))
+        for shape in meshes:
+            mesh = make_forced_host_mesh(shape)
+            if len(meshes) > 1:
+                # the check in fp32: the same draws, the same seeded cache
+                lm_free()
+                placed = serve_spmd.init_params(
+                    m32, LM15_SEED + 6, serve_spmd.param_shardings(m32, mesh),
+                    dev)
+                cache = m32.init_cache(
+                    placed, B, L, shardings=sharding.cache_shardings(
+                        m32, cache_shape, mesh))
+                fill(cache, seeded(shapes_of(cache), LM15_SEED + 9))
+                got, _ = decoded(m32, placed, cache, toks, pos0,
+                                 f"{arch} {shape} fp32")
+                check32[str(shape)] = [lg.cpu() for lg in got]
+                del placed, cache, got
+            lm_free()
+            synchronize()
+            for i in range(cards):
+                torch.cuda.reset_peak_memory_stats(i)
+            t0 = time.perf_counter()
+            placed = serve_spmd.init_params(
+                model, LM15_SEED + 6, serve_spmd.param_shardings(model, mesh),
+                dev)
+            synchronize()
+            init_s = time.perf_counter() - t0
+            held, seen = [0] * cards, set()
+            for sh in tree_util.leaves(placed):
+                for blk in sh.shards.flat:
+                    if id(blk) not in seen:
+                        seen.add(id(blk))
+                        held[blk.device.index or 0] += blk.numel() \
+                            * blk.element_size()
+            shardings = sharding.cache_shardings(model, cache_shape, mesh)
+            cache = model.init_cache(placed, B, L, shardings=shardings)
+            fill(cache, seeded(shapes_of(cache), LM15_SEED + 9))
+            got, check_ms = decoded(model, placed, cache, toks, pos0,
+                                    f"{arch} {shape} bf16")
+            check[str(shape)] = [lg.float().cpu() for lg in got]
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            del cache, got
+            step = FiniteStep(model, placed,
+                              model.init_cache(placed, B, L,
+                                               shardings=shardings), dev)
+            loop = SlotLoop(batch=B, gen=srv["gen"], max_len=L,
+                            requests=srv["requests"],
+                            prompts=PromptStream(cfg.vocab_size,
+                                                 lengths=srv["prompts"],
+                                                 seed=LM15_SEED + 7))
+            serve_spmd.reset_copied()
+            stats = counted("lm_serve_sharded", f"{arch} {shape} served",
+                            lambda: loop.run(step), want=none)
+            synchronize()
+            moved = serve_spmd.copied()
+            peaks = [torch.cuda.max_memory_allocated(i) / 1e9
+                     for i in range(cards)]
+            bad = int(step.bad)
+            lat = stats.latency_ms
+            r = {"tok_per_s": stats.tok_per_s, "p50_ms": lat.percentile(50),
+                 "p99_ms": lat.percentile(99), "steps": stats.steps,
+                 "tokens": stats.tokens, "served": stats.served,
+                 "wrapped": stats.wrapped, "elapsed_s": stats.elapsed_s,
+                 "step_ms": stats.elapsed_s * 1e3 / stats.steps,
+                 "check_step_ms": check_ms,
+                 "copied_gb_a_step": {k: v / stats.steps / 1e9
+                                      for k, v in moved.items()},
+                 "peak_gb": peaks, "blocks_gb": [h / 1e9 for h in held],
+                 "init_s": init_s, "nonfinite_logits": bad,
+                 "check_finite": finite}
+            row["meshes"][str(shape)] = r
+            del placed, step, loop
+            lm_free()
+            if bad or not finite or moved["cache"]:
+                failures.append(f"{arch} {shape} served: {r}")
+            log(f"lm15 serve: {arch} ({n / 1e9:.3f} B parameters, "
+                f"{cfg.n_layers} layers, bf16) on {shape} over {cards} "
+                f"cards: {stats.served} requests, {stats.tokens} tokens in "
+                f"{stats.steps} steps, {r['tok_per_s']:.2f} tok/s, request "
+                f"p50 {r['p50_ms']:.0f} ms p99 {r['p99_ms']:.0f} ms, "
+                f"{r['step_ms']:.1f} ms a step, "
+                f"{r['copied_gb_a_step']['weights']:.2f} GB of weights and "
+                f"{r['copied_gb_a_step']['activations'] * 1e3:.3f} MB of "
+                f"activations copied a step; peak "
+                f"{', '.join(f'{v:.1f}' for v in peaks)} GB a card against "
+                f"blocks {', '.join(f'{v:.1f}' for v in r['blocks_gb'])}; "
+                f"init {init_s:.1f} s")
+        if len(meshes) > 1:
+            rels = {name: [rel_l2(x.double(), y.double()) for x, y in zip(
+                *(got[str(m)] for m in meshes[:2]))]
+                for name, got in (("fp32", check32), ("bf16", check))}
+            row["mesh_rel"] = rels
+            log(f"lm15 serve: {arch} {meshes[0]} against {meshes[1]} over "
+                f"{LM15_STEPS} steps from one seeded cache: fp32 worst "
+                f"{max(rels['fp32']):.2e} rel L2 (bound {LM15_REL:.0e}); "
+                f"bf16 " + ", ".join(f"{v:.2e}" for v in rels["bf16"]))
+            if max(rels["fp32"]) > LM15_REL:
+                failures.append(f"{arch}: the meshes' fp32 logits {rels}")
+        return row
+
+    try:
+        # ---- 15a. sharded fp32 decode against one device -----------------
+        for arch, cut in LM15_ARCHS:
+            t_arch = time.perf_counter()
+            cfg = dataclasses.replace(configs.get_config(arch),
+                                      compute_dtype="float32",
+                                      param_dtype="float32", **cut)
+            model = build(cfg)
+            B, L = LM15_BATCH, LM15_MAX_LEN.get(arch, LM15_LEN)
+            lm_free()
+            with torch.no_grad():
+                params = model.init(torch.Generator(device=dev).manual_seed(
+                    LM15_SEED), device=dev)
+                if cfg.family == "vlm":
+                    set_gates(params)
+            memory = memory_of(cfg, B, LM15_SEED + 1)
+            toks = lm_tokens(cfg, (LM15_STEPS, B, 1), LM15_SEED + 2, dev)
+            pos0 = torch.tensor(LM15_STARTS.get(arch, LM15_START),
+                                dtype=torch.int32, device=dev)
+            cache_shape = ShapeConfig("decode", L, B, "decode")
+            n = sum(a.numel() for a in tree_util.leaves(params))
+            ref_cache = model.init_cache(params, B, L, memory)
+            values = seeded(shapes_of(ref_cache), LM15_SEED + 3)
+            fill(ref_cache, values)
+            ref, _ = decoded(model, params, ref_cache, toks, pos0,
+                             f"{arch} one device")
+            fp32 = [lg.clone() for lg in ref]
+            ref_final = [leaf.clone() for leaf in tree_util.leaves(ref_cache)]
+            # the step's time, warm: LM15_STEPS more from where it ended
+            _, ref_ms = decoded(model, params, ref_cache, toks,
+                                pos0 + LM15_STEPS, f"{arch} one device, warm")
+            ref_cache = None
+            top2 = [lg[:, 0].topk(2, dim=-1) for lg in ref]
+            row = {"params": n, "n_layers": cfg.n_layers,
+                   "depth_cut": cut or None, "batch": B, "cache_len": L,
+                   "starts": list(LM15_STARTS.get(arch, LM15_START)),
+                   "one_device_ms": ref_ms}
+            forwards = {}
+            for shape in LM15_MESHES:
+                mesh = mesh_of(shape)
+                placed = sharding.place(
+                    params, serve_spmd.param_shardings(model, mesh))
+                cache = model.init_cache(
+                    placed, B, L, memory, shardings=sharding.cache_shardings(
+                        model, cache_shape, mesh))
+                fill(cache, values)
+                before = blocks_of(cache)
+                serve_spmd.reset_copied()
+                got, ms = decoded(model, placed, cache, toks, pos0,
+                                  f"{arch} {shape}")
+                moved = serve_spmd.copied()
+                rels = [rel_l2(g, r) for g, r in zip(got, ref)]
+                finals = [(sh.gather(dev), leaf) for sh, leaf in zip(
+                    tree_util.leaves(cache), ref_final)]
+                greedy_bad = sum(int(((g[:, 0].argmax(-1) != t.indices[:, 0])
+                                      & (t.values[:, 0] - t.values[:, 1]
+                                         > LM15_MARGIN)).sum())
+                                 for g, t in zip(got, top2))
+                err = {"logits_rel": max(rels),
+                       "cache_rel": max(rel_l2(a, b) for a, b in finals),
+                       "bitwise": all(torch.equal(g, r)
+                                      for g, r in zip(got, ref))
+                       and all(torch.equal(a, b) for a, b in finals),
+                       "finite": all(bool(torch.isfinite(g).all())
+                                     for g in got),
+                       "greedy_mismatches": greedy_bad,
+                       "in_place": blocks_of(cache) == before,
+                       "step_ms": ms,
+                       "copied_a_step": {k: v / LM15_STEPS
+                                         for k, v in moved.items()}}
+                del finals, got
+                if arch in dict(LM15_PREFILL):
+                    T = dict(LM15_PREFILL)[arch]
+                    ptoks = lm_tokens(cfg, (B, T), LM15_SEED + 4, dev)
+                    rows = shape[0] if B % shape[0] == 0 else 1
+                    if rows not in forwards:
+                        # the MoE dispatch in the data rows' chunks
+                        with torch.no_grad(), act_sharding.local(rows):
+                            forwards[rows] = counted(
+                                "lm_serve_sharded", f"{arch} forward",
+                                lambda: model.forward(params, ptoks, memory),
+                                want=none)
+                    pre = counted(
+                        "lm_serve_sharded", f"{arch} {shape} prefill",
+                        lambda: make_prefill_step(model)(placed, ptoks,
+                                                         memory), want=none)
+                    err["prefill_rel"] = rel_l2(pre, forwards[rows])
+                    del pre
+                row[str(shape)] = err
+                del placed, cache
+                lm_free()
+                if not (err["finite"] and err["in_place"]
+                        and err["copied_a_step"]["cache"] == 0
+                        and err["greedy_mismatches"] == 0
+                        and (err["bitwise"] if shape == (1, 1)
+                             else err["logits_rel"] <= LM15_REL
+                             and err["cache_rel"] <= LM15_REL)
+                        and err.get("prefill_rel", 0.0) <= LM15_REL):
+                    raise AssertionError(f"{arch} {shape}: {err}")
+            del ref, ref_final, top2, forwards
+            lm_free()
+
+            # the same steps in bf16 compute: the spread sharding adds
+            cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+            model16 = build(cfg16)
+            ref_cache = model16.init_cache(params, B, L, memory)
+            values = seeded(shapes_of(ref_cache), LM15_SEED + 3)
+            fill(ref_cache, values)
+            ref, _ = decoded(model16, params, ref_cache, toks, pos0,
+                             f"{arch} bf16 one device")
+            # the yardstick: one device's bf16 against its fp32 (the same
+            # seeded entries, rounded to bf16)
+            spread = {"one device, bf16 against fp32": max(
+                rel_l2(g.double(), r.double()) for g, r in zip(ref, fp32))}
+            for shape in LM15_BF16_MESHES:
+                mesh = mesh_of(shape)
+                placed = sharding.place(
+                    params, serve_spmd.param_shardings(model16, mesh))
+                cache = model16.init_cache(
+                    placed, B, L, memory, shardings=sharding.cache_shardings(
+                        model16, cache_shape, mesh))
+                fill(cache, values)
+                got, _ = decoded(model16, placed, cache, toks, pos0,
+                                 f"{arch} bf16 {shape}")
+                spread[str(shape)] = max(rel_l2(g.double(), r.double())
+                                         for g, r in zip(got, ref))
+                del placed, cache, got
+                lm_free()
+            out["bf16"][arch] = spread
+            del ref, ref_cache, params, memory, values, fp32
+            lm_free()
+            row["seconds"] = time.perf_counter() - t_arch
+            out["check"][arch] = row
+            log(f"lm15 check: {arch} fp32 at {cfg.n_layers} layers "
+                f"({n / 1e9:.3f} B parameters), batch {B}, cache {L}, "
+                f"{LM15_STEPS} steps from {row['starts']}, one device "
+                f"{ref_ms:.1f} ms a step; "
+                + "; ".join(
+                    f"{shape} " + ("bit for bit" if row[str(shape)]["bitwise"]
+                                   else f"logits {row[str(shape)]['logits_rel']:.1e}, "
+                                   f"cache {row[str(shape)]['cache_rel']:.1e}")
+                    + (f", prefill {row[str(shape)]['prefill_rel']:.1e}"
+                       if "prefill_rel" in row[str(shape)] else "")
+                    + f", {row[str(shape)]['step_ms']:.1f} ms, "
+                    f"{row[str(shape)]['copied_a_step']['weights'] / 1e9:.3f}"
+                    f" GB weights + "
+                    f"{row[str(shape)]['copied_a_step']['activations'] / 1e6:.3f}"
+                    f" MB activations a step"
+                    for shape in LM15_MESHES)
+                + "; bf16 against one device's bf16: "
+                + ", ".join(f"{k} {v:.2e}" for k, v in spread.items())
+                + f"; {row['seconds']:.1f} s")
+        worst = max(v for s in out["bf16"].values() for k, v in s.items()
+                    if k.startswith("("))
+        out["bf16_worst"] = worst
+        log(f"lm15 bf16: the worst sharded-against-one-device spread "
+            f"{worst:.2e} rel L2 over {LM15_STEPS} steps")
+
+        # ---- 15b. full depth over four cards ------------------------------
+        if cards < 4:
+            out["big"] = {"ran": False,
+                          "why": f"{cards} card(s) visible; 15b needs 4"}
+            log(f"lm15 serve: did not run: {cards} card(s) visible, "
+                f"mixtral-8x7b at full depth needs four")
+        else:
+            # every cell runs and is recorded; then its failures raise
+            failures = []
+            for arch, cut, meshes in LM15_BIG:
+                out["big"][arch] = big_serve(arch, cut, meshes, failures)
+            if failures:
+                raise AssertionError("; ".join(failures))
+    finally:
+        lm_free()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"lm15: phase 15 took {out['seconds']:.1f} s on {smi}; no kernel of "
         f"the port launched")
     return out
 
@@ -4271,6 +4806,19 @@ def main() -> None:
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
         (out / "lm_sharded.json").write_text(json.dumps(report, indent=1))
+        return
+
+    if "--lm-serve-sharded" in sys.argv[1:]:
+        # phase 15 alone
+        resilience.configure(dataclasses.replace(resilience.policy(),
+                                                 enabled=False))
+        report = {"device": {"name": name, "nvidia_smi": smi,
+                             "count": torch.cuda.device_count()},
+                  "lm_serve_sharded": lm_serve_sharded(dev, counted, smi)}
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "lm_serve_sharded.json").write_text(json.dumps(report,
+                                                              indent=1))
         return
 
     if "--b4-candidates" in sys.argv[1:]:
@@ -6377,8 +6925,11 @@ def main() -> None:
     report["phases"]["lm_training"] = lm_training(dev, counted, smi)
     # ---- 14. the sharded LM train step, elastic restore ----------------
     report["phases"]["lm_sharded"] = lm_sharded(dev, counted, smi)
+    # ---- 15. sharded LM serving -----------------------------------------
+    report["phases"]["lm_serve_sharded"] = lm_serve_sharded(dev, counted,
+                                                            smi)
     if resilience.stats():
-        raise AssertionError(f"resilience events in phases 11-14: "
+        raise AssertionError(f"resilience events in phases 11-15: "
                              f"{resilience.stats()}")
     resilience.configure(chain_policy)
 

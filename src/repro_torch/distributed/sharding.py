@@ -10,8 +10,9 @@ The JAX package's ``distributed/sharding.py``:
   * batch over ``('pod', 'data')`` (``batch_axes``, ``batch_pspecs``);
   * decode caches: batch over the data axes, the sequence of an attention
     cache and the heads of an SSM state over ``'model'``
-    (``cache_pspec``, ``cache_pspecs``; rules only: no decode cache runs
-    sharded yet);
+    (``cache_pspec``, ``cache_pspecs``; ``cache_shardings`` sanitizes them
+    for a model's cache, and ``distributed/serve_spmd.py`` serves over the
+    placed cache);
   * optimizer moments inherit their parameters' specs
     (``opt_state_pspecs``);
   * ``sanitize_pspec`` drops a mesh axis from a dimension it does not
@@ -256,6 +257,18 @@ def cache_pspec(path: Tuple[str, ...], leaf, cfg: ModelConfig, mesh) -> P:
 def cache_pspecs(abstract_cache, cfg: ModelConfig, mesh):
     return tree_map_with_path(
         lambda p, leaf: cache_pspec(p, leaf, cfg, mesh), abstract_cache)
+
+
+def cache_shardings(model, shape, mesh):
+    """The decode cache's ``NamedSharding``s at ``shape`` (a
+    ``ShapeConfig``): ``cache_pspecs`` of ``model.cache_abstract(shape)``,
+    sanitized leaf by leaf, as the JAX dry run places its cache.  What a
+    mesh axis does not divide is replicated: llama-3.2-vision's 1,601
+    vision tokens on a 2- or 4-way ``'model'`` axis, batch 1 on a 2-way
+    data axis."""
+    abstract = model.cache_abstract(shape)
+    return sanitized_shardings(cache_pspecs(abstract, model.cfg, mesh),
+                               abstract, mesh)
 
 
 @dataclasses.dataclass(frozen=True)

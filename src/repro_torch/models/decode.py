@@ -18,6 +18,9 @@ layouts, stacked over layers as in the JAX package:
 ``decode_step`` writes each layer's new entries into the cache in place
 (the JAX launcher donates its cache to the step) and returns the cache.
 The MoE FFN decodes losslessly (capacity = T: no token dropped).
+Parameters and a cache placed on a mesh step through
+``distributed/serve_spmd.py``, which runs the same layer walk
+(``decode_layers``) with its own operations on the cache (``DecodeOps``).
 """
 from __future__ import annotations
 
@@ -56,10 +59,19 @@ def _cross_caches(cache: Params, cross_blocks: Params, cfg, memory,
 
 
 def init_cache(params: Params, cfg: ModelConfig, batch: int, max_len: int,
-               memory: Optional[torch.Tensor] = None) -> Params:
+               memory: Optional[torch.Tensor] = None,
+               shardings=None) -> Params:
     """Zero caches for ``batch`` sequences of up to ``max_len`` tokens, on
     the parameters' device; the vlm's and encdec's cross-attention K/V from
-    ``memory`` (the vision embeddings, or the encoder's input frames)."""
+    ``memory`` (the vision embeddings, or the encoder's input frames).
+    With ``shardings`` (``sharding.cache_shardings``), or over parameters
+    placed on a mesh, each entry is placed on the mesh as it is made
+    (``serve_spmd.init_cache``)."""
+    from repro_torch.distributed import serve_spmd
+    if shardings is not None or serve_spmd.is_placed(params):
+        from repro_torch.models.registry import build
+        return serve_spmd.init_cache(build(cfg), params, batch, max_len,
+                                     memory, shardings)
     params = cast_compute(params, cfg)
     dtype = dtype_of(cfg.compute_dtype)
     device = params["embed"].device
@@ -118,12 +130,38 @@ def _cross_decode(x, ln, xattn, cfg, ck, cv):
     return attn.attention_output(xattn, cfg, o[:, None])
 
 
-def _attn_ffn_decode(bp, cfg, x, cache_l, pos, use_moe: bool = False):
+class DecodeOps:
+    """The step's operations on a layer's caches, here in place over
+    plain tensors; ``distributed/serve_spmd.py`` gives the same operations
+    over a cache placed on a mesh."""
+
+    @staticmethod
+    def attention(p, cfg, h, cache_l, pos):
+        return attn.decode_attention(p, cfg, h, cache_l, pos)[0]
+
+    @staticmethod
+    def mla(p, cfg, h, cache_l, pos):
+        return mla.mla_decode(p, cfg, h, cache_l, pos)[0]
+
+    @staticmethod
+    def mamba(p, cfg, h, cache_l):
+        return ssm.mamba2_decode(p, cfg, h, cache_l)[0]
+
+    @staticmethod
+    def cross(x, ln, xattn, cfg, ck, cv):
+        return _cross_decode(x, ln, xattn, cfg, ck, cv)
+
+
+LOCAL = DecodeOps()
+
+
+def _attn_ffn_decode(bp, cfg, x, cache_l, pos, use_moe: bool = False,
+                     ops: DecodeOps = LOCAL):
     h = layers.rmsnorm(x, bp["ln1"], cfg.norm_eps)
     if cfg.use_mla:
-        a, _ = mla.mla_decode(bp["attn"], cfg, h, cache_l, pos)
+        a = ops.mla(bp["attn"], cfg, h, cache_l, pos)
     else:
-        a, _ = attn.decode_attention(bp["attn"], cfg, h, cache_l, pos)
+        a = ops.attention(bp["attn"], cfg, h, cache_l, pos)
     x = x + a
     h = layers.rmsnorm(x, bp["ln2"], cfg.norm_eps)
     if use_moe:
@@ -136,57 +174,74 @@ def _attn_ffn_decode(bp, cfg, x, cache_l, pos, use_moe: bool = False):
     return x + f
 
 
+def decode_layers(params: Params, cfg: ModelConfig, cache: Params,
+                  x: torch.Tensor, pos: torch.Tensor,
+                  ops: DecodeOps = LOCAL) -> torch.Tensor:
+    """The embedded tokens x (B, 1, d) through every layer, each layer's
+    weights taken by ``layer`` where it runs and its caches through
+    ``ops``; returns the hidden state before the final norm."""
+    fam = cfg.family
+    blocks = params["blocks"]
+    if fam in ("dense", "moe"):
+        for i in range(cfg.first_dense_layers):
+            x = _attn_ffn_decode(layer(params["dense_blocks"], i), cfg, x,
+                                 layer(cache["dense_layers"], i), pos,
+                                 ops=ops)
+        for i in range(cfg.n_layers - cfg.first_dense_layers):
+            x = _attn_ffn_decode(layer(blocks, i), cfg, x,
+                                 layer(cache["layers"], i), pos,
+                                 fam == "moe", ops)
+    elif fam in ("ssm", "hybrid"):
+        every = cfg.shared_attn_every
+        for i in range(cfg.n_layers):
+            if fam == "hybrid" and i % every == 0:
+                x = _attn_ffn_decode(params["shared_block"], cfg, x,
+                                     layer(cache["shared"], i // every),
+                                     pos, ops=ops)
+            bp = layer(blocks, i)
+            h = layers.rmsnorm(x, bp["ln"], cfg.norm_eps)
+            x = x + ops.mamba(bp["mixer"], cfg, h,
+                              layer(cache["layers"], i))
+    elif fam == "vlm":
+        k = cfg.cross_attn_every
+        for g in range(cfg.n_layers // k):
+            xp = layer(params["cross_blocks"], g)
+            h = ops.cross(x, xp["ln"], xp["xattn"], cfg,
+                          cache["cross_k"][g], cache["cross_v"][g])
+            x = x + torch.tanh(xp["xattn"]["gate"]) * h
+            hh = layers.rmsnorm(x, xp["ln2"], cfg.norm_eps)
+            x = x + torch.tanh(xp["ffn_gate"]) * layers.swiglu(
+                hh, **xp["ffn"])
+            for i in range(g * k, (g + 1) * k):
+                x = _attn_ffn_decode(layer(blocks, i), cfg, x,
+                                     layer(cache["layers"], i), pos,
+                                     ops=ops)
+    elif fam == "encdec":
+        for i in range(cfg.n_layers):
+            xp = layer(params["cross_blocks"], i)
+            x = x + ops.cross(x, xp["ln"], xp["xattn"], cfg,
+                              cache["cross_k"][i], cache["cross_v"][i])
+            x = _attn_ffn_decode(layer(blocks, i), cfg, x,
+                                 layer(cache["layers"], i), pos, ops=ops)
+    else:
+        raise ValueError(fam)
+    return x
+
+
 def decode_step(params: Params, cfg: ModelConfig, cache: Params,
                 tokens: torch.Tensor, pos: torch.Tensor
                 ) -> Tuple[torch.Tensor, Params]:
-    """tokens (B, 1) int, pos (B,) int -> (logits (B,1,V) f32, cache)."""
-    fam = cfg.family
+    """tokens (B, 1) int, pos (B,) int -> (logits (B,1,V) f32, cache).
+    Parameters and a cache placed on a mesh step through
+    ``distributed/serve_spmd.py``."""
+    from repro_torch.distributed import serve_spmd
+    if serve_spmd.is_placed(params) or serve_spmd.is_placed(cache):
+        from repro_torch.models.registry import build
+        return serve_spmd.decode_step(build(cfg), params, cache, tokens,
+                                      pos)
     with full_fp32_matmul():
         params = cast_compute(params, cfg)
         x = _compute(params["embed"][tokens], cfg)
-        blocks = params["blocks"]
-        if fam in ("dense", "moe"):
-            for i in range(cfg.first_dense_layers):
-                x = _attn_ffn_decode(layer(params["dense_blocks"], i), cfg,
-                                     x, layer(cache["dense_layers"], i), pos)
-            for i in range(cfg.n_layers - cfg.first_dense_layers):
-                x = _attn_ffn_decode(layer(blocks, i), cfg, x,
-                                     layer(cache["layers"], i), pos,
-                                     fam == "moe")
-        elif fam in ("ssm", "hybrid"):
-            every = cfg.shared_attn_every
-            for i in range(cfg.n_layers):
-                if fam == "hybrid" and i % every == 0:
-                    x = _attn_ffn_decode(params["shared_block"], cfg, x,
-                                         layer(cache["shared"], i // every),
-                                         pos)
-                bp = layer(blocks, i)
-                h = layers.rmsnorm(x, bp["ln"], cfg.norm_eps)
-                y, _ = ssm.mamba2_decode(bp["mixer"], cfg, h,
-                                         layer(cache["layers"], i))
-                x = x + y
-        elif fam == "vlm":
-            k = cfg.cross_attn_every
-            for g in range(cfg.n_layers // k):
-                xp = layer(params["cross_blocks"], g)
-                h = _cross_decode(x, xp["ln"], xp["xattn"], cfg,
-                                  cache["cross_k"][g], cache["cross_v"][g])
-                x = x + torch.tanh(xp["xattn"]["gate"]) * h
-                hh = layers.rmsnorm(x, xp["ln2"], cfg.norm_eps)
-                x = x + torch.tanh(xp["ffn_gate"]) * layers.swiglu(
-                    hh, **xp["ffn"])
-                for i in range(g * k, (g + 1) * k):
-                    x = _attn_ffn_decode(layer(blocks, i), cfg, x,
-                                         layer(cache["layers"], i), pos)
-        elif fam == "encdec":
-            for i in range(cfg.n_layers):
-                xp = layer(params["cross_blocks"], i)
-                x = x + _cross_decode(x, xp["ln"], xp["xattn"], cfg,
-                                      cache["cross_k"][i],
-                                      cache["cross_v"][i])
-                x = _attn_ffn_decode(layer(blocks, i), cfg, x,
-                                     layer(cache["layers"], i), pos)
-        else:
-            raise ValueError(fam)
+        x = decode_layers(params, cfg, cache, x, pos)
         x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         return lm_logits(params, cfg, x), cache

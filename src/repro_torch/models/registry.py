@@ -61,14 +61,18 @@ class Model:
         return tfm.lm_logits(params, self.cfg, hidden)
 
     def init_cache(self, params: Params, batch: int, max_len: int,
-                   memory: Optional[torch.Tensor] = None) -> Params:
+                   memory: Optional[torch.Tensor] = None,
+                   shardings=None) -> Params:
+        """The decode cache; placed by ``shardings``
+        (``sharding.cache_shardings``), or by ``cache_pspecs`` on the
+        parameters' mesh where they are placed."""
         return decode_mod.init_cache(params, self.cfg, batch, max_len,
-                                     memory)
+                                     memory, shardings)
 
     def decode_step(self, params: Params, cache: Params,
                     tokens: torch.Tensor, pos: torch.Tensor):
+        """A placed tree and cache step through ``serve_spmd``."""
         return decode_mod.decode_step(params, self.cfg, cache, tokens, pos)
-
 
     # ------------------------------------------------------------------
     def batch_specs(self, shape: ShapeConfig) -> Dict[str, Any]:

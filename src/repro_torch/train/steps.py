@@ -12,6 +12,9 @@ gradient compression, then the optimizer.
 
 ``make_serve_step`` builds the one-token greedy decode step,
 ``make_prefill_step`` the forward over a prompt; both record no graph.
+Parameters and a cache placed on a mesh serve through
+``distributed/serve_spmd.py``: ``Model.decode_step`` routes them, and
+the prefill step does.
 
 The model is duck-typed as in the JAX package: ``model.init(generator)``
 returns a parameter tree (on the generator's device) and
@@ -152,5 +155,8 @@ def make_prefill_step(model) -> Callable:
 
     @torch.no_grad()
     def prefill_step(params, tokens, memory=None):
+        from repro_torch.distributed import serve_spmd
+        if serve_spmd.is_placed(params):
+            return serve_spmd.prefill_step(model, params, tokens, memory)
         return model.forward(params, tokens, memory)
     return prefill_step

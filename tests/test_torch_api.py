@@ -32,6 +32,16 @@ CONFIGS = {"fused": tuning.DEFAULT_FUSED, "staged": tuning.DEFAULT_STAGED,
                                         cout_block=8)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the smoke shapes gain nothing from more, and
+    test processes that run side by side would each take every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _isolated_port_tuning_cache(tmp_path):
     """Plans carry configs from the port's timing cache: keep it empty."""

@@ -32,6 +32,16 @@ SMALL_VGG = dict(stages=(1, 1), widths=(8, 16), image_size=16, n_classes=10)
 STEM_SMOKE = dict(name="stem-smoke", image_size=128, stem_kernel=7)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the smoke shapes gain nothing from more, and
+    test processes that run side by side would each take every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(name, **kw):
     """The same configuration in both packages."""
     base = {"smoke": "SMOKE_CNN", "vgg": "VGG16", "stem": "SMOKE_CNN"}[name]

@@ -45,6 +45,16 @@ X_SHAPE = (2, 13, 11, 5)
 COUT = 7
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the smoke shapes gain nothing from more, and
+    test processes that run side by side would each take every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _snapped(rng, shape):
     """Multiples of 1/16: B^T X B is exact in f32 in any summation order."""
     return (np.round(rng.randn(*shape) * 16) / 16).astype(np.float32)

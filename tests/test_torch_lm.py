@@ -65,6 +65,16 @@ WINDOWED = dict(name="window-smoke", family="dense", n_layers=2,
                 vocab_size=512, head_dim=16, qk_norm=True, sliding_window=5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the smoke shapes gain nothing from more, and
+    test processes that run side by side would each take every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _isolated():
     serving_cache.clear()

@@ -8,7 +8,8 @@ import pytest
 pytest.importorskip("torch")
 
 from test_torch_lm_grads import (FAMILIES, _isolated,  # noqa: E402,F401
-                                 archs, loss_gradients_match_jax)
+                                 _one_thread, archs,
+                                 loss_gradients_match_jax)
 
 
 @pytest.mark.parametrize("arch", archs(FAMILIES))

@@ -16,7 +16,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from test_torch_lm_spmd import (MESHES, _isolated,  # noqa: E402,F401
-                                check_against_jax, check_bitwise_one_row)
+                                _one_thread, check_against_jax,
+                                check_bitwise_one_row)
 
 import repro_torch.configs as configs  # noqa: E402
 from repro_torch.distributed import act_sharding  # noqa: E402

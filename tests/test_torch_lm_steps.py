@@ -47,6 +47,16 @@ FAMILY_ARCHS = {"dense": "stablelm-3b", "moe": "mixtral-8x7b",
 LR = 1e-3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the smoke shapes gain nothing from more, and
+    test processes that run side by side would each take every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _isolated(tmp_path):
     serving_cache.clear()

@@ -33,6 +33,16 @@ from repro_torch.testing import DEFAULT_TOL  # noqa: E402
 QUANTS = {"int8": (INT8_FREQ, JINT8_FREQ), "fp": (FP32, JFP32)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the smoke shapes gain nothing from more, and
+    test processes that run side by side would each take every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _isolated_port_tuning_cache(tmp_path):
     """Plans consult the port's timing cache: keep it empty and private."""

@@ -42,6 +42,16 @@ TOL = 1e-4
 MOE_ARCHS = ["deepseek-v3-671b", "mixtral-8x7b"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the smoke shapes gain nothing from more, and
+    test processes that run side by side would each take every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _isolated():
     yield

@@ -35,6 +35,16 @@ from repro_torch.models.registry import Model  # noqa: E402
 from repro_torch.serve import PromptStream, SlotLoop  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the smoke shapes gain nothing from more, and
+    test processes that run side by side would each take every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _stream(length, vocab=50, seed=0):
     """Prompt source with every prompt exactly ``length`` tokens."""
     return PromptStream(vocab, lengths=[length], seed=seed)

@@ -39,6 +39,16 @@ from repro_torch.tree import flatten_with_path  # noqa: E402
 LR = 1e-2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the smoke shapes gain nothing from more, and
+    test processes that run side by side would each take every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class CNNModel:
     """The port's CNN as ``make_train_step`` and ``Trainer`` take a model."""
 
