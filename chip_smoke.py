@@ -294,8 +294,9 @@ csrc`` at first use.  Phases, each of which raises on failure:
         median step ms, each card's peak against its state blocks, and the
         single-device reckoning; on one card a line says it did not run.
 
-  15. Sharded LM serving (``repro_torch.distributed.serve_spmd``), the
-     chain off, no call launching any of B1-B7:
+  15. Sharded LM serving (``repro_torch.distributed.serve_spmd``: each
+     weight block computes on its own coordinate), the chain off, no call
+     launching any of B1-B7:
      a. over meshes (1, 1), (2, 1), (1, 2), (2, 2) and (1, 4) (the
         visible GPUs where there are enough, else cuda:0 repeated), fp32:
         phi4-mini-3.8b, mamba2-1.3b, zamba2-1.2b at 2 layers, mixtral-8x7b
@@ -306,18 +307,24 @@ csrc`` at first use.  Phases, each of which raises on failure:
         unsharded step: (1, 1) bit for bit, else logits and final caches
         within 1e-5 rel L2 and the greedy tokens equal where the top-2
         margin exceeds 1e-3; every cache block in place, no cache byte
-        copied; phi4-mini's and mixtral's sharded prefill within 1e-5 of
-        the forward; bytes copied and wall ms a step; the same steps in
-        bf16 on (2, 2) and (1, 4) against the unsharded bf16 step (their
-        spread);
+        copied; the weight bytes copied exactly the data axes' all-gather
+        (0 on (1, m)); phi4-mini's and mixtral's sharded prefill within
+        1e-5 of the forward; bytes copied and wall ms a step; the same
+        steps in bf16 on (2, 2) and (1, 4) against the unsharded bf16 step
+        (their spread); deepseek-v3's first dense and first MoE layer (256
+        experts, 45.1 GB in fp32) likewise on (1, 1), (1, 2) and (1, 4),
+        its blocks views of the unsharded tree (no bf16 spread; (2, 1) and
+        (2, 2) do not fit one card);
      b. with four cards only: mixtral-8x7b at full depth on (1, 4) and
-        (2, 2), deepseek-v3 at 8 layers on (1, 4), bf16, served through
-        ``SlotLoop`` and ``GreedyStep`` (12 requests of 4-16 prompt tokens,
-        96 generated, batch 4, cache 128): tok/s, request p50 and p99, wall
-        ms and GB copied a step, peak GB a card; logits finite; mixtral's
-        8 fp32 steps from one seeded cache on each mesh within 1e-5 rel L2
-        of each other (bf16's, a finding); on one card a line says it did
-        not run.
+        (2, 2), deepseek-v3 at 12 layers (3 dense, 9 MoE) on (1, 4), bf16,
+        served through ``SlotLoop`` and ``GreedyStep`` (12 requests of 4-16
+        prompt tokens, 96 generated, batch 4, cache 128): tok/s, request
+        p50 and p99, wall ms and GB copied a step (weights exactly the data
+        axes' all-gather), peak GB a card placing, over the first steps and
+        serving; one traced step's host waits; logits finite; mixtral's 8
+        fp32 steps from one seeded cache on each mesh within 1e-5 rel L2 of
+        each other (bf16's, a finding); on one card a line says it did not
+        run.
 
 ``--sharded`` runs phases 10 and 10b alone (after the build), over the
 visible GPUs where a mesh has enough (on four cards, every mesh of up to
@@ -743,13 +750,17 @@ LM14_BF16_GRAD = 5e-2
 # repeated) against the unsharded decode_step on the card: (1, 1) bit for
 # bit (logits, final cache); elsewhere each step's logits and each final
 # cache entry, gathered, within LM15_REL rel L2, and the greedy tokens equal
-# wherever the unsharded top-2 margin exceeds LM15_MARGIN; LM15_PREFILL's
+# wherever the unsharded top-2 margin exceeds LM15_MARGIN; the weight bytes
+# copied a step exactly the data axes' all-gather (lm15_reckoned: 0 on one
+# data row, each block computing where it lies); LM15_PREFILL's
 # archs' sharded prefill within LM15_REL of model.forward (its MoE dispatch
 # in the mesh's data rows' chunks); bytes copied and wall ms a step; the
 # same steps in bf16 compute on LM15_BF16_MESHES against the unsharded bf16
-# step (findings: the spread).  15b (four cards only) LM15_BIG at full depth
-# (or as cut), bf16, served through SlotLoop + GreedyStep (LM15_SERVE):
-# tok/s, request p50 and p99, wall ms, GB copied a step, peak GB a card;
+# step (findings: the spread); LM15_MOE likewise on its meshes.  15b (four
+# cards only) LM15_BIG at full depth (or as cut), bf16, served through
+# SlotLoop + GreedyStep (LM15_SERVE): tok/s, request p50 and p99, wall ms,
+# GB copied a step against lm15_reckoned, peak GB a card after placement,
+# over the first steps and over the serving, one traced step's host waits;
 # logits finite; where an arch has two meshes, LM15_STEPS teacher-forced
 # steps from one seeded cache on each, in fp32 within LM15_REL rel L2 of
 # each other (in bf16 a finding: at depth bf16 rounding flips MoE routes
@@ -758,9 +769,8 @@ LM15_ARCHS = (("phi4-mini-3.8b", {"n_layers": 2}),
               ("mamba2-1.3b", {"n_layers": 2}),
               ("zamba2-1.2b", {"n_layers": 2}),   # one shared invocation
               ("mixtral-8x7b", {"n_layers": 1}),
-              # two of its dense MLA layers, as the dense family: the 45 GB
-              # fp32 MoE layer of LM12_CHECK, gathered beside its blocks,
-              # does not fit one card (its MoE is served in 15b)
+              # two of its dense MLA layers, as the dense family, on every
+              # mesh (its MoE layer: LM15_MOE)
               ("deepseek-v3-671b", {"family": "dense", "n_layers": 2,
                                     "first_dense_layers": 0,
                                     "mtp_depth": 0}),
@@ -768,6 +778,19 @@ LM15_ARCHS = (("phi4-mini-3.8b", {"n_layers": 2}),
                                         "cross_attn_every": 1}),
               ("whisper-tiny", {}))
 LM15_MESHES = ((1, 1), (2, 1), (1, 2), (2, 2), (1, 4))
+# deepseek-v3's first dense layer and its first MoE layer (256 experts:
+# 45.1 GB of fp32 experts, 54.4 GB the tree), its placed blocks views of
+# the unsharded tree where a block is a contiguous slice (the experts over
+# 'model'), so one card holds the layer once; the meshes of one data row
+LM15_MOE = ("deepseek-v3-671b", {"n_layers": 2, "first_dense_layers": 1,
+                                 "mtp_depth": 0}, ((1, 1), (1, 2), (1, 4)))
+LM15_MOE_NOT_RUN = {
+    "meshes": [[2, 1], [2, 2]],
+    "why": "a data row's all-gather of the layer's model block over 'data' "
+           "(45.1 GB on (2, 1), 22.6 GB on (2, 2)) and the data-cut blocks' "
+           "own copies do not fit one card beside the 54.4 GB tree; nor "
+           "does the unsharded bf16 step's 27 GB compute copy (no bf16 "
+           "spread)"}
 LM15_BF16_MESHES = ((2, 2), (1, 4))
 LM15_BATCH = 4
 LM15_STEPS = 8
@@ -779,7 +802,10 @@ LM15_PREFILL = (("phi4-mini-3.8b", 64), ("mixtral-8x7b", 64))
 LM15_REL = 1e-5
 LM15_MARGIN = 1e-3
 LM15_BIG = (("mixtral-8x7b", {}, ((1, 4), (2, 2))),
-            ("deepseek-v3-671b", {"n_layers": 8, "mtp_depth": 0},
+            # 3 dense + 9 MoE layers, 212 GB of bf16: ~53 GB of blocks a
+            # card; the MoE layer init_params draws whole (22.5 GB) sits on
+            # cuda:0 beside its blocks while it is placed
+            ("deepseek-v3-671b", {"n_layers": 12, "mtp_depth": 0},
              ((1, 4),)))
 LM15_SERVE = {"batch": 4, "max_len": 128, "requests": 12, "gen": 96,
               "prompts": (4, 16)}
@@ -3851,6 +3877,87 @@ def lm_sharded(dev, counted, smi) -> dict:
     return out
 
 
+# the entries of a parameter tree a decode step reads, less the cross K/V
+# projections (init_cache computes the cross cache from them)
+LM15_DECODE_KEYS = ("embed", "final_norm", "lm_head", "blocks",
+                    "dense_blocks", "cross_blocks", "shared_block")
+LM15_INIT_ONLY = {("cross_blocks", "xattn", "wk"),
+                  ("cross_blocks", "xattn", "wv")}
+
+
+def lm15_reckoned(placed, mesh, batch) -> int:
+    """The weight bytes one sharded decode step copies when each block
+    computes where it lies: each row that computes (every data row where
+    they divide the batch, else the first) gathers over the data axes
+    (D - 1) / D of each leaf it reads whose spec names 'data'; 0 on one
+    data row."""
+    from repro_torch import tree as tree_util
+    D = mesh.shape["data"]
+    rows = D if batch % D == 0 else 1
+    total = 0
+    for path, sh in tree_util.flatten_with_path(placed):
+        if path[0] not in LM15_DECODE_KEYS \
+                or tuple(path[-3:]) in LM15_INIT_ONLY:
+            continue
+        if any("data" in (e if isinstance(e, tuple) else (e,))
+               for e in sh.spec if e is not None):
+            nbytes = math.prod(sh.shape) * sh.shards.flat[0].element_size()
+            total += rows * nbytes * (D - 1) // D
+    return total
+
+
+def host_waits(fn, cards: int) -> dict:
+    """One ``fn`` call under ``torch.profiler`` (after a warm call): the
+    CUDA runtime calls that make the host wait (a synchronize, a blocking
+    memcpy) with their count and host µs, the trace's own synchronize of
+    each card at the end among them, the peer copies on the cards,
+    the host's time to enqueue the call against the wall time to its end
+    on every card, and each card's busy µs; ``not_measured`` where the
+    profiler does not trace the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def sync():
+        for i in range(cards):
+            torch.cuda.synchronize(i)
+    fn()
+    sync()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            enqueue_us = (time.perf_counter() - t0) * 1e6
+            sync()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = list(prof.events())
+    except Exception as e:     # the profiler may not trace this card
+        return {"not_measured": f"{type(e).__name__}: {e}"[:200]}
+    runtime, busy, copies = {}, {}, {}
+    for e in events:
+        dur = e.time_range.end - e.time_range.start
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy[e.device_index] = busy.get(e.device_index, 0.0) + dur
+            if "memcpy" in e.name.lower():
+                n, us = copies.get(e.name, (0, 0.0))
+                copies[e.name] = (n + 1, us + dur)
+        elif e.name.startswith("cuda"):
+            n, us = runtime.get(e.name, (0, 0.0))
+            runtime[e.name] = (n + 1, us + dur)
+    if not busy:
+        return {"not_measured": "the trace holds no device events"}
+    waits = {k: {"count": n, "host_us": us} for k, (n, us) in
+             runtime.items() if "Synchronize" in k
+             or k in ("cudaMemcpy", "cudaMemcpyPeer", "cudaMemcpy2D")}
+    return {"waits": waits,
+            "runtime": {k: {"count": n, "host_us": us}
+                        for k, (n, us) in sorted(runtime.items())},
+            "device_copies": {k: {"count": n, "us": us}
+                              for k, (n, us) in sorted(copies.items())},
+            "busy_us": {str(k): v for k, v in sorted(busy.items())},
+            "enqueue_us": enqueue_us, "wall_us": wall_us}
+
+
 def lm_serve_sharded(dev, counted, smi) -> dict:
     """Phase 15: the sharded serve and prefill steps (A16's serving half):
     decode caches placed by cache_pspecs, attention merged over a
@@ -3945,13 +4052,19 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
 
     class FiniteStep(GreedyStep):
         """``GreedyStep`` that also counts the non-finite logits it makes
-        (on the card, read once at the end)."""
+        (on the card, read once at the end) and the most memory each card
+        holds after a step (the allocator's count, read on the host)."""
         bad = None
+        held = None
 
         def logits(self, tok, pos):
             lg = super().logits(tok, pos)
             bad = (~torch.isfinite(lg)).sum()
             self.bad = bad if self.bad is None else self.bad + bad
+            now = [torch.cuda.memory_allocated(i) / 1e9
+                   for i in range(cards)]
+            self.held = now if self.held is None \
+                else [max(a, b) for a, b in zip(self.held, now)]
             return lg
 
     def big_serve(arch, cut, meshes, failures):
@@ -4000,6 +4113,14 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
                 dev)
             synchronize()
             init_s = time.perf_counter() - t0
+            # the peak while init_params draws a layer whole and places it,
+            # then what the blocks hold
+            placed_peaks = [torch.cuda.max_memory_allocated(i) / 1e9
+                            for i in range(cards)]
+            after_init = [torch.cuda.memory_allocated(i) / 1e9
+                          for i in range(cards)]
+            for i in range(cards):
+                torch.cuda.reset_peak_memory_stats(i)
             held, seen = [0] * cards, set()
             for sh in tree_util.leaves(placed):
                 for blk in sh.shards.flat:
@@ -4010,11 +4131,23 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
             shardings = sharding.cache_shardings(model, cache_shape, mesh)
             cache = model.init_cache(placed, B, L, shardings=shardings)
             fill(cache, seeded(shapes_of(cache), LM15_SEED + 9))
+            serve_spmd.reset_copied()
             got, check_ms = decoded(model, placed, cache, toks, pos0,
                                     f"{arch} {shape} bf16")
+            check_moved = serve_spmd.copied()
+            step_peaks = [torch.cuda.max_memory_allocated(i) / 1e9
+                          for i in range(cards)]
             check[str(shape)] = [lg.float().cpu() for lg in got]
             finite = all(bool(torch.isfinite(g).all()) for g in got)
+            # one step traced: does a cross-card copy make the host wait?
+            at = pos0 + LM15_STEPS
+            waits = host_waits(lambda: counted(
+                "lm_serve_sharded", f"{arch} {shape} traced step",
+                lambda: model.decode_step(placed, cache, toks[0], at),
+                want=none), cards)
             del cache, got
+            for i in range(cards):
+                torch.cuda.reset_peak_memory_stats(i)
             step = FiniteStep(model, placed,
                               model.init_cache(placed, B, L,
                                                shardings=shardings), dev)
@@ -4031,6 +4164,7 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
             peaks = [torch.cuda.max_memory_allocated(i) / 1e9
                      for i in range(cards)]
             bad = int(step.bad)
+            reckoned = lm15_reckoned(placed, mesh, B)
             lat = stats.latency_ms
             r = {"tok_per_s": stats.tok_per_s, "p50_ms": lat.percentile(50),
                  "p99_ms": lat.percentile(99), "steps": stats.steps,
@@ -4040,13 +4174,23 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
                  "check_step_ms": check_ms,
                  "copied_gb_a_step": {k: v / stats.steps / 1e9
                                       for k, v in moved.items()},
-                 "peak_gb": peaks, "blocks_gb": [h / 1e9 for h in held],
+                 "weights_reckoned_gb_a_step": reckoned / 1e9,
+                 "check_copied_gb_a_step": {k: v / LM15_STEPS / 1e9
+                                            for k, v in check_moved.items()},
+                 "peak_gb": peaks, "placed_peak_gb": placed_peaks,
+                 "after_init_gb": after_init, "steps_peak_gb": step_peaks,
+                 "blocks_gb": [h / 1e9 for h in held],
+                 "held_after_a_step_gb": step.held,
+                 "host_waits": waits,
                  "init_s": init_s, "nonfinite_logits": bad,
                  "check_finite": finite}
             row["meshes"][str(shape)] = r
+            log(f"lm15 serve record: {arch} {shape} " + json.dumps(r))
             del placed, step, loop
             lm_free()
-            if bad or not finite or moved["cache"]:
+            if bad or not finite or moved["cache"] \
+                    or moved["weights"] != stats.steps * reckoned \
+                    or check_moved["weights"] != LM15_STEPS * reckoned:
                 failures.append(f"{arch} {shape} served: {r}")
             log(f"lm15 serve: {arch} ({n / 1e9:.3f} B parameters, "
                 f"{cfg.n_layers} layers, bf16) on {shape} over {cards} "
@@ -4056,10 +4200,24 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
                 f"{r['step_ms']:.1f} ms a step, "
                 f"{r['copied_gb_a_step']['weights']:.2f} GB of weights and "
                 f"{r['copied_gb_a_step']['activations'] * 1e3:.3f} MB of "
-                f"activations copied a step; peak "
-                f"{', '.join(f'{v:.1f}' for v in peaks)} GB a card against "
+                f"activations copied a step (weights reckoned "
+                f"{reckoned / 1e9:.2f} GB); peak a card "
+                f"{', '.join(f'{v:.1f}' for v in placed_peaks)} GB placing, "
+                f"{', '.join(f'{v:.1f}' for v in step_peaks)} over the first "
+                f"{LM15_STEPS} steps, "
+                f"{', '.join(f'{v:.1f}' for v in peaks)} serving "
+                f"({', '.join(f'{v:.1f}' for v in r['held_after_a_step_gb'])}"
+                f" held after a "
+                f"step), against "
                 f"blocks {', '.join(f'{v:.1f}' for v in r['blocks_gb'])}; "
-                f"init {init_s:.1f} s")
+                f"init {init_s:.1f} s; a traced step: "
+                + (waits["not_measured"] if "not_measured" in waits else
+                   f"host waits {waits['waits'] or 'none'}, enqueued in "
+                   f"{waits['enqueue_us'] / 1e3:.1f} of "
+                   f"{waits['wall_us'] / 1e3:.1f} ms, busy "
+                   + ", ".join(f"{v / 1e3:.1f}"
+                               for v in waits["busy_us"].values())
+                   + " ms a card"))
         if len(meshes) > 1:
             rels = {name: [rel_l2(x.double(), y.double()) for x, y in zip(
                 *(got[str(m)] for m in meshes[:2]))]
@@ -4073,108 +4231,119 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
                 failures.append(f"{arch}: the meshes' fp32 logits {rels}")
         return row
 
-    try:
-        # ---- 15a. sharded fp32 decode against one device -----------------
-        for arch, cut in LM15_ARCHS:
-            t_arch = time.perf_counter()
-            cfg = dataclasses.replace(configs.get_config(arch),
-                                      compute_dtype="float32",
-                                      param_dtype="float32", **cut)
-            model = build(cfg)
-            B, L = LM15_BATCH, LM15_MAX_LEN.get(arch, LM15_LEN)
+    def check_arch(arch, cut, meshes, big=False):
+        """15a for one arch: the unsharded fp32 steps, then the same steps
+        on each of ``meshes``; with ``big`` the placed blocks are views of
+        the unsharded tree where a block is a contiguous slice, so a layer
+        no card holds twice is held once, and there is no bf16 spread."""
+        t_arch = time.perf_counter()
+        cfg = dataclasses.replace(configs.get_config(arch),
+                                  compute_dtype="float32",
+                                  param_dtype="float32", **cut)
+        model = build(cfg)
+        B, L = LM15_BATCH, LM15_MAX_LEN.get(arch, LM15_LEN)
+        lm_free()
+        with torch.no_grad():
+            params = model.init(torch.Generator(device=dev).manual_seed(
+                LM15_SEED), device=dev)
+            if cfg.family == "vlm":
+                set_gates(params)
+        memory = memory_of(cfg, B, LM15_SEED + 1)
+        toks = lm_tokens(cfg, (LM15_STEPS, B, 1), LM15_SEED + 2, dev)
+        pos0 = torch.tensor(LM15_STARTS.get(arch, LM15_START),
+                            dtype=torch.int32, device=dev)
+        cache_shape = ShapeConfig("decode", L, B, "decode")
+        n = sum(a.numel() for a in tree_util.leaves(params))
+        ref_cache = model.init_cache(params, B, L, memory)
+        values = seeded(shapes_of(ref_cache), LM15_SEED + 3)
+        fill(ref_cache, values)
+        ref, _ = decoded(model, params, ref_cache, toks, pos0,
+                         f"{arch} one device")
+        fp32 = [lg.clone() for lg in ref]
+        ref_final = [leaf.clone() for leaf in tree_util.leaves(ref_cache)]
+        # the step's time, warm: LM15_STEPS more from where it ended
+        _, ref_ms = decoded(model, params, ref_cache, toks,
+                            pos0 + LM15_STEPS, f"{arch} one device, warm")
+        ref_cache = None
+        top2 = [lg[:, 0].topk(2, dim=-1) for lg in ref]
+        row = {"params": n, "n_layers": cfg.n_layers,
+               "depth_cut": cut or None, "batch": B, "cache_len": L,
+               "starts": list(LM15_STARTS.get(arch, LM15_START)),
+               "one_device_ms": ref_ms, "meshes": [list(m) for m in meshes]}
+        forwards = {}
+        for shape in meshes:
+            mesh = mesh_of(shape)
+            shardings = serve_spmd.param_shardings(model, mesh)
+            placed = (sharding.tree_map_with_path(
+                lambda _, a, s: sharding.Sharded.place(a, s.spec, s.mesh),
+                params, shardings) if big
+                else sharding.place(params, shardings))
+            cache = model.init_cache(
+                placed, B, L, memory, shardings=sharding.cache_shardings(
+                    model, cache_shape, mesh))
+            fill(cache, values)
+            before = blocks_of(cache)
+            serve_spmd.reset_copied()
+            got, ms = decoded(model, placed, cache, toks, pos0,
+                              f"{arch} {shape}")
+            moved = serve_spmd.copied()
+            reckoned = lm15_reckoned(placed, mesh, B)
+            rels = [rel_l2(g, r) for g, r in zip(got, ref)]
+            finals = [(sh.gather(dev), leaf) for sh, leaf in zip(
+                tree_util.leaves(cache), ref_final)]
+            greedy_bad = sum(int(((g[:, 0].argmax(-1) != t.indices[:, 0])
+                                  & (t.values[:, 0] - t.values[:, 1]
+                                     > LM15_MARGIN)).sum())
+                             for g, t in zip(got, top2))
+            err = {"logits_rel": max(rels),
+                   "cache_rel": max(rel_l2(a, b) for a, b in finals),
+                   "bitwise": all(torch.equal(g, r)
+                                  for g, r in zip(got, ref))
+                   and all(torch.equal(a, b) for a, b in finals),
+                   "finite": all(bool(torch.isfinite(g).all())
+                                 for g in got),
+                   "greedy_mismatches": greedy_bad,
+                   "in_place": blocks_of(cache) == before,
+                   "step_ms": ms,
+                   "copied_a_step": {k: v / LM15_STEPS
+                                     for k, v in moved.items()},
+                   "weights_reckoned_a_step": reckoned}
+            del finals, got
+            if arch in dict(LM15_PREFILL):
+                T = dict(LM15_PREFILL)[arch]
+                ptoks = lm_tokens(cfg, (B, T), LM15_SEED + 4, dev)
+                rows = shape[0] if B % shape[0] == 0 else 1
+                if rows not in forwards:
+                    # the MoE dispatch in the data rows' chunks
+                    with torch.no_grad(), act_sharding.local(rows):
+                        forwards[rows] = counted(
+                            "lm_serve_sharded", f"{arch} forward",
+                            lambda: model.forward(params, ptoks, memory),
+                            want=none)
+                pre = counted(
+                    "lm_serve_sharded", f"{arch} {shape} prefill",
+                    lambda: make_prefill_step(model)(placed, ptoks,
+                                                     memory), want=none)
+                err["prefill_rel"] = rel_l2(pre, forwards[rows])
+                del pre
+            row[str(shape)] = err
+            del placed, cache
             lm_free()
-            with torch.no_grad():
-                params = model.init(torch.Generator(device=dev).manual_seed(
-                    LM15_SEED), device=dev)
-                if cfg.family == "vlm":
-                    set_gates(params)
-            memory = memory_of(cfg, B, LM15_SEED + 1)
-            toks = lm_tokens(cfg, (LM15_STEPS, B, 1), LM15_SEED + 2, dev)
-            pos0 = torch.tensor(LM15_STARTS.get(arch, LM15_START),
-                                dtype=torch.int32, device=dev)
-            cache_shape = ShapeConfig("decode", L, B, "decode")
-            n = sum(a.numel() for a in tree_util.leaves(params))
-            ref_cache = model.init_cache(params, B, L, memory)
-            values = seeded(shapes_of(ref_cache), LM15_SEED + 3)
-            fill(ref_cache, values)
-            ref, _ = decoded(model, params, ref_cache, toks, pos0,
-                             f"{arch} one device")
-            fp32 = [lg.clone() for lg in ref]
-            ref_final = [leaf.clone() for leaf in tree_util.leaves(ref_cache)]
-            # the step's time, warm: LM15_STEPS more from where it ended
-            _, ref_ms = decoded(model, params, ref_cache, toks,
-                                pos0 + LM15_STEPS, f"{arch} one device, warm")
-            ref_cache = None
-            top2 = [lg[:, 0].topk(2, dim=-1) for lg in ref]
-            row = {"params": n, "n_layers": cfg.n_layers,
-                   "depth_cut": cut or None, "batch": B, "cache_len": L,
-                   "starts": list(LM15_STARTS.get(arch, LM15_START)),
-                   "one_device_ms": ref_ms}
-            forwards = {}
-            for shape in LM15_MESHES:
-                mesh = mesh_of(shape)
-                placed = sharding.place(
-                    params, serve_spmd.param_shardings(model, mesh))
-                cache = model.init_cache(
-                    placed, B, L, memory, shardings=sharding.cache_shardings(
-                        model, cache_shape, mesh))
-                fill(cache, values)
-                before = blocks_of(cache)
-                serve_spmd.reset_copied()
-                got, ms = decoded(model, placed, cache, toks, pos0,
-                                  f"{arch} {shape}")
-                moved = serve_spmd.copied()
-                rels = [rel_l2(g, r) for g, r in zip(got, ref)]
-                finals = [(sh.gather(dev), leaf) for sh, leaf in zip(
-                    tree_util.leaves(cache), ref_final)]
-                greedy_bad = sum(int(((g[:, 0].argmax(-1) != t.indices[:, 0])
-                                      & (t.values[:, 0] - t.values[:, 1]
-                                         > LM15_MARGIN)).sum())
-                                 for g, t in zip(got, top2))
-                err = {"logits_rel": max(rels),
-                       "cache_rel": max(rel_l2(a, b) for a, b in finals),
-                       "bitwise": all(torch.equal(g, r)
-                                      for g, r in zip(got, ref))
-                       and all(torch.equal(a, b) for a, b in finals),
-                       "finite": all(bool(torch.isfinite(g).all())
-                                     for g in got),
-                       "greedy_mismatches": greedy_bad,
-                       "in_place": blocks_of(cache) == before,
-                       "step_ms": ms,
-                       "copied_a_step": {k: v / LM15_STEPS
-                                         for k, v in moved.items()}}
-                del finals, got
-                if arch in dict(LM15_PREFILL):
-                    T = dict(LM15_PREFILL)[arch]
-                    ptoks = lm_tokens(cfg, (B, T), LM15_SEED + 4, dev)
-                    rows = shape[0] if B % shape[0] == 0 else 1
-                    if rows not in forwards:
-                        # the MoE dispatch in the data rows' chunks
-                        with torch.no_grad(), act_sharding.local(rows):
-                            forwards[rows] = counted(
-                                "lm_serve_sharded", f"{arch} forward",
-                                lambda: model.forward(params, ptoks, memory),
-                                want=none)
-                    pre = counted(
-                        "lm_serve_sharded", f"{arch} {shape} prefill",
-                        lambda: make_prefill_step(model)(placed, ptoks,
-                                                         memory), want=none)
-                    err["prefill_rel"] = rel_l2(pre, forwards[rows])
-                    del pre
-                row[str(shape)] = err
-                del placed, cache
-                lm_free()
-                if not (err["finite"] and err["in_place"]
-                        and err["copied_a_step"]["cache"] == 0
-                        and err["greedy_mismatches"] == 0
-                        and (err["bitwise"] if shape == (1, 1)
-                             else err["logits_rel"] <= LM15_REL
-                             and err["cache_rel"] <= LM15_REL)
-                        and err.get("prefill_rel", 0.0) <= LM15_REL):
-                    raise AssertionError(f"{arch} {shape}: {err}")
-            del ref, ref_final, top2, forwards
-            lm_free()
+            if not (err["finite"] and err["in_place"]
+                    and moved["cache"] == 0
+                    and moved["weights"] == LM15_STEPS * reckoned
+                    and (reckoned == 0 or shape[0] > 1)
+                    and err["greedy_mismatches"] == 0
+                    and (err["bitwise"] if shape == (1, 1)
+                         else err["logits_rel"] <= LM15_REL
+                         and err["cache_rel"] <= LM15_REL)
+                    and err.get("prefill_rel", 0.0) <= LM15_REL):
+                raise AssertionError(f"{arch} {shape}: {err}")
+        del ref, ref_final, top2, forwards
+        lm_free()
 
+        spread = {}
+        if not big:
             # the same steps in bf16 compute: the spread sharding adds
             cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
             model16 = build(cfg16)
@@ -4201,30 +4370,45 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
                                          for g, r in zip(got, ref))
                 del placed, cache, got
                 lm_free()
-            out["bf16"][arch] = spread
-            del ref, ref_cache, params, memory, values, fp32
-            lm_free()
-            row["seconds"] = time.perf_counter() - t_arch
-            out["check"][arch] = row
-            log(f"lm15 check: {arch} fp32 at {cfg.n_layers} layers "
-                f"({n / 1e9:.3f} B parameters), batch {B}, cache {L}, "
-                f"{LM15_STEPS} steps from {row['starts']}, one device "
-                f"{ref_ms:.1f} ms a step; "
-                + "; ".join(
-                    f"{shape} " + ("bit for bit" if row[str(shape)]["bitwise"]
-                                   else f"logits {row[str(shape)]['logits_rel']:.1e}, "
-                                   f"cache {row[str(shape)]['cache_rel']:.1e}")
-                    + (f", prefill {row[str(shape)]['prefill_rel']:.1e}"
-                       if "prefill_rel" in row[str(shape)] else "")
-                    + f", {row[str(shape)]['step_ms']:.1f} ms, "
-                    f"{row[str(shape)]['copied_a_step']['weights'] / 1e9:.3f}"
-                    f" GB weights + "
-                    f"{row[str(shape)]['copied_a_step']['activations'] / 1e6:.3f}"
-                    f" MB activations a step"
-                    for shape in LM15_MESHES)
-                + "; bf16 against one device's bf16: "
-                + ", ".join(f"{k} {v:.2e}" for k, v in spread.items())
-                + f"; {row['seconds']:.1f} s")
+            del ref, ref_cache
+        del params, memory, values, fp32
+        lm_free()
+        row["seconds"] = time.perf_counter() - t_arch
+        log(f"lm15 check: {arch} fp32 at {cfg.n_layers} layers "
+            f"({cfg.family}, {n / 1e9:.3f} B parameters), batch {B}, cache "
+            f"{L}, {LM15_STEPS} steps from {row['starts']}, one device "
+            f"{ref_ms:.1f} ms a step; "
+            + "; ".join(
+                f"{shape} " + ("bit for bit" if row[str(shape)]["bitwise"]
+                               else f"logits {row[str(shape)]['logits_rel']:.1e}, "
+                               f"cache {row[str(shape)]['cache_rel']:.1e}")
+                + (f", prefill {row[str(shape)]['prefill_rel']:.1e}"
+                   if "prefill_rel" in row[str(shape)] else "")
+                + f", {row[str(shape)]['step_ms']:.1f} ms, "
+                f"{row[str(shape)]['copied_a_step']['weights'] / 1e9:.3f}"
+                f" GB weights (reckoned "
+                f"{row[str(shape)]['weights_reckoned_a_step'] / 1e9:.3f}) + "
+                f"{row[str(shape)]['copied_a_step']['activations'] / 1e6:.3f}"
+                f" MB activations a step"
+                for shape in meshes)
+            + ("; bf16 against one device's bf16: "
+               + ", ".join(f"{k} {v:.2e}" for k, v in spread.items())
+               if spread else "; no bf16 spread (the unsharded bf16 "
+               "step's compute copy does not fit beside the fp32 tree)")
+            + f"; {row['seconds']:.1f} s")
+        return row, spread
+
+    try:
+        # ---- 15a. sharded fp32 decode against one device -----------------
+        for arch, cut in LM15_ARCHS:
+            out["check"][arch], out["bf16"][arch] = check_arch(
+                arch, cut, LM15_MESHES)
+        arch, cut, meshes = LM15_MOE
+        out["check"][f"{arch} moe"], _ = check_arch(arch, cut, meshes,
+                                                    big=True)
+        out["check"][f"{arch} moe"]["not_run"] = LM15_MOE_NOT_RUN
+        log(f"lm15 check: {arch}'s MoE layer not run on "
+            f"{LM15_MOE_NOT_RUN['meshes']}: {LM15_MOE_NOT_RUN['why']}")
         worst = max(v for s in out["bf16"].values() for k, v in s.items()
                     if k.startswith("("))
         out["bf16_worst"] = worst

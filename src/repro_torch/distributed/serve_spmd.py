@@ -4,49 +4,92 @@ model) mesh, in one process.
 
 The JAX dry run jits the decode step with the parameters placed by
 ``params_pspecs``, the cache placed by ``cache_pspecs`` and donated, and
-the tokens and positions over the batch axes (``launch/dryrun.py``); the
-softmax over the sequence-sharded key axis lowers to an all-reduce of the
-online max and sum.  The port has no compiler to do that, so this module
-does it by hand, in the single-controller design of the sharded train
-step (``lm_spmd``): one process drives every block, each on its mesh
-coordinate's device, and a mesh may repeat one device.
+the tokens and positions over the batch axes (``launch/dryrun.py``);
+GSPMD computes each weight block where it lies (tensor parallel over
+``'model'``: heads, FFN columns, vocab; expert parallel where the expert
+count divides the axis) and the softmax over the sequence-sharded key
+axis lowers to an all-reduce of the online max and sum.  The port has no
+compiler to do that, so this module does it by hand, in the
+single-controller design of the sharded train step (``lm_spmd``): one
+process drives every block, each on its mesh coordinate's device, and a
+mesh may repeat one device.
 
-  * **Weights are gathered at use** onto each data row's first coordinate
-    (``lm_spmd._Leaf.gather``): a stacked leaf layer by layer where the
-    layer runs, the others once a step.  Each data row runs the unsharded
-    layer walk (``decode.decode_layers``) on its slice of the batch, rows
-    in ascending order; a batch the data axes do not divide is computed
-    whole by the first row.
+A data row is one coordinate of the data axes and its line of
+``'model'`` coordinates; each row runs the unsharded layer walk
+(``decode.decode_layers``) on its slice of the batch, rows in ascending
+order (a batch the data axes do not divide is computed whole by the
+first row), with the operations of :class:`_Ops`:
+
+  * **Weights are computed where they lie** (:func:`decode_step`).  A
+    leaf whose sanitized spec keeps ``'model'`` runs on each of its model
+    blocks' coordinates, (row, m): coordinate (r, m) gathers only its own
+    model block over the data axes, from the coordinates (r', m) of the
+    other rows (a stacked leaf layer by layer, the others once a step),
+    so on one data row no weight byte moves.  A leaf that ``'model'``
+    does not cut runs at the row's first coordinate, gathered over the
+    data axes there.  No model-split leaf is ever gathered whole.  Per
+    layer only per-token tensors move:
+
+      - the embedding's vocab blocks look up their tokens (zeros
+        elsewhere) and the row sums them; the head's vocab columns go to
+        the mesh's first coordinate, joined in order;
+      - attention: each ``wq`` head block's query comes back to the row,
+        joined; ``wk``, ``wv`` (replicated over ``'model'``) run at the
+        row; each ``wo`` head block takes its heads' output and returns a
+        partial (B, 1, d);
+      - MLA: ``wq_a``, ``wq_b``, ``wkv_a`` column blocks, joined;
+        ``wkv_b``'s blocks absorb their columns of ``w_uk`` into the
+        query (a head cut by a block edge is summed over its blocks) and
+        of ``w_uv`` into the output; ``wo`` row blocks return partials;
+      - SwiGLU (dense, shared expert, the vlm's cross FFN) and the SSM's
+        ``in_proj`` / ``out_proj``: column blocks, then row blocks (where
+        they line up, the hidden columns stay on their coordinate);
+        ``in_proj``'s columns come back to the row, where
+        ``[z | xBC | dt]`` is cut again;
+      - MoE: the row routes (``router`` runs there) and sends each block
+        its tokens and the sorted dispatch; expert parallel blocks run
+        their experts' rows, tensor parallel ones their ``f`` slice of
+        every expert; the rows come back and the row combines them in the
+        unsharded order;
+      - partial sums are added at the row's first coordinate in ascending
+        block order, with no atomics, so a step replays bit for bit; the
+        residual stream stays there.
+
   * **A cache block is read and written only on its own device**; no
     cache block is gathered or copied.  Per layer the step moves only
     per-token tensors:
 
-      - attention (``attention.decode_attention``, ``mla.mla_decode``,
-        ``decode._cross_decode``): the row's query and the step's new key
-        and value (or latent and RoPE key) go to each ``'model'`` block's
-        device; the block whose slot range holds the step's slot writes it
-        in place; each block returns its partial max, sum and weighted
-        values over its valid keys (global slot indices, the ring buffer's
-        rule too), and the row merges them in ascending block order (a
-        block with no valid key: max -inf, sum 0);
+      - attention (``attention.decode_attend``, ``mla.latent_attend``,
+        ``decode.cross_attend``): the row's joined query and the step's
+        new key and value (or latent and RoPE key) go to each ``'model'``
+        block's device; the block whose slot range holds the step's slot
+        writes it in place; each block returns its partial max, sum and
+        weighted values over its valid keys (global slot indices, the
+        ring buffer's rule too), and the row merges them in ascending
+        block order (a block with no valid key: max -inf, sum 0);
       - SSM (``ssm.mamba2_decode``): each ``conv`` block convolves its
-        channels' window, each ``state`` block updates its heads and
-        returns their ``y``; the row computes the projections, the gate,
-        the norm and the output projection;
+        channels' window with ``conv_w``'s block on its coordinate, each
+        ``state`` block updates its heads and returns their ``y``; the
+        row computes the gate and the norm;
       - a block that a sanitized spec replicates onto another device is
         written there from the same per-token tensors.
 
     Where a layer's cache is one block, read and written only at the
-    row's coordinate, the unsharded code runs unchanged on it.
-  * The logits come back to the mesh's first device in batch order; the
-    cache is updated in place (the JAX step donates it).
+    row's coordinate, the unsharded attention runs on it.
+  * The logits come to the mesh's first device in batch order; the cache
+    is updated in place (the JAX step donates it).
+
+:func:`prefill_step` and the encoder and cross K/V of :func:`init_cache`
+still gather each layer whole onto the row's first device at use: they
+run ``model.forward``, the training forward, whose split over
+``'model'`` belongs with the sharded train step's.
 
 :func:`copied` counts the bytes the steps move between mesh coordinates,
-as ``weights``, ``activations`` and ``cache``; the cache's count stays 0.
-On a mesh of distinct devices these are device copies; on a mesh that
-repeats one device, the copies the same mesh would make over distinct
-ones.  Compute over the model axis (tensor and expert parallel) is not
-here: each layer is gathered whole onto its row's device.
+as ``weights``, ``activations`` and ``cache``; the cache's count stays 0,
+and a decode step's weights are the all-gather over the data axes of its
+model-split and data-split leaves.  On a mesh of distinct devices these
+are device copies; on a mesh that repeats one device, the copies the same
+mesh would make over distinct ones.
 """
 from __future__ import annotations
 
@@ -61,13 +104,13 @@ from repro_torch import tree as tree_util
 from repro_torch.core.precision import full_fp32_matmul
 from repro_torch.distributed import act_sharding
 from repro_torch.distributed.lm_spmd import (_compute_coords, _empty_stack,
-                                             _Leaf, _Placer)
+                                             _Leaf, _Placer, _StackSink)
 from repro_torch.distributed.sharding import (
     _STACK_KEYS, NamedSharding, Sharded, _axes, batch_axes, cache_pspecs,
     params_pspecs, sanitize_pspec, sanitized_shardings, tree_map_with_path)
 from repro_torch.models import attention as attn
 from repro_torch.models import decode as decode_mod
-from repro_torch.models import layers, mla
+from repro_torch.models import layers, mla, moe
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import dtype_of
 
@@ -117,9 +160,26 @@ def init_params(model, seed: int, shardings, device):
     """``Model.init``'s parameters from a generator on ``device`` seeded
     with ``seed``, each entry placed by ``shardings`` as it is drawn
     (a stack layer by layer): the unsharded draws, whose whole tree no
-    device need hold."""
+    device need hold; beside the blocks ``device`` holds one drawn layer
+    at a time."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    return tfm.init_lm(gen, model.cfg, placer=_Placer(shardings))
+    return tfm.init_lm(gen, model.cfg, placer=_ServePlacer(shardings))
+
+
+class _ServePlacer(_Placer):
+    """``lm_spmd._Placer`` whose stacks keep the first layer's structure
+    and not its tensors: ``_StackSink`` holds the first drawn layer until
+    the stack is done, one whole layer beside the blocks on the drawing
+    device (22.5 GB for a bf16 deepseek-v3 MoE layer)."""
+
+    def stack(self, key, n):
+        return _ShapeSink(self, key, n)
+
+
+class _ShapeSink(_StackSink):
+    def add(self, i: int, layer) -> None:
+        super().add(i, layer)
+        self.like = tree_util.tree_map(lambda a: a.to("meta"), self.like)
 
 
 # --------------------------------------------------------------------------
@@ -139,11 +199,26 @@ class _Row:
 
     def __init__(self, mesh, coord, index: int):
         self.mesh, self.coord, self.index = mesh, tuple(coord), index
+        self._once: Dict[tuple, object] = {}
         self.device = mesh.device(coord)
         self.origin = (0,) * len(mesh.axis_names)
+        self.model_axis = mesh.axis_names.index("model")
         keep = [i for i, a in enumerate(mesh.axis_names) if a != "model"]
         self.line = {c for c in mesh.coords()
                      if all(c[i] == self.coord[i] for i in keep)}
+
+    def once(self, key: tuple, make):
+        """``make()``, made once a step (a row lives one step): what every
+        layer derives alike from the step's positions."""
+        if key not in self._once:
+            self._once[key] = make()
+        return self._once[key]
+
+    def at(self, m: int) -> Tuple[int, ...]:
+        """The row's coordinate at index ``m`` of ``'model'``."""
+        c = list(self.coord)
+        c[self.model_axis] = m
+        return tuple(c)
 
     def send(self, t, src, dst, kind="activations"):
         if tuple(src) != tuple(dst):
@@ -179,10 +254,76 @@ class _Row:
             t.pinned_by = pin
         return t
 
+    def model_block(self, leaf: _Leaf, index, m: int, dtype
+                    ) -> torch.Tensor:
+        """Block ``m`` along ``'model'`` of a model-split leaf (layer
+        ``index`` of a stacked one) on coordinate ``at(m)``, in ``dtype``
+        (floating leaves): its blocks over the data axes, those the
+        coordinate does not hold copied from the coordinates that do."""
+        at = self.at(m)
+        device = self.mesh.device(at)
+        d = _model_dim(leaf) + (1 if leaf.stacked else 0)
+        if all(at in coords for idx, coords in leaf.unique.items()
+               if idx[d] == m):
+            # the coordinate holds its model block whole
+            t = leaf.sh.shards[at]
+            t = t if index is None else t[index]
+            return t.to(dtype) if t.is_floating_point() else t
+        parts = {}
+        for idx, coords in leaf.unique.items():
+            if idx[d] != m:
+                continue
+            b = leaf._copy(coords, device)
+            b = b if index is None else b[index]
+            if at not in coords:
+                _COPIED["weights"] += b.numel() * b.element_size()
+            parts[idx[1:] if leaf.stacked else idx] = b.to(device)
+        t = _join(parts)
+        return t.to(dtype) if t.is_floating_point() else t
+
+    def blocks(self, w, dim: int) -> List["_Blk"]:
+        """A weight's blocks along its dimension ``dim``, each on its
+        coordinate: a plain tensor (the row's own) or a leaf that
+        ``'model'`` does not cut is one block at the row."""
+        if isinstance(w, torch.Tensor):
+            return [_Blk(0, w.shape[dim], self.coord, w)]
+        if w.dim is None:
+            (c, t), = w.blocks()
+            return [_Blk(0, t.shape[dim], c, t)]
+        if w.dim != dim:
+            raise ValueError(f"a leaf cut over 'model' on its dimension "
+                             f"{w.dim}, where the step cuts its dimension "
+                             f"{dim}")
+        out, lo = [], 0
+        for c, t in w.blocks():
+            out.append(_Blk(lo, lo + t.shape[dim], c, t))
+            lo += t.shape[dim]
+        return out
+
+    def weight(self, leaf: _Leaf, index, dtype):
+        """A leaf (layer ``index`` of a stacked one) in a decode step: the
+        row's own tensor where the whole mesh holds it alike, else a
+        :class:`_W`, whose blocks are fetched where an operation takes
+        them."""
+        if all(e is None for e in leaf.core):
+            return self.gather(leaf, index, dtype)
+        return _W(self, leaf, index, dtype)
+
+    def weights(self, leaves, dtype, keys):
+        """The row's parameter tree for a decode step over ``keys``
+        (:meth:`weight`; a stacked leaf's layer where indexed)."""
+        def use(leaf):
+            if leaf.stacked:
+                return _Indexed(self, leaf, dtype)
+            return self.weight(leaf, None, dtype)
+        return {k: tree_util.tree_map(use, leaves[k]) for k in keys
+                if k in leaves}
+
     def tree(self, leaves, dtype, keys):
-        """The row's parameter tree over ``keys``: stacked leaves gathered
-        a layer at a time where indexed (:class:`_Layers`), the others
-        now."""
+        """The row's parameter tree over ``keys``, each leaf whole on the
+        row's device (the prefill's and the encoder's gather at use):
+        stacked leaves gathered a layer at a time where indexed
+        (:class:`_Layers`), the others now."""
         def use(leaf):
             if leaf.stacked:
                 return _Layers(leaf, self, dtype)
@@ -216,6 +357,177 @@ def _param_leaves(params):
     return tree_map_with_path(
         lambda path, sh: _Leaf(sh, any(k in _STACK_KEYS for k in path)),
         params)
+
+
+# --------------------------------------------------------------------------
+# weights where they lie, per-token tensors between coordinates
+# --------------------------------------------------------------------------
+def _model_dim(leaf: _Leaf) -> Optional[int]:
+    """The dimension of the leaf's layer (the stack axis dropped) that
+    ``'model'`` cuts; None where it cuts none."""
+    for d, e in enumerate(leaf.core):
+        if "model" in _axes(e):
+            if e != "model":
+                raise ValueError(f"a dimension cut over {e}: the step "
+                                 f"splits a dimension over 'model' alone")
+            return d
+    return None
+
+
+def _join(parts: Dict[Tuple[int, ...], torch.Tensor]) -> torch.Tensor:
+    """Blocks keyed by their block index (the indices of each dimension
+    consecutive), joined along each dimension in order."""
+    keys = list(parts)
+    ndim = len(keys[0])
+    lo = [min(k[d] for k in keys) for d in range(ndim)]
+    hi = [max(k[d] for k in keys) for d in range(ndim)]
+
+    def join(prefix, d):
+        if d == ndim:
+            return parts[prefix]
+        cut = [join(prefix + (i,), d + 1) for i in range(lo[d], hi[d] + 1)]
+        return cut[0] if len(cut) == 1 else torch.cat(cut, dim=d)
+    return join((), 0)
+
+
+class _Blk(NamedTuple):
+    """A block of a tensor: its extent lo..hi along the cut dimension, its
+    coordinate, and the block."""
+    lo: int
+    hi: int
+    coord: Tuple[int, ...]
+    t: torch.Tensor
+
+
+class _Indexed:
+    """A stacked leaf in a row's decode tree: indexing it gives the
+    layer's weight (``transformer.layer``, :meth:`_Row.weight`)."""
+
+    def __init__(self, row: _Row, leaf: _Leaf, dtype):
+        self.row, self.leaf, self.dtype = row, leaf, dtype
+
+    def __getitem__(self, i: int):
+        return self.row.weight(self.leaf, i, self.dtype)
+
+
+class _W:
+    """A parameter leaf (layer ``index`` of a stacked one) that a decode
+    step computes where it lies: cut by ``'model'`` along ``dim``, its
+    model blocks each on its own coordinate (:meth:`_Row.model_block`);
+    ``dim`` None, the leaf whole at the row (gathered over the data axes).
+    The blocks are fetched once, where an operation first takes them."""
+
+    def __init__(self, row: _Row, leaf: _Leaf, index, dtype):
+        self.row, self.leaf, self.index, self.dtype = row, leaf, index, dtype
+        self.dim = _model_dim(leaf)
+        self._blocks = None
+
+    def blocks(self) -> List[Tuple[Tuple[int, ...], torch.Tensor]]:
+        if self._blocks is None:
+            row = self.row
+            if self.dim is None:
+                self._blocks = [(row.coord, row.gather(
+                    self.leaf, self.index, self.dtype))]
+            else:
+                self._blocks = [
+                    (row.at(m), row.model_block(self.leaf, self.index, m,
+                                                self.dtype))
+                    for m in range(row.mesh.shape["model"])]
+        return self._blocks
+
+
+class _Cut:
+    """A per-token tensor (or a weight's blocks, ``kind`` ``weights``) of
+    extent n along ``axis``, held as pieces on mesh coordinates.
+    :meth:`take` gives its extent lo..hi on a coordinate: the piece that
+    lies there as it is, else the slices of the pieces it covers, sent
+    there (once each)."""
+
+    def __init__(self, row: _Row, pieces: List[_Blk], axis: int = -1,
+                 kind: str = "activations"):
+        self.row, self.pieces, self.axis, self.kind = row, pieces, axis, kind
+        self.n = pieces[-1].hi
+        self._sent: Dict[tuple, torch.Tensor] = {}
+
+    @classmethod
+    def at_row(cls, row: _Row, t: torch.Tensor, axis: int = -1) -> "_Cut":
+        return cls(row, [_Blk(0, t.shape[axis], row.coord, t)], axis)
+
+    def take(self, lo: int, hi: int, coord) -> torch.Tensor:
+        key = (lo, hi, tuple(coord))
+        if key not in self._sent:
+            parts = []
+            for p in self.pieces:
+                a, b = max(lo, p.lo), min(hi, p.hi)
+                if a < b:
+                    t = p.t if (a, b) == (p.lo, p.hi) \
+                        else p.t.narrow(self.axis, a - p.lo, b - a)
+                    parts.append(self.row.send(t, p.coord, coord, self.kind))
+            self._sent[key] = parts[0] if len(parts) == 1 \
+                else torch.cat(parts, dim=self.axis)
+        return self._sent[key]
+
+    def whole(self) -> torch.Tensor:
+        """Joined at the row."""
+        return self.take(0, self.n, self.row.coord)
+
+
+def _head_runs(lo: int, hi: int, width: int):
+    """The flat columns lo..hi of a (heads, width) layout as runs (h0, h1,
+    e0, e1, c0): heads h0..h1, columns e0..e1 of each, from column c0 of
+    the block; whole heads run together, a head cut by an edge alone."""
+    runs, j = [], lo
+    while j < hi:
+        h, e = divmod(j, width)
+        if e == 0 and hi - j >= width:
+            n = (hi - j) // width
+            runs.append((h, h + n, 0, width, j - lo))
+            j += n * width
+        else:
+            e1 = min(width, e + hi - j)
+            runs.append((h, h + 1, e, e1, j - lo))
+            j += e1 - e
+    return runs
+
+
+def _run_cols(t: torch.Tensor, run) -> torch.Tensor:
+    """A run's columns of a block (r, cols) as (r, heads, e1 - e0)."""
+    h0, h1, e0, e1, c0 = run
+    n = (h1 - h0) * (e1 - e0)
+    return t[:, c0:c0 + n].reshape(t.shape[0], h1 - h0, e1 - e0)
+
+
+def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return a @ w
+
+
+def _same_cut(*cuts: List[_Blk]) -> bool:
+    first = [(b.lo, b.hi, b.coord) for b in cuts[0]]
+    return all([(b.lo, b.hi, b.coord) for b in c] == first for c in cuts)
+
+
+def _expert_rows(x, route, w_gate, w_up, w_down, e0: int, n_e: int,
+                 E: int, C: int) -> torch.Tensor:
+    """The sorted dispatch's rows (``route``: expert, token, kept, slot)
+    through experts e0..e0 + n_e of one block (``models.moe``'s grouped
+    products, on the block's whole experts or its ``f`` slice of them):
+    (T * k, d), zero at the rows of other experts."""
+    se, st, keep, slot = route[0], route[1], route[2].bool(), route[3]
+    mine = (se >= e0) & (se < e0 + n_e)
+    local = torch.where(mine, se - e0, n_e)
+    # the others' rows and the dropped ones land in a spare expert or
+    # slot, cut off after
+    grouped = torch.zeros((n_e + 1, C + 1, x.shape[1]), dtype=x.dtype,
+                          device=x.device)
+    grouped[local, torch.where(keep & mine, slot, C)] = x[st]
+    grouped = grouped[:n_e, :C]
+    h = F.silu(torch.bmm(grouped, w_gate)) * torch.bmm(grouped, w_up)
+    y = torch.bmm(h, w_down)
+    rows = y[torch.where(mine, local, 0), slot]
+    if n_e == E:
+        return rows
+    return torch.where(mine[:, None], rows, torch.zeros((), dtype=y.dtype,
+                                                        device=y.device))
 
 
 # --------------------------------------------------------------------------
@@ -389,118 +701,371 @@ def _valid(offset: int, n: int, pos, length: int, ring: bool):
 
 
 class _Ops(decode_mod.DecodeOps):
-    """``decode.DecodeOps`` over a placed cache, for one row."""
+    """``decode.DecodeOps`` over weights and a cache placed on a mesh, for
+    one row (the module's docstring)."""
 
     def __init__(self, row: _Row):
         self.row = row
 
-    def _write(self, part: _Part, new: torch.Tensor, slot: torch.Tensor):
-        """``new`` (B, ...) at global slots ``slot`` into each copy of the
-        block, on the copy's device, where the slot falls in its range."""
+    # ---- products by block ----------------------------------------------
+    def _cols(self, w, x: _Cut, fn=_mm, dim: int = 1,
+              axis: int = -1) -> _Cut:
+        """``fn(x, block)`` for each block of ``w`` along ``dim`` (its
+        output columns) on the block's coordinate: the output's pieces."""
+        return _Cut(self.row, [_Blk(b.lo, b.hi, b.coord,
+                                    fn(x.take(0, x.n, b.coord), b.t))
+                               for b in self.row.blocks(w, dim)], axis)
+
+    def _rows(self, w, x: _Cut, fn=_mm, dim: int = 0,
+              limit: Optional[int] = None) -> torch.Tensor:
+        """``fn(x's slice, block)`` for each block of ``w`` along ``dim``
+        (its input rows, up to ``limit`` of them) on the block's
+        coordinate; the partial sums added at the row in ascending block
+        order."""
+        row, out = self.row, None
+        for b in row.blocks(w, dim):
+            hi = b.hi if limit is None else min(b.hi, limit)
+            if hi <= b.lo:
+                continue
+            t = b.t if hi == b.hi else b.t.narrow(dim, 0, hi - b.lo)
+            part = row.send(fn(x.take(b.lo, hi, b.coord), t), b.coord,
+                            row.coord)
+            out = part if out is None else out + part
+        return out
+
+    def _whole(self, w) -> torch.Tensor:
+        """A leaf ``'model'`` does not cut, at the row."""
+        blocks = self.row.blocks(w, 0 if getattr(w, "dim", None) is None
+                                 else w.dim)
+        if len(blocks) != 1:
+            raise ValueError("a leaf cut over 'model' where the step takes "
+                             "it whole")
+        b = blocks[0]
+        return self.row.send(b.t, b.coord, self.row.coord, "weights")
+
+    def _heads(self, w, x: _Cut) -> torch.Tensor:
+        """x @ w (d, n, hd) by w's head blocks, joined at the row:
+        (B, 1, n, hd)."""
+        return self._cols(w, x, attn._heads, dim=1, axis=2).whole()
+
+    def _heads_out(self, wo, cfg, o: torch.Tensor) -> torch.Tensor:
+        """``attention.attention_output``: o (B, Hkv, g, hd) through wo
+        (Hq_pad, hd, d) by its head blocks (padded heads take none)."""
+        B = o.shape[0]
+        o = o.reshape(B, 1, -1, cfg.head_dim)
+        return self._rows(
+            wo, _Cut.at_row(self.row, o, axis=2),
+            lambda a, t: a.reshape(B, 1, -1) @ t.reshape(-1, t.shape[-1]),
+            limit=o.shape[2])
+
+    # ---- the embedding and the head ---------------------------------------
+    def embed(self, w, tok: torch.Tensor) -> torch.Tensor:
+        """tok (B, 1) at the row -> (B, 1, d): each vocab block looks up
+        the tokens in its range, zeros elsewhere; the row sums them."""
+        row, out = self.row, None
+        blocks = row.blocks(w, 0)
+        for b in blocks:
+            local = row.to(tok, b.coord) - b.lo
+            e = b.t[local.clamp(0, b.hi - b.lo - 1)]
+            if len(blocks) > 1:
+                inside = (local >= 0) & (local < b.hi - b.lo)
+                e = torch.where(inside[..., None], e, torch.zeros(
+                    (), dtype=e.dtype, device=e.device))
+            part = row.send(e, b.coord, row.coord)
+            out = part if out is None else out + part
+        return out
+
+    def logits(self, tree, cfg, x: torch.Tensor) -> torch.Tensor:
+        """``transformer.lm_logits`` by the head's vocab blocks, each on
+        its coordinate, joined on the mesh's first coordinate."""
+        row = self.row
+        if cfg.tie_embeddings:
+            blocks = row.blocks(tree["embed"], 0)
+            fn = lambda a, t: a @ t.T.to(a.dtype)              # noqa: E731
+        else:
+            blocks = row.blocks(tree["lm_head"], 1)
+            fn = lambda a, t: a @ t.to(a.dtype)                # noqa: E731
+        xc = _Cut.at_row(row, x)
+        parts = [row.send(fn(xc.take(0, xc.n, b.coord), b.t).float(),
+                          b.coord, row.origin) for b in blocks]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+    # ---- FFNs ---------------------------------------------------------
+    def ffn(self, p, h):
+        """``layers.swiglu``: the hidden columns on ``w_gate``'s and
+        ``w_up``'s blocks, through ``w_down``'s row blocks."""
+        row = self.row
+        gate, up = row.blocks(p["w_gate"], 1), row.blocks(p["w_up"], 1)
+        if not _same_cut(gate, up):
+            raise ValueError("w_gate and w_up are cut apart over 'model'")
+        x = _Cut.at_row(row, h)
+        hidden = []
+        for g, u in zip(gate, up):
+            xs = x.take(0, x.n, g.coord)
+            hidden.append(_Blk(g.lo, g.hi, g.coord,
+                               F.silu(xs @ g.t) * (xs @ u.t)))
+        return self._rows(p["w_down"], _Cut(row, hidden))
+
+    def moe(self, p, cfg, h):
+        """``moe.moe_block`` at capacity T (lossless): the row routes; each
+        block runs its experts (expert parallel) or its ``f`` slice of
+        every expert (tensor parallel) on the dispatch's rows; the row
+        adds the rows' partials in block order and combines them."""
+        row = self.row
+        B, S, d = h.shape
+        E, k = cfg.n_experts, cfg.n_experts_active
+        T = B * S
+        xt = h.reshape(T, d)
+        ds = act_sharding.data_shards()
+        ds = ds if T % ds == 0 else 1
+        Tl = T // ds
+        C = max(int(Tl * k / E * (cfg.n_experts / cfg.n_experts_active)), 1)
+        tp = getattr(p["w_gate"], "dim", None) == 2
+        dims = (2, 2, 1) if tp else (0, 0, 0)
+        gate, up, down = (row.blocks(p[n], dm) for n, dm in
+                          zip(("w_gate", "w_up", "w_down"), dims))
+        if not _same_cut(gate, up, down):
+            raise ValueError("the experts' leaves are cut apart over "
+                             "'model'")
+        router = self._whole(p["router"])
+        outs = []
+        for s in range(ds):
+            xs = xt[s * Tl:(s + 1) * Tl]
+            probs = torch.softmax((xs @ router).float(), dim=-1)
+            gate_vals, expert_ids = moe._top_k(probs, k)
+            gate_vals = gate_vals / torch.sum(gate_vals, dim=-1,
+                                              keepdim=True)
+            idx = moe.dispatch(expert_ids, gate_vals, E, k, C)
+            route = torch.stack([idx[0], idx[1], idx[3].long(), idx[4]])
+            rows = None
+            for g, u, w in zip(gate, up, down):
+                e0, n_e = (0, E) if tp else (g.lo, g.hi - g.lo)
+                part = _expert_rows(row.to(xs, g.coord),
+                                    row.to(route, g.coord), g.t, u.t, w.t,
+                                    e0, n_e, E, C)
+                part = row.send(part, g.coord, row.coord)
+                rows = part if rows is None else rows + part
+            outs.append(moe.combine_rows(rows, idx, Tl, k, d, xt.dtype))
+        out = outs[0] if ds == 1 else torch.cat(outs)
+        if cfg.n_shared_experts:
+            out = out + self.ffn(p["shared"], xt)
+        return out.reshape(B, S, d)
+
+    # ---- attention ------------------------------------------------------
+    def _pos(self, pos, c) -> torch.Tensor:
+        """The step's positions on coordinate ``c`` (sent once a step)."""
+        return self.row.once(("pos", c), lambda: self.row.to(pos, c))
+
+    def _slots(self, pos, part: _Part, c, length: int, ring: bool):
+        """Where the step's entry falls in a block (offset, n) on ``c``:
+        (rows, local slot, inside (B,)), made once a step."""
         n = part.read.shape[1]
+
+        def make():
+            local = _slot(self._pos(pos, c), length, ring) - part.offset
+            return (torch.arange(local.shape[0], device=local.device),
+                    local.clamp(0, n - 1), (local >= 0) & (local < n))
+        return self.row.once(("slots", c, part.offset, n, length, ring),
+                             make)
+
+    def _valid(self, pos, part: _Part, length: int, ring: bool):
+        """The keys of a block its query sees, on the block's coordinate,
+        made once a step."""
+        n, c = part.read.shape[1], part.coord
+        return self.row.once(
+            ("valid", c, part.offset, n, length, ring),
+            lambda: _valid(part.offset, n, self._pos(pos, c), length, ring))
+
+    def _write(self, part: _Part, new, pos, length: int, ring: bool):
+        """The step's entry (B, ...), ``new(c)`` on coordinate ``c``, at
+        the step's slots into each copy of the block, on the copy's
+        device, where the slot falls in its range."""
         for c, blk in part.writes:
-            nd, sd = self.row.to(new, c), self.row.to(slot, c)
-            local = sd - part.offset
-            inside = ((local >= 0) & (local < n)).view(
-                (-1,) + (1,) * (nd.dim() - 1))
-            at = local.clamp(0, n - 1)
-            rows = torch.arange(blk.shape[0], device=blk.device)
+            nd = new(c)
+            rows, at, inside = self._slots(pos, part, c, length, ring)
+            inside = inside.view((-1,) + (1,) * (nd.dim() - 1))
             blk[rows, at] = torch.where(inside, nd.to(blk.dtype),
                                         blk[rows, at])
 
+    def _partial(self, m, l, o, c):
+        """A block's (max, sum, weighted values) back at the row in one
+        copy (float32, as ``_merge`` takes them)."""
+        t = self.row.send(torch.cat([m[..., None], l[..., None], o.float()],
+                                    dim=-1), c, self.row.coord)
+        return t[..., 0], t[..., 1], t[..., 2:]
+
     def attention(self, p, cfg, h, cache_l, pos):
+        x = _Cut.at_row(self.row, h)
+        q, k, v = attn.finish_qkv(p, cfg, self._heads(p["wq"], x),
+                                  self._heads(p["wk"], x),
+                                  self._heads(p["wv"], x), pos[:, None])
         kb, vb = cache_l["k"], cache_l["v"]
         if kb.alone() and vb.alone():
-            return decode_mod.DecodeOps.attention(
-                p, cfg, h, {"k": kb.parts[0].read, "v": vb.parts[0].read},
-                pos)
+            o = attn.decode_attend(cfg, q, k, v, {"k": kb.parts[0].read,
+                                                  "v": vb.parts[0].read},
+                                   pos)
+            return self._heads_out(p["wo"], cfg, o)
         B = h.shape[0]
-        q, k, v = attn._project_qkv(p, cfg, h, pos[:, None])
         length, ring = kb.shape[1], bool(cfg.sliding_window)
-        slot = _slot(pos, length, ring)
         hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        qg = q[:, :, :hq, :].reshape(B, 1, hkv, hq // hkv, hd)
+        qg = _Cut.at_row(self.row, q[:, :, :hq, :].reshape(
+            B, 1, hkv, hq // hkv, hd))
+        kv = _Cut.at_row(self.row, torch.stack([k[:, 0], v[:, 0]]), axis=0)
         partials = []
         for pk, pv in zip(kb.parts, vb.parts):
-            self._write(pk, k[:, 0], slot)
-            self._write(pv, v[:, 0], slot)
+            self._write(pk, lambda c: kv.take(0, 2, c)[0], pos, length, ring)
+            self._write(pv, lambda c: kv.take(0, 2, c)[1], pos, length, ring)
             kc, vc, c = pk.read, pv.read, pk.coord
-            qd, posd = self.row.to(qg, c), self.row.to(pos, c)
-            s = torch.einsum("bqhgd,bkhd->bhgk", qd.float(),
+            s = torch.einsum("bqhgd,bkhd->bhgk", qg.take(0, qg.n, c).float(),
                              kc.float()) / np.sqrt(hd)
-            valid = _valid(pk.offset, kc.shape[1], posd, length, ring)
+            valid = self._valid(pos, pk, length, ring)
             m, w, l = _softmax_part(s, valid[:, None, None, :])
             o = torch.einsum("bhgk,bkhd->bhgd", w.to(vc.dtype), vc)
-            partials.append(self.row.back((m, l, o), c))
+            partials.append(self._partial(m, l, o, c))
         o = _merge(partials).to(vb.parts[0].read.dtype)
-        return attn.attention_output(p, cfg, o[:, None])
+        return self._heads_out(p["wo"], cfg, o)
+
+    def _absorb_q(self, w, cfg, q_nope: torch.Tensor) -> torch.Tensor:
+        """q_eff (B, H, kr) = q_nope (B, H, dn) against ``w_uk``, by
+        ``wkv_b``'s column blocks; a head cut by a block edge is summed
+        over its blocks in order."""
+        row = self.row
+        B, H, dn = q_nope.shape
+        width = dn + cfg.v_head_dim
+        pieces = []
+        for b in row.blocks(w, 1):
+            runs = [r for r in _head_runs(b.lo, b.hi, width) if r[2] < dn]
+            if not runs:
+                continue
+            h_lo, h_hi = runs[0][0], runs[-1][1]
+            qc = row.to(q_nope[:, h_lo:h_hi], b.coord)
+            for r in runs:
+                h0, h1, e0, e1, _ = r
+                eu = min(e1, dn)
+                piece = torch.einsum(
+                    "bhd,rhd->bhr", qc[:, h0 - h_lo:h1 - h_lo, e0:eu],
+                    _run_cols(b.t, r)[..., :eu - e0])
+                pieces.append((h0, h1, row.send(piece, b.coord, row.coord)))
+        if len(pieces) == 1:
+            return pieces[0][2]
+        out = torch.zeros((B, H, pieces[0][2].shape[-1]),
+                          dtype=pieces[0][2].dtype, device=row.device)
+        for h0, h1, t in pieces:
+            out[:, h0:h1] += t
+        return out
+
+    def _absorb_o(self, w, cfg, o_lat: torch.Tensor) -> torch.Tensor:
+        """o (B, H, dv) = o_lat (B, H, kr) through ``w_uv``, by
+        ``wkv_b``'s column blocks, each giving its heads' columns."""
+        row = self.row
+        B, H, _ = o_lat.shape
+        dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
+        pieces = []
+        for b in row.blocks(w, 1):
+            runs = [r for r in _head_runs(b.lo, b.hi, dn + dv) if r[3] > dn]
+            if not runs:
+                continue
+            h_lo, h_hi = runs[0][0], runs[-1][1]
+            oc = row.to(o_lat[:, h_lo:h_hi], b.coord)
+            for r in runs:
+                h0, h1, e0, e1, _ = r
+                ev = max(e0, dn)
+                piece = torch.einsum("bhr,rhd->bhd",
+                                     oc[:, h0 - h_lo:h1 - h_lo],
+                                     _run_cols(b.t, r)[..., ev - e0:])
+                pieces.append((h0, h1, ev - dn, e1 - dn,
+                               row.send(piece, b.coord, row.coord)))
+        if len(pieces) == 1:
+            return pieces[0][4]
+        out = torch.empty((B, H, dv), dtype=pieces[0][4].dtype,
+                          device=row.device)
+        for h0, h1, a, z, t in pieces:
+            out[:, h0:h1, a:z] = t
+        return out
 
     def mla(self, p, cfg, h, cache_l, pos):
+        row = self.row
+        B, H, dv = h.shape[0], cfg.n_heads, cfg.v_head_dim
+        x = _Cut.at_row(row, h)
+        q_lat = layers.rmsnorm(self._cols(p["wq_a"], x).whole(),
+                               p["q_a_norm"], cfg.norm_eps)
+        q_nope, q_rope = mla.q_heads(
+            cfg, self._cols(p["wq_b"], _Cut.at_row(row, q_lat)).whole(),
+            pos[:, None])
+        c_new, r_new = mla.kv_latent(p, cfg, self._cols(p["wkv_a"],
+                                                        x).whole(),
+                                     pos[:, None])
+        q_eff = self._absorb_q(p["wkv_b"], cfg, q_nope[:, 0])
         cb, rb = cache_l["c_kv"], cache_l["k_rope"]
         if cb.alone() and rb.alone():
-            return decode_mod.DecodeOps.mla(
-                p, cfg, h, {"c_kv": cb.parts[0].read,
-                            "k_rope": rb.parts[0].read}, pos)
-        B, H = h.shape[0], cfg.n_heads
-        dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, \
-            cfg.v_head_dim
-        q_nope, q_rope = mla._mla_q(p, cfg, h, pos[:, None])
-        c_new, r_new = mla._mla_kv_latent(p, cfg, h, pos[:, None])
-        length = cb.shape[1]
-        slot = _slot(pos, length, False)
-        w_uk, w_uv = mla._split_wkv_b(p, cfg)
-        q_eff = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w_uk)
-        partials = []
-        for pc, pr in zip(cb.parts, rb.parts):
-            self._write(pc, c_new[:, 0], slot)
-            self._write(pr, r_new[:, 0], slot)
-            cc, rc, c = pc.read, pr.read, pc.coord
-            qe, qr, posd = (self.row.to(t, c)
-                            for t in (q_eff, q_rope[:, 0], pos))
-            s = (torch.einsum("bhr,bkr->bhk", qe.float(), cc.float())
-                 + torch.einsum("bhd,bkd->bhk", qr.float(), rc.float())) \
-                / np.sqrt(dn + dr)
-            valid = _valid(pc.offset, cc.shape[1], posd, length, False)
-            m, w, l = _softmax_part(s, valid[:, None, :])
-            o = torch.einsum("bhk,bkr->bhr", w.to(cc.dtype), cc)
-            partials.append(self.row.back((m, l, o), c))
-        o_lat = _merge(partials).to(cb.parts[0].read.dtype)
-        o = torch.einsum("bhr,rhd->bhd", o_lat, w_uv)
-        return o.reshape(B, 1, H * dv) @ p["wo"]
+            o_lat = mla.latent_attend(
+                cfg, q_eff, q_rope[:, 0], c_new, r_new,
+                {"c_kv": cb.parts[0].read, "k_rope": rb.parts[0].read}, pos)
+        else:
+            dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+            kr = cfg.kv_lora_rank
+            length = cb.shape[1]
+            # the query's latent and RoPE parts, and the step's latent and
+            # RoPE key, each in one copy a coordinate
+            q = _Cut.at_row(row, torch.cat([q_eff, q_rope[:, 0].to(
+                q_eff.dtype)], dim=-1))
+            new = _Cut.at_row(row, torch.cat([c_new[:, 0], r_new[:, 0].to(
+                c_new.dtype)], dim=-1))
+            partials = []
+            for pc, pr in zip(cb.parts, rb.parts):
+                self._write(pc, lambda c: new.take(0, new.n, c)[..., :kr],
+                            pos, length, False)
+                self._write(pr, lambda c: new.take(0, new.n, c)[..., kr:],
+                            pos, length, False)
+                cc, rc, c = pc.read, pr.read, pc.coord
+                qc = q.take(0, q.n, c)
+                s = (torch.einsum("bhr,bkr->bhk", qc[..., :kr].float(),
+                                  cc.float())
+                     + torch.einsum("bhd,bkd->bhk", qc[..., kr:].float(),
+                                    rc.float())) / np.sqrt(dn + dr)
+                valid = self._valid(pos, pc, length, False)
+                m, w, l = _softmax_part(s, valid[:, None, :])
+                o = torch.einsum("bhk,bkr->bhr", w.to(cc.dtype), cc)
+                partials.append(self._partial(m, l, o, c))
+            o_lat = _merge(partials).to(cb.parts[0].read.dtype)
+        o = self._absorb_o(p["wkv_b"], cfg, o_lat)
+        return self._rows(p["wo"], _Cut.at_row(row, o.reshape(B, 1, H * dv)))
 
     def cross(self, x, ln, xattn, cfg, ck, cv):
-        if ck.one() and cv.one():
-            return decode_mod._cross_decode(x, ln, xattn, cfg,
-                                            ck.parts[0].read,
-                                            cv.parts[0].read)
-        B = x.shape[0]
-        hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         h = layers.rmsnorm(x, ln, cfg.norm_eps)
-        qg = attn._heads(h, xattn["wq"])[:, :, :hq, :].reshape(
-            B, 1, hkv, hq // hkv, hd)
+        qg = decode_mod.cross_query(
+            cfg, self._heads(xattn["wq"], _Cut.at_row(self.row, h)))
+        if ck.one() and cv.one():
+            o = decode_mod.cross_attend(cfg, qg, ck.parts[0].read,
+                                        cv.parts[0].read)
+            return self._heads_out(xattn["wo"], cfg, o)
         partials = []
         for pk, pv in zip(ck.parts, cv.parts):
             kc, vc, c = pk.read, pv.read, pk.coord
             s = torch.einsum("bqhgd,bkhd->bhgk", self.row.to(qg, c).float(),
-                             kc.float()) / np.sqrt(hd)
+                             kc.float()) / np.sqrt(cfg.head_dim)
             m, w, l = _softmax_part(s, None)
             o = torch.einsum("bhgk,bkhd->bhgd", w.to(vc.dtype), vc)
-            partials.append(self.row.back((m, l, o), c))
+            partials.append(self._partial(m, l, o, c))
         o = _merge(partials).to(cv.parts[0].read.dtype)
-        return attn.attention_output(xattn, cfg, o[:, None])
+        return self._heads_out(xattn["wo"], cfg, o)
 
+    # ---- SSM ------------------------------------------------------------
     def mamba(self, p, cfg, h, cache_l):
+        """``ssm.mamba2_decode``: ``in_proj``'s columns joined and cut
+        again at the row into [z | xBC | dt]; each ``conv`` block with
+        ``conv_w``'s channels on its coordinate; each ``state`` block's
+        heads; the gate and norm at the row; ``out_proj``'s row
+        blocks."""
         st, cv = cache_l["state"], cache_l["conv"]
-        if st.alone() and cv.alone():
-            return decode_mod.DecodeOps.mamba(
-                p, cfg, h, {"state": st.parts[0].read,
-                            "conv": cv.parts[0].read})
         row = self.row
         B = h.shape[0]
         di, N, H, P = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads,
                        cfg.ssm_headdim)
-        zxbcdt = (h @ p["in_proj"])[:, 0]
+        zxbcdt = self._cols(p["in_proj"], _Cut.at_row(row, h)).whole()[:, 0]
         z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * N, H], dim=-1)
+        conv_w = _Cut(row, row.blocks(p["conv_w"], 1), axis=1,
+                      kind="weights")
         outs = []
         for part in cv.parts:            # the conv over its channels
             lo, C = part.offset, part.read.shape[2]
@@ -508,7 +1073,7 @@ class _Ops(decode_mod.DecodeOps):
                 xd = row.to(xbc[:, lo:lo + C], c)
                 window = torch.cat([blk, xd[:, None, :].to(blk.dtype)], dim=1)
                 if j == 0:
-                    w = row.to(p["conv_w"][:, lo:lo + C], c, "weights")
+                    w = conv_w.take(lo, lo + C, c)
                     out = torch.einsum("brc,rc->bc", window,
                                        w.to(window.dtype))
                 blk.copy_(window[:, 1:, :])
@@ -535,7 +1100,7 @@ class _Ops(decode_mod.DecodeOps):
         y = torch.cat(ys, dim=1) + p["D"][None, :, None] * xh
         y = (y.reshape(B, di) * F.silu(z)).to(h.dtype)
         y = layers.rmsnorm(y, p["norm"], cfg.norm_eps)
-        return (y @ p["out_proj"])[:, None, :]
+        return self._rows(p["out_proj"], _Cut.at_row(row, y))[:, None, :]
 
 
 # --------------------------------------------------------------------------
@@ -545,7 +1110,9 @@ def decode_step(model, params, cache, tokens: torch.Tensor,
                 pos: torch.Tensor):
     """tokens (B, 1) int, pos (B,) int over placed ``params`` and
     ``cache`` -> (logits (B, 1, V) f32 on the mesh's first device, the
-    cache, updated in place)."""
+    cache, updated in place).  Each weight block computes on its own
+    coordinate; only per-token tensors and the data axes' all-gather of
+    a row's model blocks move (the module's docstring)."""
     cfg = model.cfg
     if not (is_placed(params) and is_placed(cache)):
         raise ValueError("the sharded decode step takes parameters and a "
@@ -568,22 +1135,24 @@ def decode_step(model, params, cache, tokens: torch.Tensor,
             full_fp32_matmul():
         for r, coord in enumerate(_compute_coords(mesh, n)):
             row = _Row(mesh, coord, r)
-            tree = row.tree(leaves, cdtype, _DECODE_KEYS)
+            ops = _Ops(row)
+            tree = row.weights(leaves, cdtype, _DECODE_KEYS)
             tok = row.take(tokens[r * b:(r + 1) * b])
             at = row.take(pos[r * b:(r + 1) * b])
-            x = tfm._compute(tree["embed"][tok], cfg)
+            x = tfm._compute(ops.embed(tree["embed"], tok), cfg)
             x = decode_mod.decode_layers(tree, cfg, row.cache(cache), x, at,
-                                         _Ops(row))
+                                         ops)
             x = layers.rmsnorm(x, tree["final_norm"], cfg.norm_eps)
-            out.append(row.give(tfm.lm_logits(tree, cfg, x)))
+            out.append(ops.logits(tree, cfg, x))
     return (out[0] if len(out) == 1 else torch.cat(out)), cache
 
 
 def prefill_step(model, params, tokens: torch.Tensor,
                  memory: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``model.forward`` over placed ``params``: each data row's slice of
-    the batch on its device, weights gathered at use; the logits on the
-    mesh's first device in batch order."""
+    the batch on its device, each layer gathered whole onto it at use
+    (the training forward's split over ``'model'`` is not ported yet);
+    the logits on the mesh's first device in batch order."""
     if not is_placed(params):
         raise ValueError("the sharded prefill step takes parameters placed "
                          "on a mesh")

@@ -77,7 +77,14 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _project_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
                  rope: bool = True):
     """Returns q (B,S,Hq_pad,hd), k (B,S,Hkv,hd), v (B,S,Hkv,hd)."""
-    q, k, v = _heads(x, p["wq"]), _heads(x, p["wk"]), _heads(x, p["wv"])
+    return finish_qkv(p, cfg, _heads(x, p["wq"]), _heads(x, p["wk"]),
+                      _heads(x, p["wv"]), positions, rope)
+
+
+def finish_qkv(p: Params, cfg, q, k, v, positions: torch.Tensor,
+               rope: bool = True):
+    """The projected heads' bias, norm and RoPE (per head, so a step that
+    projects the heads block by block finishes them joined)."""
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if cfg.qk_norm:
@@ -265,13 +272,21 @@ def decode_attention(p: Params, cfg, x: torch.Tensor, cache: Params,
     Writes this step's K and V into ``cache`` in place (the JAX launcher
     donates its cache to the step) and returns it.
     """
-    B = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x, pos[:, None])
+    o = decode_attend(cfg, q, k, v, cache, pos)
+    return attention_output(p, cfg, o[:, None]), cache
+
+
+def decode_attend(cfg, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  cache: Params, pos: torch.Tensor) -> torch.Tensor:
+    """The step's k, v (B, 1, Hkv, hd) written into ``cache`` at ``pos``,
+    then q's (B, 1, Hq_pad, hd) attention over it: o (B, Hkv, g, hd)."""
+    B = q.shape[0]
     length = cache["k"].shape[1]
     slot = (pos % length) if cfg.sliding_window else pos
     # a start past the end clamps, as lax.dynamic_update_slice's does
     slot = torch.clamp(slot, max=length - 1).long()
-    rows = torch.arange(B, device=x.device)
+    rows = torch.arange(B, device=q.device)
     cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
     cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
     k_cache, v_cache = cache["k"], cache["v"]
@@ -280,7 +295,7 @@ def decode_attention(p: Params, cfg, x: torch.Tensor, cache: Params,
     qg = q[:, :, :hq, :].reshape(B, 1, hkv, groups, hd)
     s = torch.einsum("bqhgd,bkhd->bhgk", qg.float(),
                      k_cache.float()) / np.sqrt(hd)
-    idx = torch.arange(length, device=x.device)[None, :]
+    idx = torch.arange(length, device=q.device)[None, :]
     if cfg.sliding_window:
         # ring buffer: once pos >= length every slot holds a key from the
         # window; before that only slots [0, pos] have been written
@@ -289,8 +304,7 @@ def decode_attention(p: Params, cfg, x: torch.Tensor, cache: Params,
         valid = idx <= pos[:, None]
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     pattn = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgk,bkhd->bhgd", pattn.to(v_cache.dtype), v_cache)
-    return attention_output(p, cfg, o[:, None]), cache
+    return torch.einsum("bhgk,bkhd->bhgd", pattn.to(v_cache.dtype), v_cache)
 
 
 # --------------------------------------------------------------------------

@@ -118,22 +118,32 @@ def init_cache(params: Params, cfg: ModelConfig, batch: int, max_len: int,
 
 def _cross_decode(x, ln, xattn, cfg, ck, cv):
     """One-token cross-attention against precomputed memory K/V."""
-    B = x.shape[0]
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    g = hq // hkv
     h = layers.rmsnorm(x, ln, cfg.norm_eps)
-    qg = attn._heads(h, xattn["wq"])[:, :, :hq, :].reshape(B, 1, hkv, g, hd)
-    s = torch.einsum("bqhgd,bkhd->bhgk", qg.float(), ck.float()) \
-        / np.sqrt(hd)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgk,bkhd->bhgd", p.to(cv.dtype), cv)
+    o = cross_attend(cfg, cross_query(cfg, attn._heads(h, xattn["wq"])),
+                     ck, cv)
     return attn.attention_output(xattn, cfg, o[:, None])
 
 
+def cross_query(cfg, q: torch.Tensor) -> torch.Tensor:
+    """q (B, 1, Hq_pad, hd) -> its heads by KV group (B, 1, Hkv, g, hd)."""
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    return q[:, :, :hq, :].reshape(q.shape[0], 1, hkv, hq // hkv,
+                                   cfg.head_dim)
+
+
+def cross_attend(cfg, qg, ck, cv) -> torch.Tensor:
+    """qg (B, 1, Hkv, g, hd) over the memory's K/V: o (B, Hkv, g, hd)."""
+    s = torch.einsum("bqhgd,bkhd->bhgk", qg.float(), ck.float()) \
+        / np.sqrt(cfg.head_dim)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgk,bkhd->bhgd", p.to(cv.dtype), cv)
+
+
 class DecodeOps:
-    """The step's operations on a layer's caches, here in place over
-    plain tensors; ``distributed/serve_spmd.py`` gives the same operations
-    over a cache placed on a mesh."""
+    """The step's operations on a layer's weights and caches, here over
+    plain tensors (the caches updated in place); ``distributed/
+    serve_spmd.py`` gives the same operations over weights and a cache
+    placed on a mesh."""
 
     @staticmethod
     def attention(p, cfg, h, cache_l, pos):
@@ -151,6 +161,16 @@ class DecodeOps:
     def cross(x, ln, xattn, cfg, ck, cv):
         return _cross_decode(x, ln, xattn, cfg, ck, cv)
 
+    @staticmethod
+    def ffn(p, h):
+        return layers.swiglu(h, **p)
+
+    @staticmethod
+    def moe(p, cfg, h):
+        # serving must not drop tokens: capacity == T (lossless dispatch)
+        return moe.moe_block(
+            p, cfg, h, capacity_factor=cfg.n_experts / cfg.n_experts_active)[0]
+
 
 LOCAL = DecodeOps()
 
@@ -164,13 +184,7 @@ def _attn_ffn_decode(bp, cfg, x, cache_l, pos, use_moe: bool = False,
         a = ops.attention(bp["attn"], cfg, h, cache_l, pos)
     x = x + a
     h = layers.rmsnorm(x, bp["ln2"], cfg.norm_eps)
-    if use_moe:
-        # serving must not drop tokens: capacity == T (lossless dispatch)
-        f, _ = moe.moe_block(
-            bp["ffn"], cfg, h,
-            capacity_factor=cfg.n_experts / cfg.n_experts_active)
-    else:
-        f = layers.swiglu(h, **bp["ffn"])
+    f = ops.moe(bp["ffn"], cfg, h) if use_moe else ops.ffn(bp["ffn"], h)
     return x + f
 
 
@@ -210,8 +224,7 @@ def decode_layers(params: Params, cfg: ModelConfig, cache: Params,
                           cache["cross_k"][g], cache["cross_v"][g])
             x = x + torch.tanh(xp["xattn"]["gate"]) * h
             hh = layers.rmsnorm(x, xp["ln2"], cfg.norm_eps)
-            x = x + torch.tanh(xp["ffn_gate"]) * layers.swiglu(
-                hh, **xp["ffn"])
+            x = x + torch.tanh(xp["ffn_gate"]) * ops.ffn(xp["ffn"], hh)
             for i in range(g * k, (g + 1) * k):
                 x = _attn_ffn_decode(layer(blocks, i), cfg, x,
                                      layer(cache["layers"], i), pos,

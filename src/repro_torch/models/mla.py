@@ -42,11 +42,16 @@ def init_mla(generator, cfg, dtype) -> Params:
 
 
 def _mla_q(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
-    B, S, _ = x.shape
-    H = cfg.n_heads
-    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     q_lat = layers.rmsnorm(x @ p["wq_a"], p["q_a_norm"], cfg.norm_eps)
-    q = (q_lat @ p["wq_b"]).reshape(B, S, H, dn + dr)
+    return q_heads(cfg, q_lat @ p["wq_b"], positions)
+
+
+def q_heads(cfg, q: torch.Tensor, positions: torch.Tensor):
+    """The query's product (B, S, H * (dn + dr)) -> q_nope, q_rope (RoPE
+    applied)."""
+    B, S, _ = q.shape
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = q.reshape(B, S, cfg.n_heads, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = layers.apply_rope(q_rope, positions, cfg.rope_theta)
     return q_nope, q_rope
@@ -54,7 +59,11 @@ def _mla_q(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
 
 def _mla_kv_latent(p: Params, cfg, x: torch.Tensor,
                    positions: torch.Tensor):
-    kv_a = x @ p["wkv_a"]
+    return kv_latent(p, cfg, x @ p["wkv_a"], positions)
+
+
+def kv_latent(p: Params, cfg, kv_a: torch.Tensor, positions: torch.Tensor):
+    """The latent's product (B, S, kr + dr) -> c_kv (normed), k_rope."""
     c_kv = layers.rmsnorm(kv_a[..., :cfg.kv_lora_rank], p["kv_a_norm"],
                           cfg.norm_eps)
     k_rope = layers.apply_rope(
@@ -109,30 +118,39 @@ def mla_decode(p: Params, cfg, x: torch.Tensor, cache: Params,
     """Absorbed one-token MLA decode against the latent cache: x (B, 1, d),
     pos (B,).  Writes this step's latent and RoPE key into ``cache`` in
     place and returns it."""
-    B = x.shape[0]
-    H = cfg.n_heads
-    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    B, H, dv = x.shape[0], cfg.n_heads, cfg.v_head_dim
     q_nope, q_rope = _mla_q(p, cfg, x, pos[:, None])      # (B,1,H,*)
     c_new, r_new = _mla_kv_latent(p, cfg, x, pos[:, None])
+    w_uk, w_uv = _split_wkv_b(p, cfg)
+    # absorb W_UK into the query: q_eff (B, H, kr)
+    q_eff = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w_uk)
+    o_lat = latent_attend(cfg, q_eff, q_rope[:, 0], c_new, r_new, cache,
+                          pos)
+    # absorb W_UV on the way out
+    o = torch.einsum("bhr,rhd->bhd", o_lat, w_uv)           # (B, H, dv)
+    out = o.reshape(B, 1, H * dv) @ p["wo"]
+    return out, cache
+
+
+def latent_attend(cfg, q_eff: torch.Tensor, q_rope: torch.Tensor,
+                  c_new: torch.Tensor, r_new: torch.Tensor, cache: Params,
+                  pos: torch.Tensor) -> torch.Tensor:
+    """The step's latent and RoPE key (B, 1, *) written into ``cache`` at
+    ``pos``, then the absorbed query's (q_eff (B, H, kr), q_rope (B, H,
+    dr)) attention in latent space: o_lat (B, H, kr)."""
+    B = q_eff.shape[0]
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     c_cache, r_cache = cache["c_kv"], cache["k_rope"]
     L = c_cache.shape[1]
     # a start past the end clamps, as lax.dynamic_update_slice's does
     slot = torch.clamp(pos, max=L - 1).long()
-    rows = torch.arange(B, device=x.device)
+    rows = torch.arange(B, device=q_eff.device)
     c_cache[rows, slot] = c_new[:, 0].to(c_cache.dtype)
     r_cache[rows, slot] = r_new[:, 0].to(r_cache.dtype)
-
-    w_uk, w_uv = _split_wkv_b(p, cfg)
-    # absorb W_UK into the query: q_eff (B, H, kr)
-    q_eff = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w_uk)
     s = (torch.einsum("bhr,bkr->bhk", q_eff.float(), c_cache.float())
-         + torch.einsum("bhd,bkd->bhk", q_rope[:, 0].float(),
+         + torch.einsum("bhd,bkd->bhk", q_rope.float(),
                         r_cache.float())) / np.sqrt(dn + dr)
-    valid = torch.arange(L, device=x.device)[None, :] <= pos[:, None]
+    valid = torch.arange(L, device=q_eff.device)[None, :] <= pos[:, None]
     s = torch.where(valid[:, None, :], s, NEG_INF)
     attn = torch.softmax(s, dim=-1)
-    # attend in latent space, then absorb W_UV on the way out
-    o_lat = torch.einsum("bhk,bkr->bhr", attn.to(c_cache.dtype), c_cache)
-    o = torch.einsum("bhr,rhd->bhd", o_lat, w_uv)           # (B, H, dv)
-    out = o.reshape(B, 1, H * dv) @ p["wo"]
-    return out, cache
+    return torch.einsum("bhk,bkr->bhr", attn.to(c_cache.dtype), c_cache)

@@ -77,8 +77,22 @@ def _top_k(probs: torch.Tensor, k: int):
 
 def _group_local(xt, expert_ids, gate_vals, E: int, k: int, C: int):
     """xt (T, d) -> grouped (E, C, d) + the indices of the combine."""
-    T, d = xt.shape
-    device = xt.device
+    idx = dispatch(expert_ids, gate_vals, E, k, C)
+    se, st, _, keep, _, _ = idx
+    # the dropped rows land in a spare slot C, cut off after: the kept
+    # (expert, slot) pairs are distinct, so no row is written twice
+    grouped = torch.zeros((E, C + 1, xt.shape[1]), dtype=xt.dtype,
+                          device=xt.device)
+    grouped[se, torch.where(keep, idx[4], C)] = xt[st]
+    return grouped[:, :C], idx
+
+
+def dispatch(expert_ids, gate_vals, E: int, k: int, C: int):
+    """The sorted dispatch of T tokens' top-k experts (T, k): (expert,
+    token, gate, kept, slot) of each of the T * k rows in expert order
+    (a dropped row's slot is C - 1), and the sort's order."""
+    T = expert_ids.shape[0]
+    device = expert_ids.device
     flat_expert = expert_ids.reshape(T * k)
     flat_token = torch.arange(T, device=device).repeat_interleave(k)
     flat_gate = gate_vals.reshape(T * k)
@@ -88,19 +102,20 @@ def _group_local(xt, expert_ids, gate_vals, E: int, k: int, C: int):
     slot = torch.arange(T * k, device=device) - group_start[se]
     keep = slot < C
     safe_slot = torch.where(keep, slot, C - 1)
-    # the dropped rows land in a spare slot C, cut off after: the kept
-    # (expert, slot) pairs are distinct, so no row is written twice
-    grouped = torch.zeros((E, C + 1, d), dtype=xt.dtype, device=device)
-    grouped[se, torch.where(keep, slot, C)] = xt[st]
-    return grouped[:, :C], (se, st, sg, keep, safe_slot, order)
+    return se, st, sg, keep, safe_slot, order
 
 
 def _combine_local(y_grouped, idx, T: int, k: int, d: int, dtype):
-    """Each token's k contributions summed in ascending expert order (the
+    se, _, _, _, safe_slot, _ = idx
+    return combine_rows(y_grouped[se, safe_slot], idx, T, k, d, dtype)
+
+
+def combine_rows(rows, idx, T: int, k: int, d: int, dtype):
+    """The experts' outputs at the dispatch's rows (T * k, d), gated, and
+    each token's k contributions summed in ascending expert order (the
     order of its rows in the sorted dispatch), one add at a time."""
-    se, st, sg, keep, safe_slot, order = idx
-    contrib = (y_grouped[se, safe_slot] * sg[:, None].to(dtype)
-               * keep[:, None].to(dtype))
+    sg, keep, order = idx[2], idx[3], idx[5]
+    contrib = (rows * sg[:, None].to(dtype) * keep[:, None].to(dtype))
     # sorted position of each (token, j), then each token's in rank order
     rank = torch.empty_like(order)
     rank[order] = torch.arange(order.numel(), device=order.device)

@@ -9,20 +9,29 @@ rows start at staggered positions in caches pre-filled with seeded N(0, 1)
 entries (the SSM states too; the cross K/V as ``init_cache`` computes
 them), so that a few steps cross every ``'model'`` block boundary and
 wrap mixtral's ring buffer (window 32).  On CPU meshes (1, 1), (2, 1),
-(1, 2), (2, 2) and (1, 4):
+(1, 2), (2, 2), (1, 4) and (1, 8) (mixtral's 4 experts on 8 blocks: the
+experts' ``f`` split within each expert; deepseek's heads cut by the
+blocks' edges):
 
   * each teacher-forced step's logits within 1e-5 rel L2 of JAX's, and
     each cache entry, gathered after the last step, within 1e-5 of JAX's;
   * on (1, 1), logits and cache bit for bit the port's unsharded step;
   * every cache block keeps its device and its memory across the steps,
     and the step copies no cache byte;
+  * the weight bytes copied are exactly the all-gather over the data
+    axes of the leaves the step reads (0 on one data row): each weight
+    block computes where it lies;
   * the sharded prefill within 1e-5 of JAX's forward (the MoE dispatch in
     as many chunks as the mesh has data rows, as JAX's ``data_shards``);
   * ``cache_shardings`` equal to JAX's sanitized ``cache_pspecs``.
 
-Beside them: batch 1 on (2, 1) (the batch replicated), copies of a block
-in other memory written alike, a first step whose only valid key lies in
-the first block, and the refusals.
+Beside them: a decode step that gathers no model-split leaf whole (a
+guard on every whole gather raises for one), two runs of the steps bit
+for bit equal, ``init_params`` drawing the unsharded tree without
+holding a drawn layer past its placement, batch 1 on (2, 1) (the batch
+replicated), copies of a
+block in other memory written alike, a first step whose only valid key
+lies in the first block, and the refusals.
 """
 import dataclasses
 import functools
@@ -45,7 +54,7 @@ import repro_torch.configs as configs  # noqa: E402
 from repro_torch import tree as tree_util  # noqa: E402
 from repro_torch.api import serving_cache  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
-from repro_torch.distributed import serve_spmd, sharding  # noqa: E402
+from repro_torch.distributed import lm_spmd, serve_spmd, sharding  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.launch.mesh import make_forced_host_mesh  # noqa: E402
 from repro_torch.models import build, transformer  # noqa: E402
@@ -54,7 +63,7 @@ from repro_torch.train import (make_prefill_step,  # noqa: E402
 
 ARCHS = ("phi4-mini-3.8b", "mamba2-1.3b", "zamba2-1.2b", "mixtral-8x7b",
          "deepseek-v3-671b", "llama-3.2-vision-11b", "whisper-tiny")
-MESHES = ((1, 1), (2, 1), (1, 2), (2, 2), (1, 4))
+MESHES = ((1, 1), (2, 1), (1, 2), (2, 2), (1, 4), (1, 8))
 REL = 1e-5
 GATES = {"gate": 0.5, "ffn_gate": -0.7}
 B, L, STEPS = 4, 32, 4
@@ -215,6 +224,31 @@ def _blocks(cache):
             for b in sh.shards.flat]
 
 
+# what a decode step reads: the top-level entries, less the cross K/V
+# projections (``init_cache`` computes the cross cache from them)
+DECODE_KEYS = ("embed", "final_norm", "lm_head", "blocks", "dense_blocks",
+               "cross_blocks", "shared_block")
+INIT_ONLY = {("cross_blocks", "xattn", "wk"), ("cross_blocks", "xattn", "wv")}
+
+
+def _reckoned(placed, mesh, batch) -> int:
+    """The weight bytes a decode step copies: each row that computes
+    (every data row where they divide the batch, else the first) gathers
+    over the data axes (D - 1) / D of every leaf it reads whose spec
+    names ``'data'``; nothing else."""
+    D = mesh.shape["data"]
+    rows = D if batch % D == 0 else 1
+    total = 0
+    for path, sh in tree_util.flatten_with_path(placed):
+        if path[0] not in DECODE_KEYS or tuple(path[-3:]) in INIT_ONLY:
+            continue
+        if any("data" in (e if isinstance(e, tuple) else (e,))
+               for e in sh.spec if e is not None):
+            nbytes = int(np.prod(sh.shape)) * sh.shards.flat[0].element_size()
+            total += rows * nbytes * (D - 1) // D
+    return total
+
+
 def _decode(model, params, cache, ref):
     step = make_serve_step(model)
     out = []
@@ -242,7 +276,9 @@ def test_sharded_decode_matches_jax(arch, shape):
     assert out is cache and _blocks(cache) == before
     moved = serve_spmd.copied()
     assert moved["cache"] == 0
-    assert (moved["weights"] > 0) == (mesh.size > 1)
+    assert moved["weights"] == STEPS * _reckoned(placed, mesh, B)
+    if shape[0] == 1:
+        assert moved["weights"] == 0
     for t in range(STEPS):
         assert logits[t].shape == (B, 1, model.cfg.padded_vocab)
         assert torch.isfinite(logits[t]).all()
@@ -264,6 +300,95 @@ def test_sharded_decode_matches_jax(arch, shape):
                                   else 1)
     got = make_prefill_step(model)(placed, _t(toks), _t(mem))
     assert _rel_l2(got, want) <= REL
+
+
+def _refuse_whole_gathers(monkeypatch):
+    """Make every whole gather of a leaf that ``'model'`` cuts into more
+    than one block raise (``Sharded.gather`` and the train step's
+    ``_Leaf.gather``, which the prefill's gather at use takes)."""
+    def guarded(orig, sharded):
+        def gather(self, *args, **kwargs):
+            sh = sharded(self)
+            if sh.mesh.shape["model"] > 1 and any(
+                    "model" in sharding._axes(e) for e in sh.spec):
+                raise AssertionError(f"a model-split leaf gathered whole: "
+                                     f"{sh}")
+            return orig(self, *args, **kwargs)
+        return gather
+    monkeypatch.setattr(lm_spmd._Leaf, "gather",
+                        guarded(lm_spmd._Leaf.gather, lambda leaf: leaf.sh))
+    monkeypatch.setattr(sharding.Sharded, "gather",
+                        guarded(sharding.Sharded.gather, lambda sh: sh))
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_gathers_no_model_split_leaf(arch, shape, monkeypatch):
+    """With every whole gather of a model-split leaf raising, the decode
+    steps still run and hold to JAX; the prefill, which gathers each
+    layer at use, raises (the guard bites)."""
+    ref = reference(arch)
+    mesh = make_forced_host_mesh(shape, device="cpu")
+    model, placed = _placed(arch, mesh)
+    cache = model.init_cache(placed, B, _max_len(model.cfg),
+                             _t(ref["memory"]))
+    _fill(cache, ref["filled"], mesh)
+    _refuse_whole_gathers(monkeypatch)
+    logits, cache = _decode(model, placed, cache, ref)
+    toks, mem, _ = jax_forward(arch, 1)
+    with pytest.raises(AssertionError, match="gathered whole"):
+        make_prefill_step(model)(placed, _t(toks), _t(mem))
+    monkeypatch.undo()
+    for t in range(STEPS):
+        assert _rel_l2(logits[t], ref["logits"][t]) <= REL
+    for sh, want in zip(tree_util.leaves(cache), ref["final"]):
+        assert _rel_l2(sh.gather("cpu"), want) <= REL
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)])
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "mixtral-8x7b",
+                                  "deepseek-v3-671b"])
+def test_steps_replay_bit_for_bit(arch, shape):
+    """The same steps from two copies of one filled cache give the same
+    logits and caches, bit for bit: partial sums in block order, no
+    atomics."""
+    ref = reference(arch)
+    mesh = make_forced_host_mesh(shape, device="cpu")
+    model, placed = _placed(arch, mesh)
+    runs = []
+    for _ in range(2):
+        cache = model.init_cache(placed, B, _max_len(model.cfg),
+                                 _t(ref["memory"]))
+        _fill(cache, ref["filled"], mesh)
+        runs.append(_decode(model, placed, cache, ref))
+    (la, ca), (lb, cb) = runs
+    assert all(torch.equal(a, b) for a, b in zip(la, lb))
+    assert all(torch.equal(a.gather("cpu"), b.gather("cpu")) for a, b in
+               zip(tree_util.leaves(ca), tree_util.leaves(cb)))
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v3-671b"])
+def test_init_params_draws_the_unsharded_tree(arch, monkeypatch):
+    """``init_params`` on (2, 2): the placed tree gathers to the unsharded
+    ``Model.init`` draws, bit for bit, and a stack keeps no drawn layer's
+    tensors once they are placed (only its structure, on the meta
+    device)."""
+    _, cfg = _cfgs(arch)
+    model = build(cfg)
+    mesh = make_forced_host_mesh((2, 2), device="cpu")
+    kept = []
+    add = serve_spmd._ShapeSink.add
+
+    def spy(self, i, layer):
+        add(self, i, layer)
+        kept.extend(a.device.type for a in tree_util.leaves(self.like))
+    monkeypatch.setattr(serve_spmd._ShapeSink, "add", spy)
+    placed = serve_spmd.init_params(
+        model, 3, serve_spmd.param_shardings(model, mesh), "cpu")
+    want = model.init(torch.Generator().manual_seed(3), device="cpu")
+    assert kept and set(kept) == {"meta"}
+    for sh, w in zip(tree_util.leaves(placed), tree_util.leaves(want)):
+        assert torch.equal(sh.gather("cpu"), w)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
