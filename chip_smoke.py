@@ -696,9 +696,17 @@ LM13_SEED = 2500
 # size), compared on the host: the loss within LM14_LOSS, each leaf within
 # LM13_REL rel L2 (dead leaves LM13_DEAD), the new parameters within
 # LM14_UPDATE (across data shards, a leaf the step moves by more than
-# LM14_MOVED of its norm has its step held within LM14_STEP_REL instead);
-# on (1, m) the loss and gradients bit for bit; every block on
-# its device with its spec's shape.  14b mixtral's MoE block over a (2, 1)
+# LM14_MOVED of its norm has its step held within LM14_STEP_REL instead;
+# the same on (1, m), where the row blocks' partial sums come in another
+# order); on (1, 1) the loss and gradients bit for bit; every block on its
+# device with its spec's shape; each weight block computed where it lies:
+# the weight bytes a step copies exactly lm14_reckoned (the data axes'
+# all-gather, a rematerialised layer's twice; 0 on one data row), and the
+# step's wall ms and activation bytes logged; LM14_MB_CELL microbatched
+# (mb 2) against the unsharded microbatched step and LM14_GC_CELL's int8
+# compressed gradients ((1, 1) bit for bit the unsharded compressed step's,
+# elsewhere within one int8 step, 1.01 max |g| / 127, of the uncompressed
+# ones, and a second run bit for bit).  14b mixtral's MoE block over a (2, 1)
 # mesh's shards bit for bit one device with data_shards 2.  14c LM14_ELASTIC
 # saved from (2, 2), restored onto (4, 1) and (1, 1) bit for bit, read by a
 # CPU subprocess in the on-disk format the JAX package's reader reads; a
@@ -706,7 +714,10 @@ LM13_SEED = 2500
 # bit for bit.  14d pipeline_apply over LM14_PIPE's stages against the
 # sequential stack on the same microbatches, LM14_PIPE_REL (on the whole
 # batch, LM13_REL).  14e (four cards only) LM14_BIG at full depth, LM14_BIG_STEPS
-# bf16 steps at LM14_BIG_BATCH on LM14_BIG_MESHES.
+# bf16 steps at LM14_BIG_BATCH on LM14_BIG_MESHES: step wall ms, one traced
+# step's busy ms a card, bytes copied a step, peak a card; on (1, 4) two
+# steps from one state bit for bit (the gradients of a tensor four cards'
+# backward threads take, summed in one order).
 LM14_ARCHS = (("mamba2-1.3b", {"n_layers": 2}),
               ("zamba2-1.2b", {"n_layers": 2}),
               ("mixtral-8x7b", {"n_layers": 1}),
@@ -716,7 +727,7 @@ LM14_ARCHS = (("mamba2-1.3b", {"n_layers": 2}),
                                         "cross_attn_every": 1}),
               ("whisper-tiny", {}),
               ("phi4-mini-3.8b", {"n_layers": 2}))
-LM14_MESHES = ((1, 1), (2, 1), (1, 2), (2, 2))
+LM14_MESHES = ((1, 1), (2, 1), (1, 2), (2, 2), (1, 4))
 LM14_BATCH = (2, 512)
 LM14_LR = 1e-4
 LM14_LOSS = 1e-5
@@ -728,17 +739,25 @@ LM14_TRAINER_STEPS = 4
 LM14_PIPE = ("mamba2-1.3b", 8, 4, (4, 512), 4)   # layers, stages, batch, M
 LM14_PIPE_REL = 1e-5
 LM14_BIG = (("stablelm-3b", {}), ("phi4-mini-3.8b", {}))
-LM14_BIG_MESHES = ((4, 1), (2, 2))
+LM14_BIG_MESHES = ((4, 1), (2, 2), (1, 4))
 LM14_BIG_BATCH = (4, 2048)
 LM14_BIG_STEPS = 5
 LM14_SEED = 2600
 # 14a's bf16 step: LM14_BF16 (fp32 parameters, bf16 compute) at batch
-# LM14_BATCH on one card against the unsharded bf16 step: bit for bit on
-# (1, 2); on (2, 1) the loss within LM14_BF16_LOSS and each gradient leaf
-# within LM14_BF16_GRAD rel L2 (the rows' bf16 products round otherwise)
+# LM14_BATCH on one card against the unsharded bf16 step: on (1, 2) and
+# (2, 1) the loss within LM14_BF16_LOSS and each gradient leaf within
+# LM14_BF16_GRAD rel L2 (the blocks' and rows' bf16 products round
+# otherwise)
 LM14_BF16 = ("stablelm-3b", {"n_layers": 4})
 LM14_BF16_LOSS = 1e-3
 LM14_BF16_GRAD = 5e-2
+# 14a's microbatched and compressed cells: fp32, (arch, cut, batch,
+# meshes); the microbatched step's chunks of 2 rows split over the data
+# rows
+LM14_MB_CELL = ("stablelm-3b", {"n_layers": 4}, (4, 512),
+                ((1, 1), (2, 2), (1, 4)))
+LM14_GC_CELL = ("stablelm-3b", {"n_layers": 4}, (2, 512),
+                ((1, 1), (2, 2), (1, 4)))
 # phase 15, sharded LM serving (A16's serving half), the chain off: 15a each
 # of LM15_ARCHS at its published width and its depth cut, fp32 parameters
 # and compute under the full-fp32 matmul guard, batch LM15_BATCH, its cache
@@ -810,6 +829,7 @@ LM15_BIG = (("mixtral-8x7b", {}, ((1, 4), (2, 2))),
 LM15_SERVE = {"batch": 4, "max_len": 128, "requests": 12, "gen": 96,
               "prompts": (4, 16)}
 LM15_BIG_STARTS = (28, 60, 92, 110)      # 8 steps cross 32, 64 and 96
+LM15_BIG_PREFILL = (4, 128)              # 15b's prefill: batch, tokens
 LM15_SEED = 2700
 # phase 14c's reader of a checkpoint as the JAX package's Checkpointer reads
 # it (manifest, digest, keys, bf16 as uint16 bits), in a CPU subprocess of
@@ -1009,6 +1029,39 @@ def profile_forward(fn):
             "busy_us": busy, "device_span_us": span, "wall_us": wall_us,
             "busy_share_of_span": busy / span if span else None,
             "busy_share_of_wall": busy / wall_us}
+
+
+def busy_by_card(fn) -> dict:
+    """One ``fn`` call under ``torch.profiler`` (after a warm call): the
+    wall ms and each card's busy ms (its kernels' and copies' summed
+    durations); ``not_measured`` where the profiler does not trace the
+    card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    cards = torch.cuda.device_count()
+    for i in range(cards):
+        torch.cuda.synchronize(i)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            for i in range(cards):
+                torch.cuda.synchronize(i)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy = [0.0] * cards
+        seen = False
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                seen = True
+                busy[e.device_index] += (e.time_range.end
+                                         - e.time_range.start) / 1e3
+    except Exception as e:     # the profiler may not trace this card
+        return {"not_measured": f"{type(e).__name__}: {e}"[:200]}
+    if not seen:
+        return {"not_measured": "the trace holds no device events"}
+    return {"wall_ms": wall_ms, "busy_ms": busy}
 
 
 def tree_to(tree, device):
@@ -2929,6 +2982,39 @@ def named_grads(grads):
     return {"/".join(path): g for path, g in flatten_with_path(grads)}
 
 
+def adamw_first_update(opt, p, g, grad_norm):
+    """AdamW's first update of ``p`` by ``g`` (fp32) with the clip scale
+    of a step whose global gradient norm was ``grad_norm``: what the
+    sharded step computes for ``p``'s blocks, element by element."""
+    import torch
+    scale = torch.clamp(opt.clip_norm / (grad_norm + 1e-9), max=1.0)
+    plain = dataclasses.replace(opt, clip_norm=float("inf"))
+    new, _, _ = plain.apply({"p": p}, {"p": g.float() * scale.to(g.device)},
+                            plain.init({"p": p}))
+    return new["p"]
+
+
+def same_adamw_update(opt, old, grad, new, grad_norm,
+                      chunk=1 << 24) -> bool:
+    """Each block of the placed leaf ``new`` (a ``Sharded``) is bit for
+    bit AdamW's first update (:func:`adamw_first_update`) of ``old``'s
+    block by ``grad``'s, on the block's device, ``chunk`` elements at a
+    time along its first dimension (the update is elementwise)."""
+    import torch
+    for idx, coords in new.unique().items():
+        c = coords[0]
+        p, g, n = old.shards[c], grad.shards[c], new.shards[c]
+        if p.dim() == 0:
+            p, g, n = p[None], g[None], n[None]
+        rows = max(1, chunk // max(1, p[0].numel()))
+        for r in range(0, p.shape[0], rows):
+            if not torch.equal(n[r:r + rows], adamw_first_update(
+                    opt, p[r:r + rows], g[r:r + rows],
+                    grad_norm.to(p.device))):
+                return False
+    return True
+
+
 def grads_close(got, ref) -> dict:
     """Each leaf of ``got`` against ``ref``'s (CPU tensors): rel L2, or,
     for a leaf zero in exact arithmetic (its reference's max |g| within
@@ -3439,8 +3525,24 @@ def lm_sharded(dev, counted, smi) -> dict:
                         held[blk.device.index or 0] += blk.numel() \
                             * blk.element_size()
             step_fn = make_train_step(model, opt)
-            losses, times = [], []
+            losses, times, replay = [], [], None
+            reckoned = lm14_reckoned(st.params, mesh, B)
+            lm_spmd.reset_copied()
             for i in range(LM14_BIG_STEPS):
+                if i == 1 and shape[1] > 1:
+                    # two steps from one state: the same bits (the
+                    # gradients four cards' backward threads send to a
+                    # row, summed in one order)
+                    a, _ = step_fn(st, batches(i))
+                    b, _ = step_fn(st, batches(i))
+                    replay = all(
+                        torch.equal(x.shards[c], y.shards[c])
+                        for x, y in zip(tree_util.leaves(a),
+                                        tree_util.leaves(b))
+                        for c in x.mesh.coords())
+                    del a, b
+                    lm_spmd.reset_copied()
+                    synchronize()
                 t0 = time.perf_counter()
                 st, metrics = counted(
                     "lm_sharded", f"{arch} {shape} step {i}",
@@ -3448,17 +3550,28 @@ def lm_sharded(dev, counted, smi) -> dict:
                 losses.append(float(metrics["loss"]))
                 synchronize()
                 times.append(time.perf_counter() - t0)
+            moved = {k: v / (LM14_BIG_STEPS - (1 if replay is not None
+                                                else 0))
+                     for k, v in lm_spmd.copied().items()}
             peaks = [(torch.cuda.max_memory_allocated(i) - base[i]) / 1e9
                      for i in range(cards)]
+            traced = busy_by_card(lambda: step_fn(st, batches(0)))
             del st, metrics
             lm_free()
-            if not all(math.isfinite(v) for v in losses):
-                raise AssertionError(f"{arch} {shape}: losses {losses}")
+            if not all(math.isfinite(v) for v in losses) \
+                    or replay is False \
+                    or moved["weights"] != reckoned:
+                raise AssertionError(f"{arch} {shape}: losses {losses}, "
+                                     f"replay {replay}, copied {moved}, "
+                                     f"reckoned {reckoned}")
             row["meshes"][str(shape)] = {
                 "losses": losses,
                 "step_ms_median": statistics.median(times[1:]) * 1e3,
                 "first_step_ms": times[0] * 1e3, "init_s": init_s,
                 "peak_gb": peaks,
+                "copied_gb_a_step": {k: v / 1e9 for k, v in moved.items()},
+                "weights_reckoned_gb": reckoned / 1e9,
+                "replayed_bitwise": replay, "traced": traced,
                 "state_blocks_gb": [h / 1e9 for h in held],
                 # the functional update holds the old and the new state
                 # and the gradients: 28 of the state's 12 bytes a parameter
@@ -3476,7 +3589,169 @@ def lm_sharded(dev, counted, smi) -> dict:
                 f" GB (update reckoned "
                 f"{', '.join(f'{v:.1f}' for v in r['reckoned_update_gb'])});"
                 f" one device would need {row['one_device_update_gb']:.1f} "
-                f"GB for the update")
+                f"GB for the update; copied a step "
+                f"{r['copied_gb_a_step']['weights']:.2f} GB of weights "
+                f"(reckoned {r['weights_reckoned_gb']:.2f}), "
+                f"{r['copied_gb_a_step']['activations']:.3f} GB of "
+                f"activations, {r['copied_gb_a_step']['gradients']:.2f} GB "
+                f"of gradients; a traced step: "
+                + (traced["not_measured"] if "not_measured" in traced else
+                   f"wall {traced['wall_ms']:.0f} ms, busy "
+                   + ", ".join(f"{v:.0f}" for v in traced["busy_ms"])
+                   + " ms a card")
+                + ("; two steps from one state bit for bit"
+                   if replay else ""))
+        return row
+
+    def microbatched_cell():
+        """14a: ``make_train_step(..., microbatches=2)`` over placed
+        states against the unsharded microbatched step's gradients (its
+        chunks' float32 sum, halved) and loss, fp32."""
+        arch, cut, (B, T), meshes = LM14_MB_CELL
+        cfg = dataclasses.replace(configs.get_config(arch),
+                                  compute_dtype="float32",
+                                  param_dtype="float32", **cut)
+        model, opt = build(cfg), AdamW(lr=LM14_LR)
+        batch = seeded_batch(cfg, B, T, LM14_SEED + 7)
+        lm_free()
+        state = init_train_state(model, opt, LM14_SEED, dev)
+        grads, losses = None, []
+        for i in range(2):
+            chunk = {k: v[i * B // 2:(i + 1) * B // 2]
+                     for k, v in batch.items()}
+            loss, _, g = counted(
+                "lm_sharded", f"{arch} one-device chunk {i}",
+                lambda: _value_and_grad(model, state.params, chunk),
+                want=none)
+            grads = tree_util.tree_map(
+                torch.add, tree_util.tree_map(
+                    lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), state.params)
+                if grads is None else grads, g)
+            losses.append(loss)
+        ref_loss = ((losses[0] + losses[1]) / 2).item()
+        g_ref = on_host(tree_util.tree_map(lambda g: g / 2, grads))
+        del state, grads, g
+        lm_free()
+        row = {"arch": arch, "n_layers": cfg.n_layers, "batch": [B, T],
+               "microbatches": 2}
+        for shape in meshes:
+            mesh = mesh_of(shape)
+            st = init_train_state(model, opt, LM14_SEED, dev,
+                                  shardings=lm_spmd.state_shardings(
+                                      model, opt, mesh))
+            lm_spmd.reset_copied()
+            synchronize()
+            t0 = time.perf_counter()
+            loss, _, leaves = counted(
+                "lm_sharded", f"{arch} {shape} microbatched gradients",
+                lambda: lm_spmd.value_and_grad(model, st.params, batch,
+                                               microbatches=2), want=none)
+            synchronize()
+            step_s = time.perf_counter() - t0
+            moved = lm_spmd.copied()
+            grads = against(lm_spmd.gradients(leaves), g_ref)
+            worst = max(grads, key=lambda k: grads[k][0])
+            new, metrics = counted(
+                "lm_sharded", f"{arch} {shape} microbatched step",
+                lambda: make_train_step(model, opt, microbatches=2)(
+                    st, batch), want=none)
+            reckoned = lm14_reckoned(st.params, mesh, B, chunks=2)
+            err = {"loss_rel": abs(loss.item() - ref_loss) / abs(ref_loss),
+                   "leaf": worst, "rel_l2": grads[worst][0],
+                   "bitwise": loss.item() == ref_loss
+                   and all(v[2] for v in grads.values()),
+                   "step_loss_same": float(metrics["loss"]) == loss.item(),
+                   "copied": moved, "weights_reckoned": reckoned,
+                   "gradients_s": step_s}
+            row[str(shape)] = err
+            del st, leaves, new
+            lm_free()
+            if not (err["loss_rel"] <= LM14_LOSS
+                    and err["rel_l2"] <= LM13_REL and err["step_loss_same"]
+                    and moved["weights"] == reckoned
+                    and (shape != (1, 1) or err["bitwise"])):
+                raise AssertionError(f"{arch} microbatched {shape}: {err}")
+        log(f"lm14 microbatched: {arch} at {cfg.n_layers} layers, fp32, "
+            f"{B} x {T} in 2 chunks, against the unsharded microbatched "
+            f"step: " + "; ".join(
+                f"{m} " + ("bit for bit" if row[str(m)]["bitwise"] else
+                           f"loss {row[str(m)]['loss_rel']:.1e}, worst leaf "
+                           f"{row[str(m)]['leaf']} "
+                           f"{row[str(m)]['rel_l2']:.2e}")
+                + f", {row[str(m)]['gradients_s'] * 1e3:.0f} ms, "
+                f"{row[str(m)]['copied']['weights'] / 1e9:.3f} GB of "
+                f"weights (reckoned "
+                f"{row[str(m)]['weights_reckoned'] / 1e9:.3f})"
+                for m in meshes))
+        return row
+
+    def compressed_cell():
+        """14a: ``grad_compression=True`` over placed states: on (1, 1)
+        the unsharded compressed gradients bit for bit; elsewhere each
+        element within 1.01 max |g| / 127 of the uncompressed sharded
+        gradient, and a second run bit for bit."""
+        from repro_torch.optim import grad_compression as gcomp
+        arch, cut, (B, T), meshes = LM14_GC_CELL
+        cfg = dataclasses.replace(configs.get_config(arch),
+                                  compute_dtype="float32",
+                                  param_dtype="float32", **cut)
+        model, opt = build(cfg), AdamW(lr=LM14_LR)
+        batch = seeded_batch(cfg, B, T, LM14_SEED + 8)
+        row = {"arch": arch, "n_layers": cfg.n_layers, "batch": [B, T]}
+
+        def compressed(st):
+            _, _, leaves = lm_spmd.value_and_grad(model, st.params, batch)
+            # the uncompressed blocks: compress replaces them
+            raw = named_grads(lm_spmd.gradients(leaves))
+            lm_spmd.compress(leaves)
+            return raw, lm_spmd.gradients(leaves)
+        for shape in meshes:
+            mesh = mesh_of(shape)
+            lm_free()
+            st = init_train_state(model, opt, LM14_SEED, dev,
+                                  shardings=lm_spmd.state_shardings(
+                                      model, opt, mesh))
+            raw, got = counted("lm_sharded", f"{arch} {shape} compressed",
+                               lambda: compressed(st), want=none)
+            _, again = counted("lm_sharded",
+                               f"{arch} {shape} compressed again",
+                               lambda: compressed(st), want=none)
+            new, _ = counted(
+                "lm_sharded", f"{arch} {shape} compressed step",
+                lambda: make_train_step(model, opt, grad_compression=True)(
+                    st, batch), want=none)
+            worst, same = 0.0, True
+            for k, g in named_grads(got).items():
+                q = g.gather(dev)
+                r = raw[k].gather(dev)
+                step = r.abs().max() / 127.0
+                worst = max(worst, ((q - r).abs().max()
+                                    / max(step.item(), 1e-30)).item())
+                same = same and torch.equal(q, named_grads(again)[k].gather(
+                    dev))
+            err = {"worst_in_steps": worst, "replayed": same}
+            if shape == (1, 1):
+                state = init_train_state(model, opt, LM14_SEED, dev)
+                _, _, g1 = _value_and_grad(model, state.params, batch)
+                want = {k: gcomp.roundtrip_leaf(v)
+                        for k, v in named_grads(g1).items()}
+                err["bitwise"] = all(
+                    torch.equal(g.gather(dev), want[k])
+                    for k, g in named_grads(got).items())
+                del state, g1, want
+            row[str(shape)] = err
+            del st, raw, got, again, new
+            lm_free()
+            if not (worst <= 1.01 and same and err.get("bitwise", True)):
+                raise AssertionError(f"{arch} compressed {shape}: {err}")
+        log(f"lm14 compressed: {arch} at {cfg.n_layers} layers, fp32, {B} x "
+            f"{T}, int8 round trip of the sharded gradients: " + "; ".join(
+                f"{m} within {row[str(m)]['worst_in_steps']:.3f} int8 steps"
+                + (", bit for bit the unsharded compressed step"
+                   if row[str(m)].get("bitwise") else "")
+                + (", replayed bit for bit" if row[str(m)]["replayed"]
+                   else "") for m in meshes))
         return row
 
     try:
@@ -3533,6 +3808,9 @@ def lm_sharded(dev, counted, smi) -> dict:
                 st = init_train_state(model, opt, LM14_SEED, dev,
                                       shardings=shardings)
                 blocks = check_blocks(st, shardings)
+                reckoned = lm14_reckoned(st.params, mesh, LM14_BATCH[0])
+                lm_spmd.reset_copied()
+                synchronize()
                 t0 = time.perf_counter()
                 loss, metrics, leaves = counted(
                     "lm_sharded", f"{arch} {shape} sharded gradients",
@@ -3542,10 +3820,15 @@ def lm_sharded(dev, counted, smi) -> dict:
                                                        metrics)
                 synchronize()
                 step_s = time.perf_counter() - t0
+                copies = lm_spmd.copied()
                 peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
                 check_blocks(new, shardings)
-                del st
                 ref_loss, g_ref, p_ref, steps, moved, gmax = refs[shape[0]]
+                # where 'model' cuts the mesh, the leaves the step moves by
+                # over LM14_MOVED: their old blocks, for the check below
+                olds = {k: v for k, v in named_grads(st.params).items()
+                        if shape[1] > 1 and moved[k] > LM14_MOVED}
+                del st
                 err = {"loss_rel": abs(loss.item() - ref_loss)
                        / abs(ref_loss), "rel_l2": 0.0, "leaf": None,
                        "dead": [], "dead_max": 0.0}
@@ -3561,25 +3844,50 @@ def lm_sharded(dev, counted, smi) -> dict:
                 err["bitwise"] = bitwise
                 err["ok"] = err["rel_l2"] <= LM13_REL \
                     and err["dead_max"] <= LM13_DEAD
+                grads = {k: v for k, v in named_grads(
+                    lm_spmd.gradients(leaves)).items() if k in olds}
                 del leaves
                 upd = against(new.params, p_ref)
-                del new
-                held = [k for k in upd if shape[0] == 1
+                held = [k for k in upd if shape == (1, 1)
                         or moved[k] <= LM14_MOVED]
                 err["update_leaf"] = max(held, key=lambda k: upd[k][0])
                 err["update_rel"] = upd[err["update_leaf"]][0]
-                # the others: the step itself within LM14_STEP_REL
+                # the others: the step itself within LM14_STEP_REL; where
+                # 'model' cuts the mesh, AdamW's first step (g / (|g| +
+                # eps) an element) turns a gradient element near eps,
+                # whose rounding the row blocks' partial sums change, into
+                # a step apart (mixtral's router on (1, 2), 32,768
+                # elements: one element's step off by lr moves the
+                # leaf's step 1/181 of its norm), so the update is
+                # held bit for bit to AdamW over the step's own gradient
+                # blocks, the gradient to LM13_REL, and the step's distance
+                # from the unsharded step is logged
                 err["step_rel"] = {
                     k: upd[k][4] / max(steps[k], 1e-30)
                     for k in sorted(set(upd) - set(held))}
+                if shape[1] > 1:
+                    err["logged_step_rel"] = err.pop("step_rel")
+                    err["step_rel"] = {}
+                    news = named_grads(new.params)
+                    err["update_on_own_gradients"] = {
+                        k: same_adamw_update(opt, olds[k], grads[k],
+                                             news[k], metrics["grad_norm"])
+                        for k in err["logged_step_rel"]}
+                    del news
+                del grads, olds, new
                 err.update({"blocks": blocks, "step_s": step_s,
-                            "peak_gb_above": peak})
+                            "peak_gb_above": peak, "copied": copies,
+                            "weights_reckoned": reckoned})
                 row[str(shape)] = err
                 if not (err["ok"] and err["loss_rel"] <= LM14_LOSS
                         and err["update_rel"] <= LM14_UPDATE
                         and all(v <= LM14_STEP_REL
-                                for v in err["step_rel"].values())) \
-                        or (shape[0] == 1 and not err["bitwise"]):
+                                for v in err["step_rel"].values())
+                        and copies["weights"] == reckoned
+                        and (reckoned == 0) == (shape[0] == 1)
+                        and all(err.get("update_on_own_gradients",
+                                        {}).values())) \
+                        or (shape == (1, 1) and not err["bitwise"]):
                     raise AssertionError(f"{arch} {shape}: {err}")
             del refs
             lm_free()
@@ -3598,8 +3906,22 @@ def lm_sharded(dev, counted, smi) -> dict:
                        f"leaves moved over {LM14_MOVED:.0%} within "
                        f"{max(row[str(shape)]['step_rel'].values()):.1e}"
                        if row[str(shape)]['step_rel'] else "")
+                    + (f", {len(row[str(shape)]['logged_step_rel'])} leaves "
+                       f"moved over {LM14_MOVED:.0%} updated bit for bit "
+                       f"from their own gradients, their steps "
+                       + ", ".join(f"{k} {v:.1e}" for k, v in
+                                   row[str(shape)]['logged_step_rel'].items())
+                       + " from the unsharded step's"
+                       if row[str(shape)].get('logged_step_rel') else "")
                     + f", {row[str(shape)]['blocks']} blocks, step "
-                    f"{row[str(shape)]['step_s'] * 1e3:.0f} ms, peak "
+                    f"{row[str(shape)]['step_s'] * 1e3:.0f} ms, copied "
+                    f"{row[str(shape)]['copied']['weights'] / 1e9:.3f} GB "
+                    f"of weights (reckoned "
+                    f"{row[str(shape)]['weights_reckoned'] / 1e9:.3f}), "
+                    f"{row[str(shape)]['copied']['activations'] / 1e6:.2f}"
+                    f" MB of activations, "
+                    f"{row[str(shape)]['copied']['gradients'] / 1e9:.3f} GB"
+                    f" of gradients, peak "
                     f"{row[str(shape)]['peak_gb_above']:.1f} GB"
                     for shape in LM14_MESHES)
                 + f"; {row['seconds']:.1f} s")
@@ -3637,16 +3959,19 @@ def lm_sharded(dev, counted, smi) -> dict:
             row[str(shape)] = err
             del st, leaves
             lm_free()
-            if not (err["bitwise"] if shape[0] == 1
-                    else err["loss_rel"] <= LM14_BF16_LOSS
+            if not (err["loss_rel"] <= LM14_BF16_LOSS
                     and err["rel_l2"] <= LM14_BF16_GRAD):
                 raise AssertionError(f"{arch} bf16 {shape}: {err}")
         out["grads"][f"{arch} bf16"] = row
         log(f"lm14 grads: {arch} at {cfg.n_layers} layers, bf16 compute, "
-            f"sharded against the unsharded bf16 step: (1, 2) "
-            + ("bit for bit" if row["(1, 2)"]["bitwise"] else "differs")
-            + f"; (2, 1) loss {row['(2, 1)']['loss_rel']:.1e}, worst leaf "
-            f"{row['(2, 1)']['leaf']} {row['(2, 1)']['rel_l2']:.2e} rel L2")
+            f"sharded against the unsharded bf16 step: "
+            + "; ".join(f"{k} loss {row[k]['loss_rel']:.1e}, worst leaf "
+                        f"{row[k]['leaf']} {row[k]['rel_l2']:.2e} rel L2"
+                        for k in ("(1, 2)", "(2, 1)")))
+
+        # ---- 14a, microbatched and compressed cells ----------------------
+        out["microbatched"] = microbatched_cell()
+        out["compressed"] = compressed_cell()
 
         # ---- 14b. shard-local MoE dispatch, bit for bit ------------------
         cfg = dataclasses.replace(configs.get_config("mixtral-8x7b"),
@@ -3885,25 +4210,51 @@ LM15_INIT_ONLY = {("cross_blocks", "xattn", "wk"),
                   ("cross_blocks", "xattn", "wv")}
 
 
-def lm15_reckoned(placed, mesh, batch) -> int:
-    """The weight bytes one sharded decode step copies when each block
-    computes where it lies: each row that computes (every data row where
-    they divide the batch, else the first) gathers over the data axes
-    (D - 1) / D of each leaf it reads whose spec names 'data'; 0 on one
-    data row."""
+# the stacks a sharded train step rematerialises (their layers fetched
+# again in the backward), and the entries a prefill reads
+LM14_REMAT_STACKS = ("blocks", "dense_blocks", "cross_blocks")
+LM15_PREFILL_KEYS = LM15_DECODE_KEYS + ("enc_blocks", "enc_norm")
+
+
+def lm_data_gather(placed, mesh, batch, fetches, chunks=1) -> int:
+    """The weight bytes a sharded step copies when each block computes
+    where it lies: in each of ``chunks`` chunks of the batch each row that
+    computes (every data row where they divide the chunk, else the first)
+    gathers over the data axes (D - 1) / D of each leaf whose spec names
+    'data', ``fetches(path)`` times; 0 on one data row."""
     from repro_torch import tree as tree_util
     D = mesh.shape["data"]
-    rows = D if batch % D == 0 else 1
+    rows = D if (batch // chunks) % D == 0 else 1
     total = 0
     for path, sh in tree_util.flatten_with_path(placed):
-        if path[0] not in LM15_DECODE_KEYS \
-                or tuple(path[-3:]) in LM15_INIT_ONLY:
-            continue
         if any("data" in (e if isinstance(e, tuple) else (e,))
                for e in sh.spec if e is not None):
             nbytes = math.prod(sh.shape) * sh.shards.flat[0].element_size()
-            total += rows * nbytes * (D - 1) // D
+            total += chunks * rows * fetches(path) * nbytes * (D - 1) // D
     return total
+
+
+def lm15_reckoned(placed, mesh, batch) -> int:
+    """A decode step's: the leaves it reads, less the cross K/V
+    projections."""
+    return lm_data_gather(
+        placed, mesh, batch,
+        lambda path: int(path[0] in LM15_DECODE_KEYS
+                         and tuple(path[-3:]) not in LM15_INIT_ONLY))
+
+
+def lm15_prefill_reckoned(placed, mesh, batch) -> int:
+    """A prefill's: every leaf the forward reads, once."""
+    return lm_data_gather(placed, mesh, batch,
+                          lambda path: int(path[0] in LM15_PREFILL_KEYS))
+
+
+def lm14_reckoned(params, mesh, batch, chunks=1) -> int:
+    """A train step's: every leaf once, a rematerialised stack's layers
+    twice (the backward's recomputation fetches them again)."""
+    return lm_data_gather(
+        params, mesh, batch,
+        lambda path: 2 if path[0] in LM14_REMAT_STACKS else 1, chunks)
 
 
 def host_waits(fn, cards: int) -> dict:
@@ -4146,6 +4497,14 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
                 lambda: model.decode_step(placed, cache, toks[0], at),
                 want=none), cards)
             del cache, got
+            # the prefill over the placement: each block where it lies
+            pre, pre_ms, pre_moved = timed_prefill(
+                f"{arch} {shape}", model, placed,
+                lm_tokens(cfg, LM15_BIG_PREFILL, LM15_SEED + 10, dev))
+            pre_finite = bool(torch.isfinite(pre).all())
+            pre_reckoned = lm15_prefill_reckoned(placed, mesh,
+                                                 LM15_BIG_PREFILL[0])
+            del pre
             for i in range(cards):
                 torch.cuda.reset_peak_memory_stats(i)
             step = FiniteStep(model, placed,
@@ -4182,6 +4541,11 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
                  "blocks_gb": [h / 1e9 for h in held],
                  "held_after_a_step_gb": step.held,
                  "host_waits": waits,
+                 "prefill": {"batch": list(LM15_BIG_PREFILL),
+                             "ms": pre_ms, "finite": pre_finite,
+                             "copied_gb": {k: v / 1e9
+                                           for k, v in pre_moved.items()},
+                             "weights_reckoned_gb": pre_reckoned / 1e9},
                  "init_s": init_s, "nonfinite_logits": bad,
                  "check_finite": finite}
             row["meshes"][str(shape)] = r
@@ -4190,7 +4554,9 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
             lm_free()
             if bad or not finite or moved["cache"] \
                     or moved["weights"] != stats.steps * reckoned \
-                    or check_moved["weights"] != LM15_STEPS * reckoned:
+                    or check_moved["weights"] != LM15_STEPS * reckoned \
+                    or not pre_finite \
+                    or pre_moved["weights"] != pre_reckoned:
                 failures.append(f"{arch} {shape} served: {r}")
             log(f"lm15 serve: {arch} ({n / 1e9:.3f} B parameters, "
                 f"{cfg.n_layers} layers, bf16) on {shape} over {cards} "
@@ -4210,7 +4576,11 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
                 f" held after a "
                 f"step), against "
                 f"blocks {', '.join(f'{v:.1f}' for v in r['blocks_gb'])}; "
-                f"init {init_s:.1f} s; a traced step: "
+                f"init {init_s:.1f} s; prefill of "
+                f"{LM15_BIG_PREFILL[0]} x {LM15_BIG_PREFILL[1]} in "
+                f"{pre_ms:.0f} ms, {pre_moved['weights'] / 1e9:.2f} GB of "
+                f"weights copied (reckoned {pre_reckoned / 1e9:.2f}); a "
+                f"traced step: "
                 + (waits["not_measured"] if "not_measured" in waits else
                    f"host waits {waits['waits'] or 'none'}, enqueued in "
                    f"{waits['enqueue_us'] / 1e3:.1f} of "
@@ -4230,6 +4600,20 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
             if max(rels["fp32"]) > LM15_REL:
                 failures.append(f"{arch}: the meshes' fp32 logits {rels}")
         return row
+
+    def timed_prefill(what, model, placed, ptoks, memory=None):
+        """The sharded prefill over ``ptoks``: its logits, the wall ms of a
+        second call, and the bytes that call copied."""
+        step = make_prefill_step(model)
+        counted("lm_serve_sharded", f"{what} prefill",
+                lambda: step(placed, ptoks, memory), want=none)
+        synchronize()
+        serve_spmd.reset_copied()
+        t0 = time.perf_counter()
+        pre = counted("lm_serve_sharded", f"{what} prefill, timed",
+                      lambda: step(placed, ptoks, memory), want=none)
+        synchronize()
+        return pre, (time.perf_counter() - t0) * 1e3, serve_spmd.copied()
 
     def check_arch(arch, cut, meshes, big=False):
         """15a for one arch: the unsharded fp32 steps, then the same steps
@@ -4320,11 +4704,13 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
                             "lm_serve_sharded", f"{arch} forward",
                             lambda: model.forward(params, ptoks, memory),
                             want=none)
-                pre = counted(
-                    "lm_serve_sharded", f"{arch} {shape} prefill",
-                    lambda: make_prefill_step(model)(placed, ptoks,
-                                                     memory), want=none)
+                pre, pre_ms, pre_moved = timed_prefill(
+                    f"{arch} {shape}", model, placed, ptoks, memory)
                 err["prefill_rel"] = rel_l2(pre, forwards[rows])
+                err["prefill_ms"] = pre_ms
+                err["prefill_copied"] = pre_moved
+                err["prefill_weights_reckoned"] = lm15_prefill_reckoned(
+                    placed, mesh, B)
                 del pre
             row[str(shape)] = err
             del placed, cache
@@ -4337,7 +4723,9 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
                     and (err["bitwise"] if shape == (1, 1)
                          else err["logits_rel"] <= LM15_REL
                          and err["cache_rel"] <= LM15_REL)
-                    and err.get("prefill_rel", 0.0) <= LM15_REL):
+                    and err.get("prefill_rel", 0.0) <= LM15_REL
+                    and err.get("prefill_copied", {}).get("weights", 0)
+                    == err.get("prefill_weights_reckoned", 0)):
                 raise AssertionError(f"{arch} {shape}: {err}")
         del ref, ref_final, top2, forwards
         lm_free()
@@ -4382,7 +4770,11 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
                 f"{shape} " + ("bit for bit" if row[str(shape)]["bitwise"]
                                else f"logits {row[str(shape)]['logits_rel']:.1e}, "
                                f"cache {row[str(shape)]['cache_rel']:.1e}")
-                + (f", prefill {row[str(shape)]['prefill_rel']:.1e}"
+                + (f", prefill {row[str(shape)]['prefill_rel']:.1e} in "
+                   f"{row[str(shape)]['prefill_ms']:.1f} ms, "
+                   f"{row[str(shape)]['prefill_copied']['weights'] / 1e9:.3f}"
+                   f" GB of weights copied (reckoned "
+                   f"{row[str(shape)]['prefill_weights_reckoned'] / 1e9:.3f})"
                    if "prefill_rel" in row[str(shape)] else "")
                 + f", {row[str(shape)]['step_ms']:.1f} ms, "
                 f"{row[str(shape)]['copied_a_step']['weights'] / 1e9:.3f}"

@@ -3,10 +3,11 @@
 
 The JAX package places an LM's training state by ``params_pspecs``
 (FSDP over ``'data'``, TP/EP over ``'model'``) and runs the same jitted
-step on it; XLA inserts the all-gather at each use and the
-reduce-scatter in the backward.  The port has no compiler to do that, so
-this module does it by hand, in the single-controller design of the
-sharded conv backend (``conv_spmd``): one process holds every block as a
+step on it; XLA computes each weight block where it lies, inserts the
+data axes' all-gather at each use and the reduce-scatter in the
+backward.  The port has no compiler to do that, so this module does it
+by hand, in the single-controller design of the sharded conv backend
+(``conv_spmd``): one process holds every block as a
 :class:`~repro_torch.distributed.sharding.Sharded` on its mesh
 coordinate's device, and a mesh may repeat one device, so one card runs
 any mesh shape.
@@ -18,23 +19,29 @@ any mesh shape.
     the generator the unsharded init uses, in its order, each stack layer
     by layer and each other entry as it is drawn, and placed at once
     (:func:`init_train_state`): its values are the unsharded init's, and
-    the peak beside the blocks is one layer or the largest other entry.
-  * **Data-parallel compute.** Each coordinate of the batch axes runs
-    ``transformer.loss_terms`` on its slice of the batch, on the device of
-    its row's first coordinate; the model axis's other coordinates run
-    nothing more.  A batch the data axes do not divide is computed whole
+    the peak beside the blocks is one drawn layer or the largest other
+    entry (a stack keeps its first layer's structure, not its tensors).
+  * **Compute where the weights lie.** Each coordinate of the batch axes
+    (a data row) runs ``transformer.loss_terms`` on its slice of the
+    batch with ``model_split.Forward``'s operations: each weight block
+    computes on its own coordinate (r, m), which fetches only its own
+    model block over the data axes; leaves ``'model'`` does not cut run
+    at the row's first coordinate; only per-token tensors move between
+    coordinates, and partial sums are added at the row in ascending
+    block order.  A batch the data axes do not divide is computed whole
     by the first row, its MoE dispatch still in ``data_shards()`` chunks,
     as ``sanitize_pspec`` and the JAX package's ``moe_block`` have it.
-  * **Gather at use.** A stacked leaf's layer ``i`` is gathered onto the
-    compute device where the model takes it (``transformer.layer``),
-    inside the layer's checkpointed function, so the recomputation
-    gathers again and the forward frees the gathered copy; the other
-    leaves are gathered once a step.  The gather is an autograd
-    ``Function`` (``_Gather``) whose backward cuts the gradient by the
-    same spec and adds each block into the leaf's gradient block on the
-    block's device: the reduce-scatter.  Shards run their backward one
-    after another in ascending coordinate order, so the sums over data
-    shards come in one order, with no atomics, and a step replays bit for
+  * **Fetch at use, reduce-scatter in the backward.** A stacked leaf's
+    layer ``i`` is fetched where the model takes it
+    (``transformer.layer``), inside the layer's checkpointed function,
+    so the recomputation fetches again and the forward keeps no fetched
+    copy; the other leaves are fetched once a step.  The fetch is an
+    autograd ``Function`` whose backward cuts the gradient by the blocks
+    it was joined from and adds each into that block's float32 gradient
+    block on the block's device.  Rows run their backward one after
+    another in ascending order, and a tensor several coordinates take
+    sums its gradients in a fixed order (``model_split._Tee``), so the
+    sums come in one order, with no atomics, and a step replays bit for
     bit.
   * **Cross-shard terms.** The loss is the mean of the equal-size shards'
     per-token losses (cross entropy and deepseek's MTP term).  The MoE
@@ -43,14 +50,31 @@ any mesh shape.
     (``router_stats``), the means over shards are taken before the
     product, and each shard's backward takes ``E * D * m_s / n`` with the
     global density ``D`` (the density carries no gradient).
+  * **Microbatches** (``make_train_step(..., microbatches=mb)``), as the
+    JAX step has them: chunk i is rows [i B / mb, (i + 1) B / mb) of the
+    global batch, split over the data rows (the first row computes a
+    chunk the data axes do not divide); the gradient blocks are summed in
+    float32 in chunk order, then divided by mb; the loss is the mean of
+    the chunks' losses, the MoE aux loss over each chunk's tokens.
+  * **int8 gradient compression** (``grad_compression=True``): each
+    leaf's gradient blocks after the reduction, scaled by the leaf's
+    global ``max |g| / 127 + 1e-12`` (the max over its blocks), rounded
+    with noise keyed by each element's flat index in the whole leaf
+    (``optim.grad_compression.int8_roundtrip``), so the result depends on
+    neither the mesh nor the order the blocks are visited in: the
+    unsharded step's compressed gradients.
   * **AdamW on blocks.** ``AdamW.apply`` runs over the unique blocks: the
     global norm counts each block once, and each block's update, an
     elementwise function of its own leaf's block, is computed on that
     block's device and copied to its replicas on other devices.
 
-On a mesh of one data row the loss and gradients are the single-device
-step's bit for bit (``tests/test_torch_lm_spmd.py``); across data shards
-the sums come in another order.
+On a mesh of one coordinate the loss and gradients are the single-device
+step's bit for bit (``tests/test_torch_lm_spmd.py``); elsewhere the row
+blocks' partial sums and the sums over data shards come in another
+order.  :func:`copied` counts the bytes a step moves between coordinates
+(``model_split.copied``): its weights are the all-gather over the data
+axes of the leaves it reads, once a fetch (twice for a rematerialised
+layer's), 0 on a mesh of one data row.
 """
 from __future__ import annotations
 
@@ -63,12 +87,14 @@ import torch
 from repro_torch import tree as tree_util
 from repro_torch.core.precision import full_fp32_backward
 from repro_torch.distributed import act_sharding
+from repro_torch.distributed.model_split import (  # noqa: F401
+    Forward, _Leaf, _Row, copied, param_leaves, reset_copied)
 from repro_torch.distributed.sharding import (
-    P, Sharded, _STACK_KEYS, _with_paths, batch_axes, block_of,
-    opt_state_pspecs, params_pspecs, sanitized_shardings,
-    tree_map_with_path)
+    P, Sharded, _with_paths, batch_axes, block_of, opt_state_pspecs,
+    params_pspecs, sanitized_shardings, tree_map_with_path)
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import dtype_of
+from repro_torch.optim import grad_compression as gc
 from repro_torch.optim.optimizers import AdamWState
 
 
@@ -111,7 +137,10 @@ class _Placer:
 
 
 class _StackSink:
-    """One stack's blocks, written layer by layer."""
+    """One stack's blocks, written layer by layer; of the drawn layers it
+    keeps only the first one's structure (meta tensors), so no drawn
+    layer outlives its placement (22.5 GB for a bf16 deepseek-v3 MoE
+    layer)."""
 
     def __init__(self, placer: _Placer, key: str, n: int):
         self.placer, self.key, self.n = placer, key, n
@@ -120,7 +149,9 @@ class _StackSink:
 
     def add(self, i: int, layer) -> None:
         if self.like is None:
-            self.like = layer
+            self.like = tree_util.tree_map(
+                lambda a: torch.empty(a.shape, dtype=a.dtype, device="meta"),
+                layer)
         for path, a in _with_paths(layer):
             s = self.placer.by_path[(self.key,) + path]
             entry = self.leaves.get(path)
@@ -189,106 +220,6 @@ def init_train_state(model, optimizer, seed: int, shardings, device):
 
 
 # --------------------------------------------------------------------------
-# gather at use, reduce-scatter in the backward
-# --------------------------------------------------------------------------
-class _Leaf:
-    """A parameter leaf in one step: its blocks, gathered where a shard's
-    compute takes them, and float32 gradient blocks on the blocks'
-    devices (the first coordinate holding each), added into by the
-    gather's backward."""
-
-    def __init__(self, sh: Sharded, stacked: bool):
-        self.sh, self.stacked = sh, stacked
-        self.core = P(*tuple(sh.spec)[1:]) if stacked else sh.spec
-        self.unique = sh.unique()
-        self.grads: Dict[Tuple[int, ...], torch.Tensor] = {}
-
-    def _copy(self, coords, device) -> torch.Tensor:
-        """A copy of the block held at ``coords``, one on ``device`` where
-        there is one."""
-        for c in coords:
-            if self.sh.mesh.device(c) == device:
-                return self.sh.shards[c]
-        return self.sh.shards[coords[0]]
-
-    def gather(self, index, device) -> torch.Tensor:
-        """The leaf (layer ``index`` of a stacked one) whole on
-        ``device``."""
-        parts = {}
-        for idx, coords in self.unique.items():
-            b = self._copy(coords, device)
-            parts[idx[1:] if self.stacked else idx] = \
-                b if index is None else b[index]
-        ndim = len(self.sh.shape) - (1 if self.stacked else 0)
-        counts = [1 + max(k[d] for k in parts) for d in range(ndim)]
-
-        def join(prefix, d):
-            if d == ndim:
-                return parts[prefix].to(device)
-            cut = [join(prefix + (i,), d + 1) for i in range(counts[d])]
-            return cut[0] if len(cut) == 1 else torch.cat(cut, dim=d)
-        return join((), 0)
-
-    def add_grad(self, index, g: torch.Tensor) -> None:
-        for idx, coords in self.unique.items():
-            part = block_of(g, self.core, self.sh.mesh,
-                            idx[1:] if self.stacked else idx)
-            dev = self.sh.mesh.device(coords[0])
-            buf = self.grads.get(idx)
-            if buf is None:
-                buf = self.grads[idx] = torch.zeros(
-                    self.sh.shards[coords[0]].shape, dtype=torch.float32,
-                    device=dev)
-            dst = buf if index is None else buf[index]
-            dst.add_(part.to(device=dev, dtype=torch.float32))
-
-    def grad(self, idx) -> torch.Tensor:
-        """The gradient block ``idx`` (zeros where the loss did not reach
-        the leaf, as in JAX)."""
-        g = self.grads.get(idx)
-        if g is None:
-            c0 = self.unique[idx][0]
-            g = torch.zeros(self.sh.shards[c0].shape, dtype=torch.float32,
-                            device=self.sh.mesh.device(c0))
-        return g
-
-
-class _Gather(torch.autograd.Function):
-    """Forward: a leaf (or a stacked leaf's layer) gathered on a device.
-    Backward: its gradient cut by the leaf's spec and added into the
-    gradient blocks (``_Leaf.add_grad``).  ``anchor`` is an empty tensor
-    that requires grad, so the output records and the backward runs."""
-
-    @staticmethod
-    def forward(ctx, anchor, leaf: _Leaf, index, device):
-        ctx.leaf, ctx.index = leaf, index
-        return leaf.gather(index, device).detach()
-
-    @staticmethod
-    def backward(ctx, g):
-        ctx.leaf.add_grad(ctx.index, g)
-        return None, None, None, None
-
-
-class _Stack:
-    """A stacked leaf in a shard's parameter tree: indexing it gathers the
-    layer (``transformer.layer``) in the compute dtype."""
-
-    def __init__(self, leaf: _Leaf, device, anchor, dtype):
-        self.leaf, self.device, self.anchor, self.dtype = \
-            leaf, device, anchor, dtype
-
-    def __getitem__(self, i: int) -> torch.Tensor:
-        t = _Gather.apply(self.anchor, self.leaf, i, self.device)
-        return t.to(self.dtype) if t.is_floating_point() else t
-
-    @property
-    def _version(self) -> int:
-        """The version of the blocks (the serving cache's key)."""
-        return self.leaf.sh.shards.flat[0]._version
-
-
-# --------------------------------------------------------------------------
 # the step
 # --------------------------------------------------------------------------
 def _compute_coords(mesh, n_rows: int) -> List[Tuple[int, ...]]:
@@ -304,43 +235,32 @@ def _compute_coords(mesh, n_rows: int) -> List[Tuple[int, ...]]:
 
 def _batch_slice(batch, s: int, n: int, device) -> Dict[str, torch.Tensor]:
     def cut(v):
-        v = v.gather() if isinstance(v, Sharded) else v
         b = v.shape[0] // n
         return v[s * b:(s + 1) * b].to(device)
     return {k: cut(v) for k, v in batch.items()}
 
 
-def value_and_grad(model, params, batch):
-    """(loss, metrics, {path: _Leaf with its gradient blocks}) of the
-    model's loss at the placed ``params`` over ``batch`` (global tensors,
-    or ``Sharded`` ones), computed per data shard (the module's
-    docstring)."""
+def _chunk(model, leaves, mesh, batch):
+    """One chunk of the batch through each row's forward and backward
+    (the module's docstring): its loss and metrics; the gradients added
+    into ``leaves``."""
     cfg = model.cfg
-    leaves = tree_map_with_path(
-        lambda path, sh: _Leaf(sh, any(k in _STACK_KEYS for k in path)),
-        params)
-    mesh = tree_util.leaves(params)[0].mesh
     n_data = math.prod(mesh.shape[a] for a in batch_axes(mesh))
     B = next(iter(batch.values())).shape[0]
     split = B % n_data == 0
     n = n_data if split else 1
-    coords = _compute_coords(mesh, n)
     cdtype = dtype_of(cfg.compute_dtype)
     moe = cfg.family == "moe"
     mains, auxes, metrics = [], [], []
     with act_sharding.local(1 if split else n_data):
-        for s, coord in enumerate(coords):
+        for s, coord in enumerate(_compute_coords(mesh, n)):
             device = mesh.device(coord)
-            anchor = torch.empty(0, device=device, requires_grad=True)
-
-            def use(leaf):
-                if leaf.stacked:
-                    return _Stack(leaf, device, anchor, cdtype)
-                return _Gather.apply(anchor, leaf, None, device)
-            tree = tree_util.tree_map(use, leaves)
-            main, aux, m = tfm.loss_terms(tree, cfg,
-                                          _batch_slice(batch, s, n, device),
-                                          router_stats=moe)
+            row = _Row(mesh, coord, s, anchor=torch.empty(
+                0, device=device, requires_grad=True))
+            main, aux, m = tfm.loss_terms(
+                row.weights(leaves, cdtype, tuple(leaves)), cfg,
+                _batch_slice(batch, s, n, device), router_stats=moe,
+                ops=Forward(row))
             mains.append(main)
             auxes.append(aux)
             metrics.append(m)
@@ -377,7 +297,66 @@ def value_and_grad(model, params, batch):
         if "mtp" in metrics[0]:
             out["mtp"] = torch.mean(torch.stack(
                 [m["mtp"].detach().to(dev0) for m in metrics]))
-    return loss, out, leaves
+    return loss, out
+
+
+def value_and_grad(model, params, batch, microbatches: int = 1):
+    """(loss, metrics, {path: _Leaf with its gradient blocks}) of the
+    model's loss at the placed ``params`` over ``batch`` (global tensors,
+    or ``Sharded`` ones), computed per data row where each weight block
+    lies (the module's docstring); with ``microbatches`` the batch's
+    chunks one after another, their gradients summed in float32 and
+    divided by their count, and the loss their losses' mean."""
+    leaves = param_leaves(params)
+    mesh = tree_util.leaves(params)[0].mesh
+    batch = {k: v.gather() if isinstance(v, Sharded) else v
+             for k, v in batch.items()}
+    B = next(iter(batch.values())).shape[0]
+    if B % microbatches:
+        raise ValueError(f"{microbatches} microbatches do not divide a "
+                         f"batch of {B}")
+    if microbatches == 1:
+        loss, metrics = _chunk(model, leaves, mesh, batch)
+        return loss, metrics, leaves
+    b = B // microbatches
+    flat = tree_util.leaves(leaves)
+    sums = [{} for _ in flat]
+    loss_sum = None
+    for i in range(microbatches):
+        loss, _ = _chunk(model, leaves, mesh,
+                         {k: v[i * b:(i + 1) * b] for k, v in batch.items()})
+        with torch.no_grad():
+            for leaf, acc in zip(flat, sums):
+                for idx in leaf.unique:
+                    g = leaf.grad(idx)
+                    acc[idx] = (acc[idx] if idx in acc
+                                else torch.zeros_like(g)) + g
+                leaf.grads = {}
+        loss_sum = loss if loss_sum is None else loss_sum + loss
+    for leaf, acc in zip(flat, sums):
+        leaf.grads = {idx: g / microbatches for idx, g in acc.items()}
+    loss = loss_sum / microbatches
+    return loss, {"loss": loss}, leaves
+
+
+@torch.no_grad()
+def compress(leaves) -> None:
+    """The int8 round trip of each leaf's gradient blocks, in place
+    (``grad_compression.int8_roundtrip``): the leaf's global scale, the
+    max over its blocks, and noise keyed by each element's flat index in
+    the whole leaf, a stacked block a layer at a time; the blocks in the
+    parameters' dtype, as the unsharded step casts them."""
+    for leaf in tree_util.leaves(leaves):
+        blocks = {idx: leaf.grad(idx) for idx in leaf.unique}
+        dev0 = next(iter(blocks.values())).device
+        scale = torch.stack([g.abs().max().to(dev0) for g in
+                             blocks.values()]).max() / 127.0 + 1e-12
+        leaf.grads = {
+            idx: gc.int8_roundtrip(
+                g, scale.to(g.device),
+                tuple(i * n for i, n in zip(idx, g.shape)),
+                leaf.sh.shape).to(leaf.sh.dtype)
+            for idx, g in blocks.items()}
 
 
 def _blocks_of(sh: Sharded, unique) -> List[torch.Tensor]:
@@ -407,10 +386,15 @@ def gradients(leaves):
         leaves)
 
 
-def train_step(model, optimizer, state, batch):
-    """One sharded step: ``make_train_step``'s over a placed state.
-    Returns the new placed state and the metrics."""
-    _, metrics, leaves = value_and_grad(model, state.params, batch)
+def train_step(model, optimizer, state, batch, microbatches: int = 1,
+               grad_compression: bool = False):
+    """One sharded step: ``make_train_step``'s over a placed state, with
+    its microbatches and its int8 gradient compression.  Returns the new
+    placed state and the metrics."""
+    _, metrics, leaves = value_and_grad(model, state.params, batch,
+                                        microbatches)
+    if grad_compression:
+        compress(leaves)
     return apply_gradients(optimizer, state, leaves, metrics)
 
 

@@ -80,13 +80,16 @@ first row), with the operations of :class:`_Ops`:
     is updated in place (the JAX step donates it).
 
 :func:`prefill_step` and the encoder and cross K/V of :func:`init_cache`
-still gather each layer whole onto the row's first device at use: they
-run ``model.forward``, the training forward, whose split over
-``'model'`` belongs with the sharded train step's.
+run the training forward (``transformer.forward``, ``encoder_forward``)
+with ``model_split.Forward``'s operations under ``torch.no_grad``: each
+weight block computes where it lies there too, as in the sharded train
+step.  The rows, the weights' fetches, the per-token copies and the
+block arithmetic live in ``distributed/model_split.py``, which the three
+steps share.
 
 :func:`copied` counts the bytes the steps move between mesh coordinates,
 as ``weights``, ``activations`` and ``cache``; the cache's count stays 0,
-and a decode step's weights are the all-gather over the data axes of its
+and a step's weights are the all-gather over the data axes of its
 model-split and data-split leaves.  On a mesh of distinct devices these
 are device copies; on a mesh that repeats one device, the copies the same
 mesh would make over distinct ones.
@@ -94,7 +97,7 @@ mesh would make over distinct ones.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -104,13 +107,16 @@ from repro_torch import tree as tree_util
 from repro_torch.core.precision import full_fp32_matmul
 from repro_torch.distributed import act_sharding
 from repro_torch.distributed.lm_spmd import (_compute_coords, _empty_stack,
-                                             _Leaf, _Placer, _StackSink)
+                                             _Placer)
+from repro_torch.distributed.model_split import (  # noqa: F401
+    Forward, Split, _Cut, _head_runs, _Row, _run_cols, copied, param_leaves,
+    reset_copied)
 from repro_torch.distributed.sharding import (
-    _STACK_KEYS, NamedSharding, Sharded, _axes, batch_axes, cache_pspecs,
-    params_pspecs, sanitize_pspec, sanitized_shardings, tree_map_with_path)
+    NamedSharding, Sharded, _axes, batch_axes, cache_pspecs, params_pspecs,
+    sanitize_pspec, sanitized_shardings, tree_map_with_path)
 from repro_torch.models import attention as attn
 from repro_torch.models import decode as decode_mod
-from repro_torch.models import layers, mla, moe
+from repro_torch.models import layers, mla
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import dtype_of
 
@@ -118,19 +124,6 @@ from repro_torch.models.layers import dtype_of
 _DECODE_KEYS = ("embed", "final_norm", "lm_head", "blocks", "dense_blocks",
                 "cross_blocks", "shared_block")
 _PREFILL_KEYS = _DECODE_KEYS + ("enc_blocks", "enc_norm")
-
-_COPIED = {"weights": 0, "activations": 0, "cache": 0}
-
-
-def copied() -> Dict[str, int]:
-    """Bytes moved between mesh coordinates since :func:`reset_copied`."""
-    return dict(_COPIED)
-
-
-def reset_copied() -> None:
-    for k in _COPIED:
-        _COPIED[k] = 0
-
 
 def is_placed(tree) -> bool:
     """The tree's leaves are placed on a mesh (``Sharded``)."""
@@ -163,371 +156,14 @@ def init_params(model, seed: int, shardings, device):
     device need hold; beside the blocks ``device`` holds one drawn layer
     at a time."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    return tfm.init_lm(gen, model.cfg, placer=_ServePlacer(shardings))
+    return tfm.init_lm(gen, model.cfg, placer=_Placer(shardings))
 
 
-class _ServePlacer(_Placer):
-    """``lm_spmd._Placer`` whose stacks keep the first layer's structure
-    and not its tensors: ``_StackSink`` holds the first drawn layer until
-    the stack is done, one whole layer beside the blocks on the drawing
-    device (22.5 GB for a bf16 deepseek-v3 MoE layer)."""
-
-    def stack(self, key, n):
-        return _ShapeSink(self, key, n)
-
-
-class _ShapeSink(_StackSink):
-    def add(self, i: int, layer) -> None:
-        super().add(i, layer)
-        self.like = tree_util.tree_map(lambda a: a.to("meta"), self.like)
-
-
-# --------------------------------------------------------------------------
-# a data row: its coordinate, its copies
-# --------------------------------------------------------------------------
 def _rows(mesh, batch: int) -> Tuple[int, int]:
     """(rows that compute, the data axes' size): one row a data coordinate
     where the data axes divide the batch, else the first row alone."""
     n_data = math.prod(mesh.shape[a] for a in batch_axes(mesh))
     return (n_data if batch % n_data == 0 else 1), n_data
-
-
-class _Row:
-    """One data row's compute: its first coordinate and device, the
-    coordinates of its line along ``'model'``, and the copies to and from
-    them (counted in :data:`_COPIED`)."""
-
-    def __init__(self, mesh, coord, index: int):
-        self.mesh, self.coord, self.index = mesh, tuple(coord), index
-        self._once: Dict[tuple, object] = {}
-        self.device = mesh.device(coord)
-        self.origin = (0,) * len(mesh.axis_names)
-        self.model_axis = mesh.axis_names.index("model")
-        keep = [i for i, a in enumerate(mesh.axis_names) if a != "model"]
-        self.line = {c for c in mesh.coords()
-                     if all(c[i] == self.coord[i] for i in keep)}
-
-    def once(self, key: tuple, make):
-        """``make()``, made once a step (a row lives one step): what every
-        layer derives alike from the step's positions."""
-        if key not in self._once:
-            self._once[key] = make()
-        return self._once[key]
-
-    def at(self, m: int) -> Tuple[int, ...]:
-        """The row's coordinate at index ``m`` of ``'model'``."""
-        c = list(self.coord)
-        c[self.model_axis] = m
-        return tuple(c)
-
-    def send(self, t, src, dst, kind="activations"):
-        if tuple(src) != tuple(dst):
-            _COPIED[kind] += t.numel() * t.element_size()
-        return t.to(self.mesh.device(dst))
-
-    def to(self, t, coord, kind="activations"):
-        return self.send(t, self.coord, coord, kind)
-
-    def back(self, ts, coord):
-        return tuple(self.send(t, coord, self.coord) for t in ts)
-
-    def take(self, t):
-        """An input of the step (held at the mesh's first coordinate)."""
-        return self.send(t, self.origin, self.coord)
-
-    def give(self, t):
-        """An output, to the mesh's first coordinate."""
-        return self.send(t, self.coord, self.origin)
-
-    def gather(self, leaf: _Leaf, index, dtype, pin=None) -> torch.Tensor:
-        """The leaf (layer ``index`` of a stacked one) whole on the row's
-        device in ``dtype`` (floating leaves); ``pin`` rides on the result,
-        so a cache that keeps it keeps ``pin`` alive."""
-        for idx, coords in leaf.unique.items():
-            if self.coord not in coords:
-                b = leaf.sh.shards[coords[0]]
-                b = b if index is None else b[index]
-                _COPIED["weights"] += b.numel() * b.element_size()
-        t = leaf.gather(index, self.device)
-        t = t.to(dtype) if t.is_floating_point() else t
-        if pin is not None:
-            t.pinned_by = pin
-        return t
-
-    def model_block(self, leaf: _Leaf, index, m: int, dtype
-                    ) -> torch.Tensor:
-        """Block ``m`` along ``'model'`` of a model-split leaf (layer
-        ``index`` of a stacked one) on coordinate ``at(m)``, in ``dtype``
-        (floating leaves): its blocks over the data axes, those the
-        coordinate does not hold copied from the coordinates that do."""
-        at = self.at(m)
-        device = self.mesh.device(at)
-        d = _model_dim(leaf) + (1 if leaf.stacked else 0)
-        if all(at in coords for idx, coords in leaf.unique.items()
-               if idx[d] == m):
-            # the coordinate holds its model block whole
-            t = leaf.sh.shards[at]
-            t = t if index is None else t[index]
-            return t.to(dtype) if t.is_floating_point() else t
-        parts = {}
-        for idx, coords in leaf.unique.items():
-            if idx[d] != m:
-                continue
-            b = leaf._copy(coords, device)
-            b = b if index is None else b[index]
-            if at not in coords:
-                _COPIED["weights"] += b.numel() * b.element_size()
-            parts[idx[1:] if leaf.stacked else idx] = b.to(device)
-        t = _join(parts)
-        return t.to(dtype) if t.is_floating_point() else t
-
-    def blocks(self, w, dim: int) -> List["_Blk"]:
-        """A weight's blocks along its dimension ``dim``, each on its
-        coordinate: a plain tensor (the row's own) or a leaf that
-        ``'model'`` does not cut is one block at the row."""
-        if isinstance(w, torch.Tensor):
-            return [_Blk(0, w.shape[dim], self.coord, w)]
-        if w.dim is None:
-            (c, t), = w.blocks()
-            return [_Blk(0, t.shape[dim], c, t)]
-        if w.dim != dim:
-            raise ValueError(f"a leaf cut over 'model' on its dimension "
-                             f"{w.dim}, where the step cuts its dimension "
-                             f"{dim}")
-        out, lo = [], 0
-        for c, t in w.blocks():
-            out.append(_Blk(lo, lo + t.shape[dim], c, t))
-            lo += t.shape[dim]
-        return out
-
-    def weight(self, leaf: _Leaf, index, dtype):
-        """A leaf (layer ``index`` of a stacked one) in a decode step: the
-        row's own tensor where the whole mesh holds it alike, else a
-        :class:`_W`, whose blocks are fetched where an operation takes
-        them."""
-        if all(e is None for e in leaf.core):
-            return self.gather(leaf, index, dtype)
-        return _W(self, leaf, index, dtype)
-
-    def weights(self, leaves, dtype, keys):
-        """The row's parameter tree for a decode step over ``keys``
-        (:meth:`weight`; a stacked leaf's layer where indexed)."""
-        def use(leaf):
-            if leaf.stacked:
-                return _Indexed(self, leaf, dtype)
-            return self.weight(leaf, None, dtype)
-        return {k: tree_util.tree_map(use, leaves[k]) for k in keys
-                if k in leaves}
-
-    def tree(self, leaves, dtype, keys):
-        """The row's parameter tree over ``keys``, each leaf whole on the
-        row's device (the prefill's and the encoder's gather at use):
-        stacked leaves gathered a layer at a time where indexed
-        (:class:`_Layers`), the others now."""
-        def use(leaf):
-            if leaf.stacked:
-                return _Layers(leaf, self, dtype)
-            return self.gather(leaf, None, dtype)
-        return {k: tree_util.tree_map(use, leaves[k]) for k in keys
-                if k in leaves}
-
-    def cache(self, cache):
-        return tree_util.tree_map(lambda sh: _CacheStack(sh, self), cache)
-
-
-class _Layers:
-    """A stacked parameter leaf in a row's tree: indexing it gathers the
-    layer (``transformer.layer``).  The gathered layer carries this object
-    (``pinned_by``), so the serving cache's key of a conv layer
-    (``ssm.conv_cache_key``: this object's identity and version) names it
-    while the cache's entry lives."""
-
-    def __init__(self, leaf: _Leaf, row: _Row, dtype):
-        self.leaf, self.row, self.dtype = leaf, row, dtype
-
-    def __getitem__(self, i: int) -> torch.Tensor:
-        return self.row.gather(self.leaf, i, self.dtype, pin=self)
-
-    @property
-    def _version(self) -> int:
-        return self.leaf.sh.shards.flat[0]._version
-
-
-def _param_leaves(params):
-    return tree_map_with_path(
-        lambda path, sh: _Leaf(sh, any(k in _STACK_KEYS for k in path)),
-        params)
-
-
-# --------------------------------------------------------------------------
-# weights where they lie, per-token tensors between coordinates
-# --------------------------------------------------------------------------
-def _model_dim(leaf: _Leaf) -> Optional[int]:
-    """The dimension of the leaf's layer (the stack axis dropped) that
-    ``'model'`` cuts; None where it cuts none."""
-    for d, e in enumerate(leaf.core):
-        if "model" in _axes(e):
-            if e != "model":
-                raise ValueError(f"a dimension cut over {e}: the step "
-                                 f"splits a dimension over 'model' alone")
-            return d
-    return None
-
-
-def _join(parts: Dict[Tuple[int, ...], torch.Tensor]) -> torch.Tensor:
-    """Blocks keyed by their block index (the indices of each dimension
-    consecutive), joined along each dimension in order."""
-    keys = list(parts)
-    ndim = len(keys[0])
-    lo = [min(k[d] for k in keys) for d in range(ndim)]
-    hi = [max(k[d] for k in keys) for d in range(ndim)]
-
-    def join(prefix, d):
-        if d == ndim:
-            return parts[prefix]
-        cut = [join(prefix + (i,), d + 1) for i in range(lo[d], hi[d] + 1)]
-        return cut[0] if len(cut) == 1 else torch.cat(cut, dim=d)
-    return join((), 0)
-
-
-class _Blk(NamedTuple):
-    """A block of a tensor: its extent lo..hi along the cut dimension, its
-    coordinate, and the block."""
-    lo: int
-    hi: int
-    coord: Tuple[int, ...]
-    t: torch.Tensor
-
-
-class _Indexed:
-    """A stacked leaf in a row's decode tree: indexing it gives the
-    layer's weight (``transformer.layer``, :meth:`_Row.weight`)."""
-
-    def __init__(self, row: _Row, leaf: _Leaf, dtype):
-        self.row, self.leaf, self.dtype = row, leaf, dtype
-
-    def __getitem__(self, i: int):
-        return self.row.weight(self.leaf, i, self.dtype)
-
-
-class _W:
-    """A parameter leaf (layer ``index`` of a stacked one) that a decode
-    step computes where it lies: cut by ``'model'`` along ``dim``, its
-    model blocks each on its own coordinate (:meth:`_Row.model_block`);
-    ``dim`` None, the leaf whole at the row (gathered over the data axes).
-    The blocks are fetched once, where an operation first takes them."""
-
-    def __init__(self, row: _Row, leaf: _Leaf, index, dtype):
-        self.row, self.leaf, self.index, self.dtype = row, leaf, index, dtype
-        self.dim = _model_dim(leaf)
-        self._blocks = None
-
-    def blocks(self) -> List[Tuple[Tuple[int, ...], torch.Tensor]]:
-        if self._blocks is None:
-            row = self.row
-            if self.dim is None:
-                self._blocks = [(row.coord, row.gather(
-                    self.leaf, self.index, self.dtype))]
-            else:
-                self._blocks = [
-                    (row.at(m), row.model_block(self.leaf, self.index, m,
-                                                self.dtype))
-                    for m in range(row.mesh.shape["model"])]
-        return self._blocks
-
-
-class _Cut:
-    """A per-token tensor (or a weight's blocks, ``kind`` ``weights``) of
-    extent n along ``axis``, held as pieces on mesh coordinates.
-    :meth:`take` gives its extent lo..hi on a coordinate: the piece that
-    lies there as it is, else the slices of the pieces it covers, sent
-    there (once each)."""
-
-    def __init__(self, row: _Row, pieces: List[_Blk], axis: int = -1,
-                 kind: str = "activations"):
-        self.row, self.pieces, self.axis, self.kind = row, pieces, axis, kind
-        self.n = pieces[-1].hi
-        self._sent: Dict[tuple, torch.Tensor] = {}
-
-    @classmethod
-    def at_row(cls, row: _Row, t: torch.Tensor, axis: int = -1) -> "_Cut":
-        return cls(row, [_Blk(0, t.shape[axis], row.coord, t)], axis)
-
-    def take(self, lo: int, hi: int, coord) -> torch.Tensor:
-        key = (lo, hi, tuple(coord))
-        if key not in self._sent:
-            parts = []
-            for p in self.pieces:
-                a, b = max(lo, p.lo), min(hi, p.hi)
-                if a < b:
-                    t = p.t if (a, b) == (p.lo, p.hi) \
-                        else p.t.narrow(self.axis, a - p.lo, b - a)
-                    parts.append(self.row.send(t, p.coord, coord, self.kind))
-            self._sent[key] = parts[0] if len(parts) == 1 \
-                else torch.cat(parts, dim=self.axis)
-        return self._sent[key]
-
-    def whole(self) -> torch.Tensor:
-        """Joined at the row."""
-        return self.take(0, self.n, self.row.coord)
-
-
-def _head_runs(lo: int, hi: int, width: int):
-    """The flat columns lo..hi of a (heads, width) layout as runs (h0, h1,
-    e0, e1, c0): heads h0..h1, columns e0..e1 of each, from column c0 of
-    the block; whole heads run together, a head cut by an edge alone."""
-    runs, j = [], lo
-    while j < hi:
-        h, e = divmod(j, width)
-        if e == 0 and hi - j >= width:
-            n = (hi - j) // width
-            runs.append((h, h + n, 0, width, j - lo))
-            j += n * width
-        else:
-            e1 = min(width, e + hi - j)
-            runs.append((h, h + 1, e, e1, j - lo))
-            j += e1 - e
-    return runs
-
-
-def _run_cols(t: torch.Tensor, run) -> torch.Tensor:
-    """A run's columns of a block (r, cols) as (r, heads, e1 - e0)."""
-    h0, h1, e0, e1, c0 = run
-    n = (h1 - h0) * (e1 - e0)
-    return t[:, c0:c0 + n].reshape(t.shape[0], h1 - h0, e1 - e0)
-
-
-def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return a @ w
-
-
-def _same_cut(*cuts: List[_Blk]) -> bool:
-    first = [(b.lo, b.hi, b.coord) for b in cuts[0]]
-    return all([(b.lo, b.hi, b.coord) for b in c] == first for c in cuts)
-
-
-def _expert_rows(x, route, w_gate, w_up, w_down, e0: int, n_e: int,
-                 E: int, C: int) -> torch.Tensor:
-    """The sorted dispatch's rows (``route``: expert, token, kept, slot)
-    through experts e0..e0 + n_e of one block (``models.moe``'s grouped
-    products, on the block's whole experts or its ``f`` slice of them):
-    (T * k, d), zero at the rows of other experts."""
-    se, st, keep, slot = route[0], route[1], route[2].bool(), route[3]
-    mine = (se >= e0) & (se < e0 + n_e)
-    local = torch.where(mine, se - e0, n_e)
-    # the others' rows and the dropped ones land in a spare expert or
-    # slot, cut off after
-    grouped = torch.zeros((n_e + 1, C + 1, x.shape[1]), dtype=x.dtype,
-                          device=x.device)
-    grouped[local, torch.where(keep & mine, slot, C)] = x[st]
-    grouped = grouped[:n_e, :C]
-    h = F.silu(torch.bmm(grouped, w_gate)) * torch.bmm(grouped, w_up)
-    y = torch.bmm(h, w_down)
-    rows = y[torch.where(mine, local, 0), slot]
-    if n_e == E:
-        return rows
-    return torch.where(mine[:, None], rows, torch.zeros((), dtype=y.dtype,
-                                                        device=y.device))
 
 
 # --------------------------------------------------------------------------
@@ -566,6 +202,10 @@ class _Blocks:
         return self.one() and len(self.parts[0].writes) == 1
 
 
+def _cache_views(row: _Row, cache):
+    return tree_util.tree_map(lambda sh: _CacheStack(sh, row), cache)
+
+
 class _CacheStack:
     """A stacked cache leaf (L, B, ...) for one row: indexing it gives
     layer ``i``'s :class:`_Blocks` (views of the blocks)."""
@@ -601,8 +241,9 @@ def init_cache(model, params, batch: int, max_len: int,
     (``sharding.cache_shardings``; by default ``cache_pspecs`` on the
     parameters' mesh), each entry made as blocks on their devices, so
     nothing is held beside them; the vlm's and encdec's cross K/V
-    computed on each data row's device from the gathered cross blocks,
-    then written into their blocks."""
+    computed on each data row's device (the encoder by weight block,
+    ``model_split.Forward``; ``wk``, ``wv``, which ``'model'`` does not
+    cut, at the row), then written into their blocks."""
     cfg = model.cfg
     if not is_placed(params):
         raise ValueError("serve_spmd.init_cache takes parameters placed on "
@@ -631,24 +272,25 @@ def init_cache(model, params, batch: int, max_len: int,
         return cache
     n, _ = _rows(mesh, batch)
     b, cdtype = batch // n, dtype_of(cfg.compute_dtype)
-    leaves = _param_leaves(params)
+    leaves = param_leaves(params)
     with torch.no_grad(), full_fp32_matmul():
         for r, coord in enumerate(_compute_coords(mesh, n)):
             row = _Row(mesh, coord, r)
+            ops = Forward(row)
             mem = row.take(memory[r * b:(r + 1) * b])
             if cfg.family == "vlm":
                 mem = tfm._compute(mem, cfg)
             else:
                 mem = tfm.encoder_forward(
-                    row.tree(leaves, cdtype, ("enc_blocks", "enc_norm")),
-                    cfg, mem)
-            xattn = row.tree(leaves, cdtype,
-                             ("cross_blocks",))["cross_blocks"]["xattn"]
-            views = row.cache({"cross_k": cache["cross_k"],
-                               "cross_v": cache["cross_v"]})
+                    row.weights(leaves, cdtype, ("enc_blocks", "enc_norm")),
+                    cfg, mem, ops)
+            xattn = row.weights(leaves, cdtype,
+                                ("cross_blocks",))["cross_blocks"]["xattn"]
+            views = _cache_views(row, {"cross_k": cache["cross_k"],
+                                       "cross_v": cache["cross_v"]})
             for g in range(cache["cross_k"].shape[0]):
                 for name, w in (("cross_k", "wk"), ("cross_v", "wv")):
-                    t = attn._heads(mem, xattn[w][g])
+                    t = attn._heads(mem, ops._whole(xattn[w][g]))
                     for part in views[name][g].parts:
                         n_s = part.read.shape[1]
                         piece = t[:, part.offset:part.offset + n_s]
@@ -700,156 +342,14 @@ def _valid(offset: int, n: int, pos, length: int, ring: bool):
     return idx <= pos[:, None]
 
 
-class _Ops(decode_mod.DecodeOps):
+class _Ops(Split, decode_mod.DecodeOps):
     """``decode.DecodeOps`` over weights and a cache placed on a mesh, for
-    one row (the module's docstring)."""
-
-    def __init__(self, row: _Row):
-        self.row = row
-
-    # ---- products by block ----------------------------------------------
-    def _cols(self, w, x: _Cut, fn=_mm, dim: int = 1,
-              axis: int = -1) -> _Cut:
-        """``fn(x, block)`` for each block of ``w`` along ``dim`` (its
-        output columns) on the block's coordinate: the output's pieces."""
-        return _Cut(self.row, [_Blk(b.lo, b.hi, b.coord,
-                                    fn(x.take(0, x.n, b.coord), b.t))
-                               for b in self.row.blocks(w, dim)], axis)
-
-    def _rows(self, w, x: _Cut, fn=_mm, dim: int = 0,
-              limit: Optional[int] = None) -> torch.Tensor:
-        """``fn(x's slice, block)`` for each block of ``w`` along ``dim``
-        (its input rows, up to ``limit`` of them) on the block's
-        coordinate; the partial sums added at the row in ascending block
-        order."""
-        row, out = self.row, None
-        for b in row.blocks(w, dim):
-            hi = b.hi if limit is None else min(b.hi, limit)
-            if hi <= b.lo:
-                continue
-            t = b.t if hi == b.hi else b.t.narrow(dim, 0, hi - b.lo)
-            part = row.send(fn(x.take(b.lo, hi, b.coord), t), b.coord,
-                            row.coord)
-            out = part if out is None else out + part
-        return out
-
-    def _whole(self, w) -> torch.Tensor:
-        """A leaf ``'model'`` does not cut, at the row."""
-        blocks = self.row.blocks(w, 0 if getattr(w, "dim", None) is None
-                                 else w.dim)
-        if len(blocks) != 1:
-            raise ValueError("a leaf cut over 'model' where the step takes "
-                             "it whole")
-        b = blocks[0]
-        return self.row.send(b.t, b.coord, self.row.coord, "weights")
-
-    def _heads(self, w, x: _Cut) -> torch.Tensor:
-        """x @ w (d, n, hd) by w's head blocks, joined at the row:
-        (B, 1, n, hd)."""
-        return self._cols(w, x, attn._heads, dim=1, axis=2).whole()
-
-    def _heads_out(self, wo, cfg, o: torch.Tensor) -> torch.Tensor:
-        """``attention.attention_output``: o (B, Hkv, g, hd) through wo
-        (Hq_pad, hd, d) by its head blocks (padded heads take none)."""
-        B = o.shape[0]
-        o = o.reshape(B, 1, -1, cfg.head_dim)
-        return self._rows(
-            wo, _Cut.at_row(self.row, o, axis=2),
-            lambda a, t: a.reshape(B, 1, -1) @ t.reshape(-1, t.shape[-1]),
-            limit=o.shape[2])
-
-    # ---- the embedding and the head ---------------------------------------
-    def embed(self, w, tok: torch.Tensor) -> torch.Tensor:
-        """tok (B, 1) at the row -> (B, 1, d): each vocab block looks up
-        the tokens in its range, zeros elsewhere; the row sums them."""
-        row, out = self.row, None
-        blocks = row.blocks(w, 0)
-        for b in blocks:
-            local = row.to(tok, b.coord) - b.lo
-            e = b.t[local.clamp(0, b.hi - b.lo - 1)]
-            if len(blocks) > 1:
-                inside = (local >= 0) & (local < b.hi - b.lo)
-                e = torch.where(inside[..., None], e, torch.zeros(
-                    (), dtype=e.dtype, device=e.device))
-            part = row.send(e, b.coord, row.coord)
-            out = part if out is None else out + part
-        return out
-
-    def logits(self, tree, cfg, x: torch.Tensor) -> torch.Tensor:
-        """``transformer.lm_logits`` by the head's vocab blocks, each on
-        its coordinate, joined on the mesh's first coordinate."""
-        row = self.row
-        if cfg.tie_embeddings:
-            blocks = row.blocks(tree["embed"], 0)
-            fn = lambda a, t: a @ t.T.to(a.dtype)              # noqa: E731
-        else:
-            blocks = row.blocks(tree["lm_head"], 1)
-            fn = lambda a, t: a @ t.to(a.dtype)                # noqa: E731
-        xc = _Cut.at_row(row, x)
-        parts = [row.send(fn(xc.take(0, xc.n, b.coord), b.t).float(),
-                          b.coord, row.origin) for b in blocks]
-        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-
-    # ---- FFNs ---------------------------------------------------------
-    def ffn(self, p, h):
-        """``layers.swiglu``: the hidden columns on ``w_gate``'s and
-        ``w_up``'s blocks, through ``w_down``'s row blocks."""
-        row = self.row
-        gate, up = row.blocks(p["w_gate"], 1), row.blocks(p["w_up"], 1)
-        if not _same_cut(gate, up):
-            raise ValueError("w_gate and w_up are cut apart over 'model'")
-        x = _Cut.at_row(row, h)
-        hidden = []
-        for g, u in zip(gate, up):
-            xs = x.take(0, x.n, g.coord)
-            hidden.append(_Blk(g.lo, g.hi, g.coord,
-                               F.silu(xs @ g.t) * (xs @ u.t)))
-        return self._rows(p["w_down"], _Cut(row, hidden))
+    one row (the module's docstring); the block arithmetic is
+    ``model_split.Split``'s."""
 
     def moe(self, p, cfg, h):
-        """``moe.moe_block`` at capacity T (lossless): the row routes; each
-        block runs its experts (expert parallel) or its ``f`` slice of
-        every expert (tensor parallel) on the dispatch's rows; the row
-        adds the rows' partials in block order and combines them."""
-        row = self.row
-        B, S, d = h.shape
-        E, k = cfg.n_experts, cfg.n_experts_active
-        T = B * S
-        xt = h.reshape(T, d)
-        ds = act_sharding.data_shards()
-        ds = ds if T % ds == 0 else 1
-        Tl = T // ds
-        C = max(int(Tl * k / E * (cfg.n_experts / cfg.n_experts_active)), 1)
-        tp = getattr(p["w_gate"], "dim", None) == 2
-        dims = (2, 2, 1) if tp else (0, 0, 0)
-        gate, up, down = (row.blocks(p[n], dm) for n, dm in
-                          zip(("w_gate", "w_up", "w_down"), dims))
-        if not _same_cut(gate, up, down):
-            raise ValueError("the experts' leaves are cut apart over "
-                             "'model'")
-        router = self._whole(p["router"])
-        outs = []
-        for s in range(ds):
-            xs = xt[s * Tl:(s + 1) * Tl]
-            probs = torch.softmax((xs @ router).float(), dim=-1)
-            gate_vals, expert_ids = moe._top_k(probs, k)
-            gate_vals = gate_vals / torch.sum(gate_vals, dim=-1,
-                                              keepdim=True)
-            idx = moe.dispatch(expert_ids, gate_vals, E, k, C)
-            route = torch.stack([idx[0], idx[1], idx[3].long(), idx[4]])
-            rows = None
-            for g, u, w in zip(gate, up, down):
-                e0, n_e = (0, E) if tp else (g.lo, g.hi - g.lo)
-                part = _expert_rows(row.to(xs, g.coord),
-                                    row.to(route, g.coord), g.t, u.t, w.t,
-                                    e0, n_e, E, C)
-                part = row.send(part, g.coord, row.coord)
-                rows = part if rows is None else rows + part
-            outs.append(moe.combine_rows(rows, idx, Tl, k, d, xt.dtype))
-        out = outs[0] if ds == 1 else torch.cat(outs)
-        if cfg.n_shared_experts:
-            out = out + self.ffn(p["shared"], xt)
-        return out.reshape(B, S, d)
+        """``moe.moe_block`` at capacity T (lossless)."""
+        return self._moe(p, cfg, h, cfg.n_experts / cfg.n_experts_active)[0]
 
     # ---- attention ------------------------------------------------------
     def _pos(self, pos, c) -> torch.Tensor:
@@ -1129,7 +629,7 @@ def decode_step(model, params, cache, tokens: torch.Tensor,
                          f"batch of {B}")
     n, n_data = _rows(mesh, B)
     b, cdtype = B // n, dtype_of(cfg.compute_dtype)
-    leaves = _param_leaves(params)
+    leaves = param_leaves(params)
     out = []
     with torch.no_grad(), act_sharding.local(1 if n > 1 else n_data), \
             full_fp32_matmul():
@@ -1140,8 +640,8 @@ def decode_step(model, params, cache, tokens: torch.Tensor,
             tok = row.take(tokens[r * b:(r + 1) * b])
             at = row.take(pos[r * b:(r + 1) * b])
             x = tfm._compute(ops.embed(tree["embed"], tok), cfg)
-            x = decode_mod.decode_layers(tree, cfg, row.cache(cache), x, at,
-                                         ops)
+            x = decode_mod.decode_layers(tree, cfg, _cache_views(row, cache),
+                                         x, at, ops)
             x = layers.rmsnorm(x, tree["final_norm"], cfg.norm_eps)
             out.append(ops.logits(tree, cfg, x))
     return (out[0] if len(out) == 1 else torch.cat(out)), cache
@@ -1150,24 +650,26 @@ def decode_step(model, params, cache, tokens: torch.Tensor,
 def prefill_step(model, params, tokens: torch.Tensor,
                  memory: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``model.forward`` over placed ``params``: each data row's slice of
-    the batch on its device, each layer gathered whole onto it at use
-    (the training forward's split over ``'model'`` is not ported yet);
-    the logits on the mesh's first device in batch order."""
+    the batch on its device, each weight block computed on its own
+    coordinate (``model_split.Forward``); the logits on the mesh's first
+    device in batch order."""
     if not is_placed(params):
         raise ValueError("the sharded prefill step takes parameters placed "
                          "on a mesh")
     mesh = _mesh_of(params)
+    cfg = model.cfg
     B = tokens.shape[0]
     n, n_data = _rows(mesh, B)
-    b, cdtype = B // n, dtype_of(model.cfg.compute_dtype)
-    leaves = _param_leaves(params)
+    b, cdtype = B // n, dtype_of(cfg.compute_dtype)
+    leaves = param_leaves(params)
     out = []
     with torch.no_grad(), act_sharding.local(1 if n > 1 else n_data):
         for r, coord in enumerate(_compute_coords(mesh, n)):
             row = _Row(mesh, coord, r)
             mem = None if memory is None \
                 else row.take(memory[r * b:(r + 1) * b])
-            logits = model.forward(row.tree(leaves, cdtype, _PREFILL_KEYS),
-                                   row.take(tokens[r * b:(r + 1) * b]), mem)
+            logits = tfm.forward(row.weights(leaves, cdtype, _PREFILL_KEYS),
+                                 cfg, row.take(tokens[r * b:(r + 1) * b]),
+                                 mem, Forward(row))
             out.append(row.give(logits))
     return out[0] if len(out) == 1 else torch.cat(out)

@@ -85,15 +85,25 @@ def finish_qkv(p: Params, cfg, q, k, v, positions: torch.Tensor,
                rope: bool = True):
     """The projected heads' bias, norm and RoPE (per head, so a step that
     projects the heads block by block finishes them joined)."""
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return (finish_heads(cfg, q, p.get("bq"), p.get("q_norm"), positions,
+                         rope),
+            finish_heads(cfg, k, p.get("bk"), p.get("k_norm"), positions,
+                         rope),
+            v + p["bv"] if cfg.qkv_bias else v)
+
+
+def finish_heads(cfg, x, bias, norm, positions: torch.Tensor,
+                 rope: bool = True):
+    """One projection's heads (B, S, n, hd): its bias, its norm and RoPE
+    (``bias`` and ``norm`` of these heads; a block of the heads finishes
+    on its own coordinate; ``bias`` None adds none)."""
+    if cfg.qkv_bias and bias is not None:
+        x = x + bias
     if cfg.qk_norm:
-        q = layers.rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = layers.rmsnorm(k, p["k_norm"], cfg.norm_eps)
+        x = layers.rmsnorm(x, norm, cfg.norm_eps)
     if rope:
-        q = layers.apply_rope(q, positions, cfg.rope_theta)
-        k = layers.apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+        x = layers.apply_rope(x, positions, cfg.rope_theta)
+    return x
 
 
 def expand_kv_padded(k: torch.Tensor, cfg) -> torch.Tensor:
@@ -243,12 +253,14 @@ def flash_attention(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attention_block(p: Params, cfg, x: torch.Tensor,
-                    positions: torch.Tensor) -> torch.Tensor:
-    """Prefill self-attention (causal)."""
+                    positions: torch.Tensor, causal: bool = True
+                    ) -> torch.Tensor:
+    """Prefill self-attention: causal (with the sliding window), or
+    bidirectional (the whisper encoder)."""
     q, k, v = _project_qkv(p, cfg, x, positions)
     o = flash_attention(q[:, :, :, None, :], expand_kv_padded(k, cfg),
-                        expand_kv_padded(v, cfg), causal=True,
-                        window=cfg.sliding_window)
+                        expand_kv_padded(v, cfg), causal=causal,
+                        window=cfg.sliding_window if causal else 0)
     return attention_output(p, cfg, o)
 
 

@@ -47,11 +47,11 @@ def _mla_q(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
 
 
 def q_heads(cfg, q: torch.Tensor, positions: torch.Tensor):
-    """The query's product (B, S, H * (dn + dr)) -> q_nope, q_rope (RoPE
-    applied)."""
+    """The query's product (B, S, n * (dn + dr)) -> q_nope, q_rope (RoPE
+    applied), for the n heads it holds (all H, or a block's)."""
     B, S, _ = q.shape
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    q = q.reshape(B, S, cfg.n_heads, dn + dr)
+    q = q.reshape(B, S, -1, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = layers.apply_rope(q_rope, positions, cfg.rope_theta)
     return q_nope, q_rope

@@ -55,10 +55,7 @@ class Model:
                 memory: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Logits (B, S, V) f32; ``memory`` is the vlm's vision embeddings
         or the encdec's encoder frames (run through the encoder here)."""
-        if self.cfg.family == "encdec":
-            memory = tfm.encoder_forward(params, self.cfg, memory)
-        hidden, _ = tfm.lm_hidden(params, self.cfg, tokens, memory)
-        return tfm.lm_logits(params, self.cfg, hidden)
+        return tfm.forward(params, self.cfg, tokens, memory)
 
     def init_cache(self, params: Params, batch: int, max_len: int,
                    memory: Optional[torch.Tensor] = None,

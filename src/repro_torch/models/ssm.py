@@ -140,21 +140,33 @@ def mamba2_block(p: Params, cfg, x: torch.Tensor,
     """Prefill Mamba2 block. x (B,S,d) -> (B,S,d).  ``conv_key`` is the
     serving-cache key of the conv weights (``conv_cache_key``) when they
     are a slice of a stacked tensor."""
-    B, S, d = x.shape
-    di, N, H, P = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads,
-                   cfg.ssm_headdim)
-    zxbcdt = x @ p["in_proj"]
-    z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * N, H], dim=-1)
+    z, xbc, dt = split_in_proj(cfg, x @ p["in_proj"])
     xbc = _causal_conv1d(xbc, p["conv_w"], p["conv_b"], cfg.use_sfc_conv,
                          conv_key)
+    return ssd_gated(p, cfg, z, xbc, dt) @ p["out_proj"]
+
+
+def split_in_proj(cfg, zxbcdt: torch.Tensor):
+    """``in_proj``'s product -> z, xBC (the conv's channels), dt."""
+    di, N, H = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
+    return torch.split(zxbcdt, [di, di + 2 * N, H], dim=-1)
+
+
+def ssd_gated(p: Params, cfg, z: torch.Tensor, xbc: torch.Tensor,
+              dt: torch.Tensor) -> torch.Tensor:
+    """The conv's output through the SSD scan, the gate and the norm: y
+    (B, S, di) before ``out_proj`` (``A_log``, ``D``, ``dt_bias`` and
+    ``norm``, which ``'model'`` does not cut)."""
+    B, S, _ = xbc.shape
+    di, N, H, P = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads,
+                   cfg.ssm_headdim)
     xs, Bm, Cm = torch.split(xbc, [di, N, N], dim=-1)
     dt = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     y, _ = ssd_chunked(xs.reshape(B, S, H, P), dt, A, Bm, Cm, p["D"],
                        min(cfg.ssm_chunk, S))
     y = y.reshape(B, S, di) * F.silu(z)
-    y = layers.rmsnorm(y, p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"]
+    return layers.rmsnorm(y, p["norm"], cfg.norm_eps)
 
 
 # --------------------------------------------------------------------------

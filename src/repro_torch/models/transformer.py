@@ -25,8 +25,16 @@ hybrid's shared block, each vlm group, each encdec decoder layer; not the
 encoder), so a layer's activations are recomputed in the backward instead
 of saved.  ``REPRO_TORCH_REMAT_POLICY`` (``full``, the default, or
 ``dots``: save the products' outputs) mirrors the JAX package's
-``REPRO_REMAT_POLICY``.  A forward that records nothing (serving) is not
-wrapped.
+``REPRO_REMAT_POLICY``.  A layer placed on a mesh, whose blocks run on
+several devices, is rematerialised by :func:`checkpoint_threadsafe`
+instead (``ForwardOps.checkpoint``).  A forward that records nothing
+(serving) is not wrapped.
+
+The forward reaches its attention, MLA, FFN, MoE, SSM, embedding and
+head functions through an operations object (:class:`ForwardOps`, the
+plain functions over tensors by default); ``distributed/model_split.py``
+gives the same operations over weights placed on a mesh, each weight
+block computed where it lies, for the sharded train step and prefill.
 
 Float32 products run in IEEE float32 on the card whatever TF32 the caller
 allowed cuBLAS (``repro_torch.core.precision``): ``lm_hidden`` and
@@ -71,19 +79,19 @@ def init_decoder_block(generator, cfg: ModelConfig, dtype,
 
 
 def decoder_block(p: Params, cfg: ModelConfig, x, positions, use_moe: bool,
-                  router_stats: bool = False):
+                  router_stats: bool = False, ops: "ForwardOps" = None):
+    ops = LOCAL if ops is None else ops
     h = layers.rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.use_mla:
-        a = mla.mla_block(p["attn"], cfg, h, positions)
+        a = ops.mla(p["attn"], cfg, h, positions)
     else:
-        a = attn.attention_block(p["attn"], cfg, h, positions)
+        a = ops.attention(p["attn"], cfg, h, positions)
     x = x + a
     h = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
     if use_moe:
-        f, aux = moe.moe_block(p["ffn"], cfg, h, router_stats=True) \
-            if router_stats else moe.moe_block(p["ffn"], cfg, h)
+        f, aux = ops.moe(p["ffn"], cfg, h, router_stats)
     else:
-        f = layers.swiglu(h, **p["ffn"])
+        f = ops.ffn(p["ffn"], h)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + f, aux
 
@@ -95,9 +103,11 @@ def init_mamba_layer(generator, cfg, dtype) -> Params:
     }
 
 
-def mamba_layer(p: Params, cfg, x, conv_key: Optional[tuple] = None):
+def mamba_layer(p: Params, cfg, x, conv_key: Optional[tuple] = None,
+                ops: "ForwardOps" = None):
+    ops = LOCAL if ops is None else ops
     h = layers.rmsnorm(x, p["ln"], cfg.norm_eps)
-    return x + ssm.mamba2_block(p["mixer"], cfg, h, conv_key)
+    return x + ops.mamba(p["mixer"], cfg, h, conv_key)
 
 
 # --------------------------------------------------------------------------
@@ -307,10 +317,10 @@ def _save_dots(ctx, op, *args, **kwargs):
         else ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _layer_fn(fn, remat: bool):
+def _layer_fn(fn, remat: bool, ops: "ForwardOps" = None):
     """``fn`` as one layer of a stack: as it is, or, with ``remat``,
-    checkpointed with the float32 guard entered inside, where its
-    recomputation in the backward runs too."""
+    checkpointed (``ops.checkpoint``) with the float32 guard entered
+    inside, where its recomputation in the backward runs too."""
     if not remat:
         return fn
 
@@ -318,12 +328,133 @@ def _layer_fn(fn, remat: bool):
         with full_fp32_matmul():
             return fn(*args)
 
-    kwargs = {}
-    if remat_policy() == "dots":
-        kwargs["context_fn"] = functools.partial(
-            ckpt.create_selective_checkpoint_contexts, _save_dots)
-    return lambda *args: ckpt.checkpoint(guarded, *args, use_reentrant=False,
-                                         **kwargs)
+    return (LOCAL if ops is None else ops).checkpoint(guarded)
+
+
+class _Frame:
+    """One checkpointed call's saved tensors: dropped in the forward, made
+    again by one recomputation in the backward by whichever thread
+    unpacks one first, the others waiting on the frame's lock."""
+
+    def __init__(self, fn, args):
+        self.fn, self.args = fn, args
+        self.lock = threading.Lock()
+        self.count = 0
+        self.saved = None
+
+    def pack(self, x):
+        self.count += 1
+        return self.count - 1
+
+    def unpack(self, i: int):
+        with self.lock:
+            if self.saved is None:
+                saved = []
+
+                def keep(x):
+                    # detached: a node that saves its own output would
+                    # otherwise hold it with its graph, a cycle
+                    x = x.detach() if x.requires_grad else x
+                    saved.append(x)
+                    return x
+                with torch.autograd.graph.saved_tensors_hooks(
+                        keep, lambda x: x), torch.enable_grad():
+                    self.fn(*self.args)
+                if len(saved) != self.count:
+                    raise RuntimeError(
+                        f"a checkpointed layer saved {self.count} tensors "
+                        f"in its forward and {len(saved)} recomputing it")
+                self.saved = saved
+            x, self.saved[i] = self.saved[i], None
+        return x
+
+
+def checkpoint_threadsafe(fn, *args):
+    """``fn(*args)`` rematerialised as ``torch.utils.checkpoint``'s
+    non-reentrant checkpoint does it (nothing saved in the forward, one
+    recomputation in the backward), for a layer that runs on several
+    devices: autograd runs each device's backward on a thread of its own,
+    and two threads that unpack the layer's tensors at once would both
+    recompute it under ``torch.utils.checkpoint``, which keeps one counter
+    a frame.  Here one thread recomputes and the others wait.  It saves
+    no products' outputs under ``REPRO_TORCH_REMAT_POLICY=dots``: the
+    recomputation's values are the same."""
+    frame = _Frame(fn, args)
+    with torch.autograd.graph.saved_tensors_hooks(frame.pack, frame.unpack):
+        return fn(*args)
+
+
+# --------------------------------------------------------------------------
+# the forward's operations
+# --------------------------------------------------------------------------
+class ForwardOps:
+    """The forward's operations on a layer's weights, here the plain
+    functions over tensors; ``distributed/model_split.py`` gives the same
+    operations over weights placed on a mesh (each weight block computed
+    on its own coordinate), for the sharded train step and prefill."""
+
+    @staticmethod
+    def embed(w, tokens):
+        return w[tokens]
+
+    @staticmethod
+    def attention(p, cfg, h, positions, causal: bool = True):
+        return attn.attention_block(p, cfg, h, positions, causal)
+
+    @staticmethod
+    def mla(p, cfg, h, positions):
+        return mla.mla_block(p, cfg, h, positions)
+
+    @staticmethod
+    def cross(p, cfg, h, memory, gated: bool = False):
+        return attn.cross_attention_block(p, cfg, h, memory, gated)
+
+    @staticmethod
+    def ffn(p, h):
+        return layers.swiglu(h, **p)
+
+    @staticmethod
+    def moe(p, cfg, h, router_stats: bool = False):
+        if router_stats:
+            return moe.moe_block(p, cfg, h, router_stats=True)
+        return moe.moe_block(p, cfg, h)
+
+    @staticmethod
+    def mamba(p, cfg, h, conv_key=None):
+        return ssm.mamba2_block(p, cfg, h, conv_key)
+
+    @staticmethod
+    def conv_key(path, i: int, stacked):
+        """The serving-cache key of layer ``i``'s conv weights."""
+        return ssm.conv_cache_key(path, i, stacked)
+
+    @staticmethod
+    def proj(w, x):
+        return x @ w
+
+    @staticmethod
+    def logits(params, cfg, hidden):
+        return lm_logits(params, cfg, hidden)
+
+    @staticmethod
+    def checkpoint(fn):
+        """``fn`` checkpointed by ``torch.utils.checkpoint`` under the
+        remat policy (``remat_policy``)."""
+        kwargs = {}
+        if remat_policy() == "dots":
+            kwargs["context_fn"] = functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots)
+        return lambda *args: ckpt.checkpoint(fn, *args, use_reentrant=False,
+                                             **kwargs)
+
+    @staticmethod
+    def share(t, n: int):
+        """``t`` for ``n`` uses (the encdec's encoder output, one a decoder
+        layer): here the tensor itself each time."""
+        return [t] * n
+
+
+LOCAL = ForwardOps()
 
 
 # --------------------------------------------------------------------------
@@ -339,17 +470,19 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 def lm_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
               memory: Optional[torch.Tensor] = None,
-              remat: bool = True, router_stats: bool = False
+              remat: bool = True, router_stats: bool = False,
+              ops: ForwardOps = LOCAL
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token ids -> final hidden states. Returns (hidden, aux_loss).
     ``memory`` is the vlm's vision embeddings or the encdec's encoder
     output; with ``remat`` each layer is checkpointed where autograd
     records through ``params`` (the module's docstring).  A layer's
     parameters are taken (``layer``) inside its checkpointed function, so
-    a sharded leaf gathers them there and again in the recomputation,
-    and the forward keeps no gathered copy.  With ``router_stats`` a moe
+    a sharded leaf fetches them there and again in the recomputation,
+    and the forward keeps no fetched copy.  With ``router_stats`` a moe
     model returns its MoE layers' (2, E) router statistics stacked (L, 2,
-    E) in place of the aux loss (``moe.moe_block``)."""
+    E) in place of the aux loss (``moe.moe_block``).  ``ops`` runs the
+    layers' operations (:class:`ForwardOps`)."""
     fam = cfg.family
     if fam in ("vlm", "encdec") and memory is None:
         raise ValueError(f"the {fam} family needs its memory (the vision "
@@ -358,16 +491,16 @@ def lm_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     with full_fp32_matmul():
         params = cast_compute(params, cfg)
         B, S = tokens.shape
-        x = _compute(params["embed"][tokens], cfg)
+        x = _compute(ops.embed(params["embed"], tokens), cfg)
         positions = _positions(B, S, x.device)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         blocks = params["blocks"]
         if fam in ("dense", "moe"):
             def block(x, stack, i, use_moe):
                 return decoder_block(layer(stack, i), cfg, x, positions,
-                                     use_moe, router_stats)
+                                     use_moe, router_stats, ops)
 
-            block = _layer_fn(block, remat)
+            block = _layer_fn(block, remat, ops)
             if cfg.first_dense_layers:
                 for i in range(cfg.first_dense_layers):
                     x, _ = block(x, params["dense_blocks"], i, False)
@@ -387,46 +520,48 @@ def lm_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 # the hybrid's shared block runs inside the layer's
                 # checkpoint, as in the JAX package's _scan_mamba
                 if with_shared:
-                    x, _ = decoder_block(shared, cfg, x, positions, False)
-                return mamba_layer(layer(blocks, i), cfg, x, key)
+                    x, _ = decoder_block(shared, cfg, x, positions, False,
+                                         ops=ops)
+                return mamba_layer(layer(blocks, i), cfg, x, key, ops)
 
-            mamba = _layer_fn(mamba, remat)
+            mamba = _layer_fn(mamba, remat, ops)
             for i in range(cfg.n_layers):
-                key = ssm.conv_cache_key(("blocks", "mixer", "conv_w"), i,
-                                         conv_w)
+                key = ops.conv_key(("blocks", "mixer", "conv_w"), i, conv_w)
                 x = mamba(x, i, key, shared is not None
                           and i % cfg.shared_attn_every == 0)
         elif fam == "vlm":
             mem = _compute(memory, cfg)
             k = cfg.cross_attn_every
+            mems = ops.share(mem, cfg.n_layers // k)
 
             def group(x, g):
                 cross = layer(params["cross_blocks"], g)
                 h = layers.rmsnorm(x, cross["ln"], cfg.norm_eps)
-                x = x + attn.cross_attention_block(cross["xattn"], cfg, h,
-                                                   mem, gated=True)
+                x = x + ops.cross(cross["xattn"], cfg, h, mems[g],
+                                  gated=True)
                 h = layers.rmsnorm(x, cross["ln2"], cfg.norm_eps)
-                x = x + torch.tanh(cross["ffn_gate"]) * layers.swiglu(
-                    h, **cross["ffn"])
+                x = x + torch.tanh(cross["ffn_gate"]) * ops.ffn(
+                    cross["ffn"], h)
                 for i in range(g * k, (g + 1) * k):
                     x, _ = decoder_block(layer(blocks, i), cfg, x,
-                                         positions, False)
+                                         positions, False, ops=ops)
                 return x
 
-            group = _layer_fn(group, remat)
+            group = _layer_fn(group, remat, ops)
             for g in range(cfg.n_layers // k):
                 x = group(x, g)
         elif fam == "encdec":
+            mems = ops.share(memory, cfg.n_layers)
+
             def dec(x, i):
                 xp = layer(params["cross_blocks"], i)
                 h = layers.rmsnorm(x, xp["ln"], cfg.norm_eps)
-                x = x + attn.cross_attention_block(xp["xattn"], cfg, h,
-                                                   memory)
+                x = x + ops.cross(xp["xattn"], cfg, h, mems[i])
                 x, _ = decoder_block(layer(blocks, i), cfg, x, positions,
-                                     False)
+                                     False, ops=ops)
                 return x
 
-            dec = _layer_fn(dec, remat)
+            dec = _layer_fn(dec, remat, ops)
             for i in range(cfg.n_layers):
                 x = dec(x, i)
         else:
@@ -436,7 +571,8 @@ def lm_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def encoder_forward(params: Params, cfg: ModelConfig,
-                    frames: torch.Tensor) -> torch.Tensor:
+                    frames: torch.Tensor, ops: ForwardOps = LOCAL
+                    ) -> torch.Tensor:
     """The whisper encoder over stub frame embeddings (B, S_enc, d):
     bidirectional self-attention blocks, then ``enc_norm``."""
     with full_fp32_matmul():
@@ -448,14 +584,10 @@ def encoder_forward(params: Params, cfg: ModelConfig,
         for i in range(cfg.encoder_layers):
             bp = layer(enc, i)
             h = layers.rmsnorm(x, bp["ln1"], cfg.norm_eps)
-            q, k, v = attn._project_qkv(bp["attn"], cfg, h, positions)
-            a = attn.flash_attention(q[:, :, :, None, :],
-                                     attn.expand_kv_padded(k, cfg),
-                                     attn.expand_kv_padded(v, cfg),
-                                     causal=False)
-            x = x + attn.attention_output(bp["attn"], cfg, a)
+            x = x + ops.attention(bp["attn"], cfg, h, positions,
+                                  causal=False)
             h = layers.rmsnorm(x, bp["ln2"], cfg.norm_eps)
-            x = x + layers.swiglu(h, **bp["ffn"])
+            x = x + ops.ffn(bp["ffn"], h)
         return layers.rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -466,8 +598,20 @@ def lm_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor
         return (hidden @ head.to(hidden.dtype)).float()
 
 
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            memory: Optional[torch.Tensor] = None,
+            ops: ForwardOps = LOCAL) -> torch.Tensor:
+    """Logits (B, S, V) f32; an encdec's ``memory`` (its frames) runs
+    through the encoder here."""
+    if cfg.family == "encdec":
+        memory = encoder_forward(params, cfg, memory, ops)
+    hidden, _ = lm_hidden(params, cfg, tokens, memory, ops=ops)
+    return ops.logits(params, cfg, hidden)
+
+
 def loss_terms(params: Params, cfg: ModelConfig,
-               batch: Dict[str, torch.Tensor], router_stats: bool = False
+               batch: Dict[str, torch.Tensor], router_stats: bool = False,
+               ops: ForwardOps = LOCAL
                ) -> Tuple[torch.Tensor, torch.Tensor,
                           Dict[str, torch.Tensor]]:
     """``lm_loss``'s terms: (the per-token loss, the aux loss, metrics).
@@ -478,25 +622,26 @@ def loss_terms(params: Params, cfg: ModelConfig,
     params = cast_compute(params, cfg)
     memory = batch.get("vision", batch.get("frames"))
     if cfg.family == "encdec":
-        memory = encoder_forward(params, cfg, batch["frames"])
+        memory = encoder_forward(params, cfg, batch["frames"], ops)
     hidden, aux = lm_hidden(params, cfg, batch["tokens"], memory,
-                            router_stats=router_stats)
-    logits = lm_logits(params, cfg, hidden)
+                            router_stats=router_stats, ops=ops)
+    logits = ops.logits(params, cfg, hidden)
     loss = layers.cross_entropy_loss(logits, batch["labels"])
     metrics = {"ce": loss, "aux": aux}
     if cfg.mtp_depth:
         with full_fp32_matmul():
-            emb_next = _compute(params["embed"][batch["tokens"]], cfg)
+            emb_next = _compute(ops.embed(params["embed"], batch["tokens"]),
+                                cfg)
             h_in = torch.cat([hidden[:, :-1, :], emb_next[:, 1:, :]],
                              dim=-1)
-            h_mtp = h_in @ params["mtp"]["proj"]
+            h_mtp = ops.proj(params["mtp"]["proj"], h_in)
             B, S1, _ = h_mtp.shape
             h_mtp, _ = decoder_block(params["mtp"]["block"], cfg, h_mtp,
                                      _positions(B, S1, h_mtp.device),
-                                     cfg.family == "moe", router_stats)
+                                     cfg.family == "moe", router_stats, ops)
             h_mtp = layers.rmsnorm(h_mtp, params["mtp"]["norm"],
                                    cfg.norm_eps)
-        mtp_logits = lm_logits(params, cfg, h_mtp)
+        mtp_logits = ops.logits(params, cfg, h_mtp)
         mtp_loss = layers.cross_entropy_loss(mtp_logits[:, :-1],
                                              batch["labels"][:, 2:])
         metrics["mtp"] = mtp_loss

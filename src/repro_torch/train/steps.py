@@ -25,8 +25,13 @@ Training runs where its tensors are: the caller's batches and the
 generator's device decide, and nothing moves to the CPU.  A state placed
 on a mesh (``init_train_state(..., shardings=...)``, or
 ``distributed.sharding.place``) steps through the sharded step of
-``distributed/lm_spmd.py``.  ``abstract_train_state`` gives the state's
-shapes and dtypes on the meta device, without allocating it.
+``distributed/lm_spmd.py``, each weight block computed on its own mesh
+coordinate, with the same microbatches and int8 gradient compression.
+The compression's rounding noise is keyed by each element's flat index
+in its leaf (``grad_compression.int8_roundtrip``), so the sharded step's
+compressed gradients are this step's.  ``abstract_train_state`` gives
+the state's shapes and dtypes on the meta device, without allocating
+it.
 """
 from __future__ import annotations
 
@@ -93,10 +98,8 @@ def make_train_step(model, optimizer: AdamW, grad_compression: bool = False,
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         from repro_torch.distributed import lm_spmd
         if lm_spmd.is_sharded(state):
-            if microbatches > 1 or grad_compression:
-                raise ValueError("the sharded step takes no microbatches "
-                                 "and no gradient compression")
-            return lm_spmd.train_step(model, optimizer, state, batch)
+            return lm_spmd.train_step(model, optimizer, state, batch,
+                                      microbatches, grad_compression)
         if microbatches > 1:
             # gradient accumulation: the batch is split along dim 0 into
             # equal chunks, gradients summed in float32 and averaged
@@ -120,12 +123,8 @@ def make_train_step(model, optimizer: AdamW, grad_compression: bool = False,
         if grad_compression:
             # the int8 bottleneck before the gradient reduction, with a
             # fixed seed per leaf as the JAX step's fixed key
-            def roundtrip(g):
-                gen = torch.Generator(device=g.device).manual_seed(0)
-                return gc.dequantize_int8(*gc.quantize_int8(
-                    g.to(torch.float32), gen)).to(g.dtype)
             with torch.no_grad():
-                grads = tree_map(roundtrip, grads)
+                grads = tree_map(gc.roundtrip_leaf, grads)
 
         new_params, new_opt, opt_metrics = optimizer.apply(
             state.params, grads, state.opt)

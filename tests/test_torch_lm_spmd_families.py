@@ -3,10 +3,16 @@ against the JAX package's single-device step (``data_shards`` = the data
 axis's size) for the moe, vlm and encdec families: deepseek-v3 (MLA,
 the MoE with its shared expert, the MTP term), mixtral-8x7b (8 experts,
 TP within an expert), llama-3.2-vision-11b (gates 0.5 and -0.7) and
-whisper-tiny; the MoE at batch 1 on a 2-way data axis (the batch
+whisper-tiny; the moe archs also on (1, 8) (mixtral's 4 experts split
+within each expert, deepseek's 4 MLA heads cut by the blocks' edges and
+joined at the row); the MoE at batch 1 on a 2-way data axis (the batch
 replicated, the dispatch still in 2 chunks); and the shard-local
 dispatch: ``moe_block`` on each shard's tokens bit for bit the
-single-device block with ``data_shards`` 2 installed.
+single-device block with ``data_shards`` 2 installed.  The vlm and the
+encdec also run their prefill and ``init_cache`` (the encoder, the
+cross K/V) with every whole gather of a model-split leaf refused
+(``test_train_step_gathers_no_model_split_leaf``, with
+``test_torch_serve_spmd.py``'s references).
 """
 import dataclasses
 
@@ -18,11 +24,16 @@ torch = pytest.importorskip("torch")
 from test_torch_lm_spmd import (MESHES, _isolated,  # noqa: E402,F401
                                 _one_thread, check_against_jax,
                                 check_bitwise_one_row)
+from test_torch_serve_spmd import (B, REL, _is_cross,  # noqa: E402
+                                   _max_len, _placed, _refuse_whole_gathers,
+                                   _rel_l2, _t, jax_forward, reference)
 
 import repro_torch.configs as configs  # noqa: E402
+from repro_torch import tree as tree_util  # noqa: E402
 from repro_torch.distributed import act_sharding  # noqa: E402
 from repro_torch.launch.mesh import make_forced_host_mesh  # noqa: E402
 from repro_torch.models import build, moe  # noqa: E402
+from repro_torch.train import make_prefill_step  # noqa: E402
 
 ARCHS = ("deepseek-v3-671b", "mixtral-8x7b", "llama-3.2-vision-11b",
          "whisper-tiny")
@@ -38,6 +49,13 @@ def test_sharded_step_matches_jax(arch, shape):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_one_data_row_is_bitwise_single_device(arch, shape):
     check_bitwise_one_row(arch, shape)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "mixtral-8x7b"])
+def test_moe_on_eight_model_blocks(arch):
+    """(1, 8): mixtral's experts tensor parallel within each expert (4
+    experts, f over 8), deepseek's MLA heads cut by the blocks' edges."""
+    check_against_jax(arch, (1, 8))
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v3-671b", "mixtral-8x7b"])
@@ -78,3 +96,30 @@ def test_shard_local_dispatch_is_bitwise(arch):
     density = torch.stack([p[1][0] for p in parts]).mean(0)
     assert torch.equal(density, stats[0])
     assert act_sharding.data_shards() == 1
+
+
+@pytest.mark.parametrize("shape", [(4, 1), (2, 2), (1, 4)])
+@pytest.mark.parametrize("arch", ["whisper-tiny", "llama-3.2-vision-11b"])
+def test_train_step_gathers_no_model_split_leaf(arch, shape, monkeypatch):
+    """With every whole gather of a model-split leaf raising, the sharded
+    train step (``check_against_jax``, which refuses them around its
+    steps), ``init_cache``'s encoder and cross K/V and the prefill run and
+    hold to JAX."""
+    check_against_jax(arch, shape)
+    ref = reference(arch)
+    mesh = make_forced_host_mesh(shape, device="cpu")
+    model, placed = _placed(arch, mesh)
+    toks, mem, want = jax_forward(arch, 1)
+    _refuse_whole_gathers(monkeypatch)
+    cache = model.init_cache(placed, B, _max_len(model.cfg),
+                             _t(ref["memory"]))
+    got = make_prefill_step(model)(placed, _t(toks), _t(mem))
+    monkeypatch.undo()
+    assert _rel_l2(got, want) <= REL
+    crossed = 0
+    for (path, sh), value in zip(tree_util.flatten_with_path(cache),
+                                 ref["filled"]):
+        if _is_cross(path):
+            crossed += 1
+            assert _rel_l2(sh.gather("cpu"), value) <= REL
+    assert crossed == 2

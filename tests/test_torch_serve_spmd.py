@@ -22,12 +22,15 @@ blocks' edges):
     axes of the leaves the step reads (0 on one data row): each weight
     block computes where it lies;
   * the sharded prefill within 1e-5 of JAX's forward (the MoE dispatch in
-    as many chunks as the mesh has data rows, as JAX's ``data_shards``);
+    as many chunks as the mesh has data rows, as JAX's ``data_shards``),
+    it and ``init_cache`` (the encoder, the cross K/V) run with every
+    whole gather of a model-split leaf made to raise;
   * ``cache_shardings`` equal to JAX's sanitized ``cache_pspecs``.
 
-Beside them: a decode step that gathers no model-split leaf whole (a
-guard on every whole gather raises for one), two runs of the steps bit
-for bit equal, ``init_params`` drawing the unsharded tree without
+Beside them: the decode steps and the prefill gather no model-split leaf
+whole (a guard on every whole gather raises for one; the train step's
+test is ``test_torch_lm_spmd_families.py``'s), two runs of the steps
+bit for bit equal, ``init_params`` drawing the unsharded tree without
 holding a drawn layer past its placement, batch 1 on (2, 1) (the batch
 replicated), copies of a
 block in other memory written alike, a first step whose only valid key
@@ -60,6 +63,7 @@ from repro_torch.launch.mesh import make_forced_host_mesh  # noqa: E402
 from repro_torch.models import build, transformer  # noqa: E402
 from repro_torch.train import (make_prefill_step,  # noqa: E402
                                make_serve_step)
+from test_torch_lm_spmd import no_whole_gathers  # noqa: E402
 
 ARCHS = ("phi4-mini-3.8b", "mamba2-1.3b", "zamba2-1.2b", "mixtral-8x7b",
          "deepseek-v3-671b", "llama-3.2-vision-11b", "whisper-tiny")
@@ -267,8 +271,9 @@ def test_sharded_decode_matches_jax(arch, shape):
     model, placed = _placed(arch, mesh)
     shardings = sharding.cache_shardings(
         model, ShapeConfig("decode", _max_len(model.cfg), B, "decode"), mesh)
-    cache = model.init_cache(placed, B, _max_len(model.cfg),
-                             _t(ref["memory"]), shardings=shardings)
+    with no_whole_gathers():
+        cache = model.init_cache(placed, B, _max_len(model.cfg),
+                                 _t(ref["memory"]), shardings=shardings)
     _fill(cache, ref["filled"], mesh)
     before = _blocks(cache)
     serve_spmd.reset_copied()
@@ -298,14 +303,18 @@ def test_sharded_decode_matches_jax(arch, shape):
     # the MoE dispatch groups by data row; the other families do not
     toks, mem, want = jax_forward(arch, shape[0] if model.cfg.n_experts
                                   else 1)
-    got = make_prefill_step(model)(placed, _t(toks), _t(mem))
+    serve_spmd.reset_copied()
+    with no_whole_gathers():
+        got = make_prefill_step(model)(placed, _t(toks), _t(mem))
+    if shape[0] == 1:
+        assert serve_spmd.copied()["weights"] == 0
     assert _rel_l2(got, want) <= REL
 
 
 def _refuse_whole_gathers(monkeypatch):
     """Make every whole gather of a leaf that ``'model'`` cuts into more
-    than one block raise (``Sharded.gather`` and the train step's
-    ``_Leaf.gather``, which the prefill's gather at use takes)."""
+    than one block raise (``Sharded.gather`` and ``_Leaf.gather``, which
+    the steps' fetch of a leaf at the row takes)."""
     def guarded(orig, sharded):
         def gather(self, *args, **kwargs):
             sh = sharded(self)
@@ -325,8 +334,8 @@ def _refuse_whole_gathers(monkeypatch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_gathers_no_model_split_leaf(arch, shape, monkeypatch):
     """With every whole gather of a model-split leaf raising, the decode
-    steps still run and hold to JAX; the prefill, which gathers each
-    layer at use, raises (the guard bites)."""
+    steps and the prefill (each weight block computed where it lies)
+    still run and hold to JAX."""
     ref = reference(arch)
     mesh = make_forced_host_mesh(shape, device="cpu")
     model, placed = _placed(arch, mesh)
@@ -335,10 +344,11 @@ def test_decode_gathers_no_model_split_leaf(arch, shape, monkeypatch):
     _fill(cache, ref["filled"], mesh)
     _refuse_whole_gathers(monkeypatch)
     logits, cache = _decode(model, placed, cache, ref)
-    toks, mem, _ = jax_forward(arch, 1)
-    with pytest.raises(AssertionError, match="gathered whole"):
-        make_prefill_step(model)(placed, _t(toks), _t(mem))
+    toks, mem, want = jax_forward(arch, shape[0] if model.cfg.n_experts
+                                  else 1)
+    got = make_prefill_step(model)(placed, _t(toks), _t(mem))
     monkeypatch.undo()
+    assert _rel_l2(got, want) <= REL
     for t in range(STEPS):
         assert _rel_l2(logits[t], ref["logits"][t]) <= REL
     for sh, want in zip(tree_util.leaves(cache), ref["final"]):
@@ -372,17 +382,18 @@ def test_init_params_draws_the_unsharded_tree(arch, monkeypatch):
     """``init_params`` on (2, 2): the placed tree gathers to the unsharded
     ``Model.init`` draws, bit for bit, and a stack keeps no drawn layer's
     tensors once they are placed (only its structure, on the meta
-    device)."""
+    device; ``lm_spmd._StackSink``, which ``init_train_state`` uses
+    too)."""
     _, cfg = _cfgs(arch)
     model = build(cfg)
     mesh = make_forced_host_mesh((2, 2), device="cpu")
     kept = []
-    add = serve_spmd._ShapeSink.add
+    add = lm_spmd._StackSink.add
 
     def spy(self, i, layer):
         add(self, i, layer)
         kept.extend(a.device.type for a in tree_util.leaves(self.like))
-    monkeypatch.setattr(serve_spmd._ShapeSink, "add", spy)
+    monkeypatch.setattr(lm_spmd._StackSink, "add", spy)
     placed = serve_spmd.init_params(
         model, 3, serve_spmd.param_shardings(model, mesh), "cpu")
     want = model.init(torch.Generator().manual_seed(3), device="cpu")

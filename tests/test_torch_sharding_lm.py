@@ -195,3 +195,41 @@ def test_sanitized_at_batch_1_and_8_kv_heads_on_16():
         jax.sharding.PartitionSpec("data", "model", None), (4096, 8, 128),
         mesh)
     assert _norm(got["wk"].spec) == _norm(want) == ("data", None, None)
+
+
+# the dimension of each model-split leaf's layer that the split's
+# operations cut (``distributed/model_split.py``): output columns, input
+# rows, heads, vocab; the experts by expert (EP) or within each (TP)
+SPLIT_DIMS = {"embed": (0,), "lm_head": (1,), "wq": (1,), "wo": (0,),
+              "w_gate": (1, 0, 2), "w_up": (1, 0, 2), "w_down": (0, 1),
+              "in_proj": (1,), "out_proj": (0,), "conv_w": (1,),
+              "wq_a": (1,), "wq_b": (1,), "wkv_a": (1,), "wkv_b": (1,),
+              "proj": (1,)}
+
+
+@pytest.mark.parametrize("model", (2, 4, 16))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_model_split_takes_every_leaf(arch, model):
+    """On a (2, model) mesh every leaf the state's shardings cut over
+    ``'model'`` is cut on one dimension, by ``'model'`` alone, and that
+    is the dimension the split's operation on it takes; the leaves
+    ``'model'`` does not cut run at the row."""
+    from repro_torch.distributed import model_split
+    mesh = _mesh(model, False)
+    m = build(configs.get_config(arch))
+    shardings = lm_spmd.state_shardings(m, AdamW(), mesh)
+    cut = 0
+    for path, s in sharding._with_paths(shardings.params):
+        stacked = any(k in sharding._STACK_KEYS for k in path)
+        core = tuple(s.spec)[1:] if stacked else tuple(s.spec)
+        dim = model_split._model_dim(core)
+        if dim is None:
+            continue
+        cut += 1
+        name = path[-1]
+        assert name in SPLIT_DIMS and dim in SPLIT_DIMS[name], (path, dim)
+        if name in ("w_gate", "w_up", "w_down") and len(core) == 3:
+            # expert parallel where the axis divides the experts
+            ep = m.cfg.n_experts % model == 0
+            assert dim == (0 if ep else (1 if name == "w_down" else 2))
+    assert cut > 0
