@@ -695,10 +695,12 @@ LM13_SEED = 2500
 # the single-device step on the same card (data_shards = the data axis's
 # size), compared on the host: the loss within LM14_LOSS, each leaf within
 # LM13_REL rel L2 (dead leaves LM13_DEAD), the new parameters within
-# LM14_UPDATE (across data shards, a leaf the step moves by more than
-# LM14_MOVED of its norm has its step held within LM14_STEP_REL instead;
-# the same on (1, m), where the row blocks' partial sums come in another
-# order); on (1, 1) the loss and gradients bit for bit; every block on its
+# LM14_UPDATE (a leaf the step moves by more than LM14_MOVED of its norm
+# has its step held within LM14_STEP_REL instead; where 'model' cuts the
+# mesh, over the elements whose clipped reference gradient exceeds
+# LM14_NEAR_EPS times AdamW's eps, with the worst element and the
+# whole leaf's distance logged); on (1, 1) the loss and gradients bit for
+# bit; every block on its
 # device with its spec's shape; each weight block computed where it lies:
 # the weight bytes a step copies exactly lm14_reckoned (the data axes'
 # all-gather, a rematerialised layer's twice; 0 on one data row), and the
@@ -734,6 +736,14 @@ LM14_LOSS = 1e-5
 LM14_UPDATE = 1e-5
 LM14_MOVED = 1e-2
 LM14_STEP_REL = 1e-3
+# AdamW's first step is lr g / (|g| + eps) an element, whose derivative
+# eps / (|g| + eps)^2 is at most 1 / ((K + 1)^2 eps) where |g| >= K eps:
+# with K 100 a rounding difference of 1e-7 in g moves such an element's
+# step by at most 1e-3 lr, while below it the row blocks' partial sums
+# can turn an element's step round (one element of mixtral's router on
+# (1, 2) moves the leaf's step 1/181 of its norm)
+LM14_NEAR_EPS = 100.0
+LM14_CHUNK = 1 << 24
 LM14_ELASTIC = ("whisper-tiny", {}, 2, 448)      # a 0.7 GB state
 LM14_TRAINER_STEPS = 4
 LM14_PIPE = ("mamba2-1.3b", 8, 4, (4, 512), 4)   # layers, stages, batch, M
@@ -1029,39 +1039,6 @@ def profile_forward(fn):
             "busy_us": busy, "device_span_us": span, "wall_us": wall_us,
             "busy_share_of_span": busy / span if span else None,
             "busy_share_of_wall": busy / wall_us}
-
-
-def busy_by_card(fn) -> dict:
-    """One ``fn`` call under ``torch.profiler`` (after a warm call): the
-    wall ms and each card's busy ms (its kernels' and copies' summed
-    durations); ``not_measured`` where the profiler does not trace the
-    card."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    cards = torch.cuda.device_count()
-    for i in range(cards):
-        torch.cuda.synchronize(i)
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            for i in range(cards):
-                torch.cuda.synchronize(i)
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        busy = [0.0] * cards
-        seen = False
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                seen = True
-                busy[e.device_index] += (e.time_range.end
-                                         - e.time_range.start) / 1e3
-    except Exception as e:     # the profiler may not trace this card
-        return {"not_measured": f"{type(e).__name__}: {e}"[:200]}
-    if not seen:
-        return {"not_measured": "the trace holds no device events"}
-    return {"wall_ms": wall_ms, "busy_ms": busy}
 
 
 def tree_to(tree, device):
@@ -2982,39 +2959,6 @@ def named_grads(grads):
     return {"/".join(path): g for path, g in flatten_with_path(grads)}
 
 
-def adamw_first_update(opt, p, g, grad_norm):
-    """AdamW's first update of ``p`` by ``g`` (fp32) with the clip scale
-    of a step whose global gradient norm was ``grad_norm``: what the
-    sharded step computes for ``p``'s blocks, element by element."""
-    import torch
-    scale = torch.clamp(opt.clip_norm / (grad_norm + 1e-9), max=1.0)
-    plain = dataclasses.replace(opt, clip_norm=float("inf"))
-    new, _, _ = plain.apply({"p": p}, {"p": g.float() * scale.to(g.device)},
-                            plain.init({"p": p}))
-    return new["p"]
-
-
-def same_adamw_update(opt, old, grad, new, grad_norm,
-                      chunk=1 << 24) -> bool:
-    """Each block of the placed leaf ``new`` (a ``Sharded``) is bit for
-    bit AdamW's first update (:func:`adamw_first_update`) of ``old``'s
-    block by ``grad``'s, on the block's device, ``chunk`` elements at a
-    time along its first dimension (the update is elementwise)."""
-    import torch
-    for idx, coords in new.unique().items():
-        c = coords[0]
-        p, g, n = old.shards[c], grad.shards[c], new.shards[c]
-        if p.dim() == 0:
-            p, g, n = p[None], g[None], n[None]
-        rows = max(1, chunk // max(1, p[0].numel()))
-        for r in range(0, p.shape[0], rows):
-            if not torch.equal(n[r:r + rows], adamw_first_update(
-                    opt, p[r:r + rows], g[r:r + rows],
-                    grad_norm.to(p.device))):
-                return False
-    return True
-
-
 def grads_close(got, ref) -> dict:
     """Each leaf of ``got`` against ``ref``'s (CPU tensors): rel L2, or,
     for a leaf zero in exact arithmetic (its reference's max |g| within
@@ -3397,7 +3341,8 @@ def lm_sharded(dev, counted, smi) -> dict:
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.core.precision import (full_fp32_backward,
                                             full_fp32_matmul)
-    from repro_torch.distributed import act_sharding, lm_spmd, sharding
+    from repro_torch.distributed import (act_sharding, lm_spmd, model_split,
+                                         sharding)
     from repro_torch.distributed.pipeline import (pipeline_apply,
                                                   stack_params_for_stages)
     from repro_torch.launch.mesh import make_forced_host_mesh
@@ -3527,7 +3472,7 @@ def lm_sharded(dev, counted, smi) -> dict:
             step_fn = make_train_step(model, opt)
             losses, times, replay = [], [], None
             reckoned = lm14_reckoned(st.params, mesh, B)
-            lm_spmd.reset_copied()
+            model_split.reset_copied()
             for i in range(LM14_BIG_STEPS):
                 if i == 1 and shape[1] > 1:
                     # two steps from one state: the same bits (the
@@ -3541,7 +3486,7 @@ def lm_sharded(dev, counted, smi) -> dict:
                                         tree_util.leaves(b))
                         for c in x.mesh.coords())
                     del a, b
-                    lm_spmd.reset_copied()
+                    model_split.reset_copied()
                     synchronize()
                 t0 = time.perf_counter()
                 st, metrics = counted(
@@ -3552,10 +3497,10 @@ def lm_sharded(dev, counted, smi) -> dict:
                 times.append(time.perf_counter() - t0)
             moved = {k: v / (LM14_BIG_STEPS - (1 if replay is not None
                                                 else 0))
-                     for k, v in lm_spmd.copied().items()}
+                     for k, v in model_split.copied().items()}
             peaks = [(torch.cuda.max_memory_allocated(i) - base[i]) / 1e9
                      for i in range(cards)]
-            traced = busy_by_card(lambda: step_fn(st, batches(0)))
+            traced = host_waits(lambda: step_fn(st, batches(0)), cards)
             del st, metrics
             lm_free()
             if not all(math.isfinite(v) for v in losses) \
@@ -3596,8 +3541,9 @@ def lm_sharded(dev, counted, smi) -> dict:
                 f"activations, {r['copied_gb_a_step']['gradients']:.2f} GB "
                 f"of gradients; a traced step: "
                 + (traced["not_measured"] if "not_measured" in traced else
-                   f"wall {traced['wall_ms']:.0f} ms, busy "
-                   + ", ".join(f"{v:.0f}" for v in traced["busy_ms"])
+                   f"wall {traced['wall_us'] / 1e3:.0f} ms, busy "
+                   + ", ".join(f"{v / 1e3:.0f}"
+                               for v in traced["busy_us"].values())
                    + " ms a card")
                 + ("; two steps from one state bit for bit"
                    if replay else ""))
@@ -3640,7 +3586,7 @@ def lm_sharded(dev, counted, smi) -> dict:
             st = init_train_state(model, opt, LM14_SEED, dev,
                                   shardings=lm_spmd.state_shardings(
                                       model, opt, mesh))
-            lm_spmd.reset_copied()
+            model_split.reset_copied()
             synchronize()
             t0 = time.perf_counter()
             loss, _, leaves = counted(
@@ -3649,7 +3595,7 @@ def lm_sharded(dev, counted, smi) -> dict:
                                                microbatches=2), want=none)
             synchronize()
             step_s = time.perf_counter() - t0
-            moved = lm_spmd.copied()
+            moved = model_split.copied()
             grads = against(lm_spmd.gradients(leaves), g_ref)
             worst = max(grads, key=lambda k: grads[k][0])
             new, metrics = counted(
@@ -3777,7 +3723,7 @@ def lm_sharded(dev, counted, smi) -> dict:
                         "lm_sharded", f"{arch} one-device gradients",
                         lambda: _value_and_grad(model, state.params, batch),
                         want=none)
-                new_p, _, _ = opt.apply(state.params, g, state.opt)
+                new_p, _, ref_m = opt.apply(state.params, g, state.opt)
                 # how far the step moves each leaf, against its norm: the
                 # first AdamW step is lr g / (|g| + eps), about lr an
                 # element whatever |g|, so where it moves a leaf by more
@@ -3790,9 +3736,15 @@ def lm_sharded(dev, counted, smi) -> dict:
                 moved = {k: steps[k] / max(old[k].norm().item(), 1e-30)
                          for k in steps}
                 gmax = max(v.abs().max().item() for v in tree_util.leaves(g))
+                # the moved leaves' old values and the step's clip scale,
+                # for their steps element by element
+                olds = {k: v.detach().cpu() for k, v in old.items()
+                        if moved[k] > LM14_MOVED}
+                scale = min(opt.clip_norm
+                            / (ref_m["grad_norm"].item() + 1e-9), 1.0)
                 refs[nd] = (loss.item(), on_host(g), on_host(new_p), steps,
-                            moved, gmax)
-                del g, new_p, old
+                            moved, gmax, olds, scale)
+                del g, new_p, old, ref_m
             del state
             lm_free()
             row = {"params": n, "n_layers": cfg.n_layers,
@@ -3809,7 +3761,7 @@ def lm_sharded(dev, counted, smi) -> dict:
                                       shardings=shardings)
                 blocks = check_blocks(st, shardings)
                 reckoned = lm14_reckoned(st.params, mesh, LM14_BATCH[0])
-                lm_spmd.reset_copied()
+                model_split.reset_copied()
                 synchronize()
                 t0 = time.perf_counter()
                 loss, metrics, leaves = counted(
@@ -3820,14 +3772,11 @@ def lm_sharded(dev, counted, smi) -> dict:
                                                        metrics)
                 synchronize()
                 step_s = time.perf_counter() - t0
-                copies = lm_spmd.copied()
+                copies = model_split.copied()
                 peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
                 check_blocks(new, shardings)
-                ref_loss, g_ref, p_ref, steps, moved, gmax = refs[shape[0]]
-                # where 'model' cuts the mesh, the leaves the step moves by
-                # over LM14_MOVED: their old blocks, for the check below
-                olds = {k: v for k, v in named_grads(st.params).items()
-                        if shape[1] > 1 and moved[k] > LM14_MOVED}
+                ref_loss, g_ref, p_ref, steps, moved, gmax, olds, scale = \
+                    refs[shape[0]]
                 del st
                 err = {"loss_rel": abs(loss.item() - ref_loss)
                        / abs(ref_loss), "rel_l2": 0.0, "leaf": None,
@@ -3844,37 +3793,60 @@ def lm_sharded(dev, counted, smi) -> dict:
                 err["bitwise"] = bitwise
                 err["ok"] = err["rel_l2"] <= LM13_REL \
                     and err["dead_max"] <= LM13_DEAD
-                grads = {k: v for k, v in named_grads(
-                    lm_spmd.gradients(leaves)).items() if k in olds}
+                # the moved leaves' gradient blocks, for the check below
+                got_g = {k: v for k, v in named_grads(
+                    lm_spmd.gradients(leaves)).items()
+                    if shape != (1, 1) and moved[k] > LM14_MOVED}
                 del leaves
-                upd = against(new.params, p_ref)
-                held = [k for k in upd if shape == (1, 1)
-                        or moved[k] <= LM14_MOVED]
+                # the new parameters alone (the moments freed)
+                got_p = named_grads(new.params)
+                del new
+                upd = against(got_p, p_ref)
+                held = [k for k in upd if k not in got_g]
                 err["update_leaf"] = max(held, key=lambda k: upd[k][0])
                 err["update_rel"] = upd[err["update_leaf"]][0]
-                # the others: the step itself within LM14_STEP_REL; where
-                # 'model' cuts the mesh, AdamW's first step (g / (|g| +
-                # eps) an element) turns a gradient element near eps,
-                # whose rounding the row blocks' partial sums change, into
-                # a step apart (mixtral's router on (1, 2), 32,768
-                # elements: one element's step off by lr moves the
-                # leaf's step 1/181 of its norm), so the update is
-                # held bit for bit to AdamW over the step's own gradient
-                # blocks, the gradient to LM13_REL, and the step's distance
-                # from the unsharded step is logged
-                err["step_rel"] = {
-                    k: upd[k][4] / max(steps[k], 1e-30)
-                    for k in sorted(set(upd) - set(held))}
-                if shape[1] > 1:
-                    err["logged_step_rel"] = err.pop("step_rel")
-                    err["step_rel"] = {}
-                    news = named_grads(new.params)
-                    err["update_on_own_gradients"] = {
-                        k: same_adamw_update(opt, olds[k], grads[k],
-                                             news[k], metrics["grad_norm"])
-                        for k in err["logged_step_rel"]}
-                    del news
-                del grads, olds, new
+                # the others: the step itself within LM14_STEP_REL, where
+                # 'model' cuts the mesh over the elements whose clipped
+                # reference gradient exceeds LM14_NEAR_EPS eps; on the
+                # card LM14_CHUNK elements at a time
+                err["step_rel"], err["near_eps"] = {}, {}
+                got_scale = min(opt.clip_norm / (
+                    metrics["grad_norm"].item() + 1e-9), 1.0)
+                near = LM14_NEAR_EPS * opt.eps if shape[1] > 1 else -1.0
+                for k in sorted(got_g):
+                    p = got_p[k].gather(dev).flatten()
+                    r, o, gr = (t.flatten() for t in
+                                (p_ref[k], olds[k], g_ref[k]))
+                    num = den = 0.0
+                    excluded, worst = 0, (0, 0.0, 0.0)
+                    for a in range(0, p.numel(), LM14_CHUNK):
+                        rc = r[a:a + LM14_CHUNK].to(dev)
+                        gc = gr[a:a + LM14_CHUNK].to(dev) * scale
+                        d = (p[a:a + LM14_CHUNK] - rc).double()
+                        keep = gc.abs() > near
+                        num += d[keep].square().sum().item()
+                        den += (rc - o[a:a + LM14_CHUNK].to(dev)).double()[
+                            keep].square().sum().item()
+                        excluded += int((~keep).sum())
+                        j = int(d.abs().argmax())
+                        if abs(d[j].item()) >= abs(worst[1]):
+                            worst = (a + j, d[j].item(), gc[j].item())
+                        del rc, gc, d, keep
+                    del p
+                    err["step_rel"][k] = math.sqrt(num) / max(
+                        math.sqrt(den), 1e-30)
+                    if shape[1] > 1:
+                        i = worst[0]
+                        err["near_eps"][k] = {
+                            "excluded": excluded, "of": r.numel(),
+                            "whole_leaf_step_rel": upd[k][4]
+                            / max(steps[k], 1e-30),
+                            "worst_element": i,
+                            "its_step_diff_in_lr": worst[1] / LM14_LR,
+                            "its_ref_clipped_g": worst[2],
+                            "its_clipped_g": got_g[k].gather(
+                                dev).flatten()[i].item() * got_scale}
+                del got_g, got_p
                 err.update({"blocks": blocks, "step_s": step_s,
                             "peak_gb_above": peak, "copied": copies,
                             "weights_reckoned": reckoned})
@@ -3884,9 +3856,7 @@ def lm_sharded(dev, counted, smi) -> dict:
                         and all(v <= LM14_STEP_REL
                                 for v in err["step_rel"].values())
                         and copies["weights"] == reckoned
-                        and (reckoned == 0) == (shape[0] == 1)
-                        and all(err.get("update_on_own_gradients",
-                                        {}).values())) \
+                        and (reckoned == 0) == (shape[0] == 1)) \
                         or (shape == (1, 1) and not err["bitwise"]):
                     raise AssertionError(f"{arch} {shape}: {err}")
             del refs
@@ -3906,13 +3876,14 @@ def lm_sharded(dev, counted, smi) -> dict:
                        f"leaves moved over {LM14_MOVED:.0%} within "
                        f"{max(row[str(shape)]['step_rel'].values()):.1e}"
                        if row[str(shape)]['step_rel'] else "")
-                    + (f", {len(row[str(shape)]['logged_step_rel'])} leaves "
-                       f"moved over {LM14_MOVED:.0%} updated bit for bit "
-                       f"from their own gradients, their steps "
-                       + ", ".join(f"{k} {v:.1e}" for k, v in
-                                   row[str(shape)]['logged_step_rel'].items())
-                       + " from the unsharded step's"
-                       if row[str(shape)].get('logged_step_rel') else "")
+                    + "".join(
+                        f" ({k}: {v['excluded']} of {v['of']} elements "
+                        f"near eps left out, the whole leaf "
+                        f"{v['whole_leaf_step_rel']:.1e}, its worst element"
+                        f" {v['worst_element']} {v['its_step_diff_in_lr']:.2f}"
+                        f" lr apart, g {v['its_ref_clipped_g']:.2e} there, "
+                        f"{v['its_clipped_g']:.2e} sharded)"
+                        for k, v in row[str(shape)]['near_eps'].items())
                     + f", {row[str(shape)]['blocks']} blocks, step "
                     f"{row[str(shape)]['step_s'] * 1e3:.0f} ms, copied "
                     f"{row[str(shape)]['copied']['weights'] / 1e9:.3f} GB "
@@ -4319,7 +4290,8 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
     import repro_torch.configs as configs
     from repro_torch import tree as tree_util
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.distributed import act_sharding, serve_spmd, sharding
+    from repro_torch.distributed import (act_sharding, model_split,
+                                         serve_spmd, sharding)
     from repro_torch.launch.mesh import make_forced_host_mesh
     from repro_torch.launch.serve import GreedyStep
     from repro_torch.models import build
@@ -4482,10 +4454,10 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
             shardings = sharding.cache_shardings(model, cache_shape, mesh)
             cache = model.init_cache(placed, B, L, shardings=shardings)
             fill(cache, seeded(shapes_of(cache), LM15_SEED + 9))
-            serve_spmd.reset_copied()
+            model_split.reset_copied()
             got, check_ms = decoded(model, placed, cache, toks, pos0,
                                     f"{arch} {shape} bf16")
-            check_moved = serve_spmd.copied()
+            check_moved = model_split.copied()
             step_peaks = [torch.cuda.max_memory_allocated(i) / 1e9
                           for i in range(cards)]
             check[str(shape)] = [lg.float().cpu() for lg in got]
@@ -4515,11 +4487,11 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
                             prompts=PromptStream(cfg.vocab_size,
                                                  lengths=srv["prompts"],
                                                  seed=LM15_SEED + 7))
-            serve_spmd.reset_copied()
+            model_split.reset_copied()
             stats = counted("lm_serve_sharded", f"{arch} {shape} served",
                             lambda: loop.run(step), want=none)
             synchronize()
-            moved = serve_spmd.copied()
+            moved = model_split.copied()
             peaks = [torch.cuda.max_memory_allocated(i) / 1e9
                      for i in range(cards)]
             bad = int(step.bad)
@@ -4608,12 +4580,12 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
         counted("lm_serve_sharded", f"{what} prefill",
                 lambda: step(placed, ptoks, memory), want=none)
         synchronize()
-        serve_spmd.reset_copied()
+        model_split.reset_copied()
         t0 = time.perf_counter()
         pre = counted("lm_serve_sharded", f"{what} prefill, timed",
                       lambda: step(placed, ptoks, memory), want=none)
         synchronize()
-        return pre, (time.perf_counter() - t0) * 1e3, serve_spmd.copied()
+        return pre, (time.perf_counter() - t0) * 1e3, model_split.copied()
 
     def check_arch(arch, cut, meshes, big=False):
         """15a for one arch: the unsharded fp32 steps, then the same steps
@@ -4667,10 +4639,10 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
                     model, cache_shape, mesh))
             fill(cache, values)
             before = blocks_of(cache)
-            serve_spmd.reset_copied()
+            model_split.reset_copied()
             got, ms = decoded(model, placed, cache, toks, pos0,
                               f"{arch} {shape}")
-            moved = serve_spmd.copied()
+            moved = model_split.copied()
             reckoned = lm15_reckoned(placed, mesh, B)
             rels = [rel_l2(g, r) for g, r in zip(got, ref)]
             finals = [(sh.gather(dev), leaf) for sh, leaf in zip(

@@ -71,8 +71,8 @@ any mesh shape.
 On a mesh of one coordinate the loss and gradients are the single-device
 step's bit for bit (``tests/test_torch_lm_spmd.py``); elsewhere the row
 blocks' partial sums and the sums over data shards come in another
-order.  :func:`copied` counts the bytes a step moves between coordinates
-(``model_split.copied``): its weights are the all-gather over the data
+order.  ``model_split.copied`` counts the bytes a step moves between
+coordinates: its weights are the all-gather over the data
 axes of the leaves it reads, once a fetch (twice for a rematerialised
 layer's), 0 on a mesh of one data row.
 """
@@ -87,8 +87,8 @@ import torch
 from repro_torch import tree as tree_util
 from repro_torch.core.precision import full_fp32_backward
 from repro_torch.distributed import act_sharding
-from repro_torch.distributed.model_split import (  # noqa: F401
-    Forward, _Leaf, _Row, copied, param_leaves, reset_copied)
+from repro_torch.distributed.model_split import (Forward, _Leaf, _Row,
+                                                 param_leaves)
 from repro_torch.distributed.sharding import (
     P, Sharded, _with_paths, batch_axes, block_of, opt_state_pspecs,
     params_pspecs, sanitized_shardings, tree_map_with_path)

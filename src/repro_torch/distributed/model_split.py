@@ -876,10 +876,17 @@ class Forward(Split, tfm.ForwardOps):
             return x @ plain
         return self._cols(w, _Cut.at_row(self.row, x)).whole()
 
+    def _devices(self) -> int:
+        """The distinct devices the row's blocks lie on."""
+        return len({self.row.mesh.device(c) for c in self.row.line})
+
     def checkpoint(self, fn):
-        """A layer's remat: ``transformer.checkpoint_threadsafe`` (its
-        blocks run on several devices, so on several of autograd's
-        threads)."""
+        """A layer's remat: where the row's blocks lie on several devices,
+        so that several of autograd's threads unpack the layer,
+        ``transformer.checkpoint_threadsafe``; else the plain
+        ``ForwardOps.checkpoint`` under the remat policy."""
+        if self._devices() == 1:
+            return tfm.ForwardOps.checkpoint(fn)
         tfm.remat_policy()
         return lambda *args: tfm.checkpoint_threadsafe(fn, *args)
 

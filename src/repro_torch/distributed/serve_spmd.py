@@ -87,9 +87,9 @@ step.  The rows, the weights' fetches, the per-token copies and the
 block arithmetic live in ``distributed/model_split.py``, which the three
 steps share.
 
-:func:`copied` counts the bytes the steps move between mesh coordinates,
-as ``weights``, ``activations`` and ``cache``; the cache's count stays 0,
-and a step's weights are the all-gather over the data axes of its
+``model_split.copied`` counts the bytes the steps move between mesh
+coordinates, as ``weights``, ``activations`` and ``cache``; the cache's
+count stays 0, and a step's weights are the all-gather over the data axes of its
 model-split and data-split leaves.  On a mesh of distinct devices these
 are device copies; on a mesh that repeats one device, the copies the same
 mesh would make over distinct ones.
@@ -108,9 +108,8 @@ from repro_torch.core.precision import full_fp32_matmul
 from repro_torch.distributed import act_sharding
 from repro_torch.distributed.lm_spmd import (_compute_coords, _empty_stack,
                                              _Placer)
-from repro_torch.distributed.model_split import (  # noqa: F401
-    Forward, Split, _Cut, _head_runs, _Row, _run_cols, copied, param_leaves,
-    reset_copied)
+from repro_torch.distributed.model_split import (
+    Forward, Split, _Cut, _head_runs, _Row, _run_cols, param_leaves)
 from repro_torch.distributed.sharding import (
     NamedSharding, Sharded, _axes, batch_axes, cache_pspecs, params_pspecs,
     sanitize_pspec, sanitized_shardings, tree_map_with_path)

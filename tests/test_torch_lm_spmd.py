@@ -204,8 +204,8 @@ def no_whole_gathers():
             return orig(self, *args, **kwargs)
         return gather
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(lm_spmd._Leaf, "gather",
-                   guarded(lm_spmd._Leaf.gather, lambda leaf: leaf.sh))
+        mp.setattr(model_split._Leaf, "gather",
+                   guarded(model_split._Leaf.gather, lambda leaf: leaf.sh))
         mp.setattr(sharding.Sharded, "gather",
                    guarded(sharding.Sharded.gather, lambda sh: sh))
         yield
@@ -248,10 +248,10 @@ def check_against_jax(arch, shape, batch=B):
     check_placement(state, shardings)
     _, cfg = _cfgs(arch)
     b = {k: torch.from_numpy(v) for k, v in _arrays(cfg, batch).items()}
-    lm_spmd.reset_copied()
+    model_split.reset_copied()
     with no_whole_gathers():
         loss, _, leaves = lm_spmd.value_and_grad(model, state.params, b)
-    assert lm_spmd.copied()["weights"] == reckoned(state.params, mesh,
+    assert model_split.copied()["weights"] == reckoned(state.params, mesh,
                                                    batch)
     grads = [g.gather() for g in tree_util.leaves(
         lm_spmd.gradients(leaves))]
@@ -397,13 +397,18 @@ def test_threadsafe_checkpoint_recomputes_once():
     assert torch.equal(gx, rx) and torch.equal(gw, rw)
 
 
+@pytest.mark.parametrize("devices", [1, 2])
 @pytest.mark.parametrize("arch", ["qwen3-14b", "zamba2-1.2b"])
-def test_sharded_step_keeps_nothing_alive(arch):
+def test_sharded_step_keeps_nothing_alive(arch, devices, monkeypatch):
     """After a sharded step's gradients are dropped, no row, no leaf's
     gradient blocks and no tensor of its graph outlive it: nothing in the
     fetches, the rows or the rematerialised layers holds its own graph
     (a cycle through autograd's nodes that Python's collector cannot
-    free, a whole gradient a step)."""
+    free, a whole gradient a step).  ``devices`` 2: each row's layers
+    rematerialised as where its blocks lie on two cards
+    (``transformer.checkpoint_threadsafe``)."""
+    monkeypatch.setattr(model_split.Forward, "_devices",
+                        lambda self: devices)
     model, _, _, _, state = placed_state(arch, (1, 2))
     _, cfg = _cfgs(arch)
     b = {k: torch.from_numpy(v) for k, v in _arrays(cfg).items()}
@@ -422,6 +427,51 @@ def test_sharded_step_keeps_nothing_alive(arch):
         now = alive()
         assert now[:2] == (0, 0) and now == (before or now)
         before = now
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2)])
+def test_sharded_remat_follows_the_policy(shape, monkeypatch):
+    """The sharded step's layers: on a row whose blocks lie on one device,
+    ``torch.utils.checkpoint`` under ``REPRO_TORCH_REMAT_POLICY`` (with
+    ``dots``, the products' outputs saved); where they lie on several,
+    ``transformer.checkpoint_threadsafe`` (full remat); the gradients of
+    all three bit for bit alike."""
+    arch = "qwen3-14b"
+    model, _, _, _, state = placed_state(arch, shape)
+    _, cfg = _cfgs(arch)
+    b = {k: torch.from_numpy(v) for k, v in _arrays(cfg).items()}
+    saved, routes = [], []
+    save_dots, threadsafe = transformer._save_dots, \
+        transformer.checkpoint_threadsafe
+
+    def spy_dots(ctx, op, *args, **kwargs):
+        out = save_dots(ctx, op, *args, **kwargs)
+        saved.append(out == transformer.ckpt.CheckpointPolicy.MUST_SAVE)
+        return out
+
+    def spy_threadsafe(fn, *args):
+        routes.append("threadsafe")
+        return threadsafe(fn, *args)
+    monkeypatch.setattr(transformer, "_save_dots", spy_dots)
+    monkeypatch.setattr(transformer, "checkpoint_threadsafe",
+                        spy_threadsafe)
+
+    def grads(policy, devices):
+        monkeypatch.setenv(transformer.REMAT_POLICY_ENV, policy)
+        monkeypatch.setattr(model_split.Forward, "_devices",
+                            lambda self: devices)
+        _, _, leaves = lm_spmd.value_and_grad(model, state.params, b)
+        return [g.gather() for g in tree_util.leaves(
+            lm_spmd.gradients(leaves))]
+    full = grads("full", 1)
+    assert not saved and not routes
+    dots = grads("dots", 1)
+    assert any(saved) and not routes
+    saved.clear()
+    several = grads("dots", 2)
+    assert not saved and routes
+    for ref in (dots, several):
+        assert all(torch.equal(x, y) for x, y in zip(full, ref))
 
 
 def _step_bits(model, opt, state, b, **kw):
@@ -510,10 +560,10 @@ def test_microbatched_sharded_step_matches_jax(arch, shape):
     model, opt, mesh, shardings, state = placed_state(arch, shape)
     _, cfg = _cfgs(arch)
     b = {k: torch.from_numpy(v) for k, v in _arrays(cfg).items()}
-    lm_spmd.reset_copied()
+    model_split.reset_copied()
     loss, grads, new, metrics = _step_bits(model, opt, state, b,
                                            microbatches=2)
-    assert lm_spmd.copied()["weights"] == reckoned(state.params, mesh, B,
+    assert model_split.copied()["weights"] == reckoned(state.params, mesh, B,
                                                    chunks=2)
     assert float(metrics["loss"]) == float(loss)
     check_train_step(model, opt, state, b, new, microbatches=2)

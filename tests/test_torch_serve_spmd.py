@@ -57,7 +57,8 @@ import repro_torch.configs as configs  # noqa: E402
 from repro_torch import tree as tree_util  # noqa: E402
 from repro_torch.api import serving_cache  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
-from repro_torch.distributed import lm_spmd, serve_spmd, sharding  # noqa: E402
+from repro_torch.distributed import (lm_spmd, model_split,  # noqa: E402
+                                     serve_spmd, sharding)
 from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.launch.mesh import make_forced_host_mesh  # noqa: E402
 from repro_torch.models import build, transformer  # noqa: E402
@@ -276,10 +277,10 @@ def test_sharded_decode_matches_jax(arch, shape):
                                  _t(ref["memory"]), shardings=shardings)
     _fill(cache, ref["filled"], mesh)
     before = _blocks(cache)
-    serve_spmd.reset_copied()
+    model_split.reset_copied()
     logits, out = _decode(model, placed, cache, ref)
     assert out is cache and _blocks(cache) == before
-    moved = serve_spmd.copied()
+    moved = model_split.copied()
     assert moved["cache"] == 0
     assert moved["weights"] == STEPS * _reckoned(placed, mesh, B)
     if shape[0] == 1:
@@ -303,11 +304,11 @@ def test_sharded_decode_matches_jax(arch, shape):
     # the MoE dispatch groups by data row; the other families do not
     toks, mem, want = jax_forward(arch, shape[0] if model.cfg.n_experts
                                   else 1)
-    serve_spmd.reset_copied()
+    model_split.reset_copied()
     with no_whole_gathers():
         got = make_prefill_step(model)(placed, _t(toks), _t(mem))
     if shape[0] == 1:
-        assert serve_spmd.copied()["weights"] == 0
+        assert model_split.copied()["weights"] == 0
     assert _rel_l2(got, want) <= REL
 
 
@@ -324,8 +325,8 @@ def _refuse_whole_gathers(monkeypatch):
                                      f"{sh}")
             return orig(self, *args, **kwargs)
         return gather
-    monkeypatch.setattr(lm_spmd._Leaf, "gather",
-                        guarded(lm_spmd._Leaf.gather, lambda leaf: leaf.sh))
+    monkeypatch.setattr(model_split._Leaf, "gather",
+                        guarded(model_split._Leaf.gather, lambda leaf: leaf.sh))
     monkeypatch.setattr(sharding.Sharded, "gather",
                         guarded(sharding.Sharded.gather, lambda sh: sh))
 
