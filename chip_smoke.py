@@ -326,6 +326,27 @@ csrc`` at first use.  Phases, each of which raises on failure:
         each other (bf16's, a finding); on one card a line says it did not
         run.
 
+  16. The dry run held to the card (``repro_torch.launch.dryrun``,
+     ``launch.dryrun_cnn``, ``launch.hlo_analysis``): the same step on
+     meta tensors over a meta mesh (on this host's CPU) predicts what the
+     card measures:
+     a. stablelm-3b at 4 layers, fp32, 2 x 512 on (1, 1), (2, 2) and
+        (1, 4) (cuda:0 repeated; the meta mesh one card likewise): the
+        bytes placed per coordinate and the weight, activation and
+        gradient bytes a step copies, exactly; the predicted peak against
+        ``torch.cuda.max_memory_allocated`` on (1, 1);
+     b. the sharded CNN train step (``dryrun_cnn.train_step``) with
+        ResNet-18 sfc6_7 at 224x224, batch 32: int8 on (1, 1) against the
+        unsharded step over ``cnn_loss`` (the loss within 1e-5, each
+        gradient leaf within 1e-4 rel L2), int8 and fp32 on (1, 2) (C_out
+        split: the spread logged, ties and int8 rounding amplify the
+        products' per-width rounding); its placed and copied bytes
+        exactly its dry run's everywhere, the predicted peak on (1, 1);
+     c. with four cards only (``--lm-sharded``): 14e's cells dry-run in
+        worker processes while 14e runs, held to 14e's per-card placed
+        bytes and copies a step exactly, the predicted peak a card logged
+        against the measured one.
+
 ``--sharded`` runs phases 10 and 10b alone (after the build), over the
 visible GPUs where a mesh has enough (on four cards, every mesh of up to
 four shards has a card a shard; the tuned path then carries no measured
@@ -336,7 +357,8 @@ config, as nothing was tuned), and writes ``chiprun_out/sharded.json``.
 (14e only on a host with four cards) and writes
 ``chiprun_out/lm_sharded.json``; ``--lm-serve-sharded`` runs phase 15
 alone (15b only on a host with four cards) and writes
-``chiprun_out/lm_serve_sharded.json``; ``--b4-candidates`` runs phase 3c alone and
+``chiprun_out/lm_serve_sharded.json``; ``--dryrun`` runs phase 16 alone
+and writes ``chiprun_out/dryrun.json``; ``--b4-candidates`` runs phase 3c alone and
 writes ``chiprun_out/b4_candidates.json``.
 ``--sweep-b4``, ``--sweep-b7``, ``--sweep-b1`` and ``--sweep-b2`` time
 B4's, B7's, B1's and B5's, and B2's and B6's geometries per layer instead
@@ -768,6 +790,24 @@ LM14_MB_CELL = ("stablelm-3b", {"n_layers": 4}, (4, 512),
                 ((1, 1), (2, 2), (1, 4)))
 LM14_GC_CELL = ("stablelm-3b", {"n_layers": 4}, (2, 512),
                 ((1, 1), (2, 2), (1, 4)))
+# phase 16, the dry run held to the card: LM16_CELL (arch, depth cut,
+# batch, seed) fp32 on LM16_MESHES; CNN16 (model, algo, batch) through the
+# sharded CNN step on CNN16_MESHES within CNN16_LOSS, CNN16_GRAD of the
+# unsharded step (a leaf under CNN16_DEAD of the largest leaf's norm within
+# CNN16_DEAD * CNN16_GRAD of it); placed and copied bytes exactly the dry
+# run's
+LM16_CELL = ("stablelm-3b", {"n_layers": 4}, (2, 512), 2900)
+LM16_MESHES = ((1, 1), (2, 2), (1, 4))
+CNN16 = ("resnet18", "sfc6_7", 32)
+# (mesh, int8): held to the bounds on (1, 1); where 'model' cuts C_out the
+# products' rounding differs by width (1e-7) and int8 rounding, max-pool's
+# and ReLU's ties turn it into a spread that the run logs (placed and
+# copied bytes held exactly everywhere)
+CNN16_MESHES = (((1, 1), True), ((1, 2), True), ((1, 2), False))
+CNN16_LOSS = 1e-5
+CNN16_GRAD = 1e-4
+CNN16_DEAD = 1e-3
+CNN16_SEED = 2901
 # phase 15, sharded LM serving (A16's serving half), the chain off: 15a each
 # of LM15_ARCHS at its published width and its depth cut, fp32 parameters
 # and compute under the full-fp32 matmul guard, batch LM15_BATCH, its cache
@@ -3518,6 +3558,7 @@ def lm_sharded(dev, counted, smi) -> dict:
                 "weights_reckoned_gb": reckoned / 1e9,
                 "replayed_bitwise": replay, "traced": traced,
                 "state_blocks_gb": [h / 1e9 for h in held],
+                "state_blocks_bytes": held, "copied_a_step": moved,
                 # the functional update holds the old and the new state
                 # and the gradients: 28 of the state's 12 bytes a parameter
                 "reckoned_update_gb": [h * 28 / 12 / 1e9 for h in held]}
@@ -4800,6 +4841,290 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
     return out
 
 
+def dryrun_big_cell(arch, cut, shape, batch) -> dict:
+    """16c's worker: 14e's cell ``arch`` (depth ``cut``) at ``batch`` on a
+    meta mesh of ``shape``, each coordinate a card of its own, dry-run on
+    this host's CPU: the bytes placed and the peak per coordinate, the
+    bytes copied a step by kind."""
+    import torch
+    torch.set_num_threads(4)
+    import repro_torch.configs as configs
+    from repro_torch.distributed import lm_spmd, sharding
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch.mesh import make_forced_host_mesh
+    from repro_torch.launch.train import token_batches
+    from repro_torch.models import build
+    from repro_torch.optim import AdamW
+    from repro_torch.train import abstract_train_state, make_train_step
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get_config(arch), **cut)
+    model, opt = build(cfg), AdamW(lr=LM13_LR)
+    mesh = make_forced_host_mesh(shape, device="meta")
+    state = sharding.place(abstract_train_state(model, opt),
+                           lm_spmd.state_shardings(model, opt, mesh))
+    # 14e's batch, its shapes and dtypes
+    meta = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for k, v in token_batches(cfg, *batch, "cpu")(0).items()}
+    _, s = hlo_analysis.analyze(make_train_step(model, opt), state, meta,
+                                mesh=mesh, rows_alike=True)
+    return {"placed": {str(c): b for c, b in
+                       dryrun.placed_bytes(state).items()},
+            "copied": s.copied,
+            "peak": {str(c): st.args + st.peak
+                     for c, st in s.per_coord.items()},
+            "seconds": time.perf_counter() - t0}
+
+
+@contextlib.contextmanager
+def big_dry_runs(cards: int):
+    """16c's dry runs of 14e's cells, started in worker processes (this
+    host's CPU) before 14e runs; None on fewer than four cards.  The
+    workers end with the block."""
+    if cards < 4:
+        yield None
+        return
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=len(LM14_BIG) * len(LM14_BIG_MESHES),
+        mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futures = {}
+        for arch, cut in LM14_BIG:
+            for shape in LM14_BIG_MESHES:
+                futures[(arch, shape)] = pool.submit(
+                    dryrun_big_cell, arch, cut, shape, LM14_BIG_BATCH)
+        yield futures
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def dryrun_held(dev, counted, smi, big=None) -> dict:
+    """Phase 16: the dry run held to the card (the module's docstring);
+    ``big``: 14e's rows and the futures of their dry runs (16c)."""
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch import tree as tree_util
+    from repro_torch.distributed import lm_spmd, model_split, sharding
+    from repro_torch.launch import dryrun, dryrun_cnn, hlo_analysis
+    from repro_torch.launch.mesh import make_forced_host_mesh
+    from repro_torch.models import build, cnn
+    from repro_torch.optim import AdamW
+    from repro_torch.train import (abstract_train_state, init_train_state,
+                                   make_train_step)
+    from repro_torch.train.steps import _value_and_grad
+
+    t_phase = time.perf_counter()
+    none = only()
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    out = {"lm": {}, "cnn": {}, "big": {}}
+
+    def mesh_pair(shape):
+        """The card's mesh (the visible GPUs where there are enough, else
+        ``dev`` repeated) and the meta mesh that stands for it."""
+        if cards >= math.prod(shape):
+            return make_forced_host_mesh(shape), \
+                make_forced_host_mesh(shape, device="meta")
+        return make_forced_host_mesh(shape, device=dev), \
+            make_forced_host_mesh(shape, device="meta", one_card=True)
+
+    def synchronize():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def fresh():
+        lm_free()
+        synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        return torch.cuda.memory_allocated(dev)
+
+    def gb(v):
+        return v / 1e9
+
+    # ---- 16a. the sharded LM step --------------------------------------
+    arch, cut, (B, T), seed = LM16_CELL
+    cfg = dataclasses.replace(configs.get_config(arch),
+                              compute_dtype="float32",
+                              param_dtype="float32", **cut)
+    model, opt = build(cfg), AdamW(lr=LM14_LR)
+    batch = {"tokens": lm_tokens(cfg, (B, T), seed, dev),
+             "labels": lm_tokens(cfg, (B, T), seed + 1, dev)}
+    meta_batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                  for k, v in batch.items()}
+    step_fn = make_train_step(model, opt)
+    for shape in LM16_MESHES:
+        mesh, meta = mesh_pair(shape)
+        base = fresh()
+        st = init_train_state(model, opt, seed, dev,
+                              shardings=lm_spmd.state_shardings(model, opt,
+                                                                mesh))
+        placed = dryrun.placed_bytes(st)
+        model_split.reset_copied()
+        new, metrics = counted("dryrun", f"{arch} {shape} sharded step",
+                               lambda: step_fn(st, batch), want=none)
+        synchronize()
+        copies = model_split.copied()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        loss = float(metrics["loss"])
+        del st, new, metrics
+        lm_free()
+        t0 = time.perf_counter()
+        m_state = sharding.place(abstract_train_state(model, opt),
+                                 lm_spmd.state_shardings(model, opt, meta))
+        _, s = hlo_analysis.analyze(step_fn, m_state, meta_batch, mesh=meta,
+                                    rows_alike=True)
+        dry_s = time.perf_counter() - t0
+        m_placed = dryrun.placed_bytes(m_state)
+        row = {"placed_per_coordinate": sorted(set(placed.values())),
+               "copied": copies, "dry_copied": s.copied,
+               "peak_bytes": peak, "dry_peak_bytes": s.peak_bytes,
+               "dry_flops": s.flops, "dry_traffic_bytes": s.traffic_bytes,
+               "dry_seconds": dry_s, "loss": loss}
+        out["lm"][str(shape)] = row
+        if placed != m_placed or copies != s.copied \
+                or not math.isfinite(loss):
+            raise AssertionError(f"16a {arch} {shape}: placed {placed} "
+                                 f"against the dry run's {m_placed}; copied "
+                                 f"{copies} against {s.copied}; loss {loss}")
+        log(f"dryrun: {arch} ({cfg.n_layers} layers, fp32, {B} x {T}) on "
+            f"{shape}: placed {gb(max(placed.values())):.4f} GB a "
+            f"coordinate, copied a step {copies} bytes, both exactly the "
+            f"dry run's ({dry_s:.1f} s on this host's CPU); peak "
+            + (f"{gb(peak):.3f} GB measured against {gb(s.peak_bytes):.3f} "
+               f"predicted (ratio {s.peak_bytes / peak:.3f})"
+               if shape == (1, 1) else f"{gb(peak):.3f} GB on the card"))
+
+    # ---- 16b. the sharded CNN step ---------------------------------------
+    name, algo, B = CNN16
+    int8_cfg = dryrun_cnn.cnn_config(name, algo)
+    opt = AdamW(lr=1e-3)
+    gen = torch.Generator(device=dev).manual_seed(CNN16_SEED)
+    params = cnn.init_resnet(gen, int8_cfg, dev)
+    data = {"images": torch.randn(B, int8_cfg.image_size,
+                                  int8_cfg.image_size, 3, generator=gen,
+                                  device=dev),
+            "labels": torch.randint(0, int8_cfg.n_classes, (B,),
+                                    generator=gen, device=dev,
+                                    dtype=torch.int32)}
+
+    class Loss:
+        def __init__(self, cfg):
+            self.cfg = cfg
+
+        def loss(self, p, batch):
+            return cnn.cnn_loss(p, self.cfg, batch)
+    refs = {}
+    for shape, int8 in CNN16_MESHES:
+        cfg = int8_cfg if int8 else dataclasses.replace(int8_cfg,
+                                                        quant="none")
+        if int8 not in refs:
+            ref_loss, _, ref = counted(
+                "dryrun", f"{name} unsharded gradients",
+                lambda: _value_and_grad(Loss(cfg), params, data), want=none)
+            ref = dict(sharding._with_paths(ref))
+            refs[int8] = (ref_loss, ref, max(
+                float(torch.linalg.vector_norm(g)) for g in ref.values()))
+        ref_loss, ref, top = refs[int8]
+        mesh, meta = mesh_pair(shape)
+        base = fresh()
+        state = dryrun_cnn.place_state(cfg, opt, mesh, params)
+        placed = dryrun.placed_bytes(state)
+        model_split.reset_copied()
+        t0 = time.perf_counter()
+        loss, _, leaves = counted(
+            "dryrun", f"{name} {shape} sharded gradients",
+            lambda: dryrun_cnn.value_and_grad(cfg, state.params, data),
+            want=none)
+        new, _ = lm_spmd.apply_gradients(opt, state, leaves, {})
+        synchronize()
+        step_s = time.perf_counter() - t0
+        copies = model_split.copied()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        grads = dict(sharding._with_paths(lm_spmd.gradients(leaves)))
+        worst, dead, bitwise = 0.0, 0.0, bool(torch.equal(loss, ref_loss))
+        worst_leaf = None
+        for k, g in ref.items():
+            got = grads[k].gather(dev)
+            bitwise = bitwise and bool(torch.equal(got, g))
+            n = float(torch.linalg.vector_norm(g))
+            d = float(torch.linalg.vector_norm(got - g))
+            if n > CNN16_DEAD * top:
+                if d / n >= worst:
+                    worst, worst_leaf = d / n, "/".join(k)
+            else:                   # a leaf the loss hardly reaches
+                dead = max(dead, d / top)
+        loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        del state, new, leaves, grads
+        lm_free()
+        rec = dryrun_cnn.lower_cnn(name, algo, False, mesh=meta, cfg=cfg,
+                                   batch=B)
+        m_placed = dryrun.placed_bytes(dryrun_cnn.place_state(cfg, opt, meta))
+        held = shape == (1, 1)
+        row = {"int8": int8, "held_to_bounds": held,
+               "loss_rel": loss_rel, "worst_leaf_rel_l2": worst,
+               "dead_leaf_of_top": dead,
+               "worst_leaf": worst_leaf,
+               "bitwise": bitwise, "step_ms": step_s * 1e3,
+               "placed_per_coordinate": sorted(set(placed.values())),
+               "copied": copies, "dry_copied": rec["copied"],
+               "peak_bytes": peak,
+               "dry_peak_bytes": rec["memory"]["peak_size_in_bytes"],
+               "dry_flops": rec["la_flops"], "dry_seconds": rec["seconds"]}
+        out["cnn"][f"{shape} {'int8' if int8 else 'fp32'}"] = row
+        if held and (loss_rel > CNN16_LOSS or worst > CNN16_GRAD
+                     or dead > CNN16_DEAD * CNN16_GRAD) \
+                or placed != m_placed or copies != rec["copied"]:
+            raise AssertionError(f"16b {name} {shape}: {row}; placed "
+                                 f"{placed} against {m_placed}")
+        log(f"dryrun: {name} {algo} {'int8' if int8 else 'fp32'}, batch "
+            f"{B}, sharded step on "
+            f"{shape}: loss {loss_rel:.2e} rel, worst leaf {worst:.2e} rel "
+            f"L2 of the unsharded step's (bit for bit: {bitwise}"
+            + ("" if held else f"; {worst_leaf}; over a C_out split a "
+               f"finding, not held") + "); placed "
+            f"{gb(max(placed.values())):.4f} GB a coordinate and copied "
+            f"{copies} bytes, exactly the dry run's ({rec['seconds']:.1f} s"
+            f" on this host's CPU); {step_s * 1e3:.0f} ms a step; peak "
+            f"{gb(peak):.3f} GB measured, {gb(row['dry_peak_bytes']):.3f} "
+            f"predicted")
+
+    # ---- 16c. 14e's cells over four cards --------------------------------
+    if big is None:
+        out["big"] = {"ran": False,
+                      "why": "runs with --lm-sharded on four cards"}
+    else:
+        rows, futures = big
+        for (arch, shape), fut in futures.items():
+            dry = fut.result()
+            got = rows[arch]["meshes"][str(shape)]
+            held = {str(c): b for c, b in zip(
+                make_forced_host_mesh(shape, device="meta").coords(),
+                got["state_blocks_bytes"])}
+            ok = held == dry["placed"] and got["copied_a_step"] == {
+                k: float(v) for k, v in dry["copied"].items()}
+            out["big"][f"{arch} {shape}"] = {
+                "placed_equal": held == dry["placed"],
+                "copied": got["copied_a_step"], "dry_copied": dry["copied"],
+                "peak_gb": got["peak_gb"],
+                "dry_peak_gb": [gb(v) for v in dry["peak"].values()],
+                "dry_seconds": dry["seconds"]}
+            if not ok:
+                raise AssertionError(f"16c {arch} {shape}: "
+                                     f"{out['big'][f'{arch} {shape}']}")
+            log(f"dryrun: {arch} at full depth on {shape} over four cards: "
+                f"placed and copied a step exactly the dry run's; peak a "
+                f"card {', '.join(f'{v:.1f}' for v in got['peak_gb'])} GB "
+                f"measured, "
+                f"{', '.join(f'{gb(v):.1f}' for v in dry['peak'].values())}"
+                f" predicted ({dry['seconds']:.0f} s of dry run)")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"dryrun: phase 16 took {out['seconds']:.1f} s on {smi}; no kernel "
+        f"of the port launched")
+    return out
+
+
 def tf32_flags() -> dict:
     """cuBLAS's and cuDNN's float32 settings, by the API this PyTorch has."""
     import torch
@@ -5345,12 +5670,17 @@ def main() -> None:
         return
 
     if "--lm-sharded" in sys.argv[1:]:
-        # phase 14 alone
+        # phase 14 alone, and phase 16 (16c's dry runs of 14e's cells in
+        # worker processes on this host's CPU while 14e runs on the cards)
         resilience.configure(dataclasses.replace(resilience.policy(),
                                                  enabled=False))
         report = {"device": {"name": name, "nvidia_smi": smi,
-                             "count": torch.cuda.device_count()},
-                  "lm_sharded": lm_sharded(dev, counted, smi)}
+                             "count": torch.cuda.device_count()}}
+        with big_dry_runs(torch.cuda.device_count()) as futures:
+            report["lm_sharded"] = lm_sharded(dev, counted, smi)
+            big = None if futures is None \
+                else (report["lm_sharded"]["big"], futures)
+            report["dryrun"] = dryrun_held(dev, counted, smi, big)
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
         (out / "lm_sharded.json").write_text(json.dumps(report, indent=1))
@@ -5367,6 +5697,15 @@ def main() -> None:
         out.mkdir(exist_ok=True)
         (out / "lm_serve_sharded.json").write_text(json.dumps(report,
                                                               indent=1))
+        return
+
+    if "--dryrun" in sys.argv[1:]:
+        # phase 16 alone
+        report = {"device": {"name": name, "nvidia_smi": smi},
+                  "dryrun": dryrun_held(dev, counted, smi)}
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "dryrun.json").write_text(json.dumps(report, indent=1))
         return
 
     if "--b4-candidates" in sys.argv[1:]:
@@ -5671,10 +6010,16 @@ def main() -> None:
             kernels.quantized_fastconv2d(*rargs, padding=padding)))
         case["b4_alt_geometry_equal"] = bool(torch.equal(
             kernels.sfc_fused_conv2d(*args, padding=padding, **B4_ALT), yf))
+        # the JAX flag's two-slot strip DMA is what B4 always does (its
+        # stages fetched a stage ahead): the same kernel, the same bits
+        case["b4_double_buffer_equal"] = bool(torch.equal(
+            kernels.sfc_fused_conv2d(*args, padding=padding,
+                                     double_buffer=True), yf))
         case["b4_geometry"] = geometry_of(x, prep, algo, padding)
         if not (case["b4_fused_equals_staged"]
                 and case["b4_fused_equals_staged_raw"]
-                and case["b4_alt_geometry_equal"]):
+                and case["b4_alt_geometry_equal"]
+                and case["b4_double_buffer_equal"]):
             raise AssertionError(f"B4 is not bit-identical to the staged "
                                  f"path or across geometries: {case}")
         max_err["sfc_fused_conv2d"] = max(max_err["sfc_fused_conv2d"],
@@ -7476,8 +7821,10 @@ def main() -> None:
     # ---- 15. sharded LM serving -----------------------------------------
     report["phases"]["lm_serve_sharded"] = lm_serve_sharded(dev, counted,
                                                             smi)
+    # ---- 16. the dry run held to the card ----------------------------------
+    report["phases"]["dryrun"] = dryrun_held(dev, counted, smi)
     if resilience.stats():
-        raise AssertionError(f"resilience events in phases 11-15: "
+        raise AssertionError(f"resilience events in phases 11-16: "
                              f"{resilience.stats()}")
     resilience.configure(chain_policy)
 

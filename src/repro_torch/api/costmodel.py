@@ -70,13 +70,12 @@ _ENV_CACHE = "REPRO_TORCH_COSTMODEL_CACHE"
 _DEFAULT_CACHE = os.path.join(os.path.expanduser("~"), ".cache",
                               "repro_torch", "costmodel.json")
 
-# H100 SXM peaks (NVIDIA data sheet, dense), the figures chip_smoke.py
-# bounds its kernels with.  They only normalise the analytic work terms
-# into comparable "at-peak seconds" before the roofline max(); the fitted
-# k2 rescales them to what the card (or the CPU's plain versions) does.
-PEAK_INT8_OPS = 1979e12     # int8 tensor-core operations / s
-PEAK_F32_OPS = 67e12        # f32 operations / s outside the tensor cores
-PEAK_HBM_BYTES = 3.35e12    # HBM bytes / s
+# H100 SXM peaks (NVIDIA data sheet, dense; ``launch.mesh`` owns them).
+# They only normalise the analytic work terms into comparable "at-peak
+# seconds" before the roofline max(); the fitted k2 rescales them to what
+# the card (or the CPU's plain versions) does.
+from repro_torch.launch.mesh import HBM_BW as PEAK_HBM_BYTES  # noqa: E402
+from repro_torch.launch.mesh import PEAK_F32_OPS, PEAK_INT8_OPS  # noqa: E402,F401
 
 # feature-vector width per datapath: (1, steps, roof_s) for the kernel
 # datapaths, (1, roof_s) for direct (one library call)

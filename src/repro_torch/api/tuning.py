@@ -64,8 +64,11 @@ class KernelConfig:
     width that fits shared memory; None lets
     ``kernels.sfc_fused.depthwise_geometry`` pick it per layer).  Every B4
     and B7 geometry gives the same bits.  The JAX package's
-    ``rows_per_step``, ``double_buffer``, ``tile_block`` and ``chan_block``
-    describe its TPU geometry and have no counterpart.
+    ``rows_per_step``, ``tile_block`` and ``chan_block`` describe its TPU
+    geometry and have no counterpart; its ``double_buffer`` (the input
+    strip's two-slot DMA) is what B4 always does, a stage ahead by TMA or
+    ``cp.async``, so ``kernels.sfc_fused.sfc_fused_conv2d`` takes either
+    value and runs the same kernel.
     """
 
     datapath: str = "fused"       # 'fused' | 'staged'

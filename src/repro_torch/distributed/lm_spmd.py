@@ -86,7 +86,7 @@ import torch
 
 from repro_torch import tree as tree_util
 from repro_torch.core.precision import full_fp32_backward
-from repro_torch.distributed import act_sharding
+from repro_torch.distributed import act_sharding, coords as coords_lib
 from repro_torch.distributed.model_split import (Forward, _Leaf, _Row,
                                                  param_leaves)
 from repro_torch.distributed.sharding import (
@@ -177,12 +177,12 @@ def _empty_stack(s, shape, dtype) -> Dict[str, Any]:
     shards = np.empty(mesh.devices.shape, dtype=object)
     sh = Sharded(mesh, spec, tuple(shape), shards)
     for coord in mesh.coords():
-        index, device = sh.block_index(coord), mesh.device(coord)
-        if (index, device) not in blocks:
-            blocks[(index, device)] = torch.empty(
+        index, home = sh.block_index(coord), mesh.home(coord)
+        if (index, home) not in blocks:
+            blocks[(index, home)] = torch.empty(
                 block_of(probe, spec, mesh, index).shape, dtype=dtype,
-                device=device)
-        shards[coord] = blocks[(index, device)]
+                device=mesh.device(coord))
+        shards[coord] = blocks[(index, home)]
     return {"blocks": blocks, "sharded": sh}
 
 
@@ -191,10 +191,10 @@ def _zeros_like(sh: Sharded, dtype) -> Sharded:
     made: Dict[Any, torch.Tensor] = {}
     shards = np.empty(sh.mesh.devices.shape, dtype=object)
     for coord in sh.mesh.coords():
-        key = (sh.block_index(coord), sh.mesh.device(coord))
+        key = (sh.block_index(coord), sh.mesh.home(coord))
         if key not in made:
             made[key] = torch.zeros(sh.shards[coord].shape, dtype=dtype,
-                                    device=key[1])
+                                    device=sh.mesh.device(coord))
         shards[coord] = made[key]
     return Sharded(sh.mesh, sh.spec, sh.shape, shards)
 
@@ -233,10 +233,11 @@ def _compute_coords(mesh, n_rows: int) -> List[Tuple[int, ...]]:
     return out
 
 
-def _batch_slice(batch, s: int, n: int, device) -> Dict[str, torch.Tensor]:
+def _batch_slice(batch, s: int, n: int, mesh, coord
+                 ) -> Dict[str, torch.Tensor]:
     def cut(v):
         b = v.shape[0] // n
-        return v[s * b:(s + 1) * b].to(device)
+        return coords_lib.move(v[s * b:(s + 1) * b], mesh, coord)
     return {k: cut(v) for k, v in batch.items()}
 
 
@@ -252,15 +253,29 @@ def _chunk(model, leaves, mesh, batch):
     cdtype = dtype_of(cfg.compute_dtype)
     moe = cfg.family == "moe"
     mains, auxes, metrics = [], [], []
+    coords = _compute_coords(mesh, n)
+    # a row the dry run replays stands in the last run row's outputs
+    runs = coords_lib.rows(mesh, coords)
+    origin = (0,) * len(mesh.axis_names)
+
+    def to0(t):
+        return coords_lib.move(t, mesh, origin, fixed=True)
     with act_sharding.local(1 if split else n_data):
-        for s, coord in enumerate(_compute_coords(mesh, n)):
-            device = mesh.device(coord)
-            row = _Row(mesh, coord, s, anchor=torch.empty(
-                0, device=device, requires_grad=True))
-            main, aux, m = tfm.loss_terms(
-                row.weights(leaves, cdtype, tuple(leaves)), cfg,
-                _batch_slice(batch, s, n, device), router_stats=moe,
-                ops=Forward(row))
+        for s, coord in enumerate(coords):
+            if not runs[s]:
+                main, aux, m = coords_lib.stand_in(ran, s)
+                mains.append(main)
+                auxes.append(aux)
+                metrics.append(m)
+                continue
+            with coords_lib.segment(s):
+                device = mesh.device(coord)
+                row = _Row(mesh, coord, s, anchor=torch.empty(
+                    0, device=device, requires_grad=True))
+                main, aux, m = ran = tfm.loss_terms(
+                    row.weights(leaves, cdtype, tuple(leaves)), cfg,
+                    _batch_slice(batch, s, n, mesh, coord),
+                    router_stats=moe, ops=Forward(row))
             mains.append(main)
             auxes.append(aux)
             metrics.append(m)
@@ -268,10 +283,8 @@ def _chunk(model, leaves, mesh, batch):
         if moe:
             # the aux loss over all tokens: the shards' means before the
             # product, layer by layer as the single-device sum adds them
-            D = torch.stack([a[:, 0].detach().to(dev0) for a in auxes]
-                            ).mean(0)
-            M = torch.stack([a[:, 1].detach().to(dev0) for a in auxes]
-                            ).mean(0)
+            D = torch.stack([to0(a[:, 0].detach()) for a in auxes]).mean(0)
+            M = torch.stack([to0(a[:, 1].detach()) for a in auxes]).mean(0)
             E = cfg.n_experts
             aux = torch.zeros((), dtype=torch.float32, device=dev0) \
                 + torch.sum(torch.stack([E * torch.sum(D[i] * M[i])
@@ -280,23 +293,27 @@ def _chunk(model, leaves, mesh, batch):
             aux = auxes[0].detach()
         coef = cfg.router_aux_coef
         for s, main in enumerate(mains):
-            term = main / n
-            if moe:
-                m_s, D_s = auxes[s][:, 1], D.to(main.device)
-                term = term + coef * torch.sum(torch.stack(
-                    [E * torch.sum(D_s[i] * m_s[i])
-                     for i in range(D_s.shape[0])])) / n
-            with full_fp32_backward():
-                torch.autograd.backward(term)
+            if not runs[s]:
+                continue
+            with coords_lib.segment(s):
+                term = main / n
+                if moe:
+                    m_s = auxes[s][:, 1]
+                    D_s = coords_lib.move(D, mesh, coords[s])
+                    term = term + coef * torch.sum(torch.stack(
+                        [E * torch.sum(D_s[i] * m_s[i])
+                         for i in range(D_s.shape[0])])) / n
+                with full_fp32_backward():
+                    torch.autograd.backward(term)
     with torch.no_grad():
-        loss = torch.mean(torch.stack([m.detach().to(dev0) for m in mains])) \
+        loss = torch.mean(torch.stack([to0(m.detach()) for m in mains])) \
             + coef * aux
         out = {"loss": loss, "aux": aux,
-               "ce": torch.mean(torch.stack([m["ce"].detach().to(dev0)
+               "ce": torch.mean(torch.stack([to0(m["ce"].detach())
                                              for m in metrics]))}
         if "mtp" in metrics[0]:
             out["mtp"] = torch.mean(torch.stack(
-                [m["mtp"].detach().to(dev0) for m in metrics]))
+                [to0(m["mtp"].detach()) for m in metrics]))
     return loss, out
 
 
@@ -348,12 +365,13 @@ def compress(leaves) -> None:
     parameters' dtype, as the unsharded step casts them."""
     for leaf in tree_util.leaves(leaves):
         blocks = {idx: leaf.grad(idx) for idx in leaf.unique}
-        dev0 = next(iter(blocks.values())).device
-        scale = torch.stack([g.abs().max().to(dev0) for g in
-                             blocks.values()]).max() / 127.0 + 1e-12
+        mesh, c0 = leaf.sh.mesh, next(iter(leaf.unique.values()))[0]
+        scale = torch.stack([
+            coords_lib.move(g.abs().max(), mesh, c0, leaf.fixed)
+            for g in blocks.values()]).max() / 127.0 + 1e-12
         leaf.grads = {
             idx: gc.int8_roundtrip(
-                g, scale.to(g.device),
+                g, coords_lib.move(scale, mesh, leaf.unique[idx][0]),
                 tuple(i * n for i, n in zip(idx, g.shape)),
                 leaf.sh.shape).to(leaf.sh.dtype)
             for idx, g in blocks.items()}
@@ -366,14 +384,15 @@ def _blocks_of(sh: Sharded, unique) -> List[torch.Tensor]:
 def _replaced(like: Sharded, unique, new: List[torch.Tensor]) -> Sharded:
     """``like``'s layout with its unique blocks replaced by ``new``, copied
     to the coordinates of other devices (one copy a device)."""
-    shards = np.empty(like.mesh.devices.shape, dtype=object)
+    mesh = like.mesh
+    shards = np.empty(mesh.devices.shape, dtype=object)
     for (idx, coords), t in zip(unique.items(), new):
-        on = {}
+        on = {mesh.home(coords[0]): t}
         for c in coords:
-            dev = like.mesh.device(c)
-            if dev not in on:
-                on[dev] = t if t.device == dev else t.to(dev)
-            shards[c] = on[dev]
+            home = mesh.home(c)
+            if home not in on:
+                on[home] = coords_lib.move(t, mesh, c)
+            shards[c] = on[home]
     return Sharded(like.mesh, like.spec, like.shape, shards)
 
 

@@ -65,7 +65,7 @@ import torch.nn.functional as F
 
 from repro_torch import tree as tree_util
 from repro_torch.core.precision import full_fp32_matmul
-from repro_torch.distributed import act_sharding
+from repro_torch.distributed import act_sharding, coords as coords_lib
 from repro_torch.distributed.sharding import (P, Sharded, _STACK_KEYS, _axes,
                                               block_of, tree_map_with_path)
 from repro_torch.models import attention as attn
@@ -77,10 +77,13 @@ _COUNT_LOCK = threading.Lock()
 _GRAD_LOCK = threading.Lock()
 
 
-def _count(kind: str, t: torch.Tensor) -> None:
+def _count(kind: str, t: torch.Tensor, src, dst, src_fixed: bool = False,
+           dst_fixed: bool = False) -> None:
     # backward threads count too (a rematerialised layer, the gradients)
+    n = t.numel() * t.element_size()
     with _COUNT_LOCK:
-        _COPIED[kind] += t.numel() * t.element_size()
+        _COPIED[kind] += n
+    coords_lib.copied(kind, n, src, dst, src_fixed, dst_fixed)
 
 
 def copied() -> Dict[str, int]:
@@ -145,23 +148,33 @@ class _Leaf:
         """Every coordinate holds the leaf whole."""
         return all(e is None for e in self.core)
 
-    def _copy(self, coords, device) -> torch.Tensor:
-        """A copy of the block held at ``coords``, one on ``device`` where
-        there is one."""
-        for c in coords:
-            if self.sh.mesh.device(c) == device:
-                return self.sh.shards[c]
-        return self.sh.shards[coords[0]]
+    def _source(self, coords, at) -> Tuple[int, ...]:
+        """Of the coordinates ``coords`` that hold a block, the one whose
+        copy coordinate ``at`` reads: ``at`` itself, else one on its
+        device, else the first."""
+        if at in coords:
+            return at
+        home = self.sh.mesh.home(at)
+        return next((c for c in coords if self.sh.mesh.home(c) == home),
+                    coords[0])
 
-    def gather(self, index, device) -> torch.Tensor:
-        """The leaf (layer ``index`` of a stacked one) whole on
-        ``device``."""
+    def gather(self, index, at) -> torch.Tensor:
+        """The leaf (layer ``index`` of a stacked one) whole on coordinate
+        ``at``."""
         parts = {}
         for idx, coords in self.unique.items():
-            b = self._copy(coords, device)
+            src = self._source(coords, at)
+            b = self.sh.shards[src]
+            b = b if index is None else b[index]
             parts[idx[1:] if self.stacked else idx] = \
-                (b if index is None else b[index]).to(device)
+                b if src == at else coords_lib.move(b, self.sh.mesh, at)
         return _join(parts)
+
+    @property
+    def fixed(self) -> bool:
+        """Its gradient blocks lie where no data row moves them: the data
+        axes cut none of its dimensions (the dry run's ``coords``)."""
+        return not any("data" in _axes(e) for e in self.sh.spec)
 
     def _buffer(self, idx) -> torch.Tensor:
         # autograd's device threads add into the blocks; each block's
@@ -170,15 +183,18 @@ class _Leaf:
             buf = self.grads.get(idx)
             if buf is None:
                 c0 = self.unique[idx][0]
-                buf = self.grads[idx] = torch.zeros(
-                    self.sh.shards[c0].shape, dtype=torch.float32,
-                    device=self.sh.mesh.device(c0))
+                with coords_lib.at(c0, self.fixed):
+                    buf = self.grads[idx] = torch.zeros(
+                        self.sh.shards[c0].shape, dtype=torch.float32,
+                        device=self.sh.mesh.device(c0))
         return buf
 
     def _add(self, idx, index, part: torch.Tensor, at) -> None:
         c0 = self.unique[idx][0]
         if tuple(c0) != tuple(at):
-            _count("gradients", part)
+            _count("gradients", part, at, c0, dst_fixed=self.fixed)
+            if coords_lib.TRACKER is not None:
+                part = coords_lib.move(part, self.sh.mesh, c0, self.fixed)
         buf = self._buffer(idx)
         dst = buf if index is None else buf[index]
         dst.add_(part.to(device=buf.device, dtype=torch.float32))
@@ -214,8 +230,10 @@ class _Leaf:
         g = self.grads.get(idx)
         if g is None:
             c0 = self.unique[idx][0]
-            g = torch.zeros(self.sh.shards[c0].shape, dtype=torch.float32,
-                            device=self.sh.mesh.device(c0))
+            with coords_lib.at(c0, self.fixed):
+                g = torch.zeros(self.sh.shards[c0].shape,
+                                dtype=torch.float32,
+                                device=self.sh.mesh.device(c0))
         return g
 
 
@@ -300,9 +318,10 @@ class _Tee(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *gs):
-        device, total = ctx.row.mesh.device(ctx.src), None
-        for g in gs:
-            g = g.to(device)
+        total = None
+        for g, c in zip(gs, ctx.coords):
+            if c != ctx.src:
+                g = coords_lib.move(g, ctx.row.mesh, ctx.src)
             total = g if total is None else total + g
         return total, None, None, None
 
@@ -347,9 +366,13 @@ class _Row:
         return tuple(c)
 
     def send(self, t, src, dst, kind="activations"):
-        if tuple(src) != tuple(dst):
-            _count(kind, t)
-        return t.to(self.mesh.device(dst))
+        src, dst = tuple(src), tuple(dst)
+        if src == dst:
+            return t.to(self.mesh.device(dst))
+        # the mesh's first coordinate holds the step's inputs and outputs,
+        # whichever row sends (``coords``: fixed)
+        _count(kind, t, src, dst, src == self.origin, dst == self.origin)
+        return coords_lib.move(t, self.mesh, dst, dst == self.origin)
 
     def to(self, t, coord, kind="activations"):
         return self.send(t, self.coord, coord, kind)
@@ -389,12 +412,12 @@ class _Row:
         for idx, coords in leaf.unique.items():
             if self.coord not in coords:
                 b = leaf.sh.shards[coords[0]]
-                _count("weights", b if index is None else b[index])
-        return leaf.gather(index, self.device)
+                _count("weights", b if index is None else b[index],
+                       leaf._source(coords, self.coord), self.coord)
+        return leaf.gather(index, self.coord)
 
     def _model_block(self, leaf: _Leaf, index, m: int) -> torch.Tensor:
         at = self.at(m)
-        device = self.mesh.device(at)
         d = leaf.dim + (1 if leaf.stacked else 0)
         if all(at in coords for idx, coords in leaf.unique.items()
                if idx[d] == m):
@@ -405,11 +428,13 @@ class _Row:
         for idx, coords in leaf.unique.items():
             if idx[d] != m:
                 continue
-            b = leaf._copy(coords, device)
+            src = leaf._source(coords, at)
+            b = leaf.sh.shards[src]
             b = b if index is None else b[index]
             if at not in coords:
-                _count("weights", b)
-            parts[idx[1:] if leaf.stacked else idx] = b.to(device)
+                _count("weights", b, src, at)
+            parts[idx[1:] if leaf.stacked else idx] = \
+                b if src == at else coords_lib.move(b, self.mesh, at)
         return _join(parts)
 
     def gather(self, leaf: _Leaf, index, dtype) -> torch.Tensor:
@@ -878,7 +903,7 @@ class Forward(Split, tfm.ForwardOps):
 
     def _devices(self) -> int:
         """The distinct devices the row's blocks lie on."""
-        return len({self.row.mesh.device(c) for c in self.row.line})
+        return len({self.row.mesh.home(c) for c in self.row.line})
 
     def checkpoint(self, fn):
         """A layer's remat: where the row's blocks lie on several devices,

@@ -105,7 +105,7 @@ import torch.nn.functional as F
 
 from repro_torch import tree as tree_util
 from repro_torch.core.precision import full_fp32_matmul
-from repro_torch.distributed import act_sharding
+from repro_torch.distributed import act_sharding, coords as coords_lib
 from repro_torch.distributed.lm_spmd import (_compute_coords, _empty_stack,
                                              _Placer)
 from repro_torch.distributed.model_split import (
@@ -221,8 +221,8 @@ class _CacheStack:
             writes, seen = [], set()
             for c in [first] + list(coords):
                 t = sh.shards[c]
-                if (t.device, t.data_ptr()) not in seen:
-                    seen.add((t.device, t.data_ptr()))
+                if (sh.mesh.home(c), t.data_ptr()) not in seen:
+                    seen.add((sh.mesh.home(c), t.data_ptr()))
                     writes.append((c, t))
             offset = 0 if cut is None \
                 else idx[cut] * sh.shards[first].shape[cut]
@@ -630,19 +630,26 @@ def decode_step(model, params, cache, tokens: torch.Tensor,
     b, cdtype = B // n, dtype_of(cfg.compute_dtype)
     leaves = param_leaves(params)
     out = []
+    coords = _compute_coords(mesh, n)
+    runs = coords_lib.rows(mesh, coords)
     with torch.no_grad(), act_sharding.local(1 if n > 1 else n_data), \
             full_fp32_matmul():
-        for r, coord in enumerate(_compute_coords(mesh, n)):
-            row = _Row(mesh, coord, r)
-            ops = _Ops(row)
-            tree = row.weights(leaves, cdtype, _DECODE_KEYS)
-            tok = row.take(tokens[r * b:(r + 1) * b])
-            at = row.take(pos[r * b:(r + 1) * b])
-            x = tfm._compute(ops.embed(tree["embed"], tok), cfg)
-            x = decode_mod.decode_layers(tree, cfg, _cache_views(row, cache),
-                                         x, at, ops)
-            x = layers.rmsnorm(x, tree["final_norm"], cfg.norm_eps)
-            out.append(ops.logits(tree, cfg, x))
+        for r, coord in enumerate(coords):
+            if not runs[r]:                  # a row the dry run replays
+                out.append(coords_lib.stand_in(ran, r))
+                continue
+            with coords_lib.segment(r):
+                row = _Row(mesh, coord, r)
+                ops = _Ops(row)
+                tree = row.weights(leaves, cdtype, _DECODE_KEYS)
+                tok = row.take(tokens[r * b:(r + 1) * b])
+                at = row.take(pos[r * b:(r + 1) * b])
+                x = tfm._compute(ops.embed(tree["embed"], tok), cfg)
+                x = decode_mod.decode_layers(
+                    tree, cfg, _cache_views(row, cache), x, at, ops)
+                x = layers.rmsnorm(x, tree["final_norm"], cfg.norm_eps)
+                out.append(ops.logits(tree, cfg, x))
+                ran = out[-1]
     return (out[0] if len(out) == 1 else torch.cat(out)), cache
 
 
@@ -662,13 +669,20 @@ def prefill_step(model, params, tokens: torch.Tensor,
     b, cdtype = B // n, dtype_of(cfg.compute_dtype)
     leaves = param_leaves(params)
     out = []
+    coords = _compute_coords(mesh, n)
+    runs = coords_lib.rows(mesh, coords)
     with torch.no_grad(), act_sharding.local(1 if n > 1 else n_data):
-        for r, coord in enumerate(_compute_coords(mesh, n)):
-            row = _Row(mesh, coord, r)
-            mem = None if memory is None \
-                else row.take(memory[r * b:(r + 1) * b])
-            logits = tfm.forward(row.weights(leaves, cdtype, _PREFILL_KEYS),
-                                 cfg, row.take(tokens[r * b:(r + 1) * b]),
-                                 mem, Forward(row))
-            out.append(row.give(logits))
+        for r, coord in enumerate(coords):
+            if not runs[r]:                  # a row the dry run replays
+                out.append(coords_lib.stand_in(ran, r))
+                continue
+            with coords_lib.segment(r):
+                row = _Row(mesh, coord, r)
+                mem = None if memory is None \
+                    else row.take(memory[r * b:(r + 1) * b])
+                logits = tfm.forward(
+                    row.weights(leaves, cdtype, _PREFILL_KEYS), cfg,
+                    row.take(tokens[r * b:(r + 1) * b]), mem, Forward(row))
+                out.append(row.give(logits))
+                ran = out[-1]
     return out[0] if len(out) == 1 else torch.cat(out)

@@ -358,16 +358,17 @@ class Sharded:
         made: Dict[Any, torch.Tensor] = {}
         for coord in mesh.coords():
             index = _block_index(spec, x.dim(), mesh, coord)
-            device = mesh.device(coord)
-            if own and (index, device) in made:
-                shards[coord] = made[(index, device)]
+            device, home = mesh.device(coord), mesh.home(coord)
+            if own and (index, home) in made:
+                shards[coord] = made[(index, home)]
                 continue
             part = block_of(x, spec, mesh, index).to(device).contiguous()
-            if own and part.numel() < x.numel() \
-                    and part.untyped_storage().data_ptr() \
-                    == x.untyped_storage().data_ptr():
+            if own and (home != device or part.numel() < x.numel()
+                        and part.untyped_storage().data_ptr()
+                        == x.untyped_storage().data_ptr()):
+                # (each coordinate of a meta mesh is a card of its own)
                 part = part.clone()
-            shards[coord] = made[(index, device)] = part
+            shards[coord] = made[(index, home)] = part
         return cls(mesh, spec, tuple(x.shape), shards)
 
     @classmethod

@@ -572,12 +572,14 @@ def sfc_fused_conv2d(x: torch.Tensor, wq: torch.Tensor,
     ``cout_block`` channels per block (:func:`depthwise_geometry`; None
     picks per layer); ``k_block`` has no effect there, as in the JAX
     package: there is no reduction to block.
+
+    ``double_buffer`` switches the TPU kernel's input strip to a manual
+    two-slot DMA with the same bits.  B4 already brings its input patches
+    and each weight stage into shared memory a stage ahead (TMA or
+    ``cp.async``, ``csrc/sfc_fused.cu``), so B4 as it stands is the
+    flag's counterpart: either value runs the same kernel.
     """
     name = "sfc_fused_conv2d"
-    if double_buffer:
-        raise NotImplementedError(
-            f"{name}: double_buffer (the TPU's two-slot strip DMA) has no "
-            "CUDA counterpart yet")
     if depthwise:
         return sfc_fused_conv2d_depthwise(x, wq, act_scale, w_scale, algo,
                                           padding=padding, bits=bits,

@@ -81,6 +81,8 @@ def max_pool_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
 
 
 def _normal(gen: torch.Generator, shape, device) -> torch.Tensor:
+    if gen.device.type == "meta":        # layers.ABSTRACT: shapes only
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     return torch.randn(shape, generator=gen, device=gen.device,
                        dtype=torch.float32).to(device)
 
@@ -212,6 +214,14 @@ def vgg_forward(p: Params, cfg: CNNConfig, x: torch.Tensor) -> torch.Tensor:
         h = max_pool_same(h, 2, 2)
     h = torch.mean(h, dim=(1, 2))
     return h @ p["head"]["w"] + p["head"]["b"]
+
+
+def init_abstract(cfg: CNNConfig) -> Params:
+    """The parameter tree's shapes and dtypes: empty meta tensors, no
+    allocation (the LM's ``layers.ABSTRACT``; the dry run places them)."""
+    from repro_torch.models.layers import ABSTRACT
+    init = init_vgg if cfg.kind == "vgg" else init_resnet
+    return init(ABSTRACT, cfg, device="meta")
 
 
 def cnn_loss(p: Params, cfg: CNNConfig, batch) -> Tuple[torch.Tensor, Dict]:

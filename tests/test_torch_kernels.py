@@ -365,8 +365,15 @@ def test_fused_rejects_unported_options_and_bad_blocks():
     x = torch.zeros(1, 12, 12, 4)
     wq = torch.zeros((100, 4, 8), dtype=torch.int8)
     act, ws = torch.ones(10, 10), torch.ones(10, 10, 8)
-    with pytest.raises(NotImplementedError, match="double_buffer"):
-        sfc_fused_conv2d(x, wq, act, ws, algo, double_buffer=True)
+    # double_buffer is what B4 always does (its stages are fetched a
+    # stage ahead): either value runs the same kernel, with the same bits
+    g = torch.Generator().manual_seed(3)
+    xr = torch.randn(1, 12, 12, 4, generator=g)
+    wr = torch.randint(-127, 128, (100, 4, 8), generator=g,
+                       dtype=torch.int8)
+    assert torch.equal(
+        sfc_fused_conv2d(xr, wr, act, ws, algo, double_buffer=True),
+        sfc_fused_conv2d(xr, wr, act, ws, algo))
     with pytest.raises(ValueError, match="k_block must be 32 or 64"):
         sfc_fused_conv2d(x, wq, act, ws, algo, k_block=48)
     with pytest.raises(ValueError, match="cout_block 8 or 16"):
@@ -384,12 +391,13 @@ def test_fused_rejects_unported_options_and_bad_blocks():
     with pytest.raises(ValueError, match="cout_block 8 or 16"):
         sfc_fused_conv2d(x, wq, act, ws, algo, cout_block=64)
     # depthwise (B7): the channel block must be positive and fit shared
-    # memory; double_buffer raises there too
+    # memory; double_buffer runs B7 unchanged there too
     wq_dw, ws_dw = torch.zeros((100, 1, 4), dtype=torch.int8), \
         torch.ones(10, 10, 4)
-    with pytest.raises(NotImplementedError, match="double_buffer"):
-        sfc_fused_conv2d(x, wq_dw, act, ws_dw, algo, depthwise=True,
-                         double_buffer=True)
+    assert torch.equal(
+        sfc_fused_conv2d(xr, wq_dw, act, ws_dw, algo, depthwise=True,
+                         double_buffer=True),
+        sfc_fused_conv2d(xr, wq_dw, act, ws_dw, algo, depthwise=True))
     with pytest.raises(ValueError, match="cout_block=0"):
         sfc_fused_conv2d(x, wq_dw, act, ws_dw, algo, depthwise=True,
                          cout_block=0)
