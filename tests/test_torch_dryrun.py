@@ -117,13 +117,23 @@ def _jax_bytes(abstract, pspecs, mesh) -> int:
     return total
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_abstract(arch):
+    """The JAX package's abstract train state and each decode shape's
+    cache (both meshes share them: only the specs read the mesh)."""
+    jm = jbuild(jconfigs.get_config(arch))
+    caches = {name: jm.cache_abstract(shape)
+              for name, shape in jconfigs.SHAPES.items()
+              if shape.kind == "decode" and (arch, name) in configs.cells()}
+    return jm, jsteps.abstract_train_state(jm, JAdamW(lr=3e-4)), caches
+
+
 @pytest.mark.parametrize("multi_pod", [False, True])
 @pytest.mark.parametrize("arch", list(configs.ARCH_IDS))
 def test_placed_bytes_match_jax_rules(arch, multi_pod):
     stand = _stand_in(multi_pod)
-    jm = jbuild(jconfigs.get_config(arch))
+    jm, jstate, jcaches = _jax_abstract(arch)
     jcfg = jm.cfg
-    jstate = jsteps.abstract_train_state(jm, JAdamW(lr=3e-4))
     jp = jsharding.params_pspecs(jstate.params, jcfg, stand)
     jspecs = jsteps.TrainState(
         params=jp, opt=jsharding.opt_state_pspecs(jstate.opt, jp),
@@ -144,8 +154,7 @@ def test_placed_bytes_match_jax_rules(arch, multi_pod):
         elif shape.kind == "prefill":
             want = _jax_bytes(jstate.params, jp, stand)
         else:
-            jshape = jconfigs.SHAPES[name]
-            jcache = jm.cache_abstract(jshape)
+            jcache = jcaches[name]
             want = _jax_bytes(jstate.params, jp, stand) + _jax_bytes(
                 jcache, jsharding.cache_pspecs(jcache, jcfg, stand), stand)
         assert set(got.values()) == {want}, (name, set(got.values()), want)
