@@ -336,12 +336,13 @@ csrc`` at first use.  Phases, each of which raises on failure:
         gradient bytes a step copies, exactly; the predicted peak against
         ``torch.cuda.max_memory_allocated`` on (1, 1);
      b. the sharded CNN train step (``dryrun_cnn.train_step``) with
-        ResNet-18 sfc6_7 at 224x224, batch 32: int8 on (1, 1) against the
-        unsharded step over ``cnn_loss`` (the loss within 1e-5, each
-        gradient leaf within 1e-4 rel L2), int8 and fp32 on (1, 2) (C_out
-        split: the spread logged, ties and int8 rounding amplify the
-        products' per-width rounding); its placed and copied bytes
-        exactly its dry run's everywhere, the predicted peak on (1, 1);
+        ResNet-18 sfc6_7 at 224x224, batch 32, TF32 off: int8 float32
+        on (1, 1) against the unsharded step over ``cnn_loss`` (the loss
+        within 1e-5, each gradient leaf within 1e-4 rel L2), int8 float64
+        on (1, 2) likewise within 1e-12 and 1e-6 (the C_out split's
+        structure exact), int8 and no-quant float32 on (1, 2) logged (the
+        products' per-width rounding, amplified); its placed and copied
+        bytes exactly its dry run's everywhere, the predicted peak;
      c. with four cards only (``--lm-sharded``): 14e's cells dry-run in
         worker processes while 14e runs, held to 14e's per-card placed
         bytes and copies a step exactly, the predicted peak a card logged
@@ -799,13 +800,19 @@ LM14_GC_CELL = ("stablelm-3b", {"n_layers": 4}, (2, 512),
 LM16_CELL = ("stablelm-3b", {"n_layers": 4}, (2, 512), 2900)
 LM16_MESHES = ((1, 1), (2, 2), (1, 4))
 CNN16 = ("resnet18", "sfc6_7", 32)
-# (mesh, int8): held to the bounds on (1, 1); where 'model' cuts C_out the
-# products' rounding differs by width (1e-7) and int8 rounding, max-pool's
-# and ReLU's ties turn it into a spread that the run logs (placed and
-# copied bytes held exactly everywhere)
-CNN16_MESHES = (((1, 1), True), ((1, 2), True), ((1, 2), False))
+# (mesh, int8, dtype), TF32 off throughout: float32 held to the bounds on
+# (1, 1).  Where 'model' cuts C_out the products round apart by width
+# (1e-7): int8's grid edges and absmax turn that into a loss 1.4e-4 and a
+# leaf 0.4 apart, and even without int8 the float32 step's gradients end
+# 3e-3 apart (the same on the CPU at batch 8): logged.  In float64 those
+# vanish, and the int8 step on (1, 2) is held within CNN16_F64 (loss,
+# leaf), the split's structure exact (the CPU's reading: loss equal,
+# leaves 1e-13)
+CNN16_MESHES = (((1, 1), True, "float32"), ((1, 2), True, "float64"),
+                ((1, 2), True, "float32"), ((1, 2), False, "float32"))
 CNN16_LOSS = 1e-5
 CNN16_GRAD = 1e-4
+CNN16_F64 = (1e-12, 1e-6)
 CNN16_DEAD = 1e-3
 CNN16_SEED = 2901
 # phase 15, sharded LM serving (A16's serving half), the chain off: 15a each
@@ -2944,18 +2951,20 @@ def lm_families(dev, counted, smi) -> dict:
 
 
 @contextlib.contextmanager
-def caller_tf32():
-    """TF32 allowed by the caller for cuBLAS's and cuDNN's float32 calls,
-    by the API this PyTorch has; the caller's settings restored after."""
+def caller_tf32(on: bool = True):
+    """TF32 allowed (or with ``on`` False, refused) by the caller for
+    cuBLAS's and cuDNN's float32 calls, by the API this PyTorch has; the
+    caller's settings restored after."""
     import torch
     matmul = torch.backends.cuda.matmul
     conv = getattr(torch.backends.cudnn, "conv", None)
     if hasattr(matmul, "fp32_precision") and hasattr(conv, "fp32_precision"):
-        where = ((matmul, "fp32_precision", "tf32"),
-                 (conv, "fp32_precision", "tf32"))
+        mode = "tf32" if on else "ieee"
+        where = ((matmul, "fp32_precision", mode),
+                 (conv, "fp32_precision", mode))
     else:
-        where = ((matmul, "allow_tf32", True),
-                 (torch.backends.cudnn, "allow_tf32", True))
+        where = ((matmul, "allow_tf32", on),
+                 (torch.backends.cudnn, "allow_tf32", on))
     saved = [getattr(obj, name) for obj, name, _ in where]
     try:
         for obj, name, on in where:
@@ -5016,29 +5025,37 @@ def dryrun_held(dev, counted, smi, big=None) -> dict:
         def loss(self, p, batch):
             return cnn.cnn_loss(p, self.cfg, batch)
     refs = {}
-    for shape, int8 in CNN16_MESHES:
+    for shape, int8, dtype_name in CNN16_MESHES:
         cfg = int8_cfg if int8 else dataclasses.replace(int8_cfg,
                                                         quant="none")
-        if int8 not in refs:
-            ref_loss, _, ref = counted(
-                "dryrun", f"{name} unsharded gradients",
-                lambda: _value_and_grad(Loss(cfg), params, data), want=none)
-            ref = dict(sharding._with_paths(ref))
-            refs[int8] = (ref_loss, ref, max(
+        dtype = getattr(torch, dtype_name)
+        p_dt = tree_util.tree_map(lambda t: t.to(dtype), params)
+        d_dt = {"images": data["images"].to(dtype),
+                "labels": data["labels"]}
+        if (int8, dtype_name) not in refs:
+            with caller_tf32(False):
+                ref_loss, _, ref = counted(
+                    "dryrun", f"{name} unsharded gradients",
+                    lambda: _value_and_grad(Loss(cfg), p_dt, d_dt),
+                    want=none)
+            ref = {k: g.to(torch.float32)
+                   for k, g in sharding._with_paths(ref)}
+            refs[(int8, dtype_name)] = (ref_loss, ref, max(
                 float(torch.linalg.vector_norm(g)) for g in ref.values()))
-        ref_loss, ref, top = refs[int8]
+        ref_loss, ref, top = refs[(int8, dtype_name)]
         mesh, meta = mesh_pair(shape)
         base = fresh()
-        state = dryrun_cnn.place_state(cfg, opt, mesh, params)
+        state = dryrun_cnn.place_state(cfg, opt, mesh, p_dt)
         placed = dryrun.placed_bytes(state)
         model_split.reset_copied()
         t0 = time.perf_counter()
-        loss, _, leaves = counted(
-            "dryrun", f"{name} {shape} sharded gradients",
-            lambda: dryrun_cnn.value_and_grad(cfg, state.params, data),
-            want=none)
-        new, _ = lm_spmd.apply_gradients(opt, state, leaves, {})
-        synchronize()
+        with caller_tf32(False):
+            loss, _, leaves = counted(
+                "dryrun", f"{name} {shape} sharded gradients",
+                lambda: dryrun_cnn.value_and_grad(cfg, state.params, d_dt),
+                want=none)
+            new, _ = lm_spmd.apply_gradients(opt, state, leaves, {})
+            synchronize()
         step_s = time.perf_counter() - t0
         copies = model_split.copied()
         peak = torch.cuda.max_memory_allocated(dev) - base
@@ -5056,13 +5073,18 @@ def dryrun_held(dev, counted, smi, big=None) -> dict:
             else:                   # a leaf the loss hardly reaches
                 dead = max(dead, d / top)
         loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
-        del state, new, leaves, grads
+        del state, new, leaves, grads, p_dt, d_dt
         lm_free()
         rec = dryrun_cnn.lower_cnn(name, algo, False, mesh=meta, cfg=cfg,
-                                   batch=B)
-        m_placed = dryrun.placed_bytes(dryrun_cnn.place_state(cfg, opt, meta))
-        held = shape == (1, 1)
-        row = {"int8": int8, "held_to_bounds": held,
+                                   batch=B, dtype=dtype)
+        m_placed = dryrun.placed_bytes(dryrun_cnn.place_state(
+            cfg, opt, meta, tree_util.tree_map(lambda t: t.to(dtype),
+                                               cnn.init_abstract(cfg))))
+        held = shape == (1, 1) or dtype == torch.float64
+        loss_tol, leaf_tol = CNN16_F64 if dtype == torch.float64 \
+            else (CNN16_LOSS, CNN16_GRAD)
+        row = {"int8": int8, "dtype": dtype_name, "tf32": False,
+               "held_to_bounds": held,
                "loss_rel": loss_rel, "worst_leaf_rel_l2": worst,
                "dead_leaf_of_top": dead,
                "worst_leaf": worst_leaf,
@@ -5072,18 +5094,20 @@ def dryrun_held(dev, counted, smi, big=None) -> dict:
                "peak_bytes": peak,
                "dry_peak_bytes": rec["memory"]["peak_size_in_bytes"],
                "dry_flops": rec["la_flops"], "dry_seconds": rec["seconds"]}
-        out["cnn"][f"{shape} {'int8' if int8 else 'fp32'}"] = row
-        if held and (loss_rel > CNN16_LOSS or worst > CNN16_GRAD
-                     or dead > CNN16_DEAD * CNN16_GRAD) \
+        out["cnn"][f"{shape} {'int8' if int8 else 'no quant'} "
+                   f"{dtype_name}"] = row
+        if held and (loss_rel > loss_tol or worst > leaf_tol
+                     or dead > CNN16_DEAD * leaf_tol) \
                 or placed != m_placed or copies != rec["copied"]:
             raise AssertionError(f"16b {name} {shape}: {row}; placed "
                                  f"{placed} against {m_placed}")
-        log(f"dryrun: {name} {algo} {'int8' if int8 else 'fp32'}, batch "
-            f"{B}, sharded step on "
+        log(f"dryrun: {name} {algo} {'int8' if int8 else 'no quant'} "
+            f"{dtype_name}, TF32 off, batch {B}, sharded step on "
             f"{shape}: loss {loss_rel:.2e} rel, worst leaf {worst:.2e} rel "
-            f"L2 of the unsharded step's (bit for bit: {bitwise}"
-            + ("" if held else f"; {worst_leaf}; over a C_out split a "
-               f"finding, not held") + "); placed "
+            f"L2 of the unsharded step's ({worst_leaf}; bit for bit: "
+            f"{bitwise}"
+            + (f"; held within {loss_tol:g}, {leaf_tol:g}" if held else
+               "; float32 over a C_out split: logged") + "); placed "
             f"{gb(max(placed.values())):.4f} GB a coordinate and copied "
             f"{copies} bytes, exactly the dry run's ({rec['seconds']:.1f} s"
             f" on this host's CPU); {step_s * 1e3:.0f} ms a step; peak "

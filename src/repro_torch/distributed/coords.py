@@ -10,6 +10,11 @@ steps themselves:
     has one (autograd's saved tensors carry it into the backward);
   * a storage with no tensor input (a factory operation) takes the
     coordinate of the innermost :func:`at` (a row's, while the row runs);
+    made outside every :func:`at`, and from such storages only, it is
+    loose: a table a step builds on its first call and caches (the
+    transform matrices, the rotary tables) counts at the mesh's first
+    coordinate but places no operation that reads it, so a cold call is
+    attributed as a warm one;
   * a copy between coordinates (:func:`move`, from the copy sites of
     ``model_split``, ``lm_spmd``, ``serve_spmd`` and the sharded CNN step)
     makes a new storage at its destination, and :func:`copied` reports

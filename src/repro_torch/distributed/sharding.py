@@ -356,11 +356,20 @@ class Sharded:
         spec = sanitize_pspec(spec, tuple(x.shape), mesh)
         shards = np.empty(mesh.devices.shape, dtype=object)
         made: Dict[Any, torch.Tensor] = {}
+        block = tuple(n // k for n, k in
+                      zip(x.shape, _blocks(spec, x.dim(), mesh)))
         for coord in mesh.coords():
             index = _block_index(spec, x.dim(), mesh, coord)
             device, home = mesh.device(coord), mesh.home(coord)
             if own and (index, home) in made:
                 shards[coord] = made[(index, home)]
+                continue
+            if own and x.is_meta and device.type == "meta":
+                # shapes only: a block of its own, as the copy below
+                # makes, with no slicing to dispatch
+                part = x if home == device and block == tuple(x.shape) \
+                    else torch.empty(block, dtype=x.dtype, device="meta")
+                shards[coord] = made[(index, home)] = part
                 continue
             part = block_of(x, spec, mesh, index).to(device).contiguous()
             if own and (home != device or part.numel() < x.numel()

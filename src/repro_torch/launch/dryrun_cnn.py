@@ -130,14 +130,16 @@ def _amaxes(p, x, granularity: str) -> List[torch.Tensor]:
     return [torch.amax(torch.abs(tx), dim=axes, keepdim=True)]
 
 
-class _Step:
-    """One step's forward over every data row at once, layer by layer:
-    the rows meet at the batch's statistics (the module's docstring)."""
+class _Step(cnn.Ops):
+    """The operations of ``cnn_loss``'s forward over every data row at
+    once, layer by layer (lists of the rows' activations): the rows meet
+    at the batch's statistics (the module's docstring).  The forward
+    itself is the models' (``cnn.resnet_forward``/``vgg_forward`` over
+    the placed tree, their ``ops`` seam)."""
 
     def __init__(self, cfg, params, batch):
-        self.cfg = cfg
-        self.sh = dict(_with_paths(params))
-        self.mesh = next(iter(self.sh.values())).mesh
+        self.path_of = {id(sh): path for path, sh in _with_paths(params)}
+        self.mesh = next(iter(_with_paths(params)))[1].mesh
         mesh = self.mesh
         B = batch["images"].shape[0]
         n_data = math.prod(mesh.shape[a] for a in batch_axes(mesh))
@@ -155,24 +157,23 @@ class _Step:
         self.quant = cnn.quant_config(cfg)
 
     # ---- the coordinates' own blocks, as autograd leaves ------------------
-    def leaf(self, path, coord) -> torch.Tensor:
-        key = (path, tuple(coord))
+    def leaf(self, sh, coord) -> torch.Tensor:
+        key = (self.path_of[id(sh)], tuple(coord))
         t = self.leaves.get(key)
         if t is None:
             t = self.leaves[key] = \
-                self.sh[path].shards[tuple(coord)].detach().requires_grad_()
+                sh.shards[tuple(coord)].detach().requires_grad_()
         return t
 
-    def blocks(self, row, path) -> List[_Blk]:
-        """The row's blocks of leaf ``path`` along its output columns."""
-        sh = self.sh[path]
+    def blocks(self, row, sh) -> List[_Blk]:
+        """The row's blocks of leaf ``sh`` along its output columns."""
         d = _model_dim(sh.spec)
         if d is None:
-            t = self.leaf(path, row.coord)
+            t = self.leaf(sh, row.coord)
             return [_Blk(0, t.shape[-1], row.coord, t)]
         out, lo = [], 0
         for m in range(self.mesh.shape["model"]):
-            t = self.leaf(path, row.at(m))
+            t = self.leaf(sh, row.at(m))
             out.append(_Blk(lo, lo + t.shape[d], row.at(m), t))
             lo += t.shape[d]
         return out
@@ -188,12 +189,11 @@ class _Step:
             total = t if total is None else fn(total, t)
         return o.fan(total, [row.coord for row in self.rows])
 
-    def norm(self, hs, key, scale, bias):
+    def norm(self, hs, scale, bias):
         if self.n == 1:
-            return [cnn._norm_apply(hs[0], self.leaf(key + (scale,),
-                                                     self.rows[0].coord),
-                                    self.leaf(key + (bias,),
-                                              self.rows[0].coord))]
+            row = self.rows[0]
+            return [super().norm(hs[0], self.leaf(scale, row.coord),
+                                 self.leaf(bias, row.coord))]
         count = sum(h.shape[0] * h.shape[1] * h.shape[2] for h in hs)
         mus = self._join([h.sum(dim=(0, 1, 2), keepdim=True) for h in hs],
                          torch.add)
@@ -202,19 +202,18 @@ class _Step:
         var = self._join([torch.square(d).sum(dim=(0, 1, 2), keepdim=True)
                           for d in devs], torch.add)
         return [d * torch.rsqrt(v / count + 1e-5)
-                * self.leaf(key + (scale,), row.coord)
-                + self.leaf(key + (bias,), row.coord)
+                * self.leaf(scale, row.coord) + self.leaf(bias, row.coord)
                 for d, v, row in zip(devs, var, self.rows)]
 
-    def _hooks(self, p, hs, quantized: bool):
+    def _hooks(self, p, hs, qhook):
         """For each row, what makes a C_out block's elementwise hook: the
-        config's where one row holds the batch, else fake quantization at
-        the global activation scales."""
+        forward's where one row holds the batch, else the config's fake
+        quantization at the global batch's activation scales."""
         q = self.quant
-        if not quantized or not q.enabled or p.path == "direct":
+        if qhook is None or p.path == "direct":
             return [lambda: None] * len(hs)
         if self.n == 1:
-            return [q.hook]
+            return [lambda: qhook]
         # each row's transform-domain absmax, measured first (under
         # autograd: the scale's gradient reaches the global argmax through
         # it, as the unsharded step's does), joined in row order
@@ -239,90 +238,57 @@ class _Step:
         return [lambda s=s: make(s) for s in range(len(hs))]
 
     # ---- the layers ------------------------------------------------------------
-    def conv(self, hs, key, stride: int, quantized: bool):
-        """The conv at ``key`` on every row, each C_out block on its own
-        coordinate, its input sent there and its output gathered at the
-        row."""
-        first = self.blocks(self.rows[0], key + ("w",))[0].t
+    def conv(self, hs, p, cfg, stride: int, qhook):
+        """The conv of parameters ``p`` on every row, each C_out block on
+        its own coordinate, its input sent there and its output gathered
+        at the row."""
+        first = self.blocks(self.rows[0], p["w"])[0].t
         spec = ConvSpec.for_conv2d(tuple(hs[0].shape), tuple(first.shape),
                                    stride=stride, padding="SAME")
-        p = plan(spec, backend="reference", algo=self.cfg.conv_algo)
-        hooks = self._hooks(p, hs, quantized)
+        pl = plan(spec, backend="reference", algo=cfg.conv_algo)
+        hooks = self._hooks(pl, hs, qhook)
         out = []
         for row, h, hook in zip(self.rows, hs, hooks):
-            blocks = self.blocks(row, key + ("w",))
+            blocks = self.blocks(row, p["w"])
             xs = _Cut.at_row(row, h).spread([b.coord for b in blocks])
             pieces = []
             for b, x in zip(blocks, xs):
-                bias = self.leaf(key + ("b",), b.coord)
+                bias = self.leaf(p["b"], b.coord)
                 if (b.lo, b.hi) != (0, bias.shape[0]):
                     bias = bias[b.lo:b.hi]
                 pieces.append(_Blk(b.lo, b.hi, b.coord, cnn.conv_apply(
-                    x, b.t, bias, self.cfg, stride=stride, qhook=hook())))
+                    x, b.t, bias, cfg, stride=stride, qhook=hook())))
             out.append(_Cut(row, pieces).whole())
         return out
 
-    def head(self, hs):
+    def each(self, fn, *hs):
+        return [fn(*a) for a in zip(*hs)]
+
+    def head(self, hs, p):
         out = []
         for row, h in zip(self.rows, hs):
-            blocks = self.blocks(row, ("head", "w"))
+            blocks = self.blocks(row, p["w"])
             xs = _Cut.at_row(row, h).spread([b.coord for b in blocks])
             pieces = [_Blk(b.lo, b.hi, b.coord, x @ b.t)
                       for b, x in zip(blocks, xs)]
             out.append(_Cut(row, pieces).whole()
-                       + self.leaf(("head", "b"), row.coord))
+                       + self.leaf(p["b"], row.coord))
         return out
 
-    def forward(self):
-        cfg = self.cfg
-        hs = self.images
-        if cfg.kind == "vgg":
-            for si, n_convs in enumerate(cfg.stages):
-                for ci in range(n_convs):
-                    hs = [torch.relu(h) for h in
-                          self.conv(hs, (f"s{si}c{ci}",), 1, True)]
-                hs = [cnn.max_pool_same(h, 2, 2) for h in hs]
-        else:
-            stem_stride = 2 if cfg.image_size >= 128 else 1
-            hs = self.conv(hs, ("stem",), stem_stride, False)
-            hs = [torch.relu(h) for h in
-                  self.norm(hs, ("stem",), "scale", "bias")]
-            if cfg.image_size >= 128:
-                hs = [cnn.max_pool_same(h, 3, 2) for h in hs]
-            for si, (n_blocks, _) in enumerate(zip(cfg.stages, cfg.widths)):
-                for bi in range(n_blocks):
-                    stride = 2 if (bi == 0 and si > 0) else 1
-                    k = (f"s{si}b{bi}",)
-                    ys = self.conv(hs, k + ("conv1",), stride, True)
-                    ys = [torch.relu(y) for y in
-                          self.norm(ys, k, "scale1", "bias1")]
-                    ys = self.conv(ys, k + ("conv2",), 1, True)
-                    ys = self.norm(ys, k, "scale2", "bias2")
-                    scs = hs
-                    if k + ("proj", "w") in self.sh:
-                        scs = self.conv(hs, k + ("proj",), stride, False)
-                    hs = [torch.relu(y + sc) for y, sc in zip(ys, scs)]
-        hs = [torch.mean(h, dim=(1, 2)) for h in hs]
-        return self.head(hs)
-
-    def loss(self):
+    def loss(self, logits, labels):
         """The global batch's mean cross entropy and accuracy, at the
         mesh's first coordinate."""
-        logits = self.forward()
-        terms, hits = [], []
-        for lg, lb in zip(logits, self.labels):
+        if self.n == 1:
+            return super().loss(logits[0], labels[0])
+        o = self.origin
+        loss = acc = None
+        for row, lg, lb in zip(self.rows, logits, labels):
             lb = lb.long()
             logz = torch.logsumexp(lg, dim=-1)
             gold = torch.gather(lg, -1, lb[:, None])[:, 0]
-            terms.append(logz - gold)
-            hits.append((torch.argmax(lg, -1) == lb).to(torch.float32))
-        if self.n == 1:
-            return torch.mean(terms[0]), torch.mean(hits[0])
-        o = self.origin
-        loss = acc = None
-        for row, t, h in zip(self.rows, terms, hits):
-            t = o.send(t.sum(), row.coord, o.coord)
-            h = o.send(h.sum(), row.coord, o.coord)
+            hits = (torch.argmax(lg, -1) == lb).to(torch.float32)
+            t = o.send((logz - gold).sum(), row.coord, o.coord)
+            h = o.send(hits.sum(), row.coord, o.coord)
             loss = t if loss is None else loss + t
             acc = h if acc is None else acc + h
         return loss / self.B, acc / self.B
@@ -333,7 +299,9 @@ def value_and_grad(cfg, params, batch):
     ``cnn_loss`` at the placed ``params`` over ``batch`` (the module's
     docstring)."""
     step = _Step(cfg, params, batch)
-    loss, acc = step.loss()
+    loss, metrics = cnn.cnn_loss(
+        params, cfg, {"images": step.images, "labels": step.labels},
+        ops=step)
     keys = list(step.leaves)
     grads = torch.autograd.grad(loss, [step.leaves[k] for k in keys],
                                 allow_unused=True)
@@ -352,7 +320,7 @@ def value_and_grad(cfg, params, batch):
                 total = g if total is None else total + g
             if total is not None:
                 leaf.grads[idx] = total.to(torch.float32)
-    return loss.detach(), {"loss": loss.detach(), "acc": acc.detach()}, \
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
         leaves
 
 
@@ -373,18 +341,21 @@ def cnn_config(model_name: str, algo: str):
 
 
 def lower_cnn(model_name: str, algo: str, multi_pod: bool, mesh=None,
-              cfg=None, batch: int = GLOBAL_BATCH) -> Dict:
+              cfg=None, batch: int = GLOBAL_BATCH,
+              dtype: torch.dtype = torch.float32) -> Dict:
     """The record of one sharded CNN step on the production mesh (the
-    LM record's keys, ``launch/dryrun.py``)."""
+    LM record's keys, ``launch/dryrun.py``), parameters and images of
+    ``dtype``."""
     t0 = time.time()
     cfg = cfg if cfg is not None else cnn_config(model_name, algo)
     if mesh is None:
         mesh = mesh_lib.make_production_mesh(multi_pod=multi_pod,
                                              device="meta")
     opt = AdamW(lr=1e-3)
-    state = place_state(cfg, opt, mesh)
+    state = place_state(cfg, opt, mesh, tree_util.tree_map(
+        lambda t: t.to(dtype), cnn.init_abstract(cfg)))
     images = torch.empty((batch, cfg.image_size, cfg.image_size, 3),
-                         device="meta")
+                         dtype=dtype, device="meta")
     labels = torch.empty((batch,), dtype=torch.int32, device="meta")
     result, summary = hlo_analysis.analyze(
         lambda s, b: train_step(cfg, opt, s, b), state,

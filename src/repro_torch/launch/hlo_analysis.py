@@ -152,6 +152,7 @@ class _Tracker(TorchDispatchMode):
         self.sites: Dict[str, float] = {}
         self.copied_total = {k: 0 for k in KINDS}
         self.tags: Dict[int, Tuple[Tuple[int, ...], bool]] = {}
+        self.loose: set = set()
         self.sizes: Dict[int, int] = {}
         self.finalizers: List[weakref.finalize] = []
         self.local = threading.local()
@@ -179,6 +180,10 @@ class _Tracker(TorchDispatchMode):
     def current(self):
         stack = getattr(self.local, "at", None)
         return stack[-1] if stack else (self.origin, True)
+
+    def placed(self) -> bool:
+        """Whether a coordinate is in force (an :meth:`at` scope)."""
+        return bool(getattr(self.local, "at", None))
 
     @contextlib.contextmanager
     def at(self, coord, fixed: bool):
@@ -214,7 +219,7 @@ class _Tracker(TorchDispatchMode):
                     self.tags[k] = (self.origin, True)
 
     # ---- storages ---------------------------------------------------------
-    def _alloc(self, t, tag) -> None:
+    def _alloc(self, t, tag, loose: bool = False) -> None:
         k = _key(t)
         if k is None or k in self.tags:
             return
@@ -222,6 +227,8 @@ class _Tracker(TorchDispatchMode):
         n = st.nbytes()
         with self.lock:
             self.tags[k] = tag
+            if loose:
+                self.loose.add(k)
             self.sizes[k] = n
             c = self.coord(tag[0])
             c.live += n
@@ -236,6 +243,7 @@ class _Tracker(TorchDispatchMode):
     def _freed(self, k: int) -> None:
         with self.lock:
             tag, n = self.tags.pop(k, None), self.sizes.pop(k, 0)
+            self.loose.discard(k)
             if tag is None:
                 return
             self.coord(tag[0]).live -= n
@@ -421,13 +429,14 @@ class _Tracker(TorchDispatchMode):
         for t in ins:
             k = _key(t)
             seen.add(k)
-            if tag is None and k is not None:
+            if tag is None and k is not None and k not in self.loose:
                 tag = self.tags.get(k)
+        loose = tag is None and not self.placed()
         if tag is None:
             tag = self.current()
         for t in outs:
             if _key(t) not in seen:
-                self._alloc(t, tag)
+                self._alloc(t, tag, loose)
         packet = func.overloadpacket
         flops = 0.0
         if packet in flop_registry:

@@ -109,6 +109,52 @@ def _norm_apply(x, scale, bias):
     return (x - mu) * torch.rsqrt(var + 1e-5) * scale + bias
 
 
+class Ops:
+    """The forward's operations on a batch held whole: the plain ones.
+
+    ``resnet_forward``, ``vgg_forward`` and ``cnn_loss`` reach every
+    layer through these, so a caller that holds the batch otherwise (the
+    sharded CNN train step, ``launch/dryrun_cnn.py``, over the rows of a
+    mesh) supplies its own and keeps the models' structure.  ``p`` is a
+    layer's parameter subtree; ``qhook`` a conv's transform-domain hook
+    (None: not quantized)."""
+
+    def conv(self, h, p, cfg: CNNConfig, stride: int, qhook):
+        return conv_apply(h, p["w"], p["b"], cfg, stride=stride,
+                          qhook=qhook)
+
+    def norm(self, h, scale, bias):
+        return _norm_apply(h, scale, bias)
+
+    def each(self, fn, *hs):
+        """``fn`` over activations, elementwise in the batch."""
+        return fn(*hs)
+
+    def head(self, h, p):
+        return h @ p["w"] + p["b"]
+
+    def loss(self, logits, labels) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The batch's mean cross entropy and accuracy."""
+        labels = labels.long()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, None])[:, 0]
+        loss = torch.mean(logz - gold)
+        acc = torch.mean((torch.argmax(logits, -1) == labels)
+                         .to(torch.float32))
+        return loss, acc
+
+
+PLAIN = Ops()
+
+
+def _relu_sum(y, sc):
+    return torch.relu(y + sc)
+
+
+def _spatial_mean(h):
+    return torch.mean(h, dim=(1, 2))
+
+
 def _head(gen, cin, n_classes, device) -> Params:
     return {"w": _normal(gen, (cin, n_classes), device) * 0.01,
             "b": _zeros(n_classes, device)}
@@ -150,7 +196,8 @@ def init_resnet(gen: torch.Generator, cfg: CNNConfig,
 
 
 def resnet_forward(p: Params, cfg: CNNConfig, x: torch.Tensor,
-                   qhooks: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+                   qhooks: Optional[Dict[str, Any]] = None,
+                   ops: Ops = PLAIN) -> torch.Tensor:
     """x (B, H, W, 3) -> logits.  qhooks maps layer name -> elementwise hook
     (None = use the config-default quantizer)."""
     default_hook = quant_config(cfg).hook()
@@ -161,29 +208,27 @@ def resnet_forward(p: Params, cfg: CNNConfig, x: torch.Tensor,
         return default_hook
 
     stem_stride = 2 if cfg.image_size >= 128 else 1
-    h = conv_apply(x, p["stem"]["w"], p["stem"]["b"], cfg,
-                   stride=stem_stride, qhook=None)
-    h = torch.relu(_norm_apply(h, p["stem"]["scale"], p["stem"]["bias"]))
+    h = ops.conv(x, p["stem"], cfg, stem_stride, None)
+    h = ops.each(torch.relu, ops.norm(h, p["stem"]["scale"],
+                                      p["stem"]["bias"]))
     if cfg.image_size >= 128:
-        h = max_pool_same(h, 3, 2)
+        h = ops.each(lambda t: max_pool_same(t, 3, 2), h)
     for si, (n_blocks, width) in enumerate(zip(cfg.stages, cfg.widths)):
         for bi in range(n_blocks):
             stride = 2 if (bi == 0 and si > 0) else 1
             blk = p[f"s{si}b{bi}"]
             name = f"s{si}b{bi}"
-            y = conv_apply(h, blk["conv1"]["w"], blk["conv1"]["b"], cfg,
-                           stride=stride, qhook=hook_for(name + ".conv1"))
-            y = torch.relu(_norm_apply(y, blk["scale1"], blk["bias1"]))
-            y = conv_apply(y, blk["conv2"]["w"], blk["conv2"]["b"], cfg,
-                           stride=1, qhook=hook_for(name + ".conv2"))
-            y = _norm_apply(y, blk["scale2"], blk["bias2"])
+            y = ops.conv(h, blk["conv1"], cfg, stride,
+                         hook_for(name + ".conv1"))
+            y = ops.each(torch.relu, ops.norm(y, blk["scale1"],
+                                              blk["bias1"]))
+            y = ops.conv(y, blk["conv2"], cfg, 1, hook_for(name + ".conv2"))
+            y = ops.norm(y, blk["scale2"], blk["bias2"])
             sc = h
             if "proj" in blk:
-                sc = conv_apply(h, blk["proj"]["w"], blk["proj"]["b"], cfg,
-                                stride=stride)
-            h = torch.relu(y + sc)
-    h = torch.mean(h, dim=(1, 2))
-    return h @ p["head"]["w"] + p["head"]["b"]
+                sc = ops.conv(h, blk["proj"], cfg, stride, None)
+            h = ops.each(_relu_sum, y, sc)
+    return ops.head(ops.each(_spatial_mean, h), p["head"])
 
 
 # --------------------------------------------------------------------------
@@ -203,17 +248,16 @@ def init_vgg(gen: torch.Generator, cfg: CNNConfig, device="cuda") -> Params:
     return p
 
 
-def vgg_forward(p: Params, cfg: CNNConfig, x: torch.Tensor) -> torch.Tensor:
+def vgg_forward(p: Params, cfg: CNNConfig, x: torch.Tensor,
+                ops: Ops = PLAIN) -> torch.Tensor:
     hook = quant_config(cfg).hook()
     h = x
     for si, n_convs in enumerate(cfg.stages):
         for ci in range(n_convs):
-            blk = p[f"s{si}c{ci}"]
-            h = torch.relu(conv_apply(h, blk["w"], blk["b"], cfg,
-                                      stride=1, qhook=hook))
-        h = max_pool_same(h, 2, 2)
-    h = torch.mean(h, dim=(1, 2))
-    return h @ p["head"]["w"] + p["head"]["b"]
+            h = ops.each(torch.relu, ops.conv(h, p[f"s{si}c{ci}"], cfg, 1,
+                                              hook))
+        h = ops.each(lambda t: max_pool_same(t, 2, 2), h)
+    return ops.head(ops.each(_spatial_mean, h), p["head"])
 
 
 def init_abstract(cfg: CNNConfig) -> Params:
@@ -224,14 +268,13 @@ def init_abstract(cfg: CNNConfig) -> Params:
     return init(ABSTRACT, cfg, device="meta")
 
 
-def cnn_loss(p: Params, cfg: CNNConfig, batch) -> Tuple[torch.Tensor, Dict]:
-    fwd = vgg_forward if cfg.kind == "vgg" else resnet_forward
-    logits = fwd(p, cfg, batch["images"])
-    labels = batch["labels"].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[:, None])[:, 0]
-    loss = torch.mean(logz - gold)
-    acc = torch.mean((torch.argmax(logits, -1) == labels).to(torch.float32))
+def cnn_loss(p: Params, cfg: CNNConfig, batch,
+             ops: Ops = PLAIN) -> Tuple[torch.Tensor, Dict]:
+    if cfg.kind == "vgg":
+        logits = vgg_forward(p, cfg, batch["images"], ops=ops)
+    else:
+        logits = resnet_forward(p, cfg, batch["images"], ops=ops)
+    loss, acc = ops.loss(logits, batch["labels"])
     return loss, {"loss": loss, "acc": acc}
 
 

@@ -10,7 +10,9 @@ the JAX package's loop-aware HLO analysis (``repro.launch.hlo_analysis``).
     each arch's comment explains; the prefill and the decode step of a
     dense, a moe and an ssm arch, equal;
   * the analysis of a step on CPU tensors is the analysis of the same step
-    on meta tensors (the meta dry run sees what a real run does).
+    on meta tensors (the meta dry run sees what a real run does);
+  * a table cached on a step's first call places no operation that reads
+    it (a cold call is attributed as a warm one).
 
 JAX's multi-device compile is never the reference: its dry run needs 512
 forced host devices before ``jax`` is imported, which ``tests/
@@ -99,6 +101,30 @@ def test_views_are_free_and_storage_lives_until_freed():
     assert s.traffic_bytes == (128 * 256 * 4) * 4 + 4 + 128 * 256 * 4
     # b and c live together once, arguments beside them
     assert s.peak_bytes == 256 * 256 * 4 + 2 * 128 * 256 * 4
+
+
+def test_table_made_on_first_use_places_no_operation():
+    """A table a step builds on its first call and caches (made outside
+    every coordinate's scope) counts at the mesh's first coordinate, but
+    the products that read it count where their other operand lies."""
+    from repro_torch.distributed.sharding import P, Sharded
+    from repro_torch.launch.mesh import make_forced_host_mesh
+    mesh = make_forced_host_mesh((1, 2), ("data", "model"), device="meta")
+    x = Sharded.place(torch.empty(16, 32, device="meta"), P(None, "model"),
+                      mesh, own=True)
+    cache = {}
+
+    def f(x):
+        out = []
+        for c in mesh.coords():
+            if "table" not in cache:
+                cache["table"] = torch.ones(16, 16, device="meta") * 2
+            out.append(cache["table"] @ x.shards[c])
+        return out
+    _, s = analyze(f, x, mesh=mesh)
+    assert [s.per_coord[c].flops for c in mesh.coords()] \
+        == [2 * 16 * 16 * 16] * 2
+    assert s.per_coord[(0, 0)].traffic > s.per_coord[(0, 1)].traffic
 
 
 def _smoke_train_flops(arch, n_layers):
