@@ -305,26 +305,34 @@ csrc`` at first use.  Phases, each of which raises on failure:
         whisper-tiny whole; batch 4, the caches filled with seeded entries,
         each row from its own position, 8 teacher-forced steps against the
         unsharded step: (1, 1) bit for bit, else logits and final caches
-        within 1e-5 rel L2 and the greedy tokens equal where the top-2
-        margin exceeds 1e-3; every cache block in place, no cache byte
-        copied; the weight bytes copied exactly the data axes' all-gather
-        (0 on (1, m)); phi4-mini's and mixtral's sharded prefill within
-        1e-5 of the forward; bytes copied and wall ms a step; the same
+        within 1e-5 rel L2 and the greedy tokens (the argmax by vocab
+        block where the logits lie) equal where the top-2 margin exceeds
+        1e-3; the logits and the next tokens placed as JAX's compiled
+        steps place them (each coordinate holds its block of the batch
+        over the data axes and the vocab over 'model', on its card),
+        read through ``Sharded.gather``; every cache block in place, no
+        cache byte copied; the weight bytes copied exactly the data axes'
+        all-gather (0 on (1, m)); phi4-mini's and mixtral's sharded
+        prefill within 1e-5 of the forward, its logits placed likewise;
+        bytes copied and wall ms a step; the same
         steps in bf16 on (2, 2) and (1, 4) against the unsharded bf16 step
         (their spread); deepseek-v3's first dense and first MoE layer (256
         experts, 45.1 GB in fp32) likewise on (1, 1), (1, 2) and (1, 4),
         its blocks views of the unsharded tree (no bf16 spread; (2, 1) and
         (2, 2) do not fit one card);
-     b. with four cards only: mixtral-8x7b at full depth on (1, 4) and
-        (2, 2), deepseek-v3 at 12 layers (3 dense, 9 MoE) on (1, 4), bf16,
-        served through ``SlotLoop`` and ``GreedyStep`` (12 requests of 4-16
+     b. with four cards only: mixtral-8x7b at full depth and deepseek-v3
+        at 10 layers (3 dense, 7 MoE) on (1, 4) and (2, 2), bf16, served
+        through ``SlotLoop`` and ``GreedyStep`` (12 requests of 4-16
         prompt tokens, 96 generated, batch 4, cache 128): tok/s, request
         p50 and p99, wall ms and GB copied a step (weights exactly the data
         axes' all-gather), peak GB a card placing, over the first steps and
-        serving; one traced step's host waits; logits finite; mixtral's 8
-        fp32 steps from one seeded cache on each mesh within 1e-5 rel L2 of
-        each other (bf16's, a finding); on one card a line says it did not
-        run.
+        serving; one traced step's host waits; logits finite; 8 steps that
+        feed their next tokens back as they lie, their outputs placed as
+        JAX's and the GB they copy over the data axes by kind (the
+        outputs' none); mixtral's 8 fp32 steps from one seeded cache on
+        each mesh within 1e-5 rel L2 of each other (bf16's, a finding; no
+        fp32 copy of deepseek-v3 fits four cards); on one card a line says
+        it did not run.
 
   16. The dry run held to the card (``repro_torch.launch.dryrun``,
      ``launch.dryrun_cnn``, ``launch.hlo_analysis``): the same step on
@@ -335,6 +343,10 @@ csrc`` at first use.  Phases, each of which raises on failure:
         bytes placed per coordinate and the weight, activation and
         gradient bytes a step copies, exactly; the predicted peak against
         ``torch.cuda.max_memory_allocated`` on (1, 1);
+     a'. stablelm-3b at 4 layers, fp32, a prefill of 2 x 512 and a decode
+        step of batch 2 over a cache of 512 on (2, 2): the bytes placed
+        per coordinate (the state, and the outputs where they lie) and the
+        bytes a step copies by kind, exactly the dry run's;
      b. the sharded CNN train step (``dryrun_cnn.train_step``) with
         ResNet-18 sfc6_7 at 224x224, batch 32, TF32 off: int8 float32
         on (1, 1) against the unsharded step over ``cnn_loss`` (the loss
@@ -360,7 +372,12 @@ config, as nothing was tuned), and writes ``chiprun_out/sharded.json``.
 alone (15b only on a host with four cards) and writes
 ``chiprun_out/lm_serve_sharded.json``; ``--dryrun`` runs phase 16 alone
 and writes ``chiprun_out/dryrun.json``; ``--b4-candidates`` runs phase 3c alone and
-writes ``chiprun_out/b4_candidates.json``.
+writes ``chiprun_out/b4_candidates.json``; ``--lm15-trace`` (no build)
+times and traces 15a's first arch's decode step on one card's forced
+meshes (on a host with four cards 15b's first arch's served step instead)
+and writes ``chiprun_out/lm15_trace.json``, and with ``--src DIR``
+does so for the package under DIR (another checkout's ``src``), so that
+two trees are timed in one call.
 ``--sweep-b4``, ``--sweep-b7``, ``--sweep-b1`` and ``--sweep-b2`` time
 B4's, B7's, B1's and B5's, and B2's and B6's geometries per layer instead
 (each held bit for bit to the default) and write
@@ -393,7 +410,11 @@ import time
 import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
+# ``--src DIR``: the port's package from DIR (another checkout's ``src``),
+# so that ``--lm15-trace`` times two trees on one card in one call
+SRC = pathlib.Path(sys.argv[sys.argv.index("--src") + 1]).resolve() \
+    if "--src" in sys.argv[1:] else ROOT / "src"
+sys.path.insert(0, str(SRC))
 
 from repro_torch.configs.resnet18 import RESNET18, VGG16  # noqa: E402
 
@@ -799,6 +820,9 @@ LM14_GC_CELL = ("stablelm-3b", {"n_layers": 4}, (2, 512),
 # run's
 LM16_CELL = ("stablelm-3b", {"n_layers": 4}, (2, 512), 2900)
 LM16_MESHES = ((1, 1), (2, 2), (1, 4))
+# 16a': LM16_CELL's prefill (batch, tokens) and a decode step of that batch
+# over a cache of as many, on LM16_SERVE_MESH
+LM16_SERVE_MESH = (2, 2)
 CNN16 = ("resnet18", "sfc6_7", 32)
 # (mesh, int8, dtype), TF32 off throughout: float32 held to the bounds on
 # (1, 1).  Where 'model' cuts C_out the products round apart by width
@@ -882,12 +906,30 @@ LM15_BIG = (("mixtral-8x7b", {}, ((1, 4), (2, 2))),
             # card; the MoE layer init_params draws whole (22.5 GB) sits on
             # cuda:0 beside its blocks while it is placed
             ("deepseek-v3-671b", {"n_layers": 12, "mtp_depth": 0},
-             ((1, 4),)))
+             ((1, 4),)),
+            # on (2, 2) a row's fetch of a MoE layer's model blocks over
+            # 'data' (gate, up and down joined, 3.76 GB each, beside the
+            # halves received) sits there too: at 12 layers it ran cuda:0
+            # out of memory, so 3 dense + 7 MoE layers (166 GB, ~41.5 GB
+            # of blocks a card)
+            ("deepseek-v3-671b", {"n_layers": 10, "mtp_depth": 0},
+             ((2, 2),)))
+# the archs of LM15_BIG whose fp32 copy (4 bytes a parameter) fits four
+# cards, so that their meshes are held to each other in fp32
+LM15_BIG_FP32 = ("mixtral-8x7b",)
 LM15_SERVE = {"batch": 4, "max_len": 128, "requests": 12, "gen": 96,
               "prompts": (4, 16)}
 LM15_BIG_STARTS = (28, 60, 92, 110)      # 8 steps cross 32, 64 and 96
 LM15_BIG_PREFILL = (4, 128)              # 15b's prefill: batch, tokens
 LM15_SEED = 2700
+# --lm15-trace: 15a's first arch on these meshes of one card, each timed
+# LM15_TRACE_REPEATS times and one step traced
+LM15_TRACE_MESHES = ((1, 1), (2, 1), (2, 2), (1, 4))
+LM15_TRACE_REPEATS = 5
+# and on four cards 15b's first arch served, these steps timed after a warm
+# start (the first steps' tables and allocations)
+LM15_TRACE_BIG_WARM = 4
+LM15_TRACE_BIG_STEPS = 24
 # phase 14c's reader of a checkpoint as the JAX package's Checkpointer reads
 # it (manifest, digest, keys, bf16 as uint16 bits), in a CPU subprocess of
 # numpy alone: argv[1] the step directory, argv[2] the gathered state's npz
@@ -4330,6 +4372,147 @@ def host_waits(fn, cards: int) -> dict:
             "enqueue_us": enqueue_us, "wall_us": wall_us}
 
 
+def _trace_row(ms, waits) -> dict:
+    """``--lm15-trace``'s record of one mesh: the median of the wall ms a
+    step ``ms`` (warm runs left out), and one traced step's kernel
+    launches and copies beside its :func:`host_waits`."""
+    rt = waits.get("runtime", {})
+    return {"step_ms": statistics.median(ms), "runs_ms": ms,
+            "launches": sum(v["count"] for k, v in rt.items()
+                            if k.startswith("cudaLaunchKernel")),
+            "memcpy": sum(v["count"] for k, v in rt.items()
+                          if k.startswith("cudaMemcpy")),
+            "host_waits": waits}
+
+
+def _trace_log(what, r) -> None:
+    waits = r["host_waits"]
+    log(f"lm15 trace: {what} from {SRC}: {r['step_ms']:.2f} ms a step "
+        "(runs " + ", ".join(f"{v:.2f}" for v in r["runs_ms"])
+        + "), a traced step "
+        + (waits["not_measured"] if "not_measured" in waits else
+           f"{r['launches']} launches, {r['memcpy']} copies, host waits "
+           f"{waits['waits'] or 'none'}, enqueued in "
+           f"{waits['enqueue_us'] / 1e3:.2f} of "
+           f"{waits['wall_us'] / 1e3:.2f} ms, busy "
+           f"{sum(waits['busy_us'].values()) / 1e3:.2f} ms"))
+
+
+def lm15_trace(dev, smi) -> dict:
+    """``--lm15-trace``: 15a's first arch (LM15_ARCHS), fp32, batch
+    LM15_BATCH, its cache zero, stepped from LM15_START on each of
+    LM15_TRACE_MESHES on ``dev`` alone: the median wall ms a step of
+    LM15_STEPS steps over LM15_TRACE_REPEATS runs (after a warm run) and
+    one step under :func:`host_waits` (kernel launches, copies, host
+    waits, enqueue against wall); on a host with four cards 15b's served
+    step instead (:func:`lm15_trace_big`).  Only what the package offered
+    before its steps' outputs were placed is used, so that ``--src`` times
+    another tree's package the same way, in the same call."""
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import serve_spmd, sharding
+    from repro_torch.launch.mesh import make_forced_host_mesh
+    from repro_torch.models import build
+
+    if torch.cuda.device_count() >= 4:
+        return {"package": str(SRC), "device": smi,
+                "big": lm15_trace_big(dev)}
+    arch, cut = LM15_ARCHS[0]
+    cfg = dataclasses.replace(configs.get_config(arch), param_dtype="float32",
+                              compute_dtype="float32", **cut)
+    model = build(cfg)
+    B, L = LM15_BATCH, LM15_LEN
+    with torch.no_grad():
+        params = model.init(torch.Generator(device=dev).manual_seed(
+            LM15_SEED), device=dev)
+    toks = lm_tokens(cfg, (LM15_STEPS, B, 1), LM15_SEED + 2, dev)
+    pos0 = torch.tensor(LM15_START, dtype=torch.int32, device=dev)
+    out = {"arch": arch, "cut": cut, "package": str(SRC), "device": smi,
+           "meshes": {}}
+    for shape in LM15_TRACE_MESHES:
+        mesh = make_forced_host_mesh(shape, device=dev)
+        placed = params if math.prod(shape) == 1 else sharding.place(
+            params, serve_spmd.param_shardings(model, mesh))
+        cache = model.init_cache(
+            placed, B, L, shardings=None if placed is params else
+            sharding.cache_shardings(
+                model, ShapeConfig("decode", L, B, "decode"), mesh))
+
+        def steps():
+            for t in range(LM15_STEPS):
+                model.decode_step(placed, cache, toks[t], pos0 + t)
+        ms = []
+        for _ in range(LM15_TRACE_REPEATS + 1):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            steps()
+            torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t0) * 1e3 / LM15_STEPS)
+        r = out["meshes"][str(shape)] = _trace_row(ms[1:], host_waits(
+            lambda: model.decode_step(placed, cache, toks[0], pos0), 1))
+        _trace_log(f"{arch} {shape}", r)
+        del placed, cache
+        lm_free()
+    return out
+
+
+def lm15_trace_big(dev) -> dict:
+    """``--lm15-trace`` on four cards: 15b's first arch (LM15_BIG) as 15b
+    cuts it, bf16, on each of its meshes, served through ``SlotLoop`` and
+    ``GreedyStep`` as 15b serves it (LM15_SERVE), for
+    LM15_TRACE_BIG_STEPS steps after LM15_TRACE_BIG_WARM; the wall ms of
+    each step (the argmax reaches the host every step) and one step under
+    :func:`host_waits`."""
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import serve_spmd, sharding
+    from repro_torch.launch.mesh import make_forced_host_mesh
+    from repro_torch.launch.serve import GreedyStep
+    from repro_torch.models import build
+    from repro_torch.serve import PromptStream, SlotLoop
+
+    arch, cut, meshes = LM15_BIG[0]
+    cfg = dataclasses.replace(configs.get_config(arch),
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16", **cut)
+    model = build(cfg)
+    srv = LM15_SERVE
+    B, L = srv["batch"], srv["max_len"]
+    out = {"arch": arch, "n_layers": cfg.n_layers, "meshes": {}}
+    for shape in meshes:
+        mesh = make_forced_host_mesh(shape)
+        placed = serve_spmd.init_params(
+            model, LM15_SEED + 6, serve_spmd.param_shardings(model, mesh),
+            dev)
+        step = GreedyStep(model, placed, model.init_cache(
+            placed, B, L, shardings=sharding.cache_shardings(
+                model, ShapeConfig("decode", L, B, "decode"), mesh)), dev)
+        ms = []
+
+        def timed(tok, pos):
+            t0 = time.perf_counter()
+            nxt = step(tok, pos)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            return nxt
+        SlotLoop(batch=B, gen=srv["gen"], max_len=L,
+                 requests=srv["requests"],
+                 prompts=PromptStream(cfg.vocab_size, lengths=srv["prompts"],
+                                      seed=LM15_SEED + 7)).run(
+            timed, max_steps=LM15_TRACE_BIG_WARM + LM15_TRACE_BIG_STEPS)
+        tok = np.zeros((B, 1), np.int32)
+        pos = np.asarray(LM15_BIG_STARTS, np.int32)
+        r = out["meshes"][str(shape)] = _trace_row(
+            ms[LM15_TRACE_BIG_WARM:], host_waits(lambda: step(tok, pos), 4))
+        _trace_log(f"{arch} {shape} served", r)
+        del placed, step
+        lm_free()
+    return out
+
+
 def lm_serve_sharded(dev, counted, smi) -> dict:
     """Phase 15: the sharded serve and prefill steps (A16's serving half):
     decode caches placed by cache_pspecs, attention merged over a
@@ -4346,7 +4529,8 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
     from repro_torch.launch.serve import GreedyStep
     from repro_torch.models import build
     from repro_torch.serve import PromptStream, SlotLoop
-    from repro_torch.train import make_prefill_step
+    from repro_torch.testing import assert_placed
+    from repro_torch.train import make_prefill_step, make_serve_step
 
     t_phase = time.perf_counter()
     none = only()
@@ -4408,6 +4592,32 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
         return [(str(b.device), b.data_ptr())
                 for sh in tree_util.leaves(cache) for b in sh.shards.flat]
 
+    def where(out, mesh):
+        """A placed output held to where JAX's compiled step places it
+        (each coordinate its block of ``output_spec``, on its card),
+        gathered on ``dev``."""
+        assert_placed(out, serve_spmd.output_spec(mesh, out.shape))
+        return out.gather(dev)
+
+    @contextlib.contextmanager
+    def by_axis():
+        """The bytes ``model_split`` copies inside, by kind and by whether
+        a copy crosses the data axes (``data``) or stays on a data row
+        (``model``)."""
+        seen = {}
+        count = model_split._count
+
+        def spy(kind, t, src, dst, *args):
+            axis = "model" if src[:-1] == dst[:-1] else "data"
+            key = f"{kind} {axis}"
+            seen[key] = seen.get(key, 0) + t.numel() * t.element_size()
+            return count(kind, t, src, dst, *args)
+        model_split._count = spy
+        try:
+            yield seen
+        finally:
+            model_split._count = count
+
     def decoded(model, params, cache, toks, pos0, what):
         """LM15_STEPS teacher-forced steps: (logits, wall ms a step)."""
         logits = []
@@ -4432,8 +4642,14 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
 
         def logits(self, tok, pos):
             lg = super().logits(tok, pos)
-            bad = (~torch.isfinite(lg)).sum()
-            self.bad = bad if self.bad is None else self.bad + bad
+            # each vocab block's count on its own card, summed at the end
+            counts = self.bad if self.bad is not None else {}
+            for cs in lg.unique().values():
+                blk = lg.shards[cs[0]]
+                bad = (~torch.isfinite(blk)).sum()
+                counts[blk.device] = counts[blk.device] + bad \
+                    if blk.device in counts else bad
+            self.bad = counts
             now = [torch.cuda.memory_allocated(i) / 1e9
                    for i in range(cards)]
             self.held = now if self.held is None \
@@ -4460,9 +4676,10 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
         check, check32 = {}, {}
         m32 = build(dataclasses.replace(cfg, param_dtype="float32",
                                         compute_dtype="float32"))
+        held32 = len(meshes) > 1 and arch in LM15_BIG_FP32
         for shape in meshes:
             mesh = make_forced_host_mesh(shape)
-            if len(meshes) > 1:
+            if held32:
                 # the check in fp32: the same draws, the same seeded cache
                 lm_free()
                 placed = serve_spmd.init_params(
@@ -4474,7 +4691,7 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
                 fill(cache, seeded(shapes_of(cache), LM15_SEED + 9))
                 got, _ = decoded(m32, placed, cache, toks, pos0,
                                  f"{arch} {shape} fp32")
-                check32[str(shape)] = [lg.cpu() for lg in got]
+                check32[str(shape)] = [where(lg, mesh).cpu() for lg in got]
                 del placed, cache, got
             lm_free()
             synchronize()
@@ -4510,8 +4727,9 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
             check_moved = model_split.copied()
             step_peaks = [torch.cuda.max_memory_allocated(i) / 1e9
                           for i in range(cards)]
-            check[str(shape)] = [lg.float().cpu() for lg in got]
-            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            check[str(shape)] = [where(lg, mesh).float().cpu() for lg in got]
+            finite = all(bool(torch.isfinite(g).all())
+                         for g in check[str(shape)])
             # one step traced: does a cross-card copy make the host wait?
             at = pos0 + LM15_STEPS
             waits = host_waits(lambda: counted(
@@ -4519,11 +4737,31 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
                 lambda: model.decode_step(placed, cache, toks[0], at),
                 want=none), cards)
             del cache, got
+            # LM15_STEPS steps that feed their next tokens back as they lie
+            serve = make_serve_step(model)
+            cache = model.init_cache(placed, B, L, shardings=shardings)
+            fill(cache, seeded(shapes_of(cache), LM15_SEED + 9))
+            nxt = toks[0]
+            synchronize()
+            t0 = time.perf_counter()
+            with by_axis() as fed_moved:
+                for t in range(LM15_STEPS):
+                    nxt, lg, cache = counted(
+                        "lm_serve_sharded", f"{arch} {shape} fed step {t}",
+                        lambda: serve(placed, cache, nxt, pos0 + t),
+                        want=none)
+                synchronize()
+            fed_ms = (time.perf_counter() - t0) * 1e3 / LM15_STEPS
+            last = where(lg, mesh)
+            fed_ok = bool(torch.isfinite(last).all()) and torch.equal(
+                where(nxt, mesh)[:, 0],
+                last[:, -1].argmax(-1).to(torch.int32))
+            del cache, lg, nxt, last
             # the prefill over the placement: each block where it lies
             pre, pre_ms, pre_moved = timed_prefill(
                 f"{arch} {shape}", model, placed,
                 lm_tokens(cfg, LM15_BIG_PREFILL, LM15_SEED + 10, dev))
-            pre_finite = bool(torch.isfinite(pre).all())
+            pre_finite = bool(torch.isfinite(where(pre, mesh)).all())
             pre_reckoned = lm15_prefill_reckoned(placed, mesh,
                                                  LM15_BIG_PREFILL[0])
             del pre
@@ -4544,7 +4782,7 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
             moved = model_split.copied()
             peaks = [torch.cuda.max_memory_allocated(i) / 1e9
                      for i in range(cards)]
-            bad = int(step.bad)
+            bad = sum(int(v) for v in step.bad.values())
             reckoned = lm15_reckoned(placed, mesh, B)
             lat = stats.latency_ms
             r = {"tok_per_s": stats.tok_per_s, "p50_ms": lat.percentile(50),
@@ -4563,6 +4801,10 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
                  "blocks_gb": [h / 1e9 for h in held],
                  "held_after_a_step_gb": step.held,
                  "host_waits": waits,
+                 "fed": {"step_ms": fed_ms, "placed_and_argmax": fed_ok,
+                         "copied_gb_a_step": {
+                             k: v / LM15_STEPS / 1e9
+                             for k, v in sorted(fed_moved.items())}},
                  "prefill": {"batch": list(LM15_BIG_PREFILL),
                              "ms": pre_ms, "finite": pre_finite,
                              "copied_gb": {k: v / 1e9
@@ -4577,6 +4819,8 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
             if bad or not finite or moved["cache"] \
                     or moved["weights"] != stats.steps * reckoned \
                     or check_moved["weights"] != LM15_STEPS * reckoned \
+                    or not fed_ok or fed_moved.get("outputs data", 0) \
+                    or fed_moved.get("activations data", 0) \
                     or not pre_finite \
                     or pre_moved["weights"] != pre_reckoned:
                 failures.append(f"{arch} {shape} served: {r}")
@@ -4589,7 +4833,18 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
                 f"{r['copied_gb_a_step']['weights']:.2f} GB of weights and "
                 f"{r['copied_gb_a_step']['activations'] * 1e3:.3f} MB of "
                 f"activations copied a step (weights reckoned "
-                f"{reckoned / 1e9:.2f} GB); peak a card "
+                f"{reckoned / 1e9:.2f} GB); {LM15_STEPS} steps fed their "
+                f"next tokens as they lie, {fed_ms:.1f} ms a step, placed "
+                f"as JAX's and the argmax's: {fed_ok}, GB a step over the "
+                f"data axes: weights "
+                f"{fed_moved.get('weights data', 0) / LM15_STEPS / 1e9:.3f},"
+                f" logits and next tokens (outputs) "
+                f"{fed_moved.get('outputs data', 0) / LM15_STEPS / 1e9:.3f},"
+                f" activations "
+                f"{fed_moved.get('activations data', 0) / LM15_STEPS / 1e9:.3f}"
+                f" (outputs along 'model' "
+                f"{fed_moved.get('outputs model', 0) / LM15_STEPS:.0f} "
+                f"bytes); peak a card "
                 f"{', '.join(f'{v:.1f}' for v in placed_peaks)} GB placing, "
                 f"{', '.join(f'{v:.1f}' for v in step_peaks)} over the first "
                 f"{LM15_STEPS} steps, "
@@ -4613,13 +4868,15 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
         if len(meshes) > 1:
             rels = {name: [rel_l2(x.double(), y.double()) for x, y in zip(
                 *(got[str(m)] for m in meshes[:2]))]
-                for name, got in (("fp32", check32), ("bf16", check))}
+                for name, got in (("fp32", check32), ("bf16", check)) if got}
             row["mesh_rel"] = rels
             log(f"lm15 serve: {arch} {meshes[0]} against {meshes[1]} over "
-                f"{LM15_STEPS} steps from one seeded cache: fp32 worst "
-                f"{max(rels['fp32']):.2e} rel L2 (bound {LM15_REL:.0e}); "
-                f"bf16 " + ", ".join(f"{v:.2e}" for v in rels["bf16"]))
-            if max(rels["fp32"]) > LM15_REL:
+                f"{LM15_STEPS} steps from one seeded cache: "
+                + (f"fp32 worst {max(rels['fp32']):.2e} rel L2 (bound "
+                   f"{LM15_REL:.0e}); " if held32 else
+                   "no fp32 copy fits four cards; ")
+                + "bf16 " + ", ".join(f"{v:.2e}" for v in rels["bf16"]))
+            if held32 and max(rels["fp32"]) > LM15_REL:
                 failures.append(f"{arch}: the meshes' fp32 logits {rels}")
         return row
 
@@ -4694,13 +4951,17 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
                               f"{arch} {shape}")
             moved = model_split.copied()
             reckoned = lm15_reckoned(placed, mesh, B)
+            # the argmax by vocab block where the logits lie; both held to
+            # where JAX's compiled step places them, then gathered
+            nexts = [where(serve_spmd.greedy(g), mesh)[:, 0] for g in got]
+            got = [where(g, mesh) for g in got]
             rels = [rel_l2(g, r) for g, r in zip(got, ref)]
             finals = [(sh.gather(dev), leaf) for sh, leaf in zip(
                 tree_util.leaves(cache), ref_final)]
-            greedy_bad = sum(int(((g[:, 0].argmax(-1) != t.indices[:, 0])
+            greedy_bad = sum(int(((n != t.indices[:, 0])
                                   & (t.values[:, 0] - t.values[:, 1]
                                      > LM15_MARGIN)).sum())
-                             for g, t in zip(got, top2))
+                             for n, t in zip(nexts, top2))
             err = {"logits_rel": max(rels),
                    "cache_rel": max(rel_l2(a, b) for a, b in finals),
                    "bitwise": all(torch.equal(g, r)
@@ -4728,7 +4989,7 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
                             want=none)
                 pre, pre_ms, pre_moved = timed_prefill(
                     f"{arch} {shape}", model, placed, ptoks, memory)
-                err["prefill_rel"] = rel_l2(pre, forwards[rows])
+                err["prefill_rel"] = rel_l2(where(pre, mesh), forwards[rows])
                 err["prefill_ms"] = pre_ms
                 err["prefill_copied"] = pre_moved
                 err["prefill_weights_reckoned"] = lm15_prefill_reckoned(
@@ -4776,7 +5037,8 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
                 fill(cache, values)
                 got, _ = decoded(model16, placed, cache, toks, pos0,
                                  f"{arch} bf16 {shape}")
-                spread[str(shape)] = max(rel_l2(g.double(), r.double())
+                spread[str(shape)] = max(rel_l2(where(g, mesh).double(),
+                                                r.double())
                                          for g, r in zip(got, ref))
                 del placed, cache, got
                 lm_free()
@@ -4839,7 +5101,9 @@ def lm_serve_sharded(dev, counted, smi) -> dict:
             # every cell runs and is recorded; then its failures raise
             failures = []
             for arch, cut, meshes in LM15_BIG:
-                out["big"][arch] = big_serve(arch, cut, meshes, failures)
+                name = arch if arch not in out["big"] \
+                    else f"{arch} {cut['n_layers']} layers"
+                out["big"][name] = big_serve(arch, cut, meshes, failures)
             if failures:
                 raise AssertionError("; ".join(failures))
     finally:
@@ -4916,12 +5180,15 @@ def dryrun_held(dev, counted, smi, big=None) -> dict:
 
     import repro_torch.configs as configs
     from repro_torch import tree as tree_util
-    from repro_torch.distributed import lm_spmd, model_split, sharding
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import (lm_spmd, model_split, serve_spmd,
+                                         sharding)
     from repro_torch.launch import dryrun, dryrun_cnn, hlo_analysis
     from repro_torch.launch.mesh import make_forced_host_mesh
     from repro_torch.models import build, cnn
     from repro_torch.optim import AdamW
     from repro_torch.train import (abstract_train_state, init_train_state,
+                                   make_prefill_step, make_serve_step,
                                    make_train_step)
     from repro_torch.train.steps import _value_and_grad
 
@@ -5004,6 +5271,62 @@ def dryrun_held(dev, counted, smi, big=None) -> dict:
             + (f"{gb(peak):.3f} GB measured against {gb(s.peak_bytes):.3f} "
                f"predicted (ratio {s.peak_bytes / peak:.3f})"
                if shape == (1, 1) else f"{gb(peak):.3f} GB on the card"))
+
+    # ---- 16a'. the sharded prefill and decode step ------------------------
+    shape = LM16_SERVE_MESH
+    mesh, meta = mesh_pair(shape)
+    placed_params = serve_spmd.init_params(
+        model, seed, serve_spmd.param_shardings(model, mesh), dev)
+    for kind in ("prefill", "decode"):
+        cell = ShapeConfig(kind, T, B, kind)
+        if kind == "prefill":
+            state = placed_params
+            step_fn = make_prefill_step(model)
+            # int32, as the dry run's tokens (the model's batch specs)
+            args = (state, lm_tokens(cfg, (B, T), seed + 2, dev).int())
+        else:
+            state = (placed_params, model.init_cache(
+                placed_params, B, T,
+                shardings=sharding.cache_shardings(model, cell, mesh)))
+            step_fn = make_serve_step(model)
+            args = state + (lm_tokens(cfg, (B, 1), seed + 3, dev).int(),
+                            torch.arange(B, dtype=torch.int32, device=dev)
+                            * (T // B) + T // (2 * B))
+        placed = dryrun.placed_bytes(state)
+        model_split.reset_copied()
+        result = counted("dryrun", f"{arch} {shape} sharded {kind}",
+                         lambda: step_fn(*args), want=none)
+        synchronize()
+        copies = model_split.copied()
+        outputs = dryrun._outputs(result, args)
+        del result
+        m_step, m_args, m_state = dryrun.place_cell(model, cell, meta)
+        t0 = time.perf_counter()
+        m_result, s = hlo_analysis.analyze(m_step, *m_args, mesh=meta,
+                                           rows_alike=True)
+        dry_s = time.perf_counter() - t0
+        m_placed = dryrun.placed_bytes(m_state)
+        m_outputs = dryrun._outputs(m_result, m_args)
+        del m_result
+        row = {"placed_per_coordinate": sorted(set(placed.values())),
+               "outputs_per_coordinate": sorted(set(outputs.values())),
+               "copied": copies, "dry_copied": s.copied,
+               "dry_seconds": dry_s}
+        out["lm"][f"{kind} {shape}"] = row
+        if placed != m_placed or outputs != m_outputs or copies != s.copied:
+            raise AssertionError(
+                f"16a' {arch} {kind} {shape}: placed {placed} against the "
+                f"dry run's {m_placed}; outputs {outputs} against "
+                f"{m_outputs}; copied {copies} against {s.copied}")
+        log(f"dryrun: {arch} ({cfg.n_layers} layers, fp32) {kind} of "
+            f"batch {B} at {T} on {shape}: placed "
+            f"{gb(max(placed.values())):.4f} GB a coordinate, its outputs "
+            f"{max(outputs.values())} bytes a coordinate where they lie, "
+            f"copied {copies} bytes, all exactly the dry run's "
+            f"({dry_s:.1f} s on this host's CPU)")
+        del state, args
+    del placed_params
+    lm_free()
 
     # ---- 16b. the sharded CNN step ---------------------------------------
     name, algo, B = CNN16
@@ -5567,6 +5890,13 @@ def main() -> None:
     report["device"] = {"name": name, "nvidia_smi": smi,
                         "torch": torch.__version__,
                         "cuda": torch.version.cuda}
+    if "--lm15-trace" in sys.argv[1:]:
+        # 15a's decode step timed and traced alone; no kernel is built
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "lm15_trace.json").write_text(json.dumps(
+            lm15_trace(dev, smi), indent=1))
+        return
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()

@@ -19,13 +19,18 @@ steps themselves:
     ``model_split``, ``lm_spmd``, ``serve_spmd`` and the sharded CNN step)
     makes a new storage at its destination, and :func:`copied` reports
     the bytes with both ends, so the analysis splits them by the link
-    they cross.
+    they cross;
+  * a step's argument placed on the mesh (the state, a serving step's
+    inputs over the batch axes) counts each block on the coordinate that
+    holds it, a plain tensor (the train batch) at the mesh's first
+    coordinate; so does what a step returns, where it lies.
 
 ``fixed`` marks a coordinate that does not move with the data row
-running (the mesh's first coordinate, the one gradient block of a leaf
-the data axes do not cut): the analysis may run one row of a class of
-rows alike and replay its record for the others (:func:`rows`,
-:func:`segment`), each coordinate shifted along ``'data'`` unless fixed.
+running (the mesh's first coordinate, which holds a plain argument, the
+one gradient block of a leaf the data axes do not cut): the analysis may
+run one row of a class of rows alike and replay its record for the
+others (:func:`rows`, :func:`segment`), each coordinate shifted along
+``'data'`` unless fixed.
 
 With no analysis running every hook is a ``None`` check and a plain
 ``.to``.

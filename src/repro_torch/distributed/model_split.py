@@ -49,8 +49,11 @@ cuts none of them) runs the plain function, so a mesh of one coordinate
 computes the unsharded step's bits.
 
 :func:`copied` counts the bytes moved between mesh coordinates, as
-``weights``, ``activations``, ``cache`` and ``gradients`` (the fetches'
-backward into another coordinate's gradient block).  On a mesh that
+``weights``, ``activations``, ``cache``, ``gradients`` (the fetches'
+backward into another coordinate's gradient block) and ``outputs`` (a
+step's output copied to the coordinates that hold it beside the one that
+computed it: the serve step's next tokens over ``'model'``, logits one
+row computed over the data axes).  On a mesh that
 repeats one device these are the copies the same mesh would make over
 distinct devices.
 """
@@ -72,7 +75,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers, mla, moe, ssm
 from repro_torch.models import transformer as tfm
 
-_COPIED = {"weights": 0, "activations": 0, "cache": 0, "gradients": 0}
+_COPIED = {"weights": 0, "activations": 0, "cache": 0, "gradients": 0,
+           "outputs": 0}
 _COUNT_LOCK = threading.Lock()
 _GRAD_LOCK = threading.Lock()
 
@@ -369,8 +373,9 @@ class _Row:
         src, dst = tuple(src), tuple(dst)
         if src == dst:
             return t.to(self.mesh.device(dst))
-        # the mesh's first coordinate holds the step's inputs and outputs,
-        # whichever row sends (``coords``: fixed)
+        # the mesh's first coordinate holds what a step takes from it
+        # (``take``) or joins there, whichever row sends (``coords``:
+        # fixed)
         _count(kind, t, src, dst, src == self.origin, dst == self.origin)
         return coords_lib.move(t, self.mesh, dst, dst == self.origin)
 
@@ -381,12 +386,21 @@ class _Row:
         return tuple(self.send(t, coord, self.coord) for t in ts)
 
     def take(self, t):
-        """An input of the step (held at the mesh's first coordinate)."""
+        """An input held at the mesh's first coordinate (the sharded CNN
+        step's batch), sent to the row."""
         return self.send(t, self.origin, self.coord)
 
-    def give(self, t):
-        """An output, to the mesh's first coordinate."""
-        return self.send(t, self.coord, self.origin)
+    def block(self, sh: Sharded, lo: int, hi: int) -> torch.Tensor:
+        """Elements lo..hi along the leading (batch) dimension of an input
+        placed on the mesh, from the block the row's coordinate holds:
+        no byte moves.  Raises where that block does not hold them."""
+        t = sh.shards[self.coord]
+        a = sh.block_index(self.coord)[0] * t.shape[0]
+        if not a <= lo < hi <= a + t.shape[0]:
+            raise ValueError(f"the row at {self.coord} holds elements "
+                             f"{a}..{a + t.shape[0]} of {sh}, not "
+                             f"{lo}..{hi}")
+        return t if (lo, hi) == (a, a + t.shape[0]) else t[lo - a:hi - a]
 
     def fan(self, t, coords, src=None) -> List[torch.Tensor]:
         """``t`` (at ``src``, the row's coordinate by default) for each of
@@ -750,10 +764,9 @@ class Split:
             out = part if out is None else out + part
         return out
 
-    def logits(self, tree, cfg, x: torch.Tensor, to=None) -> torch.Tensor:
-        """``transformer.lm_logits`` by the head's vocab blocks, each on
-        its coordinate, joined on coordinate ``to`` (the mesh's first by
-        default)."""
+    def logit_blocks(self, tree, cfg, x: torch.Tensor) -> List[_Blk]:
+        """``transformer.lm_logits`` by the head's vocab blocks, each
+        left on its coordinate: the pieces along the vocab."""
         row = self.row
         if cfg.tie_embeddings:
             blocks = row.blocks(tree["embed"], 0)
@@ -762,10 +775,12 @@ class Split:
             blocks = row.blocks(tree["lm_head"], 1)
             fn = lambda a, t: a @ t.to(a.dtype)                # noqa: E731
         xs = _Cut.at_row(row, x).spread([b.coord for b in blocks])
-        dst = row.origin if to is None else tuple(to)
-        parts = [row.send(fn(xb, b.t).float(), b.coord, dst)
-                 for b, xb in zip(blocks, xs)]
-        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+        return [_Blk(b.lo, b.hi, b.coord, fn(xb, b.t).float())
+                for b, xb in zip(blocks, xs)]
+
+    def logits(self, tree, cfg, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`logit_blocks` joined at the row."""
+        return _Cut(self.row, self.logit_blocks(tree, cfg, x)).whole()
 
     # ---- FFNs ---------------------------------------------------------
     def ffn(self, p, h):
@@ -886,14 +901,15 @@ class Forward(Split, tfm.ForwardOps):
             return plain[tokens]
         return Split.embed(self, w, tokens)
 
-    def logits(self, params, cfg, hidden):
+    def logit_blocks(self, params, cfg, hidden):
         w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
         plain = self._plain(w)
         if plain is not None:
-            return tfm.lm_logits({"embed": plain, "lm_head": plain}, cfg,
-                                 hidden)
+            t = tfm.lm_logits({"embed": plain, "lm_head": plain}, cfg,
+                              hidden)
+            return [_Blk(0, t.shape[-1], self.row.coord, t)]
         with full_fp32_matmul():
-            return Split.logits(self, params, cfg, hidden, to=self.row.coord)
+            return Split.logit_blocks(self, params, cfg, hidden)
 
     def proj(self, w, x):
         plain = self._plain(w)

@@ -31,8 +31,8 @@ first row), with the operations of :class:`_Ops`:
     layer only per-token tensors move:
 
       - the embedding's vocab blocks look up their tokens (zeros
-        elsewhere) and the row sums them; the head's vocab columns go to
-        the mesh's first coordinate, joined in order;
+        elsewhere) and the row sums them; the head's vocab columns stay
+        on their coordinates (the step's logits);
       - attention: each ``wq`` head block's query comes back to the row,
         joined; ``wk``, ``wv`` (replicated over ``'model'``) run at the
         row; each ``wo`` head block takes its heads' output and returns a
@@ -76,8 +76,18 @@ first row), with the operations of :class:`_Ops`:
 
     Where a layer's cache is one block, read and written only at the
     row's coordinate, the unsharded attention runs on it.
-  * The logits come to the mesh's first device in batch order; the cache
-    is updated in place (the JAX step donates it).
+  * **Inputs and outputs lie where JAX's compiled steps place them**
+    (``launch/dryrun.py`` of the JAX package, its activation rules
+    installed): the tokens, positions and a memory over the batch axes
+    (:func:`batch_spec`; each row takes its block where it lies); the
+    logits a ``Sharded`` over the batch axes and the vocab over
+    ``'model'`` (:func:`logits_spec`), each vocab block on the coordinate
+    that computed it; the next tokens (:func:`greedy`: each block's max
+    and first argmax, merged at the row in block order) over the batch
+    axes, replicated over ``'model'``.  Where the data axes do not divide
+    the batch, the first row computes it and its blocks are copied along
+    the data axes, each coordinate receiving one (``outputs``).  The
+    cache is updated in place (the JAX step donates it).
 
 :func:`prefill_step` and the encoder and cross K/V of :func:`init_cache`
 run the training forward (``transformer.forward``, ``encoder_forward``)
@@ -111,8 +121,9 @@ from repro_torch.distributed.lm_spmd import (_compute_coords, _empty_stack,
 from repro_torch.distributed.model_split import (
     Forward, Split, _Cut, _head_runs, _Row, _run_cols, param_leaves)
 from repro_torch.distributed.sharding import (
-    NamedSharding, Sharded, _axes, batch_axes, cache_pspecs, params_pspecs,
-    sanitize_pspec, sanitized_shardings, tree_map_with_path)
+    P, NamedSharding, Sharded, _axes, _block_index, _blocks, batch_axes,
+    cache_pspecs, params_pspecs, sanitize_pspec, sanitized_shardings,
+    tree_map_with_path)
 from repro_torch.models import attention as attn
 from repro_torch.models import decode as decode_mod
 from repro_torch.models import layers, mla
@@ -163,6 +174,88 @@ def _rows(mesh, batch: int) -> Tuple[int, int]:
     where the data axes divide the batch, else the first row alone."""
     n_data = math.prod(mesh.shape[a] for a in batch_axes(mesh))
     return (n_data if batch % n_data == 0 else 1), n_data
+
+
+# --------------------------------------------------------------------------
+# the steps' inputs and outputs, placed as the JAX dry run's jit places them
+# --------------------------------------------------------------------------
+def batch_spec(mesh, shape) -> P:
+    """``batch_pspecs``' spec of an input (tokens, positions, a memory)
+    or of the next tokens: the leading dimension over the batch axes,
+    sanitized against ``shape`` (replicated where they do not divide
+    it)."""
+    return sanitize_pspec(P(batch_axes(mesh), *([None] * (len(shape) - 1))),
+                          tuple(shape), mesh)
+
+
+def logits_spec(mesh, shape) -> P:
+    """The spec JAX's compiled prefill and serve step give their logits
+    (B, S, V), lowered as its dry run lowers them (the activation rules
+    installed): the batch over the data axes, the vocab over ``'model'``,
+    sanitized against ``shape``."""
+    return sanitize_pspec(P(batch_axes(mesh), None, "model"), tuple(shape),
+                          mesh)
+
+
+def output_spec(mesh, shape) -> P:
+    """The spec of a step's output: :func:`logits_spec` for logits
+    (B, S, V), :func:`batch_spec` for the next tokens (B, 1)."""
+    return logits_spec(mesh, shape) if len(shape) == 3 \
+        else batch_spec(mesh, shape)
+
+
+def place_input(x, mesh, own: bool = False) -> Sharded:
+    """A step's input placed by :func:`batch_spec`, as ``jax.jit``'s
+    ``in_shardings`` place an argument: a ``Sharded`` on ``mesh`` as it
+    lies, a tensor cut into its blocks on their devices (``own``: each a
+    storage of its own, as the dry run's arguments are)."""
+    if isinstance(x, Sharded):
+        if not _same_mesh(x.mesh, mesh):
+            raise ValueError(f"an input on the mesh {x.mesh}, not the "
+                             f"parameters' {mesh}")
+        return x
+    return Sharded.place(x, batch_spec(mesh, x.shape), mesh, own=own)
+
+
+def _owned(row: _Row, spec) -> List[Tuple[int, ...]]:
+    """The coordinates whose block of an output placed by ``spec`` holds
+    the batch ``row`` computed: its line, or the whole mesh where the
+    batch is replicated (the first row computed it whole)."""
+    mesh = row.mesh
+    if spec[0] is None:
+        return [tuple(c) for c in mesh.coords()]
+    data = [i for i, a in enumerate(mesh.axis_names)
+            if a in batch_axes(mesh)]
+    return [tuple(c) for c in mesh.coords()
+            if all(c[i] == row.coord[i] for i in data)]
+
+
+def _own(row: _Row, spec, shape, made):
+    """Row ``row``'s blocks of an output placed by ``spec`` (global
+    ``shape``), in :func:`_owned`'s order: where a coordinate holds a
+    block the row made (``made``: coordinate -> block), that block; else
+    a copy of its block from the coordinate before it, in row-major
+    order, that holds the same one: a chain, in which each coordinate
+    receives a block once (the broadcast over the data axes of a batch
+    one row computed; the next tokens over ``'model'``)."""
+    mesh = row.mesh
+    block = tuple(n // k for n, k in zip(shape, _blocks(spec, len(shape),
+                                                       mesh)))
+    last, out = {}, []
+    for c in _owned(row, spec):
+        idx = _block_index(spec, len(shape), mesh, c)
+        t = made.get(c)
+        if t is None:
+            if idx not in last:
+                raise ValueError(f"no block {idx} made before {c}")
+            src, t = last[idx]
+            t = row.send(t, src, c, "outputs")
+        elif tuple(t.shape) != block:
+            raise ValueError(f"a block {tuple(t.shape)} at {c}, where "
+                             f"{spec} cuts {tuple(shape)} into {block}")
+        last[idx] = (c, t)
+        out.append(t)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -272,11 +365,12 @@ def init_cache(model, params, batch: int, max_len: int,
     n, _ = _rows(mesh, batch)
     b, cdtype = batch // n, dtype_of(cfg.compute_dtype)
     leaves = param_leaves(params)
+    memory = place_input(memory, mesh)
     with torch.no_grad(), full_fp32_matmul():
         for r, coord in enumerate(_compute_coords(mesh, n)):
             row = _Row(mesh, coord, r)
             ops = Forward(row)
-            mem = row.take(memory[r * b:(r + 1) * b])
+            mem = row.block(memory, r * b, (r + 1) * b)
             if cfg.family == "vlm":
                 mem = tfm._compute(mem, cfg)
             else:
@@ -605,13 +699,44 @@ class _Ops(Split, decode_mod.DecodeOps):
 # --------------------------------------------------------------------------
 # the steps
 # --------------------------------------------------------------------------
-def decode_step(model, params, cache, tokens: torch.Tensor,
-                pos: torch.Tensor):
+def _logits(mesh, tokens: Sharded, V: int, run) -> Sharded:
+    """The logits (B, S, V) of a step over the rows, placed by
+    :func:`logits_spec`: each row that computes runs ``run(row, lo, hi)``
+    (its slice lo..hi of the batch) inside its segment, which gives the
+    head's vocab pieces on their coordinates (``model_split._Blk``); a
+    row the dry run replays stands in the last run row's blocks."""
+    B, S = tokens.shape[:2]
+    shape = (B, S, V)
+    spec = logits_spec(mesh, shape)
+    n, n_data = _rows(mesh, B)
+    b = B // n
+    coords = _compute_coords(mesh, n)
+    runs = coords_lib.rows(mesh, coords)
+    shards = np.empty(mesh.devices.shape, dtype=object)
+    with act_sharding.local(1 if n > 1 else n_data):
+        for r, coord in enumerate(coords):
+            row = _Row(mesh, coord, r)
+            if runs[r]:
+                with coords_lib.segment(r):
+                    pieces = run(row, r * b, (r + 1) * b)
+                    got = ran = _own(row, spec, shape,
+                                     {p.coord: p.t for p in pieces})
+            else:
+                got = coords_lib.stand_in(ran, r)
+            for c, t in zip(_owned(row, spec), got):
+                shards[c] = t
+    return Sharded(mesh, spec, shape, shards)
+
+
+def decode_step(model, params, cache, tokens, pos):
     """tokens (B, 1) int, pos (B,) int over placed ``params`` and
-    ``cache`` -> (logits (B, 1, V) f32 on the mesh's first device, the
-    cache, updated in place).  Each weight block computes on its own
-    coordinate; only per-token tensors and the data axes' all-gather of
-    a row's model blocks move (the module's docstring)."""
+    ``cache`` -> (logits (B, 1, V) f32, the cache, updated in place).
+    ``tokens`` and ``pos`` are taken where they lie over the batch axes
+    (a tensor is placed so first, :func:`place_input`); the logits are a
+    ``Sharded`` placed by :func:`logits_spec`, each vocab block left on
+    the coordinate that computed it.  Each weight block computes on its
+    own coordinate; only per-token tensors and the data axes' all-gather
+    of a row's model blocks move (the module's docstring)."""
     cfg = model.cfg
     if not (is_placed(params) and is_placed(cache)):
         raise ValueError("the sharded decode step takes parameters and a "
@@ -621,68 +746,98 @@ def decode_step(model, params, cache, tokens: torch.Tensor,
     if not _same_mesh(_mesh_of(cache), mesh):
         raise ValueError("the cache and the parameters lie on different "
                          "meshes")
+    tokens, pos = place_input(tokens, mesh), place_input(pos, mesh)
     B = tokens.shape[0]
     if tree_util.leaves(cache)[0].shape[1] != B:
         raise ValueError(f"a cache of batch "
                          f"{tree_util.leaves(cache)[0].shape[1]} takes no "
                          f"batch of {B}")
-    n, n_data = _rows(mesh, B)
-    b, cdtype = B // n, dtype_of(cfg.compute_dtype)
+    cdtype = dtype_of(cfg.compute_dtype)
     leaves = param_leaves(params)
-    out = []
-    coords = _compute_coords(mesh, n)
-    runs = coords_lib.rows(mesh, coords)
-    with torch.no_grad(), act_sharding.local(1 if n > 1 else n_data), \
-            full_fp32_matmul():
-        for r, coord in enumerate(coords):
-            if not runs[r]:                  # a row the dry run replays
-                out.append(coords_lib.stand_in(ran, r))
-                continue
-            with coords_lib.segment(r):
-                row = _Row(mesh, coord, r)
-                ops = _Ops(row)
-                tree = row.weights(leaves, cdtype, _DECODE_KEYS)
-                tok = row.take(tokens[r * b:(r + 1) * b])
-                at = row.take(pos[r * b:(r + 1) * b])
-                x = tfm._compute(ops.embed(tree["embed"], tok), cfg)
-                x = decode_mod.decode_layers(
-                    tree, cfg, _cache_views(row, cache), x, at, ops)
-                x = layers.rmsnorm(x, tree["final_norm"], cfg.norm_eps)
-                out.append(ops.logits(tree, cfg, x))
-                ran = out[-1]
-    return (out[0] if len(out) == 1 else torch.cat(out)), cache
+
+    def run(row, lo, hi):
+        ops = _Ops(row)
+        tree = row.weights(leaves, cdtype, _DECODE_KEYS)
+        x = tfm._compute(ops.embed(tree["embed"],
+                                   row.block(tokens, lo, hi)), cfg)
+        x = decode_mod.decode_layers(tree, cfg, _cache_views(row, cache), x,
+                                     row.block(pos, lo, hi), ops)
+        x = layers.rmsnorm(x, tree["final_norm"], cfg.norm_eps)
+        return ops.logit_blocks(tree, cfg, x)
+    with torch.no_grad(), full_fp32_matmul():
+        return _logits(mesh, tokens, cfg.padded_vocab, run), cache
 
 
-def prefill_step(model, params, tokens: torch.Tensor,
-                 memory: Optional[torch.Tensor] = None) -> torch.Tensor:
+def prefill_step(model, params, tokens, memory=None) -> Sharded:
     """``model.forward`` over placed ``params``: each data row's slice of
-    the batch on its device, each weight block computed on its own
-    coordinate (``model_split.Forward``); the logits on the mesh's first
-    device in batch order."""
+    the batch (``tokens`` and ``memory`` taken where they lie over the
+    batch axes, :func:`place_input`), each weight block computed on its
+    own coordinate (``model_split.Forward``); the logits a ``Sharded``
+    placed by :func:`logits_spec`, each vocab block left on the
+    coordinate that computed it (copied over the data axes only where one
+    row computed a batch the data axes do not divide)."""
     if not is_placed(params):
         raise ValueError("the sharded prefill step takes parameters placed "
                          "on a mesh")
-    mesh = _mesh_of(params)
     cfg = model.cfg
-    B = tokens.shape[0]
-    n, n_data = _rows(mesh, B)
-    b, cdtype = B // n, dtype_of(cfg.compute_dtype)
+    mesh = _mesh_of(params)
+    tokens = place_input(tokens, mesh)
+    memory = None if memory is None else place_input(memory, mesh)
+    cdtype = dtype_of(cfg.compute_dtype)
     leaves = param_leaves(params)
-    out = []
-    coords = _compute_coords(mesh, n)
-    runs = coords_lib.rows(mesh, coords)
-    with torch.no_grad(), act_sharding.local(1 if n > 1 else n_data):
-        for r, coord in enumerate(coords):
-            if not runs[r]:                  # a row the dry run replays
-                out.append(coords_lib.stand_in(ran, r))
-                continue
-            with coords_lib.segment(r):
-                row = _Row(mesh, coord, r)
-                mem = None if memory is None \
-                    else row.take(memory[r * b:(r + 1) * b])
-                logits = tfm.forward(
-                    row.weights(leaves, cdtype, _PREFILL_KEYS), cfg,
-                    row.take(tokens[r * b:(r + 1) * b]), mem, Forward(row))
-                out.append(row.give(logits))
-                ran = out[-1]
-    return out[0] if len(out) == 1 else torch.cat(out)
+
+    def run(row, lo, hi):
+        ops, tree = Forward(row), row.weights(leaves, cdtype, _PREFILL_KEYS)
+        hidden = tfm.final_hidden(tree, cfg, row.block(tokens, lo, hi),
+                                  None if memory is None
+                                  else row.block(memory, lo, hi), ops)
+        return ops.logit_blocks(tree, cfg, hidden)
+    with torch.no_grad():
+        return _logits(mesh, tokens, cfg.padded_vocab, run)
+
+
+def greedy(logits: Sharded) -> Sharded:
+    """The next tokens (B, 1) int32 of placed logits (B, S, V): the
+    argmax over the vocab at the last position, by the vocab blocks where
+    they lie.  Each block takes its max and first argmax on its own
+    coordinate; the row's first coordinate merges them in ascending block
+    order, keeping the lowest global index on a tie (``torch.argmax``'s
+    and ``jnp.argmax``'s rule, a NaN the largest); the tokens are placed
+    by :func:`batch_spec`, the JAX serve step's ``out_shardings``:
+    replicated over ``'model'``, each row's on its line."""
+    mesh = logits.mesh
+    B = logits.shape[0]
+    if tuple(logits.spec) != tuple(logits_spec(mesh, logits.shape)):
+        raise ValueError(f"logits placed by {logits.spec}, not by "
+                         f"{logits_spec(mesh, logits.shape)}")
+    n, _ = _rows(mesh, B)
+    b = B // n
+    spec = batch_spec(mesh, (B, 1))
+    shards = np.empty(mesh.devices.shape, dtype=object)
+    for r, coord in enumerate(_compute_coords(mesh, n)):
+        row = _Row(mesh, coord, r)
+        parts, seen = [], set()
+        with coords_lib.at(coord):
+            for m in range(mesh.shape["model"]):
+                c = row.at(m)
+                idx = logits.block_index(c)
+                if idx in seen:
+                    continue
+                seen.add(idx)
+                t = logits.shards[c]
+                a = idx[0] * t.shape[0]
+                x = t[r * b - a:(r + 1) * b - a, -1]
+                top = torch.stack([x.amax(-1), x.argmax(-1).float()
+                                   + idx[2] * t.shape[2]], dim=-1)
+                # the index travels as float32: exact below 2**24
+                parts.append(row.send(top, c, coord))
+            best = parts[0]
+            for p in parts[1:]:
+                v, w = p[:, 0], best[:, 0]
+                take = (v > w) | (torch.isnan(v) & ~torch.isnan(w))
+                best = torch.where(take[:, None], p, best)
+            tok = best[:, 1:].to(torch.int32)
+            for c, t in zip(_owned(row, spec),
+                            _own(row, spec, (B, 1), {coord: tok})):
+                shards[c] = t
+    return Sharded(mesh, spec, (B, 1), shards)

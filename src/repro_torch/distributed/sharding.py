@@ -259,14 +259,15 @@ def cache_pspecs(abstract_cache, cfg: ModelConfig, mesh):
         lambda p, leaf: cache_pspec(p, leaf, cfg, mesh), abstract_cache)
 
 
-def cache_shardings(model, shape, mesh):
+def cache_shardings(model, shape, mesh, abstract=None):
     """The decode cache's ``NamedSharding``s at ``shape`` (a
-    ``ShapeConfig``): ``cache_pspecs`` of ``model.cache_abstract(shape)``,
-    sanitized leaf by leaf, as the JAX dry run places its cache.  What a
-    mesh axis does not divide is replicated: llama-3.2-vision's 1,601
-    vision tokens on a 2- or 4-way ``'model'`` axis, batch 1 on a 2-way
-    data axis."""
-    abstract = model.cache_abstract(shape)
+    ``ShapeConfig``): ``cache_pspecs`` of ``model.cache_abstract(shape)``
+    (``abstract``, where the caller has it), sanitized leaf by leaf, as
+    the JAX dry run places its cache.  What a mesh axis does not divide is
+    replicated: llama-3.2-vision's 1,601 vision tokens on a 2- or 4-way
+    ``'model'`` axis, batch 1 on a 2-way data axis."""
+    if abstract is None:
+        abstract = model.cache_abstract(shape)
     return sanitized_shardings(cache_pspecs(abstract, model.cfg, mesh),
                                abstract, mesh)
 

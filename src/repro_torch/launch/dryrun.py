@@ -89,7 +89,9 @@ def placed_bytes(tree) -> Dict[Tuple[int, ...], int]:
 def place_cell(model, shape, mesh):
     """The cell's step and its arguments, placed on ``mesh`` by the JAX
     package's rules (no step runs): ``(step, args, placed)``, ``placed``
-    the arguments that are the state."""
+    the arguments that are the state.  A prefill's tokens and memory and
+    a decode step's tokens and positions lie over the batch axes (the
+    train batch at the first coordinate)."""
     if shape.kind == "train":
         opt = AdamW(lr=3e-4)
         state = sharding.place(steps_lib.abstract_train_state(model, opt),
@@ -102,12 +104,16 @@ def place_cell(model, shape, mesh):
         batch = model.batch_specs(shape)
         memory = batch.get("vision", batch.get("frames"))
         return steps_lib.make_prefill_step(model), \
-            (params, batch["tokens"], memory), params
-    cache = sharding.place(model.cache_abstract(shape),
-                           sharding.cache_shardings(model, shape, mesh))
+            (params, serve_spmd.place_input(batch["tokens"], mesh, own=True),
+             None if memory is None
+             else serve_spmd.place_input(memory, mesh, own=True)), params
+    abstract = model.cache_abstract(shape)
+    cache = sharding.place(abstract, sharding.cache_shardings(
+        model, shape, mesh, abstract))
     dec = model.decode_specs(shape)
     return steps_lib.make_serve_step(model), \
-        (params, cache, dec["tokens"], dec["pos"]), (params, cache)
+        (params, cache, serve_spmd.place_input(dec["tokens"], mesh, own=True),
+         serve_spmd.place_input(dec["pos"], mesh, own=True)), (params, cache)
 
 
 def model_flops(cfg, shape) -> float:

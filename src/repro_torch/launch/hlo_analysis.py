@@ -20,7 +20,8 @@ operation learns its coordinate):
     blocks) at the coordinate;
   * ``collective_bytes``/``collective_counts``: the bytes (and copies) a
     coordinate receives from others, by the kinds of
-    ``model_split.copied`` (weights, activations, cache, gradients), and
+    ``model_split.copied`` (weights, activations, cache, gradients,
+    outputs), and
     ``link_bytes``: its larger direction, sent or received, by the link
     crossed (``nvlink`` for a copy that crosses only ``'model'``,
     ``network`` otherwise);
@@ -57,7 +58,7 @@ from torch.utils.flop_counter import flop_registry
 from repro_torch import tree as tree_util
 from repro_torch.distributed import coords as coords_lib
 
-KINDS = ("weights", "activations", "cache", "gradients")
+KINDS = ("weights", "activations", "cache", "gradients", "outputs")
 LINKS = ("nvlink", "network")
 _NO_TRAFFIC = {"empty", "empty_like", "empty_strided", "new_empty",
                "new_empty_strided", "lift_fresh"}

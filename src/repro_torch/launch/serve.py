@@ -31,6 +31,8 @@ import torch
 
 from repro_torch import tree as tree_util
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.distributed import serve_spmd
+from repro_torch.distributed.sharding import Sharded
 from repro_torch.models import ssm, transformer
 from repro_torch.models.registry import build
 from repro_torch.serve import PromptStream, SlotLoop
@@ -91,7 +93,10 @@ def warm_conv_plans(cfg, params, batch: int, seq: int) -> Dict[str, int]:
 class GreedyStep:
     """One greedy decode step over every slot: the ``SlotLoop``'s
     ``step_fn``.  ``logits`` runs the step on the device and leaves the
-    result there; calling the object also takes the argmax to the host."""
+    result there (over placed parameters a ``Sharded``, its vocab blocks
+    where they were computed); calling the object also takes the argmax
+    (by vocab block where the logits lie, ``serve_spmd.greedy``) to the
+    host."""
 
     def __init__(self, model, params, cache, device):
         self.model, self.params, self.cache = model, params, cache
@@ -105,6 +110,8 @@ class GreedyStep:
     def __call__(self, tok: np.ndarray, pos: np.ndarray) -> np.ndarray:
         logits = self.logits(torch.from_numpy(tok).to(self.device),
                              torch.from_numpy(pos).to(self.device))
+        if isinstance(logits, Sharded):
+            return serve_spmd.greedy(logits).gather("cpu")[:, 0].numpy()
         return logits[:, -1].argmax(-1).to(torch.int32).cpu().numpy()
 
 

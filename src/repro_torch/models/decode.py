@@ -246,7 +246,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
                 ) -> Tuple[torch.Tensor, Params]:
     """tokens (B, 1) int, pos (B,) int -> (logits (B,1,V) f32, cache).
     Parameters and a cache placed on a mesh step through
-    ``distributed/serve_spmd.py``."""
+    ``distributed/serve_spmd.py``, whose logits are a ``Sharded``."""
     from repro_torch.distributed import serve_spmd
     if serve_spmd.is_placed(params) or serve_spmd.is_placed(cache):
         from repro_torch.models.registry import build

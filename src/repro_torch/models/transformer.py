@@ -603,10 +603,17 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             ops: ForwardOps = LOCAL) -> torch.Tensor:
     """Logits (B, S, V) f32; an encdec's ``memory`` (its frames) runs
     through the encoder here."""
+    return ops.logits(params, cfg,
+                      final_hidden(params, cfg, tokens, memory, ops))
+
+
+def final_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                 memory: Optional[torch.Tensor] = None,
+                 ops: ForwardOps = LOCAL) -> torch.Tensor:
+    """:func:`forward`'s hidden states before the head."""
     if cfg.family == "encdec":
         memory = encoder_forward(params, cfg, memory, ops)
-    hidden, _ = lm_hidden(params, cfg, tokens, memory, ops=ops)
-    return ops.logits(params, cfg, hidden)
+    return lm_hidden(params, cfg, tokens, memory, ops=ops)[0]
 
 
 def loss_terms(params: Params, cfg: ModelConfig,

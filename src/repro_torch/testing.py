@@ -1,4 +1,5 @@
-"""Differential conformance oracle of the port's conv datapaths.
+"""Differential conformance oracle of the port's conv datapaths, and
+the check of a placed output (:func:`assert_placed`).
 
   * the ``cuda`` backend's staged pipeline (B1 -> B2 -> B3; depthwise
     B1 -> B6 -> B3) and its fused kernel (B4; depthwise B7) run one
@@ -77,3 +78,24 @@ def assert_conv_conformance(x, w, spec, algo_name: str = "auto", *,
     y_fused = _run(p_cuda.with_config(tuning.DEFAULT_FUSED), x, prep)
     _close(y_fused, y_staged, rtol, atol, "fused vs staged")
     return y_ref
+
+
+def assert_placed(sh, spec=None) -> torch.Tensor:
+    """Every coordinate of the ``Sharded`` ``sh`` holds, on its own
+    device, the block of the whole tensor that its spec gives it (so the
+    replicas of a block are equal); ``spec``, where given, is the spec
+    ``sh`` must have.  Returns the whole tensor on the CPU."""
+    from repro_torch.distributed.sharding import block_of
+    if spec is not None and tuple(sh.spec) != tuple(spec):
+        raise AssertionError(f"placed by {sh.spec}, not by {spec}")
+    whole = sh.gather("cpu")
+    for c in sh.mesh.coords():
+        b = sh.shards[c]
+        if b.device != sh.mesh.device(c):
+            raise AssertionError(f"the block of {c} lies on {b.device}, "
+                                 f"not {sh.mesh.device(c)}")
+        want = block_of(whole, sh.spec, sh.mesh, sh.block_index(c))
+        if not torch.equal(b.cpu(), want):
+            raise AssertionError(f"the block of {c} is not block "
+                                 f"{sh.block_index(c)} of {sh}")
+    return whole

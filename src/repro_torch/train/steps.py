@@ -14,7 +14,8 @@ gradient compression, then the optimizer.
 ``make_prefill_step`` the forward over a prompt; both record no graph.
 Parameters and a cache placed on a mesh serve through
 ``distributed/serve_spmd.py``: ``Model.decode_step`` routes them, and
-the prefill step does.
+the prefill step does; their outputs are then ``Sharded`` (``.gather``
+joins one on a device).
 
 The model is duck-typed as in the JAX package: ``model.init(generator)``
 returns a parameter tree (on the generator's device) and
@@ -138,11 +139,17 @@ def make_train_step(model, optimizer: AdamW, grad_compression: bool = False,
 def make_serve_step(model) -> Callable:
     """Returns serve_step(params, cache, tokens, pos) -> (next tokens
     (B, 1) int32, the argmax of the last position's logits; the logits;
-    the new cache)."""
+    the new cache).  Over placed parameters the tokens and the logits are
+    ``Sharded``, placed as the JAX serve step's are (the argmax taken by
+    vocab block where the logits lie, ``serve_spmd.greedy``); the tokens
+    go to the next step as they are."""
 
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):
         logits, new_cache = model.decode_step(params, cache, tokens, pos)
+        from repro_torch.distributed import serve_spmd
+        if serve_spmd.is_placed(logits):
+            return serve_spmd.greedy(logits), logits, new_cache
         next_tokens = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
         return next_tokens.to(torch.int32), logits, new_cache
     return serve_step
@@ -150,7 +157,8 @@ def make_serve_step(model) -> Callable:
 
 def make_prefill_step(model) -> Callable:
     """Returns prefill_step(params, tokens, memory=None) -> logits
-    (``model.forward``)."""
+    (``model.forward``); over placed parameters a ``Sharded`` placed as
+    the JAX prefill's (``serve_spmd.prefill_step``)."""
 
     @torch.no_grad()
     def prefill_step(params, tokens, memory=None):

@@ -17,6 +17,8 @@ sharded CNN train step.
     repeats one device), 0 weight bytes on (1, m);
   * the rows alike: the analysis that runs one row of each class and
     replays it equal, coordinate by coordinate, to running every row;
+  * a prefill's and a decode step's outputs counted on the coordinates
+    that hold them, as JAX's compiled steps place them;
   * the sharded CNN step against the unsharded ``make_train_step`` over
     ``cnn_loss``: bit for bit on (1, 1), else the loss within 1e-5 and
     each gradient leaf within 1e-4 relative L2 (a leaf whose gradient is
@@ -234,6 +236,18 @@ def _per_coord(s):
             for c, st in s.per_coord.items()}
 
 
+@functools.lru_cache(maxsize=None)
+def _warm(arch, kind):
+    """One step of ``arch``'s ``kind`` on a (4, 2) meta mesh, run once
+    whichever test asks first: it fills the tables a step caches on the
+    meta device, which both meshes' rows (batch 2 a row) read alike, so
+    that every analysis of the cell sees them warm."""
+    step, args, _ = dryrun.place_cell(
+        build(configs.get_smoke_config(arch)),
+        configs.ShapeConfig("smoke", S, 8, kind), _meta_mesh((4, 2)))
+    step(*args)
+
+
 @pytest.mark.parametrize("shape", [(4, 2), (2, 2, 2)])
 @pytest.mark.parametrize("arch,kind", [
     ("stablelm-3b", "train"), ("mixtral-8x7b", "train"),
@@ -245,12 +259,43 @@ def test_rows_alike_equal_every_row(arch, shape, kind):
     mesh = _meta_mesh(shape)
     step, args, _ = dryrun.place_cell(
         model, configs.ShapeConfig("smoke", S, 8, kind), mesh)
-    step(*args)                       # fills the tables a step caches
+    _warm(arch, kind)
     _, every = hlo_analysis.analyze(step, *args, mesh=mesh)
     _, alike = hlo_analysis.analyze(step, *args, mesh=mesh, rows_alike=True)
     assert _per_coord(alike) == _per_coord(every)
     assert alike.copied == every.copied
     assert alike.dot_flops_by_site == every.dot_flops_by_site
+
+
+@pytest.mark.parametrize("batch", [8, 1])
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_serving_outputs_counted_where_they_lie(kind, batch):
+    """A prefill and a decode cell on a (2, 4) meta mesh: the bytes each
+    coordinate holds of the step's outputs equal the placement's
+    reckoning (the logits' batch over 'data' and vocab over 'model', the
+    next tokens' batch over 'data'; at a batch 'data' does not divide,
+    computed by the first row and held by every coordinate), and so do
+    the bytes copied to place them (the next tokens along 'model', the
+    first row's blocks along 'data')."""
+    cfg = configs.get_smoke_config("stablelm-3b")
+    model = build(cfg)
+    mesh = _meta_mesh((2, 4))
+    step, args, _ = dryrun.place_cell(
+        model, configs.ShapeConfig("smoke", S, batch, kind), mesh)
+    result, s = hlo_analysis.analyze(step, *args, mesh=mesh)
+    D, M, V = 2, 4, cfg.padded_vocab
+    b = batch // D if batch % D == 0 else batch
+    logits = b * (S if kind == "prefill" else 1) * V // M * 4
+    tokens = b * 4 if kind == "decode" else 0
+    got = dryrun._outputs(result, args)
+    assert got == {c: logits + tokens for c in mesh.coords()}
+    assert dryrun.record(s, got)["memory"]["output_size_in_bytes"] \
+        == logits + tokens
+    if batch % D == 0:
+        want = D * (M - 1) * tokens
+    else:
+        want = (D - 1) * M * logits + (D * M - 1) * tokens
+    assert s.copied["outputs"] == want
 
 
 def test_record_of_a_cell():
@@ -294,20 +339,25 @@ def _cnn_case(base, algo, batch, dtype=torch.float32):
     return cfg, params, data
 
 
+class _Kept(AdamW):
+    """AdamW that keeps the gradients the step hands it."""
+
+    def apply(self, params, grads, state):
+        self.grads = grads
+        return super().apply(params, grads, state)
+
+
 @functools.lru_cache(maxsize=None)
 def _cnn_reference(name, algo, batch, dtype=torch.float32):
+    """The unsharded ``make_train_step`` over ``cnn_loss``: its loss, the
+    gradients it applied and the parameters after it."""
     base = {"smoke": configs.SMOKE_CNN,
             "cifar": configs.CIFAR_RESNET18}[name]
     cfg, params, data = _cnn_case(base, algo, batch, dtype)
-    _, metrics, grads = steps._value_and_grad(_Loss(cfg), params, data)
-    return cfg, params, data, metrics["loss"], grads
-
-
-def _unsharded_update(cfg, params, data):
-    """The parameters after ``make_train_step`` over ``cnn_loss``."""
-    opt = AdamW(lr=1e-3)
+    opt = _Kept(lr=1e-3)
     state = steps.TrainState(params, opt.init(params), torch.tensor(0))
-    return steps.make_train_step(_Loss(cfg), opt)(state, data)[0].params
+    new, metrics = steps.make_train_step(_Loss(cfg), opt)(state, data)
+    return cfg, params, data, metrics["loss"], opt.grads, new.params
 
 
 def _leaf_rel(a, b) -> float:
@@ -333,7 +383,7 @@ CIFAR_F64 = (1e-12, 1e-6)
 
 @pytest.mark.parametrize("name,algo,batch,shape,dtype", CNN_CASES)
 def test_sharded_cnn_step(name, algo, batch, shape, dtype):
-    cfg, params, data, ref_loss, ref_grads = _cnn_reference(
+    cfg, params, data, ref_loss, ref_grads, ref_params = _cnn_reference(
         name, algo, batch, dtype)
     opt = AdamW(lr=1e-3)
     mesh = mesh_lib.make_forced_host_mesh(shape, device="cpu")
@@ -346,8 +396,7 @@ def test_sharded_cnn_step(name, algo, batch, shape, dtype):
         # train_step's update, from these gradients
         new, _ = lm_spmd.apply_gradients(opt, state, leaves, {})
         new_p = dict(sharding._with_paths(new.params))
-        want_p = dict(sharding._with_paths(
-            _unsharded_update(cfg, params, data)))
+        want_p = dict(sharding._with_paths(ref_params))
         assert torch.equal(loss, ref_loss)
         assert all(torch.equal(got[k].gather(), want[k]) for k in want)
         assert all(torch.equal(new_p[k].gather(), want_p[k]) for k in want)
@@ -380,6 +429,7 @@ class _Convs(cnn.Ops):
         return super().conv(h, p, cfg, stride, qhook)
 
 
+@functools.lru_cache(maxsize=None)
 def _unsharded_flops(cfg, batch):
     """FlopCounterMode's FLOPs of the unsharded train step over
     ``cnn_loss`` on meta, and the quantized convs' (input, weight,
@@ -399,9 +449,10 @@ def _unsharded_flops(cfg, batch):
             "labels": torch.empty(batch, dtype=torch.int32, device="meta")}
     with FlopCounterMode(display=False) as fc:
         steps.make_train_step(Loss(), opt)(state, data)
-    return fc.get_total_flops(), ops.quantized
+    return fc.get_total_flops(), tuple(ops.quantized)
 
 
+@functools.lru_cache(maxsize=None)
 def _absmax_flops(cfg, convs):
     """The FLOPs of measuring the transform-domain absmax of each
     quantized conv's input, forward, and backward where the input takes

@@ -8,7 +8,8 @@ the JAX package's loop-aware HLO analysis (``repro.launch.hlo_analysis``).
     layers: the port's ``analyze`` on meta tensors against JAX's
     ``analyze`` of the compiled JAX step, equal or apart by the exact gap
     each arch's comment explains; the prefill and the decode step of a
-    dense, a moe and an ssm arch, equal;
+    dense, a moe and an ssm arch, equal (JAX's 4-layer figures from its
+    2-layer compile where the layers are one loop, ``ONE_SCAN``);
   * the analysis of a step on CPU tensors is the analysis of the same step
     on meta tensors (the meta dry run sees what a real run does);
   * a table cached on a step's first call places no operation that reads
@@ -145,8 +146,21 @@ def test_train_step_flops_scale_with_layers():
 # --------------------------------------------------------------------------
 # per arch, against JAX's analysis of the compiled step
 # --------------------------------------------------------------------------
+# The archs whose smoke steps JAX compiles with each layer stack as one
+# loop of n_layers trips (the forward's, the rematerialised backward's)
+# and no other loop of two trips: their 4-layer step is their 2-layer
+# step's HLO with those loops' trip counts doubled, so one compile serves
+# both depths (``test_deeper_step_from_one_compile`` holds the derivation
+# to a compile at 4 layers).  Not so: llama-vision (a loop a cross group),
+# deepseek (its dense layers and MTP block beside the MoE stack), whisper
+# (the encoder's loops).
+ONE_SCAN = ("qwen2.5-32b", "qwen3-14b", "stablelm-3b", "phi4-mini-3.8b",
+            "mixtral-8x7b", "zamba2-1.2b", "mamba2-1.3b")
+
+
 @functools.lru_cache(maxsize=None)
-def _jax_flops(arch, n_layers, kind):
+def _jax_hlo(arch, n_layers, kind) -> str:
+    """The optimised HLO of JAX's compiled smoke step."""
     cfg = dataclasses.replace(jconfigs.get_smoke_config(arch),
                               n_layers=n_layers)
     m = jbuild(cfg)
@@ -164,7 +178,29 @@ def _jax_flops(arch, n_layers, kind):
         low = jax.jit(jsteps.make_serve_step(m)).lower(
             m.init_abstract(), m.cache_abstract(shape), d["tokens"],
             d["pos"])
-    return jhlo.analyze(low.compile().as_text()).flops
+    return low.compile().as_text()
+
+
+def _deepened(text: str) -> str:
+    """A 2-layer step's HLO with its loops of two trips made four."""
+    return text.replace('"known_trip_count":{"n":"2"}',
+                        '"known_trip_count":{"n":"4"}')
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_flops(arch, n_layers, kind):
+    if n_layers == 4 and arch in ONE_SCAN:
+        return jhlo.analyze(_deepened(_jax_hlo(arch, 2, kind))).flops
+    return jhlo.analyze(_jax_hlo(arch, n_layers, kind)).flops
+
+
+@pytest.mark.parametrize("arch,kind", [("stablelm-3b", "train"),
+                                       ("mamba2-1.3b", "decode")])
+def test_deeper_step_from_one_compile(arch, kind):
+    """The derivation of ``ONE_SCAN``'s 4-layer FLOPs from the 2-layer
+    compile equals JAX's compile at 4 layers."""
+    assert _jax_flops(arch, 4, kind) \
+        == jhlo.analyze(_jax_hlo(arch, 4, kind)).flops
 
 
 @functools.lru_cache(maxsize=None)

@@ -12,7 +12,8 @@ single-device block with ``data_shards`` 2 installed.  The vlm and the
 encdec also run their prefill and ``init_cache`` (the encoder, the
 cross K/V) with every whole gather of a model-split leaf refused
 (``test_train_step_gathers_no_model_split_leaf``, with
-``test_torch_serve_spmd.py``'s references).
+``test_torch_serve_spmd.py``'s references), the prefill's logits checked
+where their blocks lie and read through ``Sharded.gather``.
 """
 import dataclasses
 
@@ -26,7 +27,8 @@ from test_torch_lm_spmd import (MESHES, _isolated,  # noqa: E402,F401
                                 check_bitwise_one_row)
 from test_torch_serve_spmd import (B, REL, _is_cross,  # noqa: E402
                                    _max_len, _placed, _refuse_whole_gathers,
-                                   _rel_l2, _t, jax_forward, reference)
+                                   _rel_l2, _t, _whole, jax_forward,
+                                   reference)
 
 import repro_torch.configs as configs  # noqa: E402
 from repro_torch import tree as tree_util  # noqa: E402
@@ -115,7 +117,7 @@ def test_train_step_gathers_no_model_split_leaf(arch, shape, monkeypatch):
                              _t(ref["memory"]))
     got = make_prefill_step(model)(placed, _t(toks), _t(mem))
     monkeypatch.undo()
-    assert _rel_l2(got, want) <= REL
+    assert _rel_l2(_whole(got, mesh), want) <= REL
     crossed = 0
     for (path, sh), value in zip(tree_util.flatten_with_path(cache),
                                  ref["filled"]):

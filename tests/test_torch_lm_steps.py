@@ -4,7 +4,9 @@ package's, on numpy inputs from seeds, in fp32 compute unless stated:
 
   * ``make_train_step`` against JAX's (three AdamW steps; microbatches 2
     against the full batch; int8 gradient compression over a bf16 tree),
-    ``make_serve_step`` and ``make_prefill_step`` against JAX's;
+    ``make_serve_step`` and ``make_prefill_step`` against JAX's, and over
+    parameters placed on a (1, 1) mesh their ``Sharded`` outputs' one
+    block bit for bit the unsharded steps';
   * the ``Trainer`` on an LM (the loss decreases, as
     ``tests/test_trainer.py::test_loss_decreases`` requires; a resume after
     a fault is bit for bit), LM train states with bf16 leaves across the
@@ -222,6 +224,41 @@ def test_serve_and_prefill_steps_match_jax(arch):
         assert _rel_l2(lg.numpy(), jlg) <= 1e-4, t
         np.testing.assert_array_equal(nxt.numpy(), np.asarray(jnext))
         tok = np.asarray(jnext)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "mamba2-1.3b",
+                                  "whisper-tiny"])
+def test_placed_steps_on_one_coordinate_are_the_unsharded_steps(arch):
+    """Over parameters placed on a (1, 1) mesh the steps return
+    ``Sharded`` outputs (the logits and next tokens each one block, on
+    the coordinate's device) whose blocks are the unsharded steps'
+    tensors bit for bit; the next tokens feed the next step as they
+    lie."""
+    from repro_torch.distributed import serve_spmd, sharding
+    from repro_torch.launch.mesh import make_forced_host_mesh
+    _, cfg = _cfgs(arch)
+    m = build(cfg)
+    p = m.init(torch.Generator().manual_seed(0), device="cpu")
+    mesh = make_forced_host_mesh((1, 1), device="cpu")
+    placed = sharding.place(p, serve_spmd.param_shardings(m, mesh))
+    arrays = _arrays(cfg, B=2, S=8, seed=5)
+    tok = torch.from_numpy(arrays["tokens"])
+    mem = arrays.get("frames")
+    mem = None if mem is None else torch.from_numpy(mem)
+    got = make_prefill_step(m)(placed, tok, mem)
+    assert isinstance(got, sharding.Sharded) and got.shards.size == 1
+    assert torch.equal(got.shards[0, 0], make_prefill_step(m)(p, tok, mem))
+    serve = make_serve_step(m)
+    cache = m.init_cache(placed, 2, 8, mem)
+    plain = m.init_cache(p, 2, 8, mem)
+    nxt, pnxt = tok[:, :1], tok[:, :1]
+    for t in range(3):
+        pos = torch.full((2,), t, dtype=torch.int32)
+        nxt, lg, cache = serve(placed, cache, nxt, pos)
+        pnxt, plg, plain = serve(p, plain, pnxt, pos)
+        assert torch.equal(lg.shards[0, 0], plg)
+        assert torch.equal(nxt.shards[0, 0], pnxt)
+        assert nxt.shards[0, 0].dtype == torch.int32
 
 
 # --------------------------------------------------------------------------

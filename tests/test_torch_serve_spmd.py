@@ -15,7 +15,12 @@ blocks' edges):
 
   * each teacher-forced step's logits within 1e-5 rel L2 of JAX's, and
     each cache entry, gathered after the last step, within 1e-5 of JAX's;
-  * on (1, 1), logits and cache bit for bit the port's unsharded step;
+    the logits and the next tokens placed as JAX's compiled steps place
+    them (``serve_spmd.logits_spec``, ``batch_spec``: each coordinate
+    holds its block, ``testing.assert_placed``), read through
+    ``Sharded.gather``;
+  * on (1, 1), logits (the one block) and cache bit for bit the port's
+    unsharded step;
   * every cache block keeps its device and its memory across the steps,
     and the step copies no cache byte;
   * the weight bytes copied are exactly the all-gather over the data
@@ -62,6 +67,7 @@ from repro_torch.distributed import (lm_spmd, model_split,  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.launch.mesh import make_forced_host_mesh  # noqa: E402
 from repro_torch.models import build, transformer  # noqa: E402
+from repro_torch.testing import assert_placed  # noqa: E402
 from repro_torch.train import (make_prefill_step,  # noqa: E402
                                make_serve_step)
 from test_torch_lm_spmd import no_whole_gathers  # noqa: E402
@@ -264,6 +270,15 @@ def _decode(model, params, cache, ref):
     return out, cache
 
 
+def _whole(logits, mesh=None):
+    """Placed logits or next tokens checked where their blocks lie (each
+    coordinate its block of the spec JAX's compiled step gives),
+    gathered on the CPU; a plain tensor as it is."""
+    if mesh is None:
+        return logits
+    return assert_placed(logits, serve_spmd.output_spec(mesh, logits.shape))
+
+
 @pytest.mark.parametrize("shape", MESHES)
 @pytest.mark.parametrize("arch", ARCHS)
 def test_sharded_decode_matches_jax(arch, shape):
@@ -287,8 +302,9 @@ def test_sharded_decode_matches_jax(arch, shape):
         assert moved["weights"] == 0
     for t in range(STEPS):
         assert logits[t].shape == (B, 1, model.cfg.padded_vocab)
-        assert torch.isfinite(logits[t]).all()
-        assert _rel_l2(logits[t], ref["logits"][t]) <= REL, t
+        got = _whole(logits[t], mesh)
+        assert torch.isfinite(got).all()
+        assert _rel_l2(got, ref["logits"][t]) <= REL, t
     for sh, want in zip(tree_util.leaves(cache), ref["final"]):
         assert _rel_l2(sh.gather("cpu"), want) <= REL
     if shape == (1, 1):
@@ -296,7 +312,8 @@ def test_sharded_decode_matches_jax(arch, shape):
                                  _t(ref["memory"]))
         _fill(plain, ref["filled"])
         want, plain = _decode(model, _params(arch), plain, ref)
-        assert all(torch.equal(a, b) for a, b in zip(logits, want))
+        assert all(torch.equal(a.shards[0, 0], b)
+                   for a, b in zip(logits, want))
         assert all(torch.equal(sh.gather("cpu"), p) for sh, p in
                    zip(tree_util.leaves(cache), tree_util.leaves(plain)))
 
@@ -309,7 +326,7 @@ def test_sharded_decode_matches_jax(arch, shape):
         got = make_prefill_step(model)(placed, _t(toks), _t(mem))
     if shape[0] == 1:
         assert model_split.copied()["weights"] == 0
-    assert _rel_l2(got, want) <= REL
+    assert _rel_l2(_whole(got, mesh), want) <= REL
 
 
 def _refuse_whole_gathers(monkeypatch):
@@ -349,9 +366,9 @@ def test_decode_gathers_no_model_split_leaf(arch, shape, monkeypatch):
                                   else 1)
     got = make_prefill_step(model)(placed, _t(toks), _t(mem))
     monkeypatch.undo()
-    assert _rel_l2(got, want) <= REL
+    assert _rel_l2(_whole(got, mesh), want) <= REL
     for t in range(STEPS):
-        assert _rel_l2(logits[t], ref["logits"][t]) <= REL
+        assert _rel_l2(_whole(logits[t], mesh), ref["logits"][t]) <= REL
     for sh, want in zip(tree_util.leaves(cache), ref["final"]):
         assert _rel_l2(sh.gather("cpu"), want) <= REL
 
@@ -373,7 +390,8 @@ def test_steps_replay_bit_for_bit(arch, shape):
         _fill(cache, ref["filled"], mesh)
         runs.append(_decode(model, placed, cache, ref))
     (la, ca), (lb, cb) = runs
-    assert all(torch.equal(a, b) for a, b in zip(la, lb))
+    assert all(torch.equal(_whole(a, mesh), _whole(b, mesh))
+               for a, b in zip(la, lb))
     assert all(torch.equal(a.gather("cpu"), b.gather("cpu")) for a, b in
                zip(tree_util.leaves(ca), tree_util.leaves(cb)))
 
@@ -435,7 +453,7 @@ def test_batch_1_on_two_rows(arch):
     _fill(cache, ref["filled"], mesh)
     logits, cache = _decode(model, placed, cache, ref)
     for t in range(STEPS):
-        assert _rel_l2(logits[t], ref["logits"][t]) <= REL
+        assert _rel_l2(_whole(logits[t], mesh), ref["logits"][t]) <= REL
     for sh, want in zip(tree_util.leaves(cache), ref["final"]):
         assert _rel_l2(sh.gather("cpu"), want) <= REL
 
@@ -456,7 +474,7 @@ def test_copies_in_other_memory_are_written_alike(arch):
     _fill(cache, ref["filled"], mesh)
     logits, cache = _decode(model, placed, cache, ref)
     for t in range(STEPS):
-        assert _rel_l2(logits[t], ref["logits"][t]) <= REL
+        assert _rel_l2(_whole(logits[t], mesh), ref["logits"][t]) <= REL
     for sh, want in zip(tree_util.leaves(cache), ref["final"]):
         for idx, coords in sh.unique().items():
             blocks = [sh.shards[c] for c in coords]
@@ -484,6 +502,7 @@ def test_first_token_with_one_valid_block_is_finite():
     pos = torch.zeros(B, dtype=torch.int32)
     got, _ = model.decode_step(placed, cache, tok, pos)
     want, _ = model.decode_step(_params(arch), plain, tok, pos)
+    got = _whole(got, mesh)
     assert torch.isfinite(got).all()
     assert _rel_l2(got, want) <= REL
 
